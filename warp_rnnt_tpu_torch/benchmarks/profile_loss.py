@@ -1,0 +1,77 @@
+"""Where the time of one main-path call goes, on a CUDA device.
+
+    python -m warp_rnnt_tpu_torch.benchmarks.profile_loss
+
+Runs `rnnt_loss(log_probs (32, 150, 21, 5000), ..., reduction="mean",
+gather=True)` + backward under `torch.profiler`, and prints the device time
+of each kernel summed over the window, per call, with its share of the
+window's wall time, and the device's idle share.  The wall time includes
+the profiler's own host cost, so it reads higher than the chained time of
+`chip_smoke.py`.  Needs a CUDA device.
+"""
+
+from __future__ import annotations
+
+import time
+
+import torch
+
+from warp_rnnt_tpu_torch import rnnt_loss
+
+ITERS = 10
+SEED = 0
+
+
+def main():
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_loss needs a CUDA device")
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    N, T, U, V = 32, 150, 21, 5000
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    log_probs = torch.log_softmax(
+        torch.randn(N, T, U, V, generator=g, device="cuda"), dim=-1
+    )
+    labels = torch.randint(1, V, (N, U - 1), generator=g, device="cuda",
+                           dtype=torch.int32)
+    xn = torch.full((N,), T, dtype=torch.int32, device="cuda")
+    yn = torch.full((N,), U - 1, dtype=torch.int32, device="cuda")
+
+    def step():
+        x = log_probs.detach().requires_grad_()
+        rnnt_loss(x, labels, xn, yn, reduction="mean", gather=True).backward()
+        return x.grad
+
+    for _ in range(3):
+        step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(ITERS):
+            step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+
+    rows = []
+    for ev in prof.key_averages():
+        if ev.device_type != DeviceType.CUDA:  # ops also report their kernels
+            continue
+        dev_us = getattr(ev, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = ev.self_cuda_time_total
+        if dev_us > 0:
+            rows.append((dev_us / 1e3, ev.count, ev.key))
+    rows.sort(reverse=True)
+    busy_ms = sum(r[0] for r in rows)
+    print(f"{torch.cuda.get_device_name(0)}: {ITERS} calls, wall"
+          f" {wall_ms / ITERS:.4f} ms/call, device busy"
+          f" {busy_ms / ITERS:.4f} ms/call, idle share"
+          f" {1 - busy_ms / wall_ms:.3f}")
+    for ms, count, key in rows:
+        print(f"{ms / ITERS:10.4f} ms/call {count // ITERS:4d} x/call"
+              f" {ms / wall_ms:6.3f} of wall  {key[:90]}")
+
+
+if __name__ == "__main__":
+    main()

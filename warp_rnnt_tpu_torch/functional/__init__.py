@@ -1,0 +1,9 @@
+from warp_rnnt_tpu_torch.functional.core import rnnt_core, rnnt_core_with_internals
+from warp_rnnt_tpu_torch.functional.loss import rnnt_loss, rnnt_loss_with_internals
+
+__all__ = [
+    "rnnt_core",
+    "rnnt_core_with_internals",
+    "rnnt_loss",
+    "rnnt_loss_with_internals",
+]

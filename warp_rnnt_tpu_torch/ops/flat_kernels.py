@@ -1,0 +1,115 @@
+"""CUDA dense gradient write (`csrc/flat_write.cu`) and its plain torch twin
+(counterpart of `warp_rnnt_tpu/ops/flat_kernels.py`).
+
+`flat_grad_write` replaces the Pallas `_flat_write_kernel`:
+
+    d[n, t, u*V + v] = ct0[n, t, u] * [v == blank] + ct1[n, t, u] * [v == loc]
+
+with the label index frame-invariant (`loc = loc_rows[n, u]`).  Where
+`loc == blank` both terms add.  A contiguous (N, T, U, V) tensor is the same
+memory as (N, T, U*V), so the 4-D backward of the gather uses this writer
+too, on a view.  On a CUDA tensor it launches the kernel, or raises; on a
+CPU tensor it runs `flat_grad_write_plain`.
+
+What bounds the kernel and what its design does about that is noted at the
+top of `csrc/flat_write.cu`.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from warp_rnnt_tpu_torch.ops import _build
+
+# Launches of the kernel, counted where it is launched and nowhere else.
+LAUNCHES = {"flat_write": 0}
+
+_DTYPE_CODES = {torch.float32: 0, torch.float64: 1, torch.float16: 2,
+                torch.bfloat16: 3}
+
+
+def _lib():
+    lib = _build.load("flat_write")
+    if not getattr(lib, "_typed", False):
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.rnnt_flat_grad_write.argtypes = [p, p, p, p, i, ctypes.c_longlong,
+                                             i, i, i, i, p]
+        lib.rnnt_flat_grad_write.restype = i
+        lib.rnnt_flat_write_error_string.argtypes = [i]
+        lib.rnnt_flat_write_error_string.restype = ctypes.c_char_p
+        lib._typed = True
+    return lib
+
+
+def _check(ct0, ct1, loc_rows, blank, V, UV, out_dtype):
+    if ct0.dim() != 3 or ct1.shape != ct0.shape:
+        raise ValueError(
+            f"ct0 and ct1 must be (N, T, U) of one shape, got"
+            f" {tuple(ct0.shape)} and {tuple(ct1.shape)}"
+        )
+    N, T, U = ct0.shape
+    if loc_rows.shape != (N, U):
+        raise ValueError(
+            f"loc_rows must have shape ({N}, {U}), got {tuple(loc_rows.shape)}"
+        )
+    if UV != U * V:
+        raise ValueError(f"UV={UV} != U*V={U}*{V}")
+    if not 0 <= blank < V:
+        raise ValueError(f"blank={blank} outside [0, {V})")
+    if out_dtype not in _DTYPE_CODES:
+        raise ValueError(f"unsupported out_dtype {out_dtype}")
+    for name, x, dtype in (("ct0", ct0, torch.float32),
+                           ("ct1", ct1, torch.float32),
+                           ("loc_rows", loc_rows, torch.int32)):
+        if x.dtype != dtype:
+            raise ValueError(f"{name} must be {dtype}, got {x.dtype}")
+        if x.device != ct0.device:
+            raise ValueError(f"{name} is on {x.device}, ct0 on {ct0.device}")
+
+
+def flat_grad_write_plain(ct0, ct1, loc_rows, blank: int, V: int, UV: int,
+                          out_dtype=torch.float32):
+    """Plain torch twin: the compare-select of `gather._gather_flat_bwd`."""
+    _check(ct0, ct1, loc_rows, blank, V, UV, out_dtype)
+    N, T, U = ct0.shape
+    v_iota = torch.arange(V, device=ct0.device)
+    d = ct0[..., None] * (v_iota == blank) + ct1[..., None] * (
+        v_iota == loc_rows[:, None, :, None]
+    )
+    return d.reshape(N, T, UV).to(out_dtype)
+
+
+def flat_grad_write(ct0, ct1, loc_rows, blank: int, V: int, UV: int,
+                    out_dtype=torch.float32):
+    """(N, T, U) fp32 blank/label cotangents -> (N, T, U*V) gradient.
+
+    loc_rows: (N, U) int32 frame-invariant label indices.  The output is
+    allocated here with `torch.empty`; the kernel writes every element.
+    """
+    if ct0.device.type == "cpu":
+        return flat_grad_write_plain(ct0, ct1, loc_rows, blank, V, UV, out_dtype)
+    _check(ct0, ct1, loc_rows, blank, V, UV, out_dtype)
+    if ct0.device.type != "cuda":
+        raise ValueError(f"unsupported device {ct0.device}")
+    for name, x in (("ct0", ct0), ("ct1", ct1), ("loc_rows", loc_rows)):
+        if not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    N, T, U = ct0.shape
+    rows = N * T * U
+    if rows >= 2**31:
+        raise ValueError(f"{rows} rows exceed the kernel's grid limit of 2**31-1")
+    out = torch.empty((N, T, UV), dtype=out_dtype, device=ct0.device)
+    if rows == 0 or V == 0:
+        return out
+    lib = _lib()
+    stream = torch.cuda.current_stream(ct0.device).cuda_stream
+    with torch.cuda.device(ct0.device):
+        code = lib.rnnt_flat_grad_write(
+            ct0.data_ptr(), ct1.data_ptr(), loc_rows.data_ptr(), out.data_ptr(),
+            _DTYPE_CODES[out_dtype], rows, T, U, V, blank, stream,
+        )
+    _build.check(lib, "rnnt_flat_write_error_string", code, "rnnt_flat_grad_write")
+    LAUNCHES["flat_write"] += 1
+    return out
