@@ -19,6 +19,23 @@ Phases, in order; any failure exits non-zero before the last line:
      golden vectors of `tests/golden.py` run through the port on the card.
   5. times (CUDA events, dependency-forced chains) of each kernel, its twin,
      and loss+grad end to end, each beside its bound.
+  6. the fused joint kernels (forward; backward d_a/d_c and d_W/d_b) against
+     their plain torch versions on the card (the cases and tolerances of
+     `benchmarks/fused_joint_cases.py`; d_W and d_b held per column group:
+     blank, label, other): ragged lengths with xn shorter than one row
+     tile, U > 32 with blank=3, U > 64, H=512, V not a multiple of the
+     64-column chunk, and the slice's full width.
+  7. the fused slice at full width (N=16, T=150, U=21, V=5000, H=F=256,
+     bf16 joint, weights carried from a seeded Flax-layout tree):
+     `rnnt_loss_fused_joint(..., reduction="mean")` + backward into f, g and
+     the four joint parameters, and the no-grad costs.  Launch counts are
+     set to 0 just before and read just after; the three fused-joint kernels
+     and both lattice kernels must have run.  Held against the port's
+     unfused `Joint(normalize=True)` -> `rnnt_loss(gather=True)` on the card
+     (w_out and b_out per column group).
+  8. times of each fused kernel, its plain version and its bound (bf16
+     tensor-core operations), and fused against unfused loss+grad, each
+     with its peak device memory.
 
 It prints the kernels' JSON line and the card's line, and last
 `{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}`.
@@ -37,10 +54,15 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 N, T, U, V = 32, 150, 21, 5000  # warp-rnnt's headline config, U = 20 labels + 1
 SEED = 0
 
-# (HBM bytes/s, fp32 FLOP/s outside the tensor cores), NVIDIA data sheets.
-_RATES = {"PCIe": (2.0e12, 51e12), "NVL": (3.9e12, 60e12),
-          "H200": (4.8e12, 67e12)}
-_RATES_SXM = (3.35e12, 67e12)
+# The fused joint slice: bench_joint.py's configuration, U = 20 labels + 1.
+FJ = dict(N=16, T=150, U=21, V=5000, H=256, F=256)
+
+# (HBM bytes/s, fp32 FLOP/s outside the tensor cores, dense bf16 tensor-core
+# FLOP/s), NVIDIA data sheets.
+_RATES = {"PCIe": (2.0e12, 51e12, 756e12), "NVL": (3.9e12, 60e12, 835e12),
+          "H200": (4.8e12, 67e12, 989e12)}
+_RATES_SXM = (3.35e12, 67e12, 989e12)
+BF16 = 2  # index of the bf16 tensor-core rate in a _RATES entry
 
 
 def card_rates(name):
@@ -59,9 +81,9 @@ def card_line():
     return out.stdout.strip()
 
 
-def bound_ms(nbytes, nops, rates):
+def bound_ms(nbytes, nops, rates, op_rate=1):
     t_bytes = nbytes / rates[0] * 1e3
-    t_ops = nops / rates[1] * 1e3
+    t_ops = nops / rates[op_rate] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -290,12 +312,237 @@ def phase_times(torch, wt, cuda_impl, fk, timing, inputs, main_lattice,
         e2e["cuda_no_grad"] = timing.bench_scalar_chain(
             lambda x: wt.rnnt_loss(x, labels, xn, yn, gather=True), (log_probs,), 20
         )
-    # end to end: read log-probs once (gather), write the gradient once
-    e2e_bound, _ = bound_ms(2 * R * V * 4, 0, rates)
+    # end to end: the gather reads the blank and label log-prob of each row
+    # (not the whole log-probs), the write stores the gradient once
+    e2e_bound, _ = bound_ms(R * V * 4 + 2 * R * 4, 0, rates)
     print(f"time loss+grad (kernels): ms={e2e['cuda']} bound_ms={e2e_bound}"
           f" bound_by=bytes [{card}]")
     print(f"time loss+grad (impl=scan): ms={e2e['scan']} [{card}]")
     print(f"time loss no-grad (kernels): ms={e2e['cuda_no_grad']} [{card}]")
+    return times
+
+
+def fj_tree(np, seed):
+    """A Flax-layout joint tree {"params": {"pre", "out"}} of numpy arrays at
+    the slice's widths, lecun-normal kernels and small biases, from a seed."""
+    rng = np.random.RandomState(seed)
+    F, H, V = FJ["F"], FJ["H"], FJ["V"]
+
+    def dense(fan_in, fan_out):
+        return {"kernel": (rng.randn(fan_in, fan_out) / np.sqrt(fan_in)
+                           ).astype(np.float32),
+                "bias": (0.1 * rng.randn(fan_out)).astype(np.float32)}
+
+    return {"params": {"pre": dense(F, H), "out": dense(H, V)}}
+
+
+def fj_inputs(torch, seed):
+    """Encoder/predictor outputs f (N, T, F), g (N, U, F), labels (N, U-1)
+    in [1, V), full lengths, on the card."""
+    N, T, U, V, F = (FJ[k] for k in "NTUVF")
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    f = torch.randn(N, T, F, generator=gen, device="cuda")
+    g = torch.randn(N, U, F, generator=gen, device="cuda")
+    labels = torch.randint(1, V, (N, U - 1), generator=gen, device="cuda",
+                           dtype=torch.int32)
+    xn = torch.full((N,), T, dtype=torch.int32, device="cuda")
+    yn = torch.full((N,), U - 1, dtype=torch.int32, device="cuda")
+    return f, g, labels, xn, yn
+
+
+def phase_fused_kernels(torch, fj, cases_mod, full_case):
+    """Each fused-joint kernel against its plain version, both on the card
+    (so both round h from the same tanhf), by `fused_joint_cases.compare`:
+    forward at atol 1e-4 on valid frames and finite everywhere; backward
+    within 1e-3 of the largest plain entry, d_W and d_b per column group
+    (blank, label, other columns, each against its own largest entry)."""
+    cases = {name: cases_mod.kernel_case(*case)
+             for name, case in cases_mod.KERNEL_CASES.items()}
+    cases["full_width"] = full_case
+    errs = {}
+    for name, (ops, cot) in cases.items():
+        a, c, w = ops[:3]
+        blank = int(ops[4][0, -1])
+        readings = cases_mod.compare(fj, ops, cot, blank)
+        torch.cuda.synchronize()
+        shape = (*a.shape[:2], c.shape[1], *w.shape[::-1])
+        print(f"fused joint kernels {name} N,T,U,V,H={shape} blank={blank}:"
+              f" {json.dumps(readings)}")
+        if name == "full_width":
+            errs = {k: cases_mod.max_err(r) for k, r in readings.items()}
+    return errs
+
+
+def fj_full_case(torch, fj, fjin, params):
+    """The full-width kernel operands: a, c from the slice's own
+    pre-projection, random lattice cotangents."""
+    f, g, labels, xn, yn = fjin
+    from warp_rnnt_tpu_torch.functional.loss import _labels_ext
+
+    with torch.no_grad():
+        a, c = fj._project(f, g, params)
+    lab = _labels_ext(labels, 0)
+    gen = torch.Generator(device="cuda").manual_seed(24)
+    N, T, U = FJ["N"], FJ["T"], FJ["U"]
+    db = torch.randn(N, T, U, generator=gen, device="cuda") / N
+    de = torch.randn(N, T, U, generator=gen, device="cuda") / N
+    return (a, c, params["w_out"], params["b_out"], lab, xn, yn), (db, de)
+
+
+FJ_PATH = ("fused_joint_fwd", "fused_joint_bwd_dadc", "fused_joint_bwd_dwdb",
+           "lattice_fused", "lattice_beta_only")
+
+
+def phase_fused_main(torch, wt, counters, fjin, params):
+    """The fused slice once through the public entry point: loss+grad
+    (reduction="mean") into f, g and the four parameters, the per-sample
+    costs in grad mode, and the no-grad costs."""
+    f, g, labels, xn, yn = fjin
+    for c in counters:
+        for key in c:
+            c[key] = 0
+    fr, gr = f.detach().requires_grad_(), g.detach().requires_grad_()
+    pr = {k: v.detach().requires_grad_() for k, v in params.items()}
+    loss = wt.rnnt_loss_fused_joint(fr, gr, pr, labels, xn, yn, reduction="mean")
+    loss.backward()
+    costs_g = wt.rnnt_loss_fused_joint(fr, gr, pr, labels, xn, yn)
+    with torch.no_grad():
+        costs_ng = wt.rnnt_loss_fused_joint(f, g, params, labels, xn, yn)
+    torch.cuda.synchronize()
+    launches = {k: v for c in counters for k, v in c.items() if k in FJ_PATH}
+    print(f"fused path launches: {launches}")
+    missing = [k for k in FJ_PATH if launches.get(k, 0) < 1]
+    if missing:
+        raise AssertionError(f"fused path never launched: {missing}")
+    grads = {"f": fr.grad, "g": gr.grad, **{k: v.grad for k, v in pr.items()}}
+    return launches, loss.detach(), grads, costs_g.detach(), costs_ng
+
+
+def check_fused_main(torch, wt, cases_mod, joint, fjin, loss, grads, costs_g,
+                     costs_ng):
+    """Against the port's unfused Joint(normalize=True) -> rnnt_loss(gather)
+    on the card, with the same carried weights.  The module rounds its
+    pre-activations and logits to bf16 (as Flax's Dense(dtype=bf16) does)
+    and the fused path keeps fp32 sums, hence loss rtol 2e-3 and each
+    gradient within 2e-2 of its largest entry (tests/test_fused_joint.py:
+    161-165); w_out and b_out per column group (blank, label, other), each
+    against its own largest entry, as in `fused_joint_cases.check_close`.
+    No-grad costs equal grad-mode costs at rtol 1e-5."""
+    f, g, labels, xn, yn = fjin
+    groups = cases_mod.column_groups(labels, 0, FJ["V"])
+    fr, gr = f.detach().requires_grad_(), g.detach().requires_grad_()
+    joint.zero_grad(set_to_none=True)
+    lp = joint(fr, gr)
+    ref = wt.rnnt_loss(lp, labels, xn, yn, reduction="mean", gather=True)
+    ref.backward()
+    ref = ref.detach()
+    ref_grads = {"f": fr.grad, "g": gr.grad,
+                 "w_pre": joint.pre.weight.grad.t(), "b_pre": joint.pre.bias.grad,
+                 "w_out": joint.out.weight.grad.t(), "b_out": joint.out.bias.grad}
+    del lp
+    for name, x in (("loss", loss), ("costs", costs_g), ("costs_ng", costs_ng),
+                    *grads.items()):
+        if not torch.isfinite(x).all():
+            raise AssertionError(f"fused {name} has non-finite values")
+    rel = abs(float(loss) - float(ref)) / abs(float(ref))
+    print(f"fused vs unfused: loss {float(loss)} vs {float(ref)} (rel err {rel})")
+    if rel > 2e-3:
+        raise AssertionError("fused loss differs from the unfused composition")
+    for name, got in grads.items():
+        readings = cases_mod.check_close(
+            f"fused vs unfused grad {name}", got, ref_grads[name].float(), 2e-2,
+            groups if name in ("w_out", "b_out") else None)
+        print(f"fused vs unfused grad {name}: (max abs err, max |ref|)"
+              f" {json.dumps(readings)}")
+    if not torch.allclose(costs_ng, costs_g, rtol=1e-5, atol=0.0):
+        raise AssertionError("fused no-grad costs differ from grad-mode costs")
+    print(f"fused no-grad vs grad-mode costs: max abs err"
+          f" {float((costs_ng - costs_g).abs().max())}")
+
+
+def phase_fused_times(torch, wt, fj, timing, joint, fjin, params, full_case,
+                      rates, card):
+    """Each fused kernel and its plain version (CUDA events, chained), its
+    bound by bf16 tensor-core operations; then fused and unfused loss+grad
+    end to end, each with its peak device memory."""
+    N, T, U, V, H = (FJ[k] for k in "NTUVH")
+    R = N * T * U
+    (a, c, w, b, lab, xn, yn), (db, de) = full_case
+    blank = 0
+    bl, el, logz = fj.joint_lattice_fwd(a, c, w, b, lab, xn, yn, blank)
+    ops_k, lat, dims = fj._bwd_operands(a, c, w, b, lab, xn, logz, db, de, blank)
+    _, _, h16 = fj._bwd_dadc(ops_k, lab, xn, lat, dims, blank)
+    args = (a, c, w, b, lab, xn, yn, logz, db, de, blank)
+    first = lambda out: out[0].view(-1)[0]  # noqa: E731
+    prod = 2 * R * H * V  # one R x H x V product
+    # bytes: a, c fp32, W bf16, b fp32, labels in; three lattices out (fwd),
+    # or three lattices in and the gradients out (bwd)
+    io_in = (N * T * H + N * U * H) * 4 + H * V * 2 + V * 4 + N * U * 4
+    times = {}
+    for name, fn, plain, fargs, nbytes, nops in (
+        ("fused_joint_fwd", fj.joint_lattice_fwd, fj.joint_lattice_fwd_plain,
+         (a, c, w, b, lab, xn, yn, blank), io_in + 3 * R * 4, prod),
+        ("fused_joint_bwd_dadc",
+         lambda *x: fj._bwd_dadc(ops_k, lab, xn, lat, dims, blank),
+         fj.bwd_dadc_plain, args, io_in + 3 * R * 4 + (N * T + N * U) * H * 4,
+         2 * prod),
+        ("fused_joint_bwd_dwdb",
+         lambda *x: fj._bwd_dwdb(h16, ops_k, lab, xn, lat, dims, blank),
+         fj.bwd_dwdb_plain, args,
+         R * H * 2 + H * V * 2 + V * 4 + 3 * R * 4 + (H * V + V) * 4, 2 * prod),
+    ):
+        ms = timing.bench_scalar_chain(fn, fargs, 10, reduce_out=first)
+        plain_ms = timing.bench_scalar_chain(plain, fargs, 2, repeats=1,
+                                             reduce_out=first)
+        b_ms, b_by = bound_ms(nbytes, nops, rates, BF16)
+        times[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+        print(f"time {name}: ms={ms} plain_ms={plain_ms} bound_ms={b_ms}"
+              f" bound_by={b_by} [{card}]")
+    del h16
+
+    f, g, labels, xn, yn = fjin
+    pr = {k: v.detach().requires_grad_() for k, v in params.items()}
+
+    def fused_step(x):
+        x = x.detach().requires_grad_()
+        for p in pr.values():
+            p.grad = None
+        loss = wt.rnnt_loss_fused_joint(x, g, pr, labels, xn, yn,
+                                        reduction="mean")
+        loss.backward()
+        return loss.detach(), x.grad
+
+    def unfused_step(x):
+        x = x.detach().requires_grad_()
+        joint.zero_grad(set_to_none=True)
+        loss = wt.rnnt_loss(joint(x, g), labels, xn, yn, reduction="mean",
+                            gather=True)
+        loss.backward()
+        return loss.detach(), x.grad
+
+    e2e = {}
+    for name, step in (("fused", fused_step), ("unfused", unfused_step)):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        step(f)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        ms = timing.bench_grad_chain(step, f, 10)
+        e2e[name] = (ms, peak)
+        print(f"time loss+grad {name} joint: ms={ms} peak_mem_bytes={peak}"
+              f" ({peak / 2**30:.3f} GiB above the inputs) [{card}]")
+    with torch.no_grad():
+        ng = timing.bench_scalar_chain(
+            lambda x: wt.rnnt_loss_fused_joint(x, g, params, labels, xn, yn),
+            (f,), 10)
+    # the least the fused loss+grad needs: forward product + the backward's
+    # three (logits, dh, dW)
+    e2e_bound, _ = bound_ms(0, 4 * prod, rates, BF16)
+    print(f"time loss+grad fused joint bound_ms={e2e_bound} bound_by=operations"
+          f" [{card}]")
+    print(f"time loss no-grad fused joint: ms={ng} [{card}]")
     return times
 
 
@@ -311,10 +558,15 @@ def main():
         return 1
     sys.path.insert(0, HERE)
     import warp_rnnt_tpu_torch as wt
+    from warp_rnnt_tpu_torch.benchmarks import fused_joint_cases as fj_cases
     from warp_rnnt_tpu_torch.benchmarks import timing
     from warp_rnnt_tpu_torch.functional.loss import _labels_ext
+    import numpy as np
+
+    from warp_rnnt_tpu_torch.models import carry_flax_joint
     from warp_rnnt_tpu_torch.ops import _build, cuda_impl
     from warp_rnnt_tpu_torch.ops import flat_kernels as fk
+    from warp_rnnt_tpu_torch.ops import fused_joint as fj
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -349,15 +601,34 @@ def main():
     times = phase_times(torch, wt, cuda_impl, fk, timing, inputs, main_lattice,
                         ct, rates, card)
     print(f"peak device memory: {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del inputs, log_probs, main_lattice, ct
 
+    # the fused joint slice: rnnt_loss_fused_joint at N=16 T=150 U=21 V=5000
+    # H=F=256, weights carried from a Flax-layout tree made from the seed
+    joint, params = carry_flax_joint(fj_tree(np, SEED), device="cuda")
+    fjin = fj_inputs(torch, SEED + 1)
+    full_case = fj_full_case(torch, fj, fjin, params)
+    errs.update(phase_fused_kernels(torch, fj, fj_cases, full_case))
+    fj_launches, *fj_out = phase_fused_main(
+        torch, wt, [cuda_impl.LAUNCHES, fk.LAUNCHES, fj.LAUNCHES], fjin, params
+    )
+    check_fused_main(torch, wt, fj_cases, joint, fjin, *fj_out)
+    del fj_out
+    times.update(phase_fused_times(torch, wt, fj, timing, joint, fjin, params,
+                                   full_case, rates, card))
+
+    fj_src = "warp_rnnt_tpu/ops/fused_joint.py"
     sources = {"lattice_fused": ("lattice.cu", "warp_rnnt_tpu/ops/pallas_impl.py:134"),
                "lattice_beta_only": ("lattice.cu", "warp_rnnt_tpu/ops/pallas_impl.py:124"),
-               "flat_write": ("flat_write.cu", "warp_rnnt_tpu/ops/flat_kernels.py:69")}
+               "flat_write": ("flat_write.cu", "warp_rnnt_tpu/ops/flat_kernels.py:69"),
+               "fused_joint_fwd": ("fused_joint.cu", f"{fj_src}:60"),
+               "fused_joint_bwd_dadc": ("fused_joint.cu", f"{fj_src}:100"),
+               "fused_joint_bwd_dwdb": ("fused_joint.cu", f"{fj_src}:100")}
     kernels = [
         {"name": name, "route": "cuda",
          "source": f"warp_rnnt_tpu_torch/csrc/{src}", "replaces": replaces,
-         "launches": launches[name], "max_abs_err": errs[name],
-         **times[name], "library_ms": None}
+         "launches": (fj_launches if name.startswith("fused") else launches)[name],
+         "max_abs_err": errs[name], **times[name], "library_ms": None}
         for name, (src, replaces) in sources.items()
     ]
     print(json.dumps({"kernels": kernels}))

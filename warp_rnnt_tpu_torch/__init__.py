@@ -2,7 +2,8 @@
 CUDA kernels for NVIDIA Hopper.
 
 A port of the JAX package `warp_rnnt_tpu`, file for file (`functional/`,
-`ops/`, `utils/`, `benchmarks/`).  It imports neither JAX nor `warp_rnnt_tpu`.
+`ops/`, `models/`, `utils/`, `benchmarks/`).  It imports neither JAX nor
+`warp_rnnt_tpu`.
 The loss runs where its input tensors are: on a CUDA device through the
 kernels in `csrc/` (built with nvcc on first use), on the CPU through plain
 torch code.
@@ -14,6 +15,7 @@ from warp_rnnt_tpu_torch.functional import (
     rnnt_loss,
     rnnt_loss_with_internals,
 )
+from warp_rnnt_tpu_torch.ops.fused_joint import rnnt_loss_fused_joint
 
 __version__ = "0.1.0"
 
@@ -22,5 +24,6 @@ __all__ = [
     "rnnt_core_with_internals",
     "rnnt_loss",
     "rnnt_loss_with_internals",
+    "rnnt_loss_fused_joint",
     "__version__",
 ]

@@ -1,0 +1,91 @@
+"""Joint network for RNN-T training (counterpart of
+`warp_rnnt_tpu/models/joint.py`).
+
+Encoder frame vectors f (N, T, F) and predictor label vectors g (N, U, F')
+are combined per lattice cell ("add": f + g; "concat": [f, g]), projected to
+the joint width H, passed through tanh and projected to the vocabulary.
+Both dense layers compute in bf16, as Flax's ``Dense(dtype=bf16)`` does:
+inputs, kernel and bias are cast to bf16, the product's output and the bias
+sum are rounded to bf16.  The log_softmax runs in fp32.  bf16 is the JAX
+module's default ``compute_dtype``; its one caller that sets another,
+`rnnt_loss_joint`, is not ported yet, so the port has no such option.
+
+`carry_flax_joint` carries the weights of a Flax `Joint` across: its
+``{"params": {"pre": {"kernel", "bias"}, "out": {...}}}`` tree, as numpy
+arrays, becomes the state of this module, and the same tree gives the
+``params`` dict of `rnnt_loss_fused_joint`.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+from torch import nn
+
+
+class Joint(nn.Module):
+    """Tanh-MLP joint: combine -> dense(H) -> tanh -> dense(V) -> log_softmax.
+
+    ``in_features`` is F for "add" (both halves F wide) and F + F' for
+    "concat".  The weights are ``nn.Linear``'s (out, in), made on ``device``
+    (the card unless the caller asks for another); a Flax kernel is
+    (in, out), so `carry_flax_joint` transposes it.
+    """
+
+    def __init__(self, vocab_size: int, in_features: int, hidden: int = 512,
+                 mode: str = "add", device="cuda"):
+        super().__init__()
+        if mode not in ("add", "concat"):
+            raise ValueError(f"unknown joint mode: {mode!r}")
+        self.mode = mode
+        self.pre = nn.Linear(in_features, hidden, device=device)
+        self.out = nn.Linear(hidden, vocab_size, device=device)
+
+    @staticmethod
+    def _dense(layer, x):
+        bf16 = torch.bfloat16
+        return torch.matmul(x, layer.weight.to(bf16).t()) + layer.bias.to(bf16)
+
+    def forward(self, f, g, normalize: bool = True):
+        """f (N, T, F), g (N, U, F') -> log-probs (N, T, U, V) fp32 (raw
+        fp32 logits when ``normalize=False``)."""
+        f = f.to(torch.bfloat16)
+        g = g.to(torch.bfloat16)
+        if self.mode == "add":
+            h = f[:, :, None, :] + g[:, None, :, :]
+        else:
+            N, T, _ = f.shape
+            U = g.shape[1]
+            h = torch.cat([f[:, :, None, :].expand(N, T, U, f.shape[-1]),
+                           g[:, None, :, :].expand(N, T, U, g.shape[-1])], dim=-1)
+        h = torch.tanh(self._dense(self.pre, h))
+        logits = self._dense(self.out, h).float()
+        return torch.log_softmax(logits, dim=-1) if normalize else logits
+
+
+def carry_flax_joint(tree, mode: str = "add", device="cuda"):
+    """A Flax `Joint`'s parameters -> (Joint module, fused-loss params).
+
+    tree: ``{"params": {"pre": {"kernel", "bias"}, "out": {...}}}`` (or its
+    ``"params"`` entry), leaves as numpy arrays.  Returns the port's `Joint`
+    holding those weights (fp32, on ``device``) and the dict ``w_pre, b_pre,
+    w_out, b_out`` that `rnnt_loss_fused_joint` takes, as new fp32 leaf
+    tensors on ``device`` in the Flax (in, out) layout.
+    """
+    p = tree.get("params", tree)
+    arrays = {(layer, name): np.asarray(p[layer][name], dtype=np.float32)
+              for layer in ("pre", "out") for name in ("kernel", "bias")}
+    in_features, hidden = arrays["pre", "kernel"].shape
+    vocab_size = arrays["out", "kernel"].shape[1]
+    joint = Joint(vocab_size, in_features, hidden, mode=mode, device=device)
+    with torch.no_grad():
+        for layer in ("pre", "out"):
+            lin = getattr(joint, layer)
+            lin.weight.copy_(torch.tensor(arrays[layer, "kernel"].T))
+            lin.bias.copy_(torch.tensor(arrays[layer, "bias"]))
+    params = {key: torch.tensor(arrays[layer, name], device=device)
+              for key, layer, name in (("w_pre", "pre", "kernel"),
+                                       ("b_pre", "pre", "bias"),
+                                       ("w_out", "out", "kernel"),
+                                       ("b_out", "out", "bias"))}
+    return joint, params
