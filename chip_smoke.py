@@ -36,6 +36,28 @@ Phases, in order; any failure exits non-zero before the last line:
   8. times of each fused kernel, its plain version and its bound (bf16
      tensor-core operations), and fused against unfused loss+grad, each
      with its peak device memory.
+  9. the packed gather/scatter kernels against their plain versions, exact
+     (`benchmarks/packed_cases.py`): the JAX package's edge cases, then
+     cases A (N=32, T=150, 20 labels, V=5000) and B (N=16, T=1500, 300
+     labels, V=50), random lengths, 13 pad rows.
+ 10. the compact path at A and B: `rnnt_loss(..., compact=True,
+     reduction="mean")` + backward, grad-mode and no-grad costs, counts set
+     to 0 just before; the packed kernels and both lattice kernels must
+     have run.  Held against the padded port on the same values scattered
+     into (N, T, U, V): costs rtol 1e-6, gradient equal at valid cells, pad
+     rows 0.  Then the kernels' and the two layouts' times and peak memory,
+     and the lattice kernels' times at each case's lattice.
+ 11. `rnnt_loss_joint` at N=16, T=150, 20 labels, V=5000, H=F=256 in every
+     layout (padded, compact, fused, auto), each run with its counts set to
+     0 and holding exactly its layout's kernels; compact and fused against
+     padded (loss rtol 2e-3, gradients 2e-2, w_out/b_out per column group);
+     auto equals the route it names.  Then each layout's loss+grad time and
+     peak memory there, at V=28 (40 labels), V=256 and V=1000.
+ 12. the fused joint at V=64000 (N=2) and V=50257 (N=1): kernels against
+     their plain versions (1e-3 per column group), then
+     `rnnt_loss_fused_joint` at V=64000 once with its counts set to 0,
+     against the padded layout; the kernels' times, and fused and padded
+     loss+grad.
 
 It prints the kernels' JSON line and the card's line, and last
 `{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}`.
@@ -182,12 +204,17 @@ def phase_write(torch, fk, loc_rows):
     return ct0, ct1
 
 
-def phase_main(torch, wt, counters, inputs):
-    """The main path once, through the public entry points."""
-    log_probs, labels, xn, yn = inputs
+def reset(counters):
+    """Set every launch count to 0."""
     for c in counters:
         for key in c:
             c[key] = 0
+
+
+def phase_main(torch, wt, counters, inputs):
+    """The main path once, through the public entry points."""
+    log_probs, labels, xn, yn = inputs
+    reset(counters)
 
     lp = log_probs.detach().requires_grad_()
     loss = wt.rnnt_loss(lp, labels, xn, yn, reduction="mean", gather=True)
@@ -322,11 +349,11 @@ def phase_times(torch, wt, cuda_impl, fk, timing, inputs, main_lattice,
     return times
 
 
-def fj_tree(np, seed):
+def fj_tree(np, seed, F=FJ["F"], H=FJ["H"], V=FJ["V"]):
     """A Flax-layout joint tree {"params": {"pre", "out"}} of numpy arrays at
-    the slice's widths, lecun-normal kernels and small biases, from a seed."""
+    the given widths (the fused slice's by default), lecun-normal kernels
+    and small biases, from a seed."""
     rng = np.random.RandomState(seed)
-    F, H, V = FJ["F"], FJ["H"], FJ["V"]
 
     def dense(fan_in, fan_out):
         return {"kernel": (rng.randn(fan_in, fan_out) / np.sqrt(fan_in)
@@ -383,7 +410,7 @@ def fj_full_case(torch, fj, fjin, params):
         a, c = fj._project(f, g, params)
     lab = _labels_ext(labels, 0)
     gen = torch.Generator(device="cuda").manual_seed(24)
-    N, T, U = FJ["N"], FJ["T"], FJ["U"]
+    N, T, U = f.shape[0], f.shape[1], g.shape[1]
     db = torch.randn(N, T, U, generator=gen, device="cuda") / N
     de = torch.randn(N, T, U, generator=gen, device="cuda") / N
     return (a, c, params["w_out"], params["b_out"], lab, xn, yn), (db, de)
@@ -398,9 +425,7 @@ def phase_fused_main(torch, wt, counters, fjin, params):
     (reduction="mean") into f, g and the four parameters, the per-sample
     costs in grad mode, and the no-grad costs."""
     f, g, labels, xn, yn = fjin
-    for c in counters:
-        for key in c:
-            c[key] = 0
+    reset(counters)
     fr, gr = f.detach().requires_grad_(), g.detach().requires_grad_()
     pr = {k: v.detach().requires_grad_() for k, v in params.items()}
     loss = wt.rnnt_loss_fused_joint(fr, gr, pr, labels, xn, yn, reduction="mean")
@@ -460,14 +485,13 @@ def check_fused_main(torch, wt, cases_mod, joint, fjin, loss, grads, costs_g,
           f" {float((costs_ng - costs_g).abs().max())}")
 
 
-def phase_fused_times(torch, wt, fj, timing, joint, fjin, params, full_case,
-                      rates, card):
+def time_fused_kernels(torch, fj, timing, full_case, rates, card, tag=""):
     """Each fused kernel and its plain version (CUDA events, chained), its
-    bound by bf16 tensor-core operations; then fused and unfused loss+grad
-    end to end, each with its peak device memory."""
-    N, T, U, V, H = (FJ[k] for k in "NTUVH")
-    R = N * T * U
+    bound by bf16 tensor-core operations, on the operands of ``full_case``."""
     (a, c, w, b, lab, xn, yn), (db, de) = full_case
+    N, T, H = a.shape
+    U, V = c.shape[1], w.shape[1]
+    R = N * T * U
     blank = 0
     bl, el, logz = fj.joint_lattice_fwd(a, c, w, b, lab, xn, yn, blank)
     ops_k, lat, dims = fj._bwd_operands(a, c, w, b, lab, xn, logz, db, de, blank)
@@ -496,9 +520,31 @@ def phase_fused_times(torch, wt, fj, timing, joint, fjin, params, full_case,
                                              reduce_out=first)
         b_ms, b_by = bound_ms(nbytes, nops, rates, BF16)
         times[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
-        print(f"time {name}: ms={ms} plain_ms={plain_ms} bound_ms={b_ms}"
+        print(f"time {name}{tag}: ms={ms} plain_ms={plain_ms} bound_ms={b_ms}"
               f" bound_by={b_by} [{card}]")
-    del h16
+    return times
+
+
+def peak_and_time(torch, timing, step, x0, iters):
+    """(ms per call, peak device bytes above what was allocated before) of a
+    loss+grad step, chain-timed on its own gradient."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    step(x0)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    return timing.bench_grad_chain(step, x0, iters), peak
+
+
+def phase_fused_times(torch, wt, fj, timing, joint, fjin, params, full_case,
+                      rates, card):
+    """The fused kernels' times (`time_fused_kernels`); then fused and
+    unfused loss+grad end to end, each with its peak device memory."""
+    N, T, U, V, H = (FJ[k] for k in "NTUVH")
+    prod = 2 * N * T * U * H * V  # one R x H x V product
+    times = time_fused_kernels(torch, fj, timing, full_case, rates, card)
 
     f, g, labels, xn, yn = fjin
     pr = {k: v.detach().requires_grad_() for k, v in params.items()}
@@ -522,14 +568,7 @@ def phase_fused_times(torch, wt, fj, timing, joint, fjin, params, full_case,
 
     e2e = {}
     for name, step in (("fused", fused_step), ("unfused", unfused_step)):
-        torch.cuda.synchronize()
-        torch.cuda.empty_cache()
-        base = torch.cuda.memory_allocated()
-        torch.cuda.reset_peak_memory_stats()
-        step(f)
-        torch.cuda.synchronize()
-        peak = torch.cuda.max_memory_allocated() - base
-        ms = timing.bench_grad_chain(step, f, 10)
+        ms, peak = peak_and_time(torch, timing, step, f, 10)
         e2e[name] = (ms, peak)
         print(f"time loss+grad {name} joint: ms={ms} peak_mem_bytes={peak}"
               f" ({peak / 2**30:.3f} GiB above the inputs) [{card}]")
@@ -543,6 +582,406 @@ def phase_fused_times(torch, wt, fj, timing, joint, fjin, params, full_case,
     print(f"time loss+grad fused joint bound_ms={e2e_bound} bound_by=operations"
           f" [{card}]")
     print(f"time loss no-grad fused joint: ms={ng} [{card}]")
+    return times
+
+# ---- slice 3: the compact layout, rnnt_loss_joint, LLM-size vocabularies --
+
+# Random lengths as `bench_joint.py` draws them (xn in [T/2, T], yn in
+# [L/2, L] labels, numpy seed 0).  A: warp-rnnt's headline shape; B: the
+# long-lattice, small-vocabulary shape of the JAX package's RESULTS.md:57.
+CASE_A = dict(N=32, T=150, L=20, V=5000)
+CASE_B = dict(N=16, T=1500, L=300, V=50)
+# The joint layouts: bench_joint.py:45's configuration, and the shapes the
+# CUDA auto route rests on beside it: V=28 (T=150, 40 labels;
+# RESULTS.md:55), V=256 and V=1000 between the two.
+JL = dict(N=16, T=150, L=20, V=5000, H=256, F=256)
+JL_SWEEP = (dict(N=16, T=150, L=40, V=28, H=256, F=256),
+            dict(N=16, T=150, L=20, V=256, H=256, F=256),
+            dict(N=16, T=150, L=20, V=1000, H=256, F=256))
+# The fused joint at LLM-size vocabularies, full lengths.
+LARGE_V = {"V=64000": dict(N=2, T=150, U=21, V=64000, H=256, F=256),
+           "V=50257": dict(N=1, T=150, U=21, V=50257, H=256, F=256)}
+
+COMPACT_PATH = ("packed_gather", "packed_scatter", "lattice_fused",
+                "lattice_beta_only")
+JOINT_PATHS = {"padded": ("lattice_fused", "lattice_beta_only"),
+               "compact": COMPACT_PATH, "fused": FJ_PATH}
+
+
+def launched(counters):
+    return {k: v for c in counters for k, v in c.items() if v}
+
+
+def phase_packed_kernels(torch, pk, pc, full_cases):
+    """Each packed kernel against its plain version on the card, exact
+    (`packed_cases.compare`): the JAX package's edge cases (ragged, one
+    sample, yn=0, T over many rows, T < U, pad rows, blank=3, V in
+    {5, 9, 13, 33, 50}, every input dtype), then cases A and B."""
+    cases = {name: pc.make_case(xn, yn, V, pad, blank, dt, 0, "cuda")
+             for name, (xn, yn, V, pad, blank, dt) in pc.CASES.items()}
+    cases.update(full_cases)
+    errs = {"packed_gather": 0.0, "packed_scatter": 0.0}
+    for name, case in cases.items():
+        r = pc.compare(pk, case)
+        torch.cuda.synchronize()
+        print(f"packed kernels {name} rows,V={tuple(case['xs'].shape)}"
+              f" {case['xs'].dtype}: {r}")
+        errs = {k: max(errs[k], r[k]) for k in errs}
+    return errs
+
+
+def phase_compact(torch, wt, counters, case, label):
+    """The compact path once through the public entry point: loss+grad
+    (reduction="mean"), the grad-mode per-sample costs and the no-grad
+    costs.  Every kernel of the path must have run."""
+    xs, ys, xn, yn = (case[k] for k in ("xs", "ys", "xn", "yn"))
+    reset(counters)
+    x = xs.detach().requires_grad_()
+    loss = wt.rnnt_loss(x, ys, xn, yn, compact=True, reduction="mean")
+    loss.backward()
+    costs_g = wt.rnnt_loss(x, ys, xn, yn, compact=True)
+    with torch.no_grad():
+        costs_ng = wt.rnnt_loss(xs, ys, xn, yn, compact=True)
+    torch.cuda.synchronize()
+    launches = {k: v for c in counters for k, v in c.items() if k in COMPACT_PATH}
+    print(f"compact path {label} launches: {launches}")
+    missing = [k for k in COMPACT_PATH if launches[k] < 1]
+    if missing:
+        raise AssertionError(f"compact path {label} never launched: {missing}")
+    return launches, loss.detach(), x.grad, costs_g.detach(), costs_ng
+
+
+def padded_from_packed(torch, pk, case):
+    """The packed values scattered into (N, T, U, V) (zeros elsewhere), the
+    (N, U-1) labels, and the packed rows' cells (n, t, u) and valid count."""
+    xs, xn, yn = case["xs"], case["xn"], case["yn"]
+    N, T, U, V = xn.shape[0], case["T"], case["U"], xs.shape[1]
+    n, t, u, valid = pk.row_coordinates(xs.shape[0], xn, yn)
+    nv = int(valid.sum())
+    n, t, u = n[:nv], t[:nv], u[:nv]
+    padded = torch.zeros((N, T, U, V), dtype=xs.dtype, device=xs.device)
+    padded[n, t, u] = xs[:nv]
+    return padded, case["loc"][:, :-1].contiguous(), (n, t, u, nv)
+
+
+def check_compact(torch, wt, pk, case, label, loss, grad, costs_g, costs_ng):
+    """Against the padded port on the same values: the two give the same
+    lattice to the same kernels, so costs agree to rtol 1e-6 (bit for bit in
+    practice), the packed gradient equals the padded one at valid cells
+    exactly and is 0 on pad rows; no-grad costs equal grad-mode costs at
+    rtol 1e-5."""
+    xn, yn = case["xn"], case["yn"]
+    padded, labels, (n, t, u, nv) = padded_from_packed(torch, pk, case)
+    p = padded.requires_grad_()
+    ref = wt.rnnt_loss(p, labels, xn, yn, reduction="mean", gather=True)
+    ref.backward()
+    ref = ref.detach()
+    costs_p = wt.rnnt_loss(p, labels, xn, yn, gather=True).detach()
+    for name, x in (("loss", loss), ("costs", costs_g), ("costs_ng", costs_ng),
+                    ("grad", grad)):
+        if not torch.isfinite(x).all():
+            raise AssertionError(f"compact {label} {name}: non-finite values")
+    cost_err = float((costs_g - costs_p).abs().max())
+    same_grad = torch.equal(grad[:nv], p.grad[n, t, u])
+    pad_zero = bool((grad[nv:] == 0).all())
+    print(f"compact vs padded {label}: loss {float(loss)} vs {float(ref)};"
+          f" costs max abs err {cost_err}; grads equal at valid cells"
+          f" {same_grad}; {grad.shape[0] - nv} pad rows zero {pad_zero};"
+          f" no-grad vs grad-mode costs max abs err"
+          f" {float((costs_ng - costs_g).abs().max())}")
+    if not torch.allclose(costs_g, costs_p, rtol=1e-6, atol=0.0):
+        raise AssertionError(f"compact {label}: costs differ from padded")
+    if not (same_grad and pad_zero):
+        raise AssertionError(f"compact {label}: gradient differs from padded")
+    if not torch.allclose(costs_ng, costs_g, rtol=1e-5, atol=0.0):
+        raise AssertionError(f"compact {label}: no-grad costs differ")
+
+
+def joint_inputs(torch, np, dims, seed):
+    """f (N, T, F), g (N, L+1, F), labels (N, L) in [1, V), random lengths
+    (`bench_joint.py`'s recipe) on the card."""
+    N, T, L, V, F = (dims[k] for k in "NTLVF")
+    rng = np.random.RandomState(seed)
+    xn = rng.randint(T // 2, T + 1, size=N)
+    yn = rng.randint(L // 2, L + 1, size=N)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    f = torch.randn(N, T, F, generator=gen, device="cuda")
+    g = torch.randn(N, L + 1, F, generator=gen, device="cuda")
+    labels = torch.randint(1, V, (N, L), generator=gen, device="cuda",
+                           dtype=torch.int32)
+    i32 = dict(dtype=torch.int32, device="cuda")
+    return f, g, labels, torch.tensor(xn, **i32), torch.tensor(yn, **i32)
+
+
+def joint_step(wt, layout, g, params, labels, xn, yn):
+    """A loss+grad step of one layout, chained on f."""
+    pr = {k: v.detach().requires_grad_() for k, v in params.items()}
+
+    def step(x):
+        x = x.detach().requires_grad_()
+        loss = wt.rnnt_loss_joint(x, g, pr, labels, xn, yn, reduction="mean",
+                                  layout=layout)
+        loss.backward()
+        return loss.detach(), x.grad
+    return step
+
+
+def phase_joint_layouts(torch, wt, jl, cases_mod, counters, jin, params):
+    """`rnnt_loss_joint` in every layout at JL: loss+grad (reduction="mean")
+    into f, g and the four parameters, and the no-grad costs, each layout's
+    counts set to 0 just before and read just after.  compact and fused are
+    held against padded (loss rtol 2e-3; gradients within 2e-2 of their
+    largest entry, w_out and b_out per column group); auto must run the
+    route `joint_layout_route` names and equal it exactly."""
+    f, g, labels, xn, yn = jin
+    route = jl.joint_layout_route(f.shape[1], g.shape[1], JL["H"], JL["V"],
+                                  N=f.shape[0], platform="cuda")
+    groups = cases_mod.column_groups(labels, 0, JL["V"])
+    out = {}
+    for layout in ("padded", "compact", "fused", "auto"):
+        reset(counters)
+        fr, gr = f.detach().requires_grad_(), g.detach().requires_grad_()
+        pr = {k: v.detach().requires_grad_() for k, v in params.items()}
+        loss = wt.rnnt_loss_joint(fr, gr, pr, labels, xn, yn, reduction="mean",
+                                  layout=layout)
+        loss.backward()
+        loss = loss.detach()
+        with torch.no_grad():
+            costs_ng = wt.rnnt_loss_joint(f, g, params, labels, xn, yn,
+                                          layout=layout)
+        torch.cuda.synchronize()
+        grads = {"f": fr.grad, "g": gr.grad, **{k: v.grad for k, v in pr.items()}}
+        launches = launched(counters)
+        want = JOINT_PATHS[route if layout == "auto" else layout]
+        print(f"joint layout {layout} launches: {launches}")
+        if [k for k in want if k not in launches] or set(launches) - set(want):
+            raise AssertionError(f"joint layout {layout}: launched {launches},"
+                                 f" its path is {want}")
+        for name, x in (("loss", loss), ("costs_ng", costs_ng), *grads.items()):
+            if not torch.isfinite(x).all():
+                raise AssertionError(f"joint {layout} {name}: non-finite")
+        rel = abs(float(costs_ng.mean()) - float(loss)) / abs(float(loss))
+        if rel > 1e-5:
+            raise AssertionError(f"joint {layout}: no-grad costs differ ({rel})")
+        out[layout] = (launches, loss, grads)
+    ref_loss, ref_grads = out["padded"][1], out["padded"][2]
+    for layout in ("compact", "fused"):
+        loss, grads = out[layout][1], out[layout][2]
+        rel = abs(float(loss) - float(ref_loss)) / abs(float(ref_loss))
+        print(f"joint {layout} vs padded: loss {float(loss)} vs"
+              f" {float(ref_loss)} (rel err {rel})")
+        if rel > 2e-3:
+            raise AssertionError(f"joint {layout}: loss differs from padded")
+        for name, got in grads.items():
+            r = cases_mod.check_close(
+                f"joint {layout} vs padded grad {name}", got, ref_grads[name],
+                2e-2, groups if name in ("w_out", "b_out") else None)
+            print(f"joint {layout} vs padded grad {name}: {json.dumps(r)}")
+    loss, grads = out["auto"][1], out["auto"][2]
+    ref_loss, ref_grads = out[route][1], out[route][2]
+    if not torch.equal(loss, ref_loss):
+        raise AssertionError(f"auto ({route}) loss differs from {route}")
+    for name, got in grads.items():
+        cases_mod.check_close(f"auto grad {name}", got, ref_grads[name], 1e-6)
+    print(f"joint auto routes to {route} at V={JL['V']} and equals it")
+    return route
+
+
+def phase_large_v(torch, np, wt, fj, cases_mod, carry, counters):
+    """The fused kernels against their plain versions at V=64000 and
+    V=50257 (1e-3 per column group, `fused_joint_cases.compare`), then
+    `rnnt_loss_fused_joint` at V=64000 once (loss+grad and no-grad costs,
+    counts set to 0 just before), held against the padded layout of
+    `rnnt_loss_joint` (loss rtol 2e-3, gradients 2e-2, w_out and b_out per
+    column group).  Returns (kernel errs, launches, V=64000 operands)."""
+    errs, keep = {}, None
+    for name, d in LARGE_V.items():
+        _, params = carry(fj_tree(np, SEED + 3, d["F"], d["H"], d["V"]),
+                          device="cuda")
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
+        f = torch.randn(d["N"], d["T"], d["F"], generator=gen, device="cuda")
+        g = torch.randn(d["N"], d["U"], d["F"], generator=gen, device="cuda")
+        labels = torch.randint(1, d["V"], (d["N"], d["U"] - 1), generator=gen,
+                               device="cuda", dtype=torch.int32)
+        i32 = dict(dtype=torch.int32, device="cuda")
+        xn = torch.full((d["N"],), d["T"], **i32)
+        yn = torch.full((d["N"],), d["U"] - 1, **i32)
+        jin = (f, g, labels, xn, yn)
+        full = fj_full_case(torch, fj, jin, params)
+        ops, cot = full
+        readings = cases_mod.compare(fj, ops, cot, 0)
+        torch.cuda.synchronize()
+        print(f"fused joint kernels {name} N,T,U,V,H="
+              f"{(d['N'], d['T'], d['U'], d['V'], d['H'])}: {json.dumps(readings)}")
+        errs[name] = {k: cases_mod.max_err(r) for k, r in readings.items()}
+        if keep is None:
+            keep = (jin, params, full)
+    jin, params, full = keep
+    f, g, labels, xn, yn = jin
+    reset(counters)
+    fr, gr = f.detach().requires_grad_(), g.detach().requires_grad_()
+    pr = {k: v.detach().requires_grad_() for k, v in params.items()}
+    loss = wt.rnnt_loss_fused_joint(fr, gr, pr, labels, xn, yn, reduction="mean")
+    loss.backward()
+    loss = loss.detach()
+    with torch.no_grad():
+        costs_ng = wt.rnnt_loss_fused_joint(f, g, params, labels, xn, yn)
+    torch.cuda.synchronize()
+    launches = {k: v for c in counters for k, v in c.items() if k in FJ_PATH}
+    print(f"fused path V=64000 launches: {launches}")
+    missing = [k for k in FJ_PATH if launches[k] < 1]
+    if missing:
+        raise AssertionError(f"fused path V=64000 never launched: {missing}")
+    grads = {"f": fr.grad, "g": gr.grad, **{k: v.grad for k, v in pr.items()}}
+    fr2, gr2 = f.detach().requires_grad_(), g.detach().requires_grad_()
+    pr2 = {k: v.detach().requires_grad_() for k, v in params.items()}
+    ref = wt.rnnt_loss_joint(fr2, gr2, pr2, labels, xn, yn, reduction="mean",
+                             layout="padded")
+    ref.backward()
+    ref = ref.detach()
+    ref_grads = {"f": fr2.grad, "g": gr2.grad,
+                 **{k: v.grad for k, v in pr2.items()}}
+    rel = abs(float(loss) - float(ref)) / abs(float(ref))
+    print(f"fused V=64000 vs padded: loss {float(loss)} vs {float(ref)}"
+          f" (rel err {rel}); no-grad mean {float(costs_ng.mean())}")
+    if rel > 2e-3 or abs(float(costs_ng.mean()) - float(loss)) > 1e-5 * abs(
+            float(loss)):
+        raise AssertionError("fused V=64000: loss differs")
+    groups = cases_mod.column_groups(labels, 0, LARGE_V["V=64000"]["V"])
+    for name, got in grads.items():
+        r = cases_mod.check_close(
+            f"fused V=64000 vs padded grad {name}", got, ref_grads[name], 2e-2,
+            groups if name in ("w_out", "b_out") else None)
+        print(f"fused V=64000 vs padded grad {name}: {json.dumps(r)}")
+    return errs, launches, keep
+
+
+def time_packed_kernels(torch, pk, timing, case, rates, card, tag):
+    """Each packed kernel and its plain version at one full-width case,
+    beside its byte bound (the entries the function must read and write)."""
+    xs, loc, xn, yn = case["xs"], case["loc"], case["xn"], case["yn"]
+    T, U, blank = case["T"], case["U"], case["blank"]
+    N = xn.shape[0]
+    rows, V = xs.shape
+    valid = int((xn.long() * (yn.long() + 1)).sum())
+    size = xs.element_size()
+    cells = N * T * U
+    meta = N * U * 4 + 2 * N * 4
+    first = lambda out: out[0].view(-1)[0]  # noqa: E731
+    times = {}
+    for name, fn, plain, args, nbytes, nops in (
+        ("packed_gather", pk.packed_gather, pk.packed_gather_plain,
+         (xs, loc, xn, yn, blank, T, U), 2 * valid * size + meta + 2 * cells * 4,
+         0),
+        ("packed_scatter", pk.packed_scatter, pk.packed_scatter_plain,
+         (case["ct0"], case["ct1"], loc, xn, yn, blank, rows, V, xs.dtype),
+         rows * V * size + 2 * cells * 4 + meta, rows * V * 4),
+    ):
+        red = (lambda out: out.view(-1)[0]) if name == "packed_scatter" else first
+        ms = timing.bench_scalar_chain(fn, args, 20, reduce_out=red)
+        plain_ms = timing.bench_scalar_chain(plain, args, 4, repeats=1,
+                                             reduce_out=red)
+        b_ms, b_by = bound_ms(nbytes, nops, rates)
+        times[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+        print(f"time {name} {tag}: ms={ms} plain_ms={plain_ms} bound_ms={b_ms}"
+              f" bound_by={b_by} [{card}]")
+    return times
+
+
+def time_compact(torch, wt, pk, cuda_impl, timing, case, card, tag):
+    """Compact loss+grad and no-grad against padded loss+grad on the same
+    values, each with its peak device memory (the reference's
+    compact-vs-padded comparison).  Beside them: the lattice kernels at the
+    case's lattice, and compact loss+grad with the host read of the lengths
+    (`compact._static_bounds`) left out, which shows what that read costs."""
+    from warp_rnnt_tpu_torch.functional.core import rnnt_core
+
+    xs, ys, xn, yn = (case[k] for k in ("xs", "ys", "xn", "yn"))
+    T, U, blank, loc = case["T"], case["U"], case["blank"], case["loc"]
+    blank_lp, emit_lp = pk.packed_gather(xs, loc, xn, yn, blank, T, U)
+    for name, alpha in (("lattice_fused", True), ("lattice_beta_only", False)):
+        ms = timing.bench_scalar_chain(
+            cuda_impl.alpha_beta, (blank_lp, emit_lp, xn, yn, alpha), 10,
+            reduce_out=lambda out: out[1].view(-1)[0])
+        print(f"time {name} {tag} N,T,U={tuple(blank_lp.shape)}: ms={ms} [{card}]")
+    del blank_lp, emit_lp
+
+    def no_read_step(x):
+        x = x.detach().requires_grad_()
+        lat = pk.packed_lattice(x, loc, xn, yn, blank, T, U)
+        loss = rnnt_core(lat, xn, yn, 0.0, "auto").mean()
+        loss.backward()
+        return loss.detach(), x.grad
+
+    padded, labels, _ = padded_from_packed(torch, pk, case)
+
+    def compact_step(x):
+        x = x.detach().requires_grad_()
+        loss = wt.rnnt_loss(x, ys, xn, yn, compact=True, reduction="mean")
+        loss.backward()
+        return loss.detach(), x.grad
+
+    def padded_step(x):
+        x = x.detach().requires_grad_()
+        loss = wt.rnnt_loss(x, labels, xn, yn, reduction="mean", gather=True)
+        loss.backward()
+        return loss.detach(), x.grad
+
+    out = {}
+    for name, step, x0 in (("compact", compact_step, xs),
+                           ("compact without the host read", no_read_step, xs),
+                           ("padded", padded_step, padded)):
+        ms, peak = peak_and_time(torch, timing, step, x0, 10)
+        out[name] = dict(ms=ms, peak_mem_bytes=peak)
+        print(f"time loss+grad {name} {tag}: ms={ms} peak_mem_bytes={peak}"
+              f" ({peak / 2**30:.3f} GiB above the inputs) [{card}]")
+    with torch.no_grad():
+        ng = timing.bench_scalar_chain(
+            lambda x: wt.rnnt_loss(x, ys, xn, yn, compact=True), (xs,), 10)
+    out["compact_no_grad_ms"] = ng
+    print(f"time loss no-grad compact {tag}: ms={ng} [{card}]")
+    return out
+
+
+def time_joint_layouts(torch, wt, timing, jin, params, layouts, card, tag):
+    """Each layout's loss+grad with its peak device memory, chained on f."""
+    f, g, labels, xn, yn = jin
+    out = {}
+    for layout in layouts:
+        step = joint_step(wt, layout, g, params, labels, xn, yn)
+        ms, peak = peak_and_time(torch, timing, step, f, 8)
+        out[layout] = dict(ms=ms, peak_mem_bytes=peak)
+        print(f"time loss+grad joint {layout} {tag}: ms={ms}"
+              f" peak_mem_bytes={peak} ({peak / 2**30:.3f} GiB above the"
+              f" inputs) [{card}]")
+    return out
+
+
+def time_large_v(torch, wt, fj, timing, keep, rates, card):
+    """The fused kernels and fused loss+grad at V=64000."""
+    jin, params, full = keep
+    times = time_fused_kernels(torch, fj, timing, full, rates, card,
+                               " V=64000")
+    f, g, labels, xn, yn = jin
+    pr = {k: v.detach().requires_grad_() for k, v in params.items()}
+
+    def step(x):
+        x = x.detach().requires_grad_()
+        loss = wt.rnnt_loss_fused_joint(x, g, pr, labels, xn, yn,
+                                        reduction="mean")
+        loss.backward()
+        return loss.detach(), x.grad
+
+    ms, peak = peak_and_time(torch, timing, step, f, 6)
+    d = LARGE_V["V=64000"]
+    b_ms, _ = bound_ms(0, 8 * d["N"] * d["T"] * d["U"] * d["H"] * d["V"], rates,
+                       BF16)
+    print(f"time loss+grad fused joint V=64000: ms={ms} peak_mem_bytes={peak}"
+          f" bound_ms={b_ms} bound_by=operations [{card}]")
+    ms, peak = peak_and_time(
+        torch, timing, joint_step(wt, "padded", g, params, labels, xn, yn), f, 6)
+    print(f"time loss+grad joint padded V=64000: ms={ms} peak_mem_bytes={peak}"
+          f" [{card}]")
     return times
 
 
@@ -616,21 +1055,84 @@ def main():
     del fj_out
     times.update(phase_fused_times(torch, wt, fj, timing, joint, fjin, params,
                                    full_case, rates, card))
+    del joint, fjin, params, full_case
+
+    # slice 3: the compact layout at cases A and B, rnnt_loss_joint in every
+    # layout, the fused joint at LLM-size vocabularies
+    from warp_rnnt_tpu_torch.benchmarks import packed_cases as pc
+    from warp_rnnt_tpu_torch.functional import joint_loss as jl
+    from warp_rnnt_tpu_torch.ops import packed_kernels as pk
+
+    counters = [cuda_impl.LAUNCHES, fk.LAUNCHES, fj.LAUNCHES, pk.LAUNCHES]
+    full = {"A": pc.full_case(**CASE_A, seed=SEED),
+            "B": pc.full_case(**CASE_B, seed=SEED)}
+    errs.update(phase_packed_kernels(
+        torch, pk, pc, {f"case {k}": c for k, c in full.items()}))
+    compact_launches = {}
+    for label, case in full.items():
+        compact_launches[label], *out = phase_compact(torch, wt, counters, case,
+                                                      f"case {label}")
+        check_compact(torch, wt, pk, case, f"case {label}", *out)
+        del out
+    packed_times = {}
+    for label, case in full.items():
+        packed_times[label] = time_packed_kernels(torch, pk, timing, case, rates,
+                                                  card, f"case {label}")
+        time_compact(torch, wt, pk, cuda_impl, timing, case, card,
+                     f"case {label}")
+    times.update(packed_times["A"])
+    del full, case
+
+    jparams = carry_flax_joint(fj_tree(np, SEED + 5, JL["F"], JL["H"], JL["V"]),
+                               device="cuda")[1]
+    jin = joint_inputs(torch, np, JL, SEED + 6)
+    route = phase_joint_layouts(torch, wt, jl, fj_cases, counters, jin, jparams)
+    time_joint_layouts(torch, wt, timing, jin, jparams,
+                       ("padded", "compact", "fused"), card, f"V={JL['V']}")
+    for dims in JL_SWEEP:
+        sparams = carry_flax_joint(
+            fj_tree(np, SEED + 7, dims["F"], dims["H"], dims["V"]),
+            device="cuda")[1]
+        time_joint_layouts(torch, wt, timing,
+                           joint_inputs(torch, np, dims, SEED + 8), sparams,
+                           ("padded", "compact", "fused"), card,
+                           f"V={dims['V']} T={dims['T']} labels={dims['L']}")
+    print(f"joint auto route on cuda: {route} at V={JL['V']};"
+          f" _CUDA_FUSED_MIN_V={jl._CUDA_FUSED_MIN_V}")
+    del jin, jparams, sparams
+
+    large_errs, large_launches, keep = phase_large_v(
+        torch, np, wt, fj, fj_cases, carry_flax_joint, counters)
+    large_times = time_large_v(torch, wt, fj, timing, keep, rates, card)
+    del keep
 
     fj_src = "warp_rnnt_tpu/ops/fused_joint.py"
+    pk_src = "warp_rnnt_tpu/ops/packed_kernels.py"
     sources = {"lattice_fused": ("lattice.cu", "warp_rnnt_tpu/ops/pallas_impl.py:134"),
                "lattice_beta_only": ("lattice.cu", "warp_rnnt_tpu/ops/pallas_impl.py:124"),
                "flat_write": ("flat_write.cu", "warp_rnnt_tpu/ops/flat_kernels.py:69"),
-               "fused_joint_fwd": ("fused_joint.cu", f"{fj_src}:60"),
-               "fused_joint_bwd_dadc": ("fused_joint.cu", f"{fj_src}:100"),
-               "fused_joint_bwd_dwdb": ("fused_joint.cu", f"{fj_src}:100")}
-    kernels = [
-        {"name": name, "route": "cuda",
-         "source": f"warp_rnnt_tpu_torch/csrc/{src}", "replaces": replaces,
-         "launches": (fj_launches if name.startswith("fused") else launches)[name],
-         "max_abs_err": errs[name], **times[name], "library_ms": None}
-        for name, (src, replaces) in sources.items()
-    ]
+               "fused_joint_fwd": ("fused_joint.cu", f"{fj_src}:60 and {fj_src}:245"),
+               "fused_joint_bwd_dadc": ("fused_joint.cu",
+                                        f"{fj_src}:100 and {fj_src}:294"),
+               "fused_joint_bwd_dwdb": ("fused_joint.cu",
+                                        f"{fj_src}:100 and {fj_src}:356"),
+               "packed_gather": ("packed.cu", f"{pk_src}:130"),
+               "packed_scatter": ("packed.cu", f"{pk_src}:193")}
+    path_launches = {**launches, **fj_launches, **compact_launches["A"]}
+    kernels = []
+    for name, (src, replaces) in sources.items():
+        entry = {"name": name, "route": "cuda",
+                 "source": f"warp_rnnt_tpu_torch/csrc/{src}", "replaces": replaces,
+                 "launches": path_launches[name], "max_abs_err": errs[name],
+                 **times[name], "library_ms": None}
+        if name.startswith("packed"):
+            entry["case_B"] = {"launches": compact_launches["B"][name],
+                               **packed_times["B"][name]}
+        if name.startswith("fused"):
+            entry["V=64000"] = {
+                "launches": large_launches[name], **large_times[name],
+                "max_abs_err": max(e[name] for e in large_errs.values())}
+        kernels.append(entry)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

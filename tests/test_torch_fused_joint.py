@@ -153,6 +153,35 @@ def test_core_costs_and_grads_match_jax(blank, fastemit):
         _close(g, w_, **GRAD_TOL, name=name)
 
 
+@pytest.mark.parametrize("V", [300, 257])
+def test_plain_forward_matches_jax_v_blocked(monkeypatch, V):
+    """The plain forward against JAX's `_fwd_kernel_vb` (running logsumexp
+    over 128-column blocks, the vocabulary tail padded with bias -1e30)."""
+    monkeypatch.setattr(jfj, "_FORCE_BV", 128)
+    a, c, w, b, labels, xn, yn = _setup(N=2, T=9, U=5, V=V, H=16, seed=10,
+                                        ragged=False)
+    lab = np.concatenate([labels, np.zeros((2, 1), np.int32)], 1)
+    got = fj.joint_lattice_fwd(*tt(a, c, w, b, lab, xn, yn), 0)
+    want = jfj.joint_lattice_fwd(*map(jnp.asarray, (a, c, w, b, lab, xn, yn)), 0)
+    _assert_fwd_close(got, want, _flip_bound(a, c, w))
+
+
+def test_core_matches_jax_v_blocked_kernels(monkeypatch):
+    """JAX's V-blocked kernels (`_fwd_kernel_vb`, `_bwd_dadc_kernel_vb`,
+    `_bwd_dwdb_kernel_vb`, forced with BV=128 over V=300: three blocks, a
+    padded tail) against the port's plain `fused_joint_core`, with the
+    tolerances of the single-block test above.  The port has one route at
+    every V: its kernels walk V in 64-column chunks."""
+    monkeypatch.setattr(jfj, "_FORCE_BV", 128)
+    assert jfj._select_bv(11, 5, 16, 300) == 128
+    a, c, w, b, labels, xn, yn = _setup(N=2, T=11, U=5, V=300, H=16, seed=9)
+    weights = np.array([0.8, 1.1], np.float32)
+    (pc, pg), (jc, jg) = _core_both(a, c, w, b, labels, xn, yn, 0, 0.0, weights)
+    np.testing.assert_allclose(pc, jc, rtol=1e-5)
+    for name, g, w_ in zip(("d_a", "d_c", "d_w", "d_b"), pg, jg):
+        _close(g, w_, **GRAD_TOL, name=name)
+
+
 def _wrapper_inputs(mode, seed=3):
     rng = np.random.RandomState(seed)
     N, T, U, V, H, F, G = 2, 9, 4, 29, 16, 12, 12 if mode == "add" else 10
@@ -422,3 +451,11 @@ def test_kernels_match_plain_on_card(cuda_device, case):
     the comparison of `fused_joint_cases` (chip_smoke.py makes the same)."""
     ops, cot = cases.kernel_case(*cases.KERNEL_CASES[case], device=cuda_device)
     cases.compare(fj, ops, cot, cases.KERNEL_CASES[case][6])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(cases.LARGE_V_CASES))
+def test_kernels_match_plain_on_card_large_v(cuda_device, case):
+    """At the vocabularies where JAX takes its V-blocked kernels."""
+    ops, cot = cases.kernel_case(*cases.LARGE_V_CASES[case], device=cuda_device)
+    cases.compare(fj, ops, cot, cases.LARGE_V_CASES[case][6])

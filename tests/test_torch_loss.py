@@ -188,7 +188,7 @@ def test_input_dtype_is_kept():
     ("contiguous", RuntimeError, "xs must be contiguous"),
     ("ys_dtype", RuntimeError, "ys must be a Int tensor"),
     ("xn_dtype", RuntimeError, "xn must be a Int tensor"),
-    ("compact", NotImplementedError, "Queue A item 8"),
+    ("compact", ValueError, "compact log_probs must have 2 dimensions"),
     ("impl", ValueError, "unknown impl"),
 ])
 def test_validation(case, exc, match):

@@ -13,6 +13,8 @@ from warp_rnnt_tpu_torch.functional import (
     rnnt_core,
     rnnt_core_with_internals,
     rnnt_loss,
+    rnnt_loss_from_logits,
+    rnnt_loss_joint,
     rnnt_loss_with_internals,
 )
 from warp_rnnt_tpu_torch.ops.fused_joint import rnnt_loss_fused_joint
@@ -23,7 +25,9 @@ __all__ = [
     "rnnt_core",
     "rnnt_core_with_internals",
     "rnnt_loss",
-    "rnnt_loss_with_internals",
+    "rnnt_loss_from_logits",
     "rnnt_loss_fused_joint",
+    "rnnt_loss_joint",
+    "rnnt_loss_with_internals",
     "__version__",
 ]

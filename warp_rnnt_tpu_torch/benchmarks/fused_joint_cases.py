@@ -33,6 +33,13 @@ KERNEL_CASES = {
     "H=512": (23, 2, 13, 5, 5000, 512, 3, (13, 9)),
 }
 
+# LLM-size vocabularies, where the JAX package takes its V-blocked kernels:
+# V=64000, and GPT-2's V=50257 (not a multiple of the 64-column chunk).
+LARGE_V_CASES = {
+    "V=64000": (25, 1, 20, 6, 64000, 256, 0, (20,)),
+    "V=50257": (26, 1, 17, 5, 50257, 256, 0, (11,)),
+}
+
 
 def kernel_case(seed, N, T, U, V, H, blank, xn, device="cuda"):
     """Seeded kernel operands (a, c, w, b, labels_ext, xn, yn) and lattice

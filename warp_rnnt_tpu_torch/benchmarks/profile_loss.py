@@ -1,10 +1,14 @@
-"""Where the time of one main-path call goes, on a CUDA device.
+"""Where the time of one loss+grad call goes, on a CUDA device.
 
-    python -m warp_rnnt_tpu_torch.benchmarks.profile_loss
+    python -m warp_rnnt_tpu_torch.benchmarks.profile_loss [--path main|A|B]
 
-Runs `rnnt_loss(log_probs (32, 150, 21, 5000), ..., reduction="mean",
-gather=True)` + backward under `torch.profiler`, and prints the device time
-of each kernel summed over the window, per call, with its share of the
+``main`` (the default) runs `rnnt_loss(log_probs (32, 150, 21, 5000), ...,
+reduction="mean", gather=True)` + backward; ``A`` and ``B`` run the compact
+layout, `rnnt_loss(xs (rows, V), ..., compact=True, reduction="mean")` +
+backward, at the two full-width cases of `chip_smoke.py` (A: N=32, T=150,
+20 labels, V=5000; B: N=16, T=1500, 300 labels, V=50; random lengths).
+Each runs under `torch.profiler`, and the script prints the device time of
+each kernel summed over the window, per call, with its share of the
 window's wall time, and the device's idle share.  The wall time includes
 the profiler's own host cost, so it reads higher than the chained time of
 `chip_smoke.py`.  Needs a CUDA device.
@@ -12,6 +16,7 @@ the profiler's own host cost, so it reads higher than the chained time of
 
 from __future__ import annotations
 
+import argparse
 import time
 
 import torch
@@ -20,14 +25,10 @@ from warp_rnnt_tpu_torch import rnnt_loss
 
 ITERS = 10
 SEED = 0
+CASES = {"A": dict(N=32, T=150, L=20, V=5000), "B": dict(N=16, T=1500, L=300, V=50)}
 
 
-def main():
-    if not torch.cuda.is_available():
-        raise SystemExit("profile_loss needs a CUDA device")
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
+def _main_step():
     N, T, U, V = 32, 150, 21, 5000
     g = torch.Generator(device="cuda").manual_seed(SEED)
     log_probs = torch.log_softmax(
@@ -43,6 +44,33 @@ def main():
         rnnt_loss(x, labels, xn, yn, reduction="mean", gather=True).backward()
         return x.grad
 
+    return step
+
+
+def _compact_step(case):
+    from warp_rnnt_tpu_torch.benchmarks.packed_cases import full_case
+
+    c = full_case(**CASES[case], seed=SEED)
+
+    def step():
+        x = c["xs"].detach().requires_grad_()
+        rnnt_loss(x, c["ys"], c["xn"], c["yn"], compact=True,
+                  reduction="mean").backward()
+        return x.grad
+
+    return step
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--path", choices=("main", *CASES), default="main")
+    args = parser.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_loss needs a CUDA device")
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    step = _main_step() if args.path == "main" else _compact_step(args.path)
     for _ in range(3):
         step()
     torch.cuda.synchronize()
@@ -64,10 +92,11 @@ def main():
             rows.append((dev_us / 1e3, ev.count, ev.key))
     rows.sort(reverse=True)
     busy_ms = sum(r[0] for r in rows)
-    print(f"{torch.cuda.get_device_name(0)}: {ITERS} calls, wall"
-          f" {wall_ms / ITERS:.4f} ms/call, device busy"
+    print(f"{torch.cuda.get_device_name(0)} path={args.path}: {ITERS} calls,"
+          f" wall {wall_ms / ITERS:.4f} ms/call, device busy"
           f" {busy_ms / ITERS:.4f} ms/call, idle share"
-          f" {1 - busy_ms / wall_ms:.3f}")
+          f" {1 - busy_ms / wall_ms:.3f}, {sum(r[1] for r in rows) // ITERS}"
+          " kernels/call")
     for ms, count, key in rows:
         print(f"{ms / ITERS:10.4f} ms/call {count // ITERS:4d} x/call"
               f" {ms / wall_ms:6.3f} of wall  {key[:90]}")

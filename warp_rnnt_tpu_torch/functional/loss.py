@@ -6,6 +6,8 @@ The loss runs where its inputs are: CUDA tensors go through the CUDA
 kernels, CPU tensors through the plain torch scan (``impl="auto"``).  Both
 values of ``gather`` take the gathered path: the (N, T, U, V) log-probs are
 reduced to an (N, T, U, 2) lattice whose backward is one dense write.
+``compact=True`` takes the packed (rows, V) layout through
+`functional.compact`.
 
 `reduction` and `average_frames` stay outside the autograd Function, so the
 core's backward receives a per-sample cotangent.
@@ -17,6 +19,7 @@ from typing import Optional
 
 import torch
 
+from warp_rnnt_tpu_torch.functional.compact import rnnt_loss_compact_costs
 from warp_rnnt_tpu_torch.functional.core import rnnt_core, rnnt_core_with_internals
 from warp_rnnt_tpu_torch.functional.gather import (
     gather_blank_label,
@@ -109,7 +112,8 @@ def rnnt_loss(
         pre-gathered (N, T, U, 2) lattice is expected (channel 0 = blank,
         1 = label).  Any floating dtype; the lattice is computed in fp32 and
         the gradient returned in the input dtype.  Must be contiguous.
-      labels: (N, U-1) int32 reference labels (unused when ``blank=-1``).
+      labels: (N, U-1) int32 reference labels (unused when ``blank=-1``;
+        compact: (sum(yn),)).
       frames_lengths: (N,) int32 number of valid frames per sample.
       labels_lengths: (N,) int32 number of labels per sample.
       average_frames: divide each sample's loss by its frame count.
@@ -118,9 +122,14 @@ def rnnt_loss(
       gather: accepted for reference API parity; both values take the
         gathered path.
       fastemit_lambda: FastEmit regularization (arXiv:2010.11148).
-      compact: the packed ragged layout; not ported yet.
+      compact: the packed ragged layout (reference compact mode):
+        ``log_probs`` is (rows, V) with rows >= sum(xn * (yn + 1)), labels
+        (sum(yn),); the gradient comes back packed, zero on pad rows (see
+        `warp_rnnt_tpu_torch.functional.compact`).  CUDA tensors go through
+        the packed gather/scatter kernels.
       impl: 'auto' | 'cuda' | 'scan' backend selector.
-      max_frames/max_labels: bounds of the compact layout; not ported yet.
+      max_frames/max_labels: lattice bounds of the compact layout (default
+        max(xn), max(yn)); a bound below the lengths raises.
 
     Returns:
       Loss with shape (N,) for reduction='none', else a scalar.
@@ -134,19 +143,22 @@ def rnnt_loss(
         )
     if not isinstance(blank, int):
         raise ValueError("blank must be an int")
+    xn, yn = frames_lengths, labels_lengths
     if compact:
-        raise NotImplementedError(
-            "compact=True is not ported to warp_rnnt_tpu_torch yet"
-            " (ROADMAP Queue A item 8)"
+        _validate_tensors(log_probs, labels, xn, yn, blank)
+        costs = rnnt_loss_compact_costs(
+            log_probs, labels, xn, yn, blank=blank,
+            fastemit_lambda=fastemit_lambda, impl=impl,
+            max_frames=max_frames, max_labels=max_labels,
         )
+        return _reduce(costs, xn, average_frames, reduction)
 
     if log_probs.dim() not in (3, 4):
         raise ValueError(
             "log_probs must have 4 dimensions (N, T, U, V) or 3 for the"
             " flat (N, T, U*V) layout"
         )
-    _validate_tensors(log_probs, labels, frames_lengths, labels_lengths, blank)
-    xn, yn = frames_lengths, labels_lengths
+    _validate_tensors(log_probs, labels, xn, yn, blank)
     if blank == -1:
         if log_probs.dim() != 4 or log_probs.shape[-1] != 2:
             raise ValueError(
@@ -158,10 +170,14 @@ def rnnt_loss(
     else:
         xs_gathered = _gather_blank_emit(log_probs, labels, blank)
     costs = rnnt_core(xs_gathered, xn, yn, fastemit_lambda, impl)
+    return _reduce(costs, xn, average_frames, reduction)
 
+
+def _reduce(costs, xn, average_frames, reduction):
+    """average_frames, then the reduction; outside the autograd Functions,
+    so their backward receives a per-sample cotangent."""
     if average_frames:
         costs = costs / xn.to(costs.dtype)
-
     if reduction in (None, "none"):
         return costs
     if reduction == "sum":

@@ -1,3 +1,3 @@
-from warp_rnnt_tpu_torch.models.joint import Joint, carry_flax_joint
+from warp_rnnt_tpu_torch.models.joint import Joint, carry_flax_joint, joint_logits
 
-__all__ = ["Joint", "carry_flax_joint"]
+__all__ = ["Joint", "carry_flax_joint", "joint_logits"]

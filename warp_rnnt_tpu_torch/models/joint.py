@@ -4,11 +4,14 @@
 Encoder frame vectors f (N, T, F) and predictor label vectors g (N, U, F')
 are combined per lattice cell ("add": f + g; "concat": [f, g]), projected to
 the joint width H, passed through tanh and projected to the vocabulary.
-Both dense layers compute in bf16, as Flax's ``Dense(dtype=bf16)`` does:
-inputs, kernel and bias are cast to bf16, the product's output and the bias
-sum are rounded to bf16.  The log_softmax runs in fp32.  bf16 is the JAX
-module's default ``compute_dtype``; its one caller that sets another,
-`rnnt_loss_joint`, is not ported yet, so the port has no such option.
+Both dense layers compute in ``compute_dtype``, as Flax's
+``Dense(dtype=compute_dtype)`` does: inputs, kernel and bias are cast to it,
+and the product's output and the bias sum are rounded to it.  bf16 is the
+default, as in the JAX module; float32 is the full-precision joint that
+`functional.joint_loss.rnnt_loss_joint` asks for with
+``compute_dtype=torch.float32``.  The log_softmax runs in fp32.
+`joint_logits` is the same computation on a ``params`` dict in the Flax
+(in, out) layout, the form `rnnt_loss_joint` differentiates.
 
 `carry_flax_joint` carries the weights of a Flax `Joint` across: its
 ``{"params": {"pre": {"kernel", "bias"}, "out": {...}}}`` tree, as numpy
@@ -23,44 +26,64 @@ import torch
 from torch import nn
 
 
+def _dense(x, w, b, cd):
+    """x @ w + b in ``cd``; w is (in, out)."""
+    return torch.matmul(x, w.to(cd)) + b.to(cd)
+
+
+def joint_logits(f, g, params, mode: str = "add",
+                 compute_dtype=torch.bfloat16, normalize: bool = True):
+    """The Tanh-MLP joint on ``params = dict(w_pre, b_pre, w_out, b_out)``
+    (Flax layout, kernels (in, out)): f (N, T, F), g (N, U, F') ->
+    log-probs (N, T, U, V) fp32, or raw fp32 logits when
+    ``normalize=False``.  Packed mode: 2-D rows f (STU, F), g (STU, F'),
+    one per lattice cell, give (STU, V)."""
+    if mode not in ("add", "concat"):
+        raise ValueError(f"unknown joint mode: {mode!r}")
+    cd = compute_dtype
+    f = f.to(cd)
+    g = g.to(cd)
+    if f.dim() == 2:
+        h = f + g if mode == "add" else torch.cat([f, g], dim=-1)
+    elif mode == "add":
+        h = f[:, :, None, :] + g[:, None, :, :]
+    else:
+        N, T, _ = f.shape
+        U = g.shape[1]
+        h = torch.cat([f[:, :, None, :].expand(N, T, U, f.shape[-1]),
+                       g[:, None, :, :].expand(N, T, U, g.shape[-1])], dim=-1)
+    h = torch.tanh(_dense(h, params["w_pre"], params["b_pre"], cd))
+    logits = _dense(h, params["w_out"], params["b_out"], cd).float()
+    return torch.log_softmax(logits, dim=-1) if normalize else logits
+
+
 class Joint(nn.Module):
     """Tanh-MLP joint: combine -> dense(H) -> tanh -> dense(V) -> log_softmax.
 
     ``in_features`` is F for "add" (both halves F wide) and F + F' for
     "concat".  The weights are ``nn.Linear``'s (out, in), made on ``device``
     (the card unless the caller asks for another); a Flax kernel is
-    (in, out), so `carry_flax_joint` transposes it.
+    (in, out), so `carry_flax_joint` transposes it.  ``compute_dtype`` is
+    the dense layers' dtype (bf16, or torch.float32).
     """
 
     def __init__(self, vocab_size: int, in_features: int, hidden: int = 512,
-                 mode: str = "add", device="cuda"):
+                 mode: str = "add", device="cuda", compute_dtype=torch.bfloat16):
         super().__init__()
         if mode not in ("add", "concat"):
             raise ValueError(f"unknown joint mode: {mode!r}")
         self.mode = mode
+        self.compute_dtype = compute_dtype
         self.pre = nn.Linear(in_features, hidden, device=device)
         self.out = nn.Linear(hidden, vocab_size, device=device)
 
-    @staticmethod
-    def _dense(layer, x):
-        bf16 = torch.bfloat16
-        return torch.matmul(x, layer.weight.to(bf16).t()) + layer.bias.to(bf16)
-
     def forward(self, f, g, normalize: bool = True):
         """f (N, T, F), g (N, U, F') -> log-probs (N, T, U, V) fp32 (raw
-        fp32 logits when ``normalize=False``)."""
-        f = f.to(torch.bfloat16)
-        g = g.to(torch.bfloat16)
-        if self.mode == "add":
-            h = f[:, :, None, :] + g[:, None, :, :]
-        else:
-            N, T, _ = f.shape
-            U = g.shape[1]
-            h = torch.cat([f[:, :, None, :].expand(N, T, U, f.shape[-1]),
-                           g[:, None, :, :].expand(N, T, U, g.shape[-1])], dim=-1)
-        h = torch.tanh(self._dense(self.pre, h))
-        logits = self._dense(self.out, h).float()
-        return torch.log_softmax(logits, dim=-1) if normalize else logits
+        fp32 logits when ``normalize=False``); 2-D rows give (STU, V)."""
+        params = {"w_pre": self.pre.weight.t(), "b_pre": self.pre.bias,
+                  "w_out": self.out.weight.t(), "b_out": self.out.bias}
+        return joint_logits(f, g, params, self.mode, self.compute_dtype,
+                            normalize)
 
 
 def carry_flax_joint(tree, mode: str = "add", device="cuda"):

@@ -21,11 +21,16 @@ fallback between the two.
 What the JAX module has and this one does not:
   * ``interpret`` (run the Pallas kernel in the interpreter) has no torch
     meaning: the device of the tensors picks the kernel or the plain code.
-  * `fused_joint_supported`, `_select_bv`, `_vmem_need` and `_tiles` answer
-    whether one V block fits the TPU's VMEM.  Hopper does not ask that: the
-    CUDA kernels walk V in chunks of 64 columns at any V, so there is one
-    route.  The V-blocked Pallas kernels (`_fwd_kernel_vb`, `_bwd_*_vb`)
-    are still to be held against these.
+  * `fused_joint_supported`, `_select_bv`, `_vmem_need`, `_tiles` and
+    `_pad_vocab` answer whether one V block fits the TPU's VMEM, and pad the
+    vocabulary to a whole number of blocks.  Hopper does not ask that: the
+    CUDA kernels walk V in chunks of 64 columns with a running (max, sum)
+    logsumexp at any V, and mask the last chunk's tail, so there is one
+    route.  The same kernels therefore also replace the V-blocked Pallas
+    kernels `_fwd_kernel_vb`, `_bwd_dadc_kernel_vb` and
+    `_bwd_dwdb_kernel_vb`: the CPU tests hold the plain versions against
+    them (JAX forced to 128-column blocks), and `chip_smoke.py` holds the
+    kernels against the plain versions at V=64000 and V=50257.
 
 What bounds the kernels and what their design does about it is noted at the
 top of `csrc/fused_joint.cu`.
@@ -368,24 +373,24 @@ def fused_joint_core(a, c, w, b, labels, xn, yn, blank=0, fastemit_lambda=0.0,
                                  fastemit_lambda, impl)
 
 
-def _bf16_round(x):
-    return x.to(torch.bfloat16).float()
-
-
-def _project(f, g, params, mode="add"):
+def _project(f, g, params, mode="add", compute_dtype=torch.bfloat16):
     """The joint's pre-projections: a = f @ A + b_pre (N, T, H) and
-    c = g @ C (N, U, H), bf16-rounded operands summed in fp32.  "add": A =
-    C = w_pre; "concat": A and C are w_pre's row blocks for f and g."""
+    c = g @ C (N, U, H), operands rounded to ``compute_dtype`` and summed in
+    fp32.  "add": A = C = w_pre; "concat": A and C are w_pre's row blocks
+    for f and g.  (`functional.joint_loss`'s compact layout uses it too:
+    it is the JAX package's `_pre_projections`.)"""
+    def rnd(x):
+        return x.to(compute_dtype).float()
+
     w_pre, b_pre = params["w_pre"], params["b_pre"]
     F = f.shape[-1]
     if mode == "add":
-        wa = wc = _bf16_round(w_pre)
+        wa = wc = rnd(w_pre)
     elif mode == "concat":
-        wa, wc = _bf16_round(w_pre[:F]), _bf16_round(w_pre[F:])
+        wa, wc = rnd(w_pre[:F]), rnd(w_pre[F:])
     else:
         raise ValueError(f"unknown joint mode: {mode!r}")
-    return (torch.matmul(_bf16_round(f), wa) + b_pre.float(),
-            torch.matmul(_bf16_round(g), wc))
+    return (torch.matmul(rnd(f), wa) + b_pre.float(), torch.matmul(rnd(g), wc))
 
 
 def rnnt_loss_fused_joint(
