@@ -58,6 +58,24 @@ Phases, in order; any failure exits non-zero before the last line:
      `rnnt_loss_fused_joint` at V=64000 once with its counts set to 0,
      against the padded layout; the kernels' times, and fused and padded
      loss+grad.
+ 13. the gather experiments' kernels (`csrc/gather.cu`: column gather,
+     blank/label gather in (N, T, U) and (N, U, T); `scatter_bwd` runs
+     `flat_write`): (a) each against its plain version, exact, on the cases
+     of `benchmarks/gather_cases.py` (T=13, C < 128 with a column in the
+     last partial 128-lane window, K=80, N=1, blank=3, lab == blank, labels
+     and columns out of range, bf16/fp16/fp64); then the slice's path once,
+     `benchmarks/exp_gather.py`'s kernel, stream, sparse and scatter
+     variants at N=32, counts set to 0 just before.  (b) At N=32 (2.02 GB),
+     128 (7.5 GiB, the JAX experiments' shape) and 144 (9.07 GB, past 2^31
+     elements): each gather against its plain version and the one
+     `torch.gather` call that gives the same values (the library
+     yardstick), exact, with kernel, device, plain, library and bound ms.
+     (c) `scatter_bwd` against its plain version, whole at N=32, per sample
+     at 128 and 144, with its times.  (d) The main path at N=128 and 144:
+     loss+grad on the 4-D input and the no-grad costs, counts set to 0
+     just before; costs against `impl="scan"` on the card, the gradient of
+     three whole samples against one-sample calls (offsets below 2^31) and
+     of the last against the plain CPU path; loss+grad ms and peak memory.
 
 It prints the kernels' JSON line and the card's line, and last
 `{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}`.
@@ -984,6 +1002,203 @@ def time_large_v(torch, wt, fj, timing, keep, rates, card):
           f" [{card}]")
     return times
 
+# ---- slice 4: the gather experiments' kernels, the main path at 7.5-9 GB ---
+
+# N=32: 2.02 GB of log-probs; N=128: 7.5 GiB, the JAX experiments' shape;
+# N=144: 9.07 GB, 2.27e9 elements, past 2^31.
+GATHER_N = (32, 128, 144)
+GATHER_PATH = ("gather_columns", "gather_fwd", "gather_fwd_sparse",
+               "flat_write")
+MAIN_PATH = ("lattice_fused", "lattice_beta_only", "flat_write")
+
+
+def phase_gather_kernels(torch, gk, gc):
+    """(a) Each gather kernel and `scatter_bwd` against its plain version
+    on the card, exact (`gather_cases.compare`)."""
+    errs = dict.fromkeys(GATHER_PATH, 0.0)
+    for name, (n, t, u, v, blank, dtype, k) in gc.CASES.items():
+        case = gc.make_case(n, t, u, v, blank, dtype, k, device="cuda")
+        r = gc.compare(gk, case)
+        torch.cuda.synchronize()
+        print(f"gather kernels {name} N,T,U,V={(n, t, u, v)} K={k}"
+              f" blank={blank} {dtype}: {r}")
+        errs = {key: max(errs[key], r[key]) for key in errs}
+    return errs
+
+
+def phase_gather_path(torch, eg, counters):
+    """The slice's path once: `exp_gather`'s kernel, stream, sparse and
+    scatter variants at N=32, each held against the plain gather, with the
+    counts set to 0 just before and read just after."""
+    d = eg.make(N, "cuda", SEED)
+    ref = eg.reference(d)
+    reset(counters)
+    for variant in ("kernel", "stream", "sparse", "scatter"):
+        eg.check(variant, d, ref)
+    torch.cuda.synchronize()
+    launches = {k: v for c in counters for k, v in c.items() if k in GATHER_PATH}
+    print(f"gather path launches: {launches}")
+    missing = [k for k in GATHER_PATH if launches.get(k, 0) < 1]
+    if missing:
+        raise AssertionError(f"gather path never launched: {missing}")
+    return launches
+
+
+def time_gathers(torch, eg, gk, timing, n, rates, card):
+    """(b) Rows 11-13 at N=n: kernel, plain version and library call (one
+    `torch.gather`, its int64 index made once outside the timing) must give
+    the same values; then their chained ms, the kernel's and the library's
+    device ms (graph replay, L2 flushed) and the byte bound."""
+    d = eg.make(n, "cuda", SEED + n)
+    xs, xs3, lab = d["xs"], d["xs3"], d["labels"]
+    t, u = xs.shape[1], xs.shape[2]
+    cols = gk.blank_label_cols(lab, eg.BLANK, eg.V)
+    k = cols.shape[1]
+    idx_cols = cols.long()[:, None, :].expand(n, t, k)
+    idx4 = torch.stack([torch.full_like(lab, eg.BLANK), lab],
+                       dim=-1).long()[:, None].expand(n, t, u, 2)
+    runs = {
+        "gather_columns": (gk.gather_columns_flat, gk.gather_columns_flat_plain,
+                           (xs3, cols), lambda *a: torch.gather(xs3, 2, idx_cols),
+                           lambda out: out[0]),
+        "gather_fwd": (gk.gather_fwd, gk.gather_fwd_plain, (xs, lab, eg.BLANK),
+                       lambda *a: torch.gather(xs, 3, idx4),
+                       lambda out: torch.stack(out, dim=-1)),
+        "gather_fwd_sparse": (gk.gather_fwd_sparse, gk.gather_fwd_sparse_plain,
+                              (xs3, lab, eg.BLANK, eg.V),
+                              lambda *a: torch.gather(xs3, 2, idx_cols),
+                              lambda out: torch.cat(out, dim=1).transpose(1, 2)),
+    }
+    as_tuple = lambda out: out if isinstance(out, tuple) else (out,)  # noqa: E731
+    first = eg.first_value
+    b_ms, b_by = bound_ms(eg.bound_bytes("kernel", n), 0, rates)
+    times = {}
+    for name, (fn, plain, args, library, as_library) in runs.items():
+        got, want = as_tuple(fn(*args)), as_tuple(plain(*args))
+        if not all(torch.equal(g, p) for g, p in zip(got, want)):
+            raise AssertionError(f"{name} N={n}: kernel != plain version")
+        if not torch.equal(as_library(got), library()):
+            raise AssertionError(f"{name} N={n}: kernel != torch.gather")
+        del got, want
+        r = dict(ms=timing.bench_scalar_chain(fn, args, 20, reduce_out=first),
+                 device_ms=timing.bench_graph(fn, args),
+                 plain_ms=timing.bench_scalar_chain(plain, args, 10,
+                                                    reduce_out=first),
+                 library_ms=timing.bench_scalar_chain(library, args, 20,
+                                                      reduce_out=first),
+                 library_device_ms=timing.bench_graph(library, args),
+                 bound_ms=b_ms, bound_by=b_by)
+        times[name] = r
+        print(f"time {name} N={n}: {json.dumps(r)} (kernel = plain ="
+              f" torch.gather, exact) [{card}]")
+    return times
+
+
+def time_scatter(torch, eg, gk, timing, n, rates, card):
+    """(c) `scatter_bwd` (row 14, the `flat_write` kernel) at N=n against
+    its plain version, exact: whole at N=32, and at larger N (where the
+    plain version's temporaries are several times the output) on three
+    whole samples, the last past 2^31 elements at N=144.  Then its ms."""
+    d = eg.make(n, "cuda", SEED + n)
+    args = (d["ct_b"], d["ct_l"], d["labels"], eg.BLANK, eg.V)
+    out = gk.scatter_bwd(*args)
+    samples = [slice(None)] if n == N else [slice(s, s + 1)
+                                            for s in (0, n // 2, n - 1)]
+    for s in samples:
+        want = gk.scatter_bwd_plain(*(a[s] for a in args[:3]), eg.BLANK, eg.V)
+        if not torch.equal(out[s], want):
+            raise AssertionError(f"scatter_bwd N={n} samples {s}: kernel !="
+                                 " plain version")
+        del want
+    del out
+    b_ms, b_by = bound_ms(eg.bound_bytes("scatter", n), 0, rates)
+    one = eg.first_value
+    r = dict(ms=timing.bench_scalar_chain(gk.scatter_bwd, args, 10,
+                                          reduce_out=one),
+             bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    if n == N:
+        r["plain_ms"] = timing.bench_scalar_chain(gk.scatter_bwd_plain, args, 4,
+                                                  repeats=1, reduce_out=one)
+    print(f"time scatter_bwd (flat_write) N={n}: {json.dumps(r)}; kernel ="
+          f" plain on {'all' if n == N else 'samples 0, N/2, N-1'} [{card}]")
+    return r
+
+
+def phase_big_main(torch, wt, timing, counters, n, rates, card):
+    """(d) The main path at N=n, once through the public entry point:
+    loss+grad (reduction="mean") on the 4-D input and the no-grad costs,
+    counts set to 0 just before and read just after.  Costs against
+    impl="scan" on the card (rtol 1e-5); the gradient of samples 0, n/2 and
+    n-1 against a one-sample call on the same card (offsets below 2^31,
+    cotangent 1/n as the mean's: within 1e-6 of its largest entry, bit for
+    bit in practice), and of sample n-1 against the plain CPU path (5e-3
+    of its largest entry, the tolerance of `check_main`).  Then loss+grad
+    ms and peak memory."""
+    log_probs, labels, xn, yn = make_inputs(torch, n, T, U, V, SEED + n)
+    reset(counters)
+    lp = log_probs.detach().requires_grad_()
+    loss = wt.rnnt_loss(lp, labels, xn, yn, reduction="mean", gather=True)
+    loss.backward()
+    with torch.no_grad():
+        costs_ng = wt.rnnt_loss(log_probs, labels, xn, yn, gather=True)
+    torch.cuda.synchronize()
+    launches = {k: v for c in counters for k, v in c.items() if k in MAIN_PATH}
+    print(f"main path N={n} launches: {launches}")
+    missing = [k for k in MAIN_PATH if launches.get(k, 0) < 1]
+    if missing:
+        raise AssertionError(f"main path N={n} never launched: {missing}")
+    grad, loss = lp.grad, loss.detach()
+    del lp
+    if not (torch.isfinite(costs_ng).all() and torch.isfinite(grad).all()):
+        raise AssertionError(f"main path N={n}: non-finite costs or gradient")
+    with torch.no_grad():
+        costs_s = wt.rnnt_loss(log_probs, labels, xn, yn, impl="scan")
+    cost_err = float((costs_ng - costs_s).abs().max())
+    if not (torch.allclose(costs_ng, costs_s, rtol=1e-5, atol=0.0)
+            and abs(float(costs_ng.mean()) - float(loss)) <= 1e-5 * abs(float(loss))):
+        raise AssertionError(f"main path N={n}: costs differ from the scan"
+                             f" ({cost_err}) or the loss from their mean")
+    readings = {}
+    for s in (0, n // 2, n - 1):
+        x = log_probs[s:s + 1].detach().clone().requires_grad_()
+        c = wt.rnnt_loss(x, labels[s:s + 1], xn[s:s + 1], yn[s:s + 1])
+        c.backward(torch.ones_like(c) / n)
+        err = float((grad[s] - x.grad[0]).abs().max())
+        scale = float(x.grad.abs().max())
+        readings[s] = (err, scale)
+        if not err <= 1e-6 * scale:
+            raise AssertionError(f"main path N={n}: sample {s}'s gradient"
+                                 f" differs from a one-sample call ({err})")
+        if s == n - 1:
+            xc = log_probs[s:s + 1].detach().cpu().requires_grad_()
+            cc = wt.rnnt_loss(xc, labels[s:s + 1].cpu(), xn[s:s + 1].cpu(),
+                              yn[s:s + 1].cpu())
+            cc.backward(torch.ones_like(cc) / n)
+            cpu_err = float((grad[s].cpu() - xc.grad[0]).abs().max())
+            if not cpu_err <= 5e-3 * float(xc.grad.abs().max()):
+                raise AssertionError(f"main path N={n}: sample {s}'s gradient"
+                                     f" differs from the CPU path ({cpu_err})")
+            del xc, cc
+        del x, c
+    print(f"main path N={n} vs scan: costs max abs err {cost_err}; gradient"
+          f" of samples 0, n/2, n-1 against one-sample calls (max abs err,"
+          f" max |grad|) {readings}; sample {n - 1} against the CPU path max"
+          f" abs err {cpu_err}")
+    del grad, costs_ng, costs_s
+
+    def step(x):
+        x = x.detach().requires_grad_()
+        out = wt.rnnt_loss(x, labels, xn, yn, reduction="mean", gather=True)
+        out.backward()
+        return out.detach(), x.grad
+
+    ms, peak = peak_and_time(torch, timing, step, log_probs, 6)
+    R = n * T * U
+    b_ms, _ = bound_ms(R * V * 4 + 2 * R * 4, 0, rates)
+    print(f"time loss+grad main path N={n}: ms={ms} peak_mem_bytes={peak}"
+          f" ({peak / 2**30:.3f} GiB above the inputs) bound_ms={b_ms}"
+          f" bound_by=bytes [{card}]")
+
 
 def main():
     import torch
@@ -1105,26 +1320,59 @@ def main():
         torch, np, wt, fj, fj_cases, carry_flax_joint, counters)
     large_times = time_large_v(torch, wt, fj, timing, keep, rates, card)
     del keep
+    torch.cuda.empty_cache()
+
+    # slice 4: the gather experiments' kernels at 2-9 GB, the main path at
+    # 7.5 GiB and 9.07 GB
+    from warp_rnnt_tpu_torch.benchmarks import exp_gather as eg
+    from warp_rnnt_tpu_torch.benchmarks import gather_cases as gc
+    from warp_rnnt_tpu_torch.ops import gather_kernels as gk
+
+    counters.append(gk.LAUNCHES)
+    errs.update(phase_gather_kernels(torch, gk, gc))
+    gather_launches = phase_gather_path(torch, eg, counters)
+    gather_times, scatter_times = {}, {}
+    for n in GATHER_N:
+        gather_times[n] = time_gathers(torch, eg, gk, timing, n, rates, card)
+        scatter_times[n] = time_scatter(torch, eg, gk, timing, n, rates, card)
+        torch.cuda.empty_cache()
+    for n in GATHER_N[1:]:
+        phase_big_main(torch, wt, timing, counters, n, rates, card)
+        torch.cuda.empty_cache()
+    for name in GATHER_PATH[:3]:
+        times[name] = gather_times[N][name]
 
     fj_src = "warp_rnnt_tpu/ops/fused_joint.py"
     pk_src = "warp_rnnt_tpu/ops/packed_kernels.py"
+    eg_src = "scripts/exp_pallas_gather.py"
     sources = {"lattice_fused": ("lattice.cu", "warp_rnnt_tpu/ops/pallas_impl.py:134"),
                "lattice_beta_only": ("lattice.cu", "warp_rnnt_tpu/ops/pallas_impl.py:124"),
-               "flat_write": ("flat_write.cu", "warp_rnnt_tpu/ops/flat_kernels.py:69"),
+               "flat_write": ("flat_write.cu", "warp_rnnt_tpu/ops/flat_kernels.py:69"
+                              f" and {eg_src}:196"),
                "fused_joint_fwd": ("fused_joint.cu", f"{fj_src}:60 and {fj_src}:245"),
                "fused_joint_bwd_dadc": ("fused_joint.cu",
                                         f"{fj_src}:100 and {fj_src}:294"),
                "fused_joint_bwd_dwdb": ("fused_joint.cu",
                                         f"{fj_src}:100 and {fj_src}:356"),
                "packed_gather": ("packed.cu", f"{pk_src}:130"),
-               "packed_scatter": ("packed.cu", f"{pk_src}:193")}
-    path_launches = {**launches, **fj_launches, **compact_launches["A"]}
+               "packed_scatter": ("packed.cu", f"{pk_src}:193"),
+               "gather_columns": ("gather.cu", "scripts/exp_colgather.py:117"),
+               "gather_fwd": ("gather.cu", f"{eg_src}:63"),
+               "gather_fwd_sparse": ("gather.cu", f"{eg_src}:124")}
+    path_launches = {**launches, **fj_launches, **compact_launches["A"],
+                     **{k: gather_launches[k] for k in GATHER_PATH[:3]}}
     kernels = []
     for name, (src, replaces) in sources.items():
         entry = {"name": name, "route": "cuda",
                  "source": f"warp_rnnt_tpu_torch/csrc/{src}", "replaces": replaces,
                  "launches": path_launches[name], "max_abs_err": errs[name],
-                 **times[name], "library_ms": None}
+                 "library_ms": None, **times[name]}
+        if name in gather_times[N]:
+            entry.update({f"N={n}": gather_times[n][name] for n in GATHER_N[1:]})
+        if name == "flat_write":
+            entry["scatter_bwd"] = {
+                "launches": gather_launches[name],
+                **{f"N={n}": scatter_times[n] for n in GATHER_N}}
         if name.startswith("packed"):
             entry["case_B"] = {"launches": compact_launches["B"][name],
                                **packed_times["B"][name]}
@@ -1133,6 +1381,7 @@ def main():
                 "launches": large_launches[name], **large_times[name],
                 "max_abs_err": max(e[name] for e in large_errs.values())}
         kernels.append(entry)
+    print(f"whole run from the build: {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -17,8 +17,10 @@ Two rules make a per-call device time trustworthy:
     timed window (the first launch's host latency, the event records).
 
 Times come from `torch.cuda.Event`s recorded on the current stream around
-the chain, read after `synchronize()`.  There is no CPU route: without a
-CUDA device these functions raise.
+the chain, read after `synchronize()`.  A call whose device work is shorter
+than its host launch path reads the host in a chain; `bench_graph` times
+such calls on the device alone, replaying them from a CUDA graph.  There is
+no CPU route: without a CUDA device these functions raise.
 """
 
 from __future__ import annotations
@@ -110,3 +112,38 @@ def bench_scalar_chain(fn, args, iters, warmup=3, repeats=2, reduce_out=None):
         state["acc"] = acc
 
     return _two_point(run, iters, repeats)
+
+
+def bench_graph(fn, args, calls=32, flush_bytes=96 << 20):
+    """Device ms per call of `fn(*args)` with the host's launch cost taken
+    out, for calls whose work is shorter than their launch path (a chained
+    time then reads the host).  `calls` calls are captured in one CUDA graph
+    and replayed, timed with CUDA events, best of three replays.
+
+    Before each call a write of `flush_bytes` (default 96 MiB, more than the
+    50 MB L2 cache) evicts what the last call read, so the call finds its
+    inputs in device memory, as a caller that has just written other data
+    does; the writes' own time, from a graph of writes alone, is
+    subtracted.  Outputs are dropped."""
+    _require_cuda()
+    device = next(a for a in args if isinstance(a, torch.Tensor)).device
+    flush = torch.empty(max(flush_bytes // 4, 1), dtype=torch.float32,
+                        device=device)
+    fn(*args)  # warm up outside the capture (builds, lazy inits)
+    torch.cuda.synchronize()
+
+    def graph_ms(with_call):
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            for _ in range(calls):
+                if flush_bytes:
+                    flush.fill_(1.0)
+                if with_call:
+                    fn(*args)
+        g.replay()
+        torch.cuda.synchronize()
+        return min(_elapsed_ms(lambda _: g.replay(), 1)
+                   for _ in range(3)) / calls
+
+    flush_ms = graph_ms(False) if flush_bytes else 0.0
+    return max(graph_ms(True) - flush_ms, 0.0)
