@@ -229,8 +229,14 @@ def reset(counters):
             c[key] = 0
 
 
+# The main path's kernels: the forward gather, both sweeps, the write.
+MAIN_PATH = ("gather_lattice", "lattice_fused", "lattice_beta_only",
+             "flat_write")
+
+
 def phase_main(torch, wt, counters, inputs):
-    """The main path once, through the public entry points."""
+    """The main path once, through the public entry points: three calls,
+    each with one forward gather."""
     log_probs, labels, xn, yn = inputs
     reset(counters)
 
@@ -243,11 +249,14 @@ def phase_main(torch, wt, counters, inputs):
     with torch.no_grad():
         costs_ng = wt.rnnt_loss(log_probs, labels, xn, yn, gather=True)
     torch.cuda.synchronize()
-    launches = {k: v for c in counters for k, v in c.items()}
+    launches = launched(counters)
     print(f"main path launches: {launches}")
-    missing = [k for k, v in launches.items() if v < 1]
-    if missing:
-        raise AssertionError(f"main path never launched: {missing}")
+    missing = [k for k in MAIN_PATH if launches.get(k, 0) < 1]
+    if missing or set(launches) - set(MAIN_PATH):
+        raise AssertionError(f"main path launched {launches}, its kernels"
+                             f" are {MAIN_PATH}")
+    if launches["gather_lattice"] != 3:
+        raise AssertionError("main path: not one gather launch a call")
     return launches, loss, lp.grad, loss3, lp3.grad, costs_ng
 
 
@@ -505,38 +514,50 @@ def check_fused_main(torch, wt, cases_mod, joint, fjin, loss, grads, costs_g,
 
 def time_fused_kernels(torch, fj, timing, full_case, rates, card, tag=""):
     """Each fused kernel and its plain version (CUDA events, chained), its
-    bound by bf16 tensor-core operations, on the operands of ``full_case``."""
+    bound by bf16 tensor-core operations, on the operands of ``full_case``;
+    at H > 512 also the h kernel, bound by its bytes."""
     (a, c, w, b, lab, xn, yn), (db, de) = full_case
     N, T, H = a.shape
     U, V = c.shape[1], w.shape[1]
     R = N * T * U
     blank = 0
     bl, el, logz = fj.joint_lattice_fwd(a, c, w, b, lab, xn, yn, blank)
-    ops_k, lat, dims = fj._bwd_operands(a, c, w, b, lab, xn, logz, db, de, blank)
-    _, _, h16 = fj._bwd_dadc(ops_k, lab, xn, lat, dims, blank)
+    ops_k, lat, dims, _ = fj._bwd_operands(a, c, w, b, lab, xn, logz, db, de,
+                                           blank)
+    Hp, S = dims[3], dims[5]
+    h16 = fj._hidden(ops_k[0], ops_k[1], xn, dims) if S > 1 else None
+    _, _, h16 = fj._bwd_dadc(ops_k, lab, xn, lat, dims, blank, h16)
     args = (a, c, w, b, lab, xn, yn, logz, db, de, blank)
     first = lambda out: out[0].view(-1)[0]  # noqa: E731
     prod = 2 * R * H * V  # one R x H x V product
     # bytes: a, c fp32, W bf16, b fp32, labels in; three lattices out (fwd),
     # or three lattices in and the gradients out (bwd)
     io_in = (N * T * H + N * U * H) * 4 + H * V * 2 + V * 4 + N * U * 4
-    times = {}
-    for name, fn, plain, fargs, nbytes, nops in (
+    runs = [
         ("fused_joint_fwd", fj.joint_lattice_fwd, fj.joint_lattice_fwd_plain,
-         (a, c, w, b, lab, xn, yn, blank), io_in + 3 * R * 4, prod),
+         (a, c, w, b, lab, xn, yn, blank), io_in + 3 * R * 4, prod, BF16),
         ("fused_joint_bwd_dadc",
-         lambda *x: fj._bwd_dadc(ops_k, lab, xn, lat, dims, blank),
+         lambda *x: fj._bwd_dadc(ops_k, lab, xn, lat, dims, blank, h16),
          fj.bwd_dadc_plain, args, io_in + 3 * R * 4 + (N * T + N * U) * H * 4,
-         2 * prod),
+         2 * prod, BF16),
         ("fused_joint_bwd_dwdb",
          lambda *x: fj._bwd_dwdb(h16, ops_k, lab, xn, lat, dims, blank),
          fj.bwd_dwdb_plain, args,
-         R * H * 2 + H * V * 2 + V * 4 + 3 * R * 4 + (H * V + V) * 4, 2 * prod),
-    ):
+         R * H * 2 + H * V * 2 + V * 4 + 3 * R * 4 + (H * V + V) * 4, 2 * prod,
+         BF16),
+    ]
+    if S > 1:  # a, c in, h out as bf16; an add and a tanh an element
+        runs.append(("fused_joint_hidden",
+                     lambda *x: fj._hidden(ops_k[0], ops_k[1], xn, dims),
+                     fj.hidden_plain, (a, c, xn),
+                     (N * T * H + N * U * H) * 4 + N * 4 + R * H * 2, 2 * R * H,
+                     1))
+    times = {}
+    for name, fn, plain, fargs, nbytes, nops, rate in runs:
         ms = timing.bench_scalar_chain(fn, fargs, 10, reduce_out=first)
         plain_ms = timing.bench_scalar_chain(plain, fargs, 2, repeats=1,
                                              reduce_out=first)
-        b_ms, b_by = bound_ms(nbytes, nops, rates, BF16)
+        b_ms, b_by = bound_ms(nbytes, nops, rates, rate)
         times[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
         print(f"time {name}{tag}: ms={ms} plain_ms={plain_ms} bound_ms={b_ms}"
               f" bound_by={b_by} [{card}]")
@@ -1008,17 +1029,20 @@ def time_large_v(torch, wt, fj, timing, keep, rates, card):
 # N=144: 9.07 GB, 2.27e9 elements, past 2^31.
 GATHER_N = (32, 128, 144)
 GATHER_PATH = ("gather_columns", "gather_fwd", "gather_fwd_sparse",
-               "flat_write")
-MAIN_PATH = ("lattice_fused", "lattice_beta_only", "flat_write")
+               "gather_lattice", "flat_write")
 
 
-def phase_gather_kernels(torch, gk, gc):
+def phase_gather_kernels(torch, gk, gc, gather_plain):
     """(a) Each gather kernel and `scatter_bwd` against its plain version
-    on the card, exact (`gather_cases.compare`)."""
+    on the card, exact (`gather_cases.compare`; labels at -1, V + 7 and the
+    blank, in fp32, bf16, fp16 and fp64), and the lattice kernel against
+    the main path's plain formulation where the labels are in range
+    (`gather_cases.main_path_lattice`)."""
     errs = dict.fromkeys(GATHER_PATH, 0.0)
     for name, (n, t, u, v, blank, dtype, k) in gc.CASES.items():
         case = gc.make_case(n, t, u, v, blank, dtype, k, device="cuda")
         r = gc.compare(gk, case)
+        gc.main_path_lattice(gk, gather_plain, case)
         torch.cuda.synchronize()
         print(f"gather kernels {name} N,T,U,V={(n, t, u, v)} K={k}"
               f" blank={blank} {dtype}: {r}")
@@ -1027,13 +1051,13 @@ def phase_gather_kernels(torch, gk, gc):
 
 
 def phase_gather_path(torch, eg, counters):
-    """The slice's path once: `exp_gather`'s kernel, stream, sparse and
-    scatter variants at N=32, each held against the plain gather, with the
-    counts set to 0 just before and read just after."""
+    """The slice's path once: `exp_gather`'s kernel, stream, sparse,
+    lattice and scatter variants at N=32, each held against the plain
+    gather, with the counts set to 0 just before and read just after."""
     d = eg.make(N, "cuda", SEED)
     ref = eg.reference(d)
     reset(counters)
-    for variant in ("kernel", "stream", "sparse", "scatter"):
+    for variant in ("kernel", "stream", "sparse", "lattice", "scatter"):
         eg.check(variant, d, ref)
     torch.cuda.synchronize()
     launches = {k: v for c in counters for k, v in c.items() if k in GATHER_PATH}
@@ -1044,11 +1068,16 @@ def phase_gather_path(torch, eg, counters):
     return launches
 
 
-def time_gathers(torch, eg, gk, timing, n, rates, card):
-    """(b) Rows 11-13 at N=n: kernel, plain version and library call (one
-    `torch.gather`, its int64 index made once outside the timing) must give
-    the same values; then their chained ms, the kernel's and the library's
-    device ms (graph replay, L2 flushed) and the byte bound."""
+def time_gathers(torch, eg, gk, timing, gather_plain, n, rates, card):
+    """(b) The gather wrappers at N=n, each with the one `torch.gather`
+    call that gives the same values (its int64 index made once outside the
+    timing; the library yardstick) and, for the main path's lattice, the
+    previous formulation (``gather_plain``: an index cast, a `torch.gather`
+    and a stack): all exact against the kernel and its plain version.
+    Then, in turns (kernel, library, kernel, library): chained ms, device
+    ms (graph replay, L2 flushed) and host us per call (`timing.bench_host`,
+    the calls queued behind a device-side sleep); the plain version's
+    chained ms and the byte bound."""
     d = eg.make(n, "cuda", SEED + n)
     xs, xs3, lab = d["xs"], d["xs3"], d["labels"]
     t, u = xs.shape[1], xs.shape[2]
@@ -1060,37 +1089,59 @@ def time_gathers(torch, eg, gk, timing, n, rates, card):
     runs = {
         "gather_columns": (gk.gather_columns_flat, gk.gather_columns_flat_plain,
                            (xs3, cols), lambda *a: torch.gather(xs3, 2, idx_cols),
-                           lambda out: out[0]),
+                           lambda out: out),
         "gather_fwd": (gk.gather_fwd, gk.gather_fwd_plain, (xs, lab, eg.BLANK),
                        lambda *a: torch.gather(xs, 3, idx4),
-                       lambda out: torch.stack(out, dim=-1)),
+                       lambda out: out.permute(1, 2, 3, 0)),
         "gather_fwd_sparse": (gk.gather_fwd_sparse, gk.gather_fwd_sparse_plain,
                               (xs3, lab, eg.BLANK, eg.V),
                               lambda *a: torch.gather(xs3, 2, idx_cols),
-                              lambda out: torch.cat(out, dim=1).transpose(1, 2)),
+                              lambda out: out.transpose(0, 1).reshape(
+                                  n, 2 * u, t).transpose(1, 2)),
+        "gather_lattice": (gk.gather_lattice, gk.gather_lattice_plain,
+                           (xs, lab, eg.BLANK),
+                           lambda *a: torch.gather(xs, 3, idx4),
+                           lambda out: out),
     }
-    as_tuple = lambda out: out if isinstance(out, tuple) else (out,)  # noqa: E731
     first = eg.first_value
     b_ms, b_by = bound_ms(eg.bound_bytes("kernel", n), 0, rates)
     times = {}
     for name, (fn, plain, args, library, as_library) in runs.items():
-        got, want = as_tuple(fn(*args)), as_tuple(plain(*args))
-        if not all(torch.equal(g, p) for g, p in zip(got, want)):
+        got = fn(*args)
+        if not torch.equal(got, plain(*args)):
             raise AssertionError(f"{name} N={n}: kernel != plain version")
         if not torch.equal(as_library(got), library()):
             raise AssertionError(f"{name} N={n}: kernel != torch.gather")
-        del got, want
-        r = dict(ms=timing.bench_scalar_chain(fn, args, 20, reduce_out=first),
-                 device_ms=timing.bench_graph(fn, args),
-                 plain_ms=timing.bench_scalar_chain(plain, args, 10,
-                                                    reduce_out=first),
-                 library_ms=timing.bench_scalar_chain(library, args, 20,
-                                                      reduce_out=first),
-                 library_device_ms=timing.bench_graph(library, args),
-                 bound_ms=b_ms, bound_by=b_by)
+        if name == "gather_lattice" and not torch.equal(got, gather_plain(*args)):
+            raise AssertionError(f"{name} N={n}: kernel != the previous"
+                                 " formulation")
+        del got
+        r = {}
+        for key, measure in (
+                ("ms", lambda f: timing.bench_scalar_chain(f, args, 20,
+                                                          reduce_out=first)),
+                ("device_ms", lambda f: timing.bench_graph(f, args)),
+                ("host_us", lambda f: timing.bench_host(f, args))):
+            for _ in range(2):
+                r.setdefault(f"{key}_readings", []).append(measure(fn))
+                r.setdefault(f"library_{key}_readings", []).append(
+                    measure(library))
+            r[key] = min(r[f"{key}_readings"])
+            r[f"library_{key}"] = min(r[f"library_{key}_readings"])
+        r["plain_ms"] = timing.bench_scalar_chain(plain, args, 10,
+                                                  reduce_out=first)
+        if name == "gather_lattice":
+            r["previous_ms"] = timing.bench_scalar_chain(gather_plain, args, 20,
+                                                         reduce_out=first)
+            r["previous_device_ms"] = timing.bench_graph(gather_plain, args)
+        r.update(bound_ms=b_ms, bound_by=b_by,
+                 bound_share=b_ms / r["device_ms"] if r["device_ms"] else None)
         times[name] = r
         print(f"time {name} N={n}: {json.dumps(r)} (kernel = plain ="
               f" torch.gather, exact) [{card}]")
+        if r["ms"] > r["library_ms"]:
+            print(f"note: {name} N={n} chained {r['ms']} ms > torch.gather"
+                  f" {r['library_ms']} ms")
     return times
 
 
@@ -1124,7 +1175,38 @@ def time_scatter(torch, eg, gk, timing, n, rates, card):
     return r
 
 
-def phase_big_main(torch, wt, timing, counters, n, rates, card):
+def check_previous_formulation(torch, wt, fk, gather_plain, inputs, loss,
+                               grad, tag):
+    """The main path's lattice, loss and gradient against the previous
+    formulation's on the same card, bit for bit: the plain gather (index
+    cast, `torch.gather`, stack) into the pre-gathered loss (blank=-1,
+    reduction="mean"), whose lattice gradient the same `flat_write` kernel
+    writes densely."""
+    from warp_rnnt_tpu_torch.functional.loss import _labels_ext
+    from warp_rnnt_tpu_torch.ops import gather_kernels as gk
+
+    log_probs, labels, xn, yn = inputs
+    n, t, u, v = log_probs.shape
+    lab = _labels_ext(labels, 0)
+    lat = gather_plain(log_probs, lab, 0)
+    same_lat = torch.equal(gk.gather_lattice(log_probs, lab, 0), lat)
+    lat.requires_grad_()
+    ref = wt.rnnt_loss(lat, labels, xn, yn, blank=-1, reduction="mean")
+    ref.backward()
+    ref_grad = fk.flat_grad_write(lat.grad[..., 0].contiguous(),
+                                  lat.grad[..., 1].contiguous(), lab, 0, v,
+                                  u * v)
+    same_loss = torch.equal(loss, ref.detach())
+    same_grad = torch.equal(grad.reshape(-1), ref_grad.view(-1))
+    print(f"main path {tag} against the previous formulation: lattice equal"
+          f" {same_lat}, loss equal {same_loss}, gradient equal {same_grad}")
+    if not (same_lat and same_loss and same_grad):
+        raise AssertionError(f"main path {tag}: differs from the previous"
+                             " formulation")
+
+
+def phase_big_main(torch, wt, fk, gather_plain, timing, counters, n, rates,
+                   card):
     """(d) The main path at N=n, once through the public entry point:
     loss+grad (reduction="mean") on the 4-D input and the no-grad costs,
     counts set to 0 just before and read just after.  Costs against
@@ -1142,13 +1224,18 @@ def phase_big_main(torch, wt, timing, counters, n, rates, card):
     with torch.no_grad():
         costs_ng = wt.rnnt_loss(log_probs, labels, xn, yn, gather=True)
     torch.cuda.synchronize()
-    launches = {k: v for c in counters for k, v in c.items() if k in MAIN_PATH}
+    launches = launched(counters)
     print(f"main path N={n} launches: {launches}")
     missing = [k for k in MAIN_PATH if launches.get(k, 0) < 1]
-    if missing:
-        raise AssertionError(f"main path N={n} never launched: {missing}")
+    if missing or set(launches) - set(MAIN_PATH):
+        raise AssertionError(f"main path N={n} launched {launches}")
+    if launches["gather_lattice"] != 2:
+        raise AssertionError(f"main path N={n}: not one gather launch a call")
     grad, loss = lp.grad, loss.detach()
     del lp
+    check_previous_formulation(torch, wt, fk, gather_plain,
+                               (log_probs, labels, xn, yn), loss, grad,
+                               f"N={n}")
     if not (torch.isfinite(costs_ng).all() and torch.isfinite(grad).all()):
         raise AssertionError(f"main path N={n}: non-finite costs or gradient")
     with torch.no_grad():
@@ -1200,6 +1287,227 @@ def phase_big_main(torch, wt, timing, counters, n, rates, card):
           f" bound_by=bytes [{card}]")
 
 
+# ---- slice 5: the two faults, the fused joint at any width and N --------
+
+# Fault 2's widths at the fused slice's lattice (FJ), and the kernels' times
+# beside their bounds at the widths past one 512-column slice.
+WIDE_H = (200, 640, 1024)
+WIDE_TIMED = (640, 1024)
+# The entry points at a width past four slices on a smaller lattice, and at
+# more samples than a grid's y dimension holds.
+WIDE_SMALL = {"H=2048": dict(N=2, T=50, U=11, V=1000, H=2048, F=256),
+              "N=65537": dict(N=65537, T=1, U=2, V=64, H=16, F=16)}
+FJ_WIDE_PATH = ("fused_joint_hidden", *FJ_PATH)
+
+
+def neg_inf_inputs(torch, np, headline):
+    """Fault 1's input: cell (n=0, t=2, u=1) set to -inf (its blank and its
+    label log-prob).  Small: log-softmax of seed-0 normals (numpy's default
+    generator), N=2, T=6, U=4, V=7, xn=(6, 5), yn=(3, 2); headline: the main
+    path's seeded inputs at N=32, T=150, U=21, V=5000."""
+    if headline:
+        log_probs, labels, xn, yn = make_inputs(torch, N, T, U, V, SEED)
+    else:
+        rng = np.random.default_rng(0)
+        x = rng.standard_normal((2, 6, 4, 7))
+        x = (x - np.log(np.exp(x).sum(-1, keepdims=True))).astype(np.float32)
+        i32 = dict(dtype=torch.int32, device="cuda")
+        log_probs = torch.tensor(x, device="cuda")
+        labels = torch.tensor(rng.integers(1, 7, (2, 3)), **i32)
+        xn, yn = torch.tensor([6, 5], **i32), torch.tensor([3, 2], **i32)
+    log_probs[0, 2, 1, :] = -float("inf")
+    return log_probs, labels, xn, yn
+
+
+def phase_neg_inf(torch, np, wt, cuda_impl, costs_and_grads):
+    """Fault 1: at the -inf cell, on the small input and at the headline
+    shape, the kernels give finite costs and gradients; the lattice kernels
+    equal their twin on valid cells (1e-5, as phase 2), the kernel path's
+    costs and gathered gradients the twin's (rtol 1e-5; 1e-5 of the largest
+    gradient); the loss equals `impl="scan"`'s (costs rtol 1e-5, gradients
+    1e-5 of their largest on the small input, `check_main`'s 5e-3 at the
+    headline shape).  Returns the largest kernel-against-twin error."""
+    from warp_rnnt_tpu_torch.functional.loss import _labels_ext
+
+    worst = 0.0
+    for headline in (False, True):
+        log_probs, labels, xn, yn = neg_inf_inputs(torch, np, headline)
+        n, t, u, v = log_probs.shape
+        out = {}
+        for impl in ("cuda", "scan"):
+            x = log_probs.detach().clone().requires_grad_()
+            costs = wt.rnnt_loss(x, labels, xn, yn, impl=impl)
+            costs.sum().backward()
+            out[impl] = (costs.detach(), x.grad)
+        (kc, kg), (sc, sg) = out["cuda"], out["scan"]
+        lab = _labels_ext(labels, 0)
+        blank = log_probs[..., 0].contiguous()
+        emit = torch.gather(log_probs, 3, lab.long()[:, None, :, None].expand(
+            n, t, u, 1))[..., 0].contiguous()
+        mask = valid_mask(torch, xn, yn, t, u)
+        lat_err = 0.0
+        for k, p in zip(cuda_impl.alpha_beta(blank, emit, xn, yn),
+                        cuda_impl.alpha_beta_plain(blank, emit, xn, yn)):
+            k, p = k[mask], p[mask]
+            if not (torch.isfinite(k).all()
+                    and ((k - p).abs() <= 1e-5 * p.abs() + 1e-5).all()):
+                raise AssertionError("fault 1: lattice kernel != twin")
+            lat_err = max(lat_err, float((k - p).abs().max()))
+        kernel = cuda_impl.forward_backward(blank, emit, xn, yn)[:3]
+        twin = costs_and_grads(blank, emit, *cuda_impl.alpha_beta_plain(
+            blank, emit, xn, yn), xn, yn, 0.0)
+        cost_err = float(((kernel[0] - twin[0]).abs() / twin[0].abs()).max())
+        grad_err = max(float((k - p).abs().max()) / float(p.abs().max())
+                       for k, p in zip(kernel[1:], twin[1:]))
+        scan_cost = float(((kc - sc).abs() / sc.abs()).max())
+        scan_grad = float((kg - sg).abs().max()) / float(sg.abs().max())
+        tag = "N=32 T=150 U=21 V=5000" if headline else "N=2 T=6 U=4 V=7"
+        print(f"fault 1 (-inf cell) {tag}: costs[:2] {kc[:2].tolist()};"
+              f" lattice kernel vs twin max abs err {lat_err}; kernel vs twin"
+              f" costs rel {cost_err}, grads {grad_err} of the largest;"
+              f" vs scan costs rel {scan_cost}, grads {scan_grad} of the"
+              " largest")
+        finite = all(bool(torch.isfinite(x).all()) for x in (kc, kg, *kernel))
+        if not (finite and cost_err <= 1e-5 and grad_err <= 1e-5
+                and scan_cost <= 1e-5
+                and scan_grad <= (5e-3 if headline else 1e-5)):
+            raise AssertionError(f"fault 1 {tag}: non-finite, or off the"
+                                 " twin or the scan")
+        if not headline and abs(float(kc[0]) - 13.585902) > 1e-5 * 13.585902:
+            raise AssertionError("fault 1: sample 0's cost is not 13.585902")
+        worst = max(worst, lat_err)
+        del log_probs, out, kc, kg, sc, sg
+    return worst
+
+
+def wide_inputs(torch, np, carry, d, seed):
+    """Carried params of a Flax-layout tree at d's widths, f, g, labels in
+    [1, V) and full lengths on the card (d: N, T, U, V, H, F)."""
+    _, params = carry(fj_tree(np, seed, d["F"], d["H"], d["V"]), device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    f = torch.randn(d["N"], d["T"], d["F"], generator=gen, device="cuda")
+    g = torch.randn(d["N"], d["U"], d["F"], generator=gen, device="cuda")
+    labels = torch.randint(1, d["V"], (d["N"], d["U"] - 1), generator=gen,
+                           device="cuda", dtype=torch.int32)
+    i32 = dict(dtype=torch.int32, device="cuda")
+    xn = torch.full((d["N"],), d["T"], **i32)
+    yn = torch.full((d["N"],), d["U"] - 1, **i32)
+    return (f, g, labels, xn, yn), params
+
+
+def wide_entry_points(torch, wt, fj, cases_mod, counters, jin, params, tag):
+    """Loss+grad through `rnnt_loss_fused_joint` and
+    `rnnt_loss_joint(layout="fused")`, counts set to 0 just before and read
+    just after (the three fused kernels and the alpha+beta sweep; the h
+    kernel when H takes more than one slice, and only then), each against
+    the padded layout (loss rtol 2e-3,
+    gradients 2e-2 of their largest, w_out and b_out per column group).
+    Returns the launches of the first."""
+    f, g, labels, xn, yn = jin
+    H, V = params["w_out"].shape
+    sliced = fj.h_plan(H)[1] > 1
+    want = tuple(k for k in FJ_WIDE_PATH if k != "lattice_beta_only"
+                 and (sliced or k != "fused_joint_hidden"))
+
+    def loss_grad(layout):
+        fr, gr = f.detach().requires_grad_(), g.detach().requires_grad_()
+        pr = {k: v.detach().requires_grad_() for k, v in params.items()}
+        if layout == "entry":
+            loss = wt.rnnt_loss_fused_joint(fr, gr, pr, labels, xn, yn,
+                                            reduction="mean")
+        else:
+            loss = wt.rnnt_loss_joint(fr, gr, pr, labels, xn, yn,
+                                      reduction="mean", layout=layout)
+        loss.backward()
+        return loss.detach(), {"f": fr.grad, "g": gr.grad,
+                               **{k: v.grad for k, v in pr.items()}}
+
+    ref_loss, ref_grads = loss_grad("padded")
+    groups = cases_mod.column_groups(labels, 0, V)
+    first = None
+    for layout in ("entry", "fused"):
+        reset(counters)
+        loss, grads = loss_grad(layout)
+        torch.cuda.synchronize()
+        launches = launched(counters)
+        if first is None:
+            first = launches
+        if [k for k in want if k not in launches] or set(launches) - set(want):
+            raise AssertionError(f"fused {tag} {layout}: launched {launches},"
+                                 f" its path is {want}")
+        rel = abs(float(loss) - float(ref_loss)) / abs(float(ref_loss))
+        worst = 0.0
+        for name, got in grads.items():
+            r = cases_mod.check_close(
+                f"fused {tag} {layout} vs padded grad {name}", got,
+                ref_grads[name], 2e-2,
+                groups if name in ("w_out", "b_out") else None)
+            worst = max(worst, max(e / s if s else 0.0 for e, s in r.values()))
+        print(f"fused joint {tag} via {'rnnt_loss_fused_joint' if layout == 'entry' else 'rnnt_loss_joint(layout=fused)'}:"
+              f" launches {launches}; loss {float(loss)} vs padded"
+              f" {float(ref_loss)} (rel {rel}); gradients within {worst} of"
+              " their largest")
+        if rel > 2e-3:
+            raise AssertionError(f"fused {tag} {layout}: loss differs")
+    return first
+
+
+def phase_wide_fused(torch, np, wt, fj, cases_mod, carry, counters):
+    """Fault 2: (a) the kernels against their plain versions (1e-3 per
+    column group, `fused_joint_cases.compare`) on `WIDE_CASES` (H=40, 200,
+    640, 1024 with U > 64, 2048, and N=65537) and at the fused slice's
+    lattice at H=200, 640 and 1024; the h kernel against its plain version
+    on live rows (one bf16 ulp of |h| <= 1, 2^-8); (b) the two entry points
+    at those three widths, at H=2048 (N=2, T=50, U=11, V=1000) and at
+    N=65537 (T=1, U=2, V=64, H=16), each against the padded layout.
+    Returns (errs, launches at H=640, {H: full-width kernel operands})."""
+    errs = {}
+    for name, case in cases_mod.WIDE_CASES.items():
+        ops, cot = cases_mod.kernel_case(*case)
+        r = cases_mod.compare(fj, ops, cot, case[6])
+        torch.cuda.synchronize()
+        print(f"fused joint kernels {name} N,T,U,V,H={case[1:6]}:"
+              f" {json.dumps({k: cases_mod.max_err(v) for k, v in r.items()})}")
+        del ops, cot
+    fulls, launches = {}, None
+    for i, H in enumerate(WIDE_H):
+        d = dict(FJ, H=H)
+        jin, params = wide_inputs(torch, np, carry, d, SEED + 10 + i)
+        full = fj_full_case(torch, fj, jin, params)
+        ops, cot = full
+        r = cases_mod.compare(fj, ops, cot, 0)
+        torch.cuda.synchronize()
+        errs[H] = {k: cases_mod.max_err(v) for k, v in r.items()}
+        print(f"fused joint kernels fused slice H={H}: {json.dumps(r)}")
+        if fj.h_plan(H)[1] > 1:
+            a, c, _, _, _, xn, _ = ops
+            Hp, S = fj.h_plan(H)
+            pa, pc, _ = fj.pad_h(a.float(), c.float(), ops[2], Hp)
+            h16 = fj._hidden(pa.contiguous(), pc.contiguous(), xn,
+                             (d["N"], d["T"], d["U"], Hp, d["V"], S))
+            want = fj.hidden_plain(pa, pc, xn)
+            live = fj._live(xn, d["T"]).expand(d["N"], d["T"], d["U"]).reshape(-1)
+            err = float((h16[live].float() - want[live].float()).abs().max())
+            errs[H]["fused_joint_hidden"] = err
+            print(f"fused_joint_hidden H={H}: max abs err on live rows {err}")
+            if err > 2.0 ** -8:
+                raise AssertionError(f"h kernel H={H} != plain version")
+            del h16, want
+        got = wide_entry_points(torch, wt, fj, cases_mod, counters, jin,
+                                params, f"H={H}")
+        if H == 640:
+            launches = got
+        if H in WIDE_TIMED:
+            fulls[H] = full
+        del jin, params
+    for tag, d in WIDE_SMALL.items():
+        jin, params = wide_inputs(torch, np, carry, d, SEED + 20)
+        wide_entry_points(torch, wt, fj, cases_mod, counters, jin, params, tag)
+        del jin, params
+    torch.cuda.empty_cache()
+    return errs, launches, fulls
+
+
 def main():
     import torch
 
@@ -1217,10 +1525,13 @@ def main():
     from warp_rnnt_tpu_torch.functional.loss import _labels_ext
     import numpy as np
 
+    from warp_rnnt_tpu_torch.functional.gather import gather_blank_label_plain
+    from warp_rnnt_tpu_torch.functional.postprocess import costs_and_grads
     from warp_rnnt_tpu_torch.models import carry_flax_joint
     from warp_rnnt_tpu_torch.ops import _build, cuda_impl
     from warp_rnnt_tpu_torch.ops import flat_kernels as fk
     from warp_rnnt_tpu_torch.ops import fused_joint as fj
+    from warp_rnnt_tpu_torch.ops import gather_kernels as gk
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1246,11 +1557,15 @@ def main():
     errs["flat_write"] = 0.0
 
     launches, loss, grad, loss3, grad3, costs_ng = phase_main(
-        torch, wt, [cuda_impl.LAUNCHES, fk.LAUNCHES], inputs
+        torch, wt, [cuda_impl.LAUNCHES, fk.LAUNCHES, gk.LAUNCHES], inputs
     )
     check_main(torch, wt, inputs, loss, grad, loss3, grad3, costs_ng)
+    check_previous_formulation(torch, wt, fk, gather_blank_label_plain, inputs,
+                               loss.detach(), grad, "N=32")
     del loss, grad, loss3, grad3
     check_golden(torch, wt)
+    errs["lattice_fused"] = max(errs["lattice_fused"], phase_neg_inf(
+        torch, np, wt, cuda_impl, costs_and_grads))
 
     times = phase_times(torch, wt, cuda_impl, fk, timing, inputs, main_lattice,
                         ct, rates, card)
@@ -1322,25 +1637,43 @@ def main():
     del keep
     torch.cuda.empty_cache()
 
+    # slice 5: the fused joint at H=200/640/1024/2048 and N=65537, and the
+    # kernels' times at H=640 and 1024
+    wide_errs, wide_launches, wide_fulls = phase_wide_fused(
+        torch, np, wt, fj, fj_cases, carry_flax_joint, counters)
+    wide_times = {H: time_fused_kernels(torch, fj, timing, full, rates, card,
+                                        f" H={H}")
+                  for H, full in wide_fulls.items()}
+    del wide_fulls
+    torch.cuda.empty_cache()
+
     # slice 4: the gather experiments' kernels at 2-9 GB, the main path at
-    # 7.5 GiB and 9.07 GB
+    # 7.5 GiB and 9.07 GB; slice 5: the main path's lattice gather among them
     from warp_rnnt_tpu_torch.benchmarks import exp_gather as eg
     from warp_rnnt_tpu_torch.benchmarks import gather_cases as gc
-    from warp_rnnt_tpu_torch.ops import gather_kernels as gk
+    from warp_rnnt_tpu_torch.benchmarks import profile_loss
 
     counters.append(gk.LAUNCHES)
-    errs.update(phase_gather_kernels(torch, gk, gc))
+    errs.update(phase_gather_kernels(torch, gk, gc, gather_blank_label_plain))
     gather_launches = phase_gather_path(torch, eg, counters)
     gather_times, scatter_times = {}, {}
     for n in GATHER_N:
-        gather_times[n] = time_gathers(torch, eg, gk, timing, n, rates, card)
+        gather_times[n] = time_gathers(torch, eg, gk, timing,
+                                       gather_blank_label_plain, n, rates, card)
         scatter_times[n] = time_scatter(torch, eg, gk, timing, n, rates, card)
         torch.cuda.empty_cache()
     for n in GATHER_N[1:]:
-        phase_big_main(torch, wt, timing, counters, n, rates, card)
+        phase_big_main(torch, wt, fk, gather_blank_label_plain, timing,
+                       counters, n, rates, card)
         torch.cuda.empty_cache()
-    for name in GATHER_PATH[:3]:
+    for name in GATHER_PATH[:4]:
         times[name] = gather_times[N][name]
+    prof = profile_loss.profile("main")
+    print(f"profile main path N={N}: {prof['kernels_per_call']} kernels a call"
+          f" (PR 4: 76), idle share {prof['idle_share']} (PR 4: 0.806), device"
+          f" busy {prof['busy_ms']} ms, wall {prof['wall_ms']} ms [{card}]")
+    for ms, count, key in prof["rows"]:
+        print(f"profile {ms:.4f} ms/call {count} x/call {key[:80]}")
 
     fj_src = "warp_rnnt_tpu/ops/fused_joint.py"
     pk_src = "warp_rnnt_tpu/ops/packed_kernels.py"
@@ -1358,9 +1691,18 @@ def main():
                "packed_scatter": ("packed.cu", f"{pk_src}:193"),
                "gather_columns": ("gather.cu", "scripts/exp_colgather.py:117"),
                "gather_fwd": ("gather.cu", f"{eg_src}:63"),
-               "gather_fwd_sparse": ("gather.cu", f"{eg_src}:124")}
+               "gather_fwd_sparse": ("gather.cu", f"{eg_src}:124"),
+               "gather_lattice": ("gather.cu",
+                                  "warp_rnnt_tpu/functional/gather.py:139"
+                                  " (XLA gathers; no TPU kernel)"),
+               "fused_joint_hidden": ("fused_joint.cu",
+                                      f"{fj_src}:60 and {fj_src}:100 (h)")}
+    errs["fused_joint_hidden"] = max(e.get("fused_joint_hidden", 0.0)
+                                     for e in wide_errs.values())
+    times["fused_joint_hidden"] = wide_times[1024]["fused_joint_hidden"]
     path_launches = {**launches, **fj_launches, **compact_launches["A"],
-                     **{k: gather_launches[k] for k in GATHER_PATH[:3]}}
+                     **{k: gather_launches[k] for k in GATHER_PATH[:3]},
+                     "fused_joint_hidden": wide_launches["fused_joint_hidden"]}
     kernels = []
     for name, (src, replaces) in sources.items():
         entry = {"name": name, "route": "cuda",
@@ -1376,10 +1718,15 @@ def main():
         if name.startswith("packed"):
             entry["case_B"] = {"launches": compact_launches["B"][name],
                                **packed_times["B"][name]}
-        if name.startswith("fused"):
+        if name.startswith("fused") and name != "fused_joint_hidden":
             entry["V=64000"] = {
                 "launches": large_launches[name], **large_times[name],
                 "max_abs_err": max(e[name] for e in large_errs.values())}
+        if name.startswith("fused"):
+            for H, wt_times in wide_times.items():
+                entry[f"H={H}"] = {"launches": wide_launches[name],
+                                   "max_abs_err": wide_errs[H][name],
+                                   **wt_times[name]}
         kernels.append(entry)
     print(f"whole run from the build: {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -16,6 +16,9 @@ port (the plain torch versions of the CUDA kernels):
     carried across, within 2 bf16 ulps of the output's scale;
   * gradients exactly zero outside the lengths, the no-grad route, and the
     `ValueError`s;
+  * the kernels' padding of H: `h_plan`'s widths, and the plain versions on
+    `pad_h`'s operands giving the unpadded outputs (H=40); the wrapper
+    against JAX at H=40 and H=640 (wider than one 512-column slice);
   * the comparison that holds the kernels to their plain versions
     (`benchmarks/fused_joint_cases.py`) rejects a backward with a dropped or
     mis-scaled softmax term.
@@ -333,19 +336,96 @@ def test_wrapper_value_errors(case, match):
 
 
 @pytest.mark.parametrize("case,match", [
-    ("H", "multiple of 16"),
+    ("H", "empty joint"),
     ("device", "unsupported device"),
     ("labels_shape", "labels_ext must be"),
     ("blank", "outside"),
 ])
 def test_kernel_wrapper_checks_raise(case, match):
-    a, c, w, b, labels, xn, yn = _setup(H=24 if case == "H" else 16)
+    a, c, w, b, labels, xn, yn = _setup(H=0 if case == "H" else 16)
     lab = _labels_ext(torch.tensor(labels), 0)
     if case == "labels_shape":
         lab = lab[:, :-1]
     blank = w.shape[1] if case == "blank" else 0
     with pytest.raises(ValueError, match=match):
         fj._kernel_inputs(*tt(a, c, w, b), lab, torch.tensor(xn), blank)
+
+
+@pytest.mark.parametrize("H,want", [(1, (16, 1)), (16, (16, 1)), (40, (48, 1)),
+                                    (200, (208, 1)), (512, (512, 1)),
+                                    (513, (544, 2)), (640, (640, 2)),
+                                    (1000, (1024, 2)), (2048, (2048, 4)),
+                                    (2500, (2560, 5))])
+def test_h_plan(H, want):
+    """Whole slices of at most 512 columns, each a multiple of 16, as few
+    and as even as that allows; never narrower than H."""
+    Hp, S = fj.h_plan(H)
+    assert (Hp, S) == want
+    assert Hp % S == 0 and (Hp // S) % 16 == 0 and Hp // S <= 512
+    assert 0 <= Hp - H < 16 * S
+
+
+def test_padded_operands_give_the_unpadded_outputs():
+    """The plain versions on `pad_h`'s operands (H=40 -> 48 zero-padded
+    columns of a and c, rows of W) give the unpadded forward and, through
+    `unpad_h`, the unpadded backward (fp32 sums of other lengths: 1e-6);
+    the padded columns and rows of d_a, d_c and d_W are exactly 0."""
+    ops, (db, de) = cases.kernel_case(33, 2, 11, 5, 70, 40, 3, (11, 6), "cpu")
+    a, c, w, b, lab, xn, yn = ops
+    Hp, _ = fj.h_plan(40)
+    pa, pc, pw = fj.pad_h(a, c, w, Hp)
+    assert pa.shape[-1] == pc.shape[-1] == pw.shape[0] == Hp == 48
+    assert all(x is y for x, y in zip(fj.pad_h(a, c, w, 40), (a, c, w)))
+    want = fj.joint_lattice_fwd_plain(*ops, 3)
+    got = fj.joint_lattice_fwd_plain(pa, pc, pw, b, lab, xn, yn, 3)
+    for g, w_ in zip(got, want):
+        torch.testing.assert_close(g, w_, rtol=1e-6, atol=1e-6)
+    args = (lab, xn, yn, want[2], db, de, 3)
+    want = fj.joint_lattice_bwd_plain(a, c, w, b, *args)
+    padded = fj.joint_lattice_bwd_plain(pa, pc, pw, b, *args)
+    got = (*fj.unpad_h(*padded[:3], 40), padded[3])
+    for g, w_ in zip(got, want):
+        assert g.shape == w_.shape
+        torch.testing.assert_close(g, w_, rtol=1e-6, atol=1e-6)
+    for x in (padded[0][..., 40:], padded[1][..., 40:], padded[2][40:]):
+        assert not x.any()
+
+
+@pytest.mark.parametrize("H", [40, 640])
+def test_wide_joint_matches_jax(H):
+    """`rnnt_loss_fused_joint` (plain versions here) against JAX's at a
+    joint width that is no multiple of 16 and one past a 512-column slice
+    (JAX's kernels take any H): loss rtol 2e-3 and the gradients of f, g and
+    the four parameters within the tolerances of `test_fused_joint.py:
+    161-165`."""
+    rng = np.random.RandomState(12)
+    N, T, U, V, F = 2, 6, 4, 29, 12
+    f = rng.randn(N, T, F).astype(np.float32) * 0.4
+    g = rng.randn(N, U, F).astype(np.float32) * 0.4
+    params = dict(w_pre=rng.randn(F, H).astype(np.float32) / np.sqrt(F),
+                  b_pre=rng.randn(H).astype(np.float32) * 0.1,
+                  w_out=rng.randn(H, V).astype(np.float32) / np.sqrt(H),
+                  b_out=rng.randn(V).astype(np.float32) * 0.1)
+    labels = rng.randint(1, V, (N, U - 1)).astype(np.int32)
+    xn, yn = np.array([6, 5], np.int32), np.array([3, 2], np.int32)
+    ft, gt = torch.tensor(f, requires_grad=True), torch.tensor(g, requires_grad=True)
+    pt = {k: torch.tensor(v, requires_grad=True) for k, v in params.items()}
+    out = wt.rnnt_loss_fused_joint(ft, gt, pt, *tt(labels, xn, yn),
+                                   reduction="mean")
+    out.backward()
+
+    def jloss(f, g, p):
+        return jfj.rnnt_loss_fused_joint(f, g, p, jnp.asarray(labels), xn, yn,
+                                         impl="scan", reduction="mean")
+
+    jout, (jgf, jgg, jgp) = jax.value_and_grad(jloss, argnums=(0, 1, 2))(
+        jnp.asarray(f), jnp.asarray(g),
+        {k: jnp.asarray(v) for k, v in params.items()})
+    np.testing.assert_allclose(float(out.detach()), float(jout), rtol=2e-3)
+    _close(ft.grad.numpy(), jgf, **WRAPPER_TOL, name="f")
+    _close(gt.grad.numpy(), jgg, **WRAPPER_TOL, name="g")
+    for k in params:
+        _close(pt[k].grad.numpy(), jgp[k], **WRAPPER_TOL, name=k)
 
 
 def test_joint_rejects_unknown_mode():
@@ -459,3 +539,15 @@ def test_kernels_match_plain_on_card_large_v(cuda_device, case):
     """At the vocabularies where JAX takes its V-blocked kernels."""
     ops, cot = cases.kernel_case(*cases.LARGE_V_CASES[case], device=cuda_device)
     cases.compare(fj, ops, cot, cases.LARGE_V_CASES[case][6])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(cases.WIDE_CASES))
+def test_kernels_match_plain_on_card_wide(cuda_device, case):
+    """H not a multiple of 16 (padded), H > 512 (the sliced route and its
+    h kernel, launched then and only then), and N > 65535 (grid x)."""
+    ops, cot = cases.kernel_case(*cases.WIDE_CASES[case], device=cuda_device)
+    before = fj.LAUNCHES["fused_joint_hidden"]
+    cases.compare(fj, ops, cot, cases.WIDE_CASES[case][6])
+    sliced = fj.h_plan(cases.WIDE_CASES[case][5])[1] > 1
+    assert (fj.LAUNCHES["fused_joint_hidden"] > before) == sliced

@@ -4,7 +4,10 @@ with the JAX package's gather experiments, `scripts/exp_colgather.py` and
 mode.  The scripts are loaded from their paths, unedited.
 
 On the CPU the wrappers run their plain torch versions, so these tests hold
-the plain versions against the JAX functions.  Both only move values (and
+the plain versions against the JAX functions.  The main path's lattice
+(`gather_lattice`, and `functional.gather`'s CPU route) is held against the
+JAX package's own main-path gather (`warp_rnnt_tpu/functional/gather.py`),
+in fp32 and bf16, 4-D and flat, exactly and in the input's dtype.  Both only move values (and
 widen them to fp32), so the tolerance is exact.  Where the two TPU kernels
 read outside the row or the buffer, the JAX result is not a value of the
 function, and those inputs are left out of the comparison (each test says
@@ -24,7 +27,11 @@ import pytest
 import torch
 
 from _torch_port_helpers import cuda_device  # noqa: F401  (fixture)
+import warp_rnnt_tpu_torch as wt
+from warp_rnnt_tpu.functional import gather as jax_gather
 from warp_rnnt_tpu_torch.benchmarks import exp_gather, gather_cases
+from warp_rnnt_tpu_torch.functional import gather as port_gather
+from warp_rnnt_tpu_torch.ops import flat_kernels
 from warp_rnnt_tpu_torch.ops import gather_kernels as gk
 
 _SCRIPTS = os.path.join(os.path.dirname(os.path.dirname(__file__)), "scripts")
@@ -187,6 +194,60 @@ def test_plain_versions_match_numpy(name):
     assert set(errs) == set(gk.LAUNCHES) | {"flat_write"}
 
 
+@pytest.mark.parametrize("V", [300, 3100])  # JAX's mask and take forms
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("layout", ["4d", "flat"])
+def test_lattice_matches_jax_main_path_gather(layout, dtype, V):
+    """The main path's (N, T, U, 2) lattice: the port's CPU route
+    (`gather_blank_label_plain`, through the autograd Function) and
+    `gather_lattice`'s plain version against JAX's `gather_blank_label` /
+    `gather_blank_label_flat`, exactly, in the input's dtype."""
+    rng = np.random.RandomState(5)
+    N, T, U, blank = 2, 5, 4, 2
+    xs = rng.randn(N, T, U, V).astype(np.float32)
+    lab = _labels(rng, N, U, V, blank)
+    loc = np.broadcast_to(lab[:, None, :], (N, T, U))
+    jxs = jnp.asarray(xs).astype(dtype)
+    txs = torch.tensor(xs).to(getattr(torch, dtype))
+    tlab = torch.tensor(lab)
+    if layout == "4d":
+        want = jax_gather.gather_blank_label(jxs, jnp.asarray(loc), blank)
+        got = port_gather.gather_blank_label(txs, tlab, blank)
+    else:
+        want = jax_gather.gather_blank_label_flat(
+            jxs.reshape(N, T, U * V), jnp.asarray(loc), blank, V)
+        got = port_gather.gather_blank_label_flat(txs.view(N, T, U * V), tlab,
+                                                  blank, V)
+    assert got.dtype == txs.dtype and got.shape == (N, T, U, 2)
+    want = np.asarray(want.astype(jnp.float32))
+    np.testing.assert_array_equal(got.float().numpy(), want)
+    np.testing.assert_array_equal(
+        gk.gather_lattice(txs, tlab, blank).float().numpy(), want)
+
+
+def test_main_path_forward_route(monkeypatch):
+    """On a CPU tensor the loss's gather runs the plain formulation and
+    never the kernel's wrapper (which the card takes, with no fallback);
+    its gradient is the dense write, unchanged."""
+    def _boom(*a, **k):
+        raise AssertionError("kernel wrapper called on the CPU")
+
+    monkeypatch.setattr(gk, "gather_lattice", _boom)
+    rng = np.random.RandomState(6)
+    xs = torch.tensor(rng.randn(2, 4, 3, 6).astype(np.float32),
+                      requires_grad=True)
+    lab = torch.tensor([[1, 5, 0], [2, 3, 0]], dtype=torch.int32)
+    out = port_gather.gather_blank_label(xs, lab, 0)
+    assert torch.equal(out, port_gather.gather_blank_label_plain(xs, lab, 0))
+    ct = torch.tensor(rng.randn(2, 4, 3, 2).astype(np.float32))
+    out.backward(ct)
+    want = torch.zeros(2, 4, 3, 6)
+    want[..., 0] += ct[..., 0]
+    want.scatter_add_(3, lab.long()[:, None, :, None].expand(2, 4, 3, 1),
+                      ct[..., 1:])
+    assert torch.equal(xs.grad, want)
+
+
 def test_out_of_range_labels_give_zero_not_a_neighbour():
     """A label of V would be the next row's blank entry in the flat view,
     and -1 the previous row's last entry; both give 0 here."""
@@ -198,6 +259,8 @@ def test_out_of_range_labels_give_zero_not_a_neighbour():
     assert not e[..., :2].any() and torch.equal(e[..., 2], xs[:, :, 2, 0])
     _, e = gk.gather_fwd_sparse(xs.view(N, T, U * V), lab, 0, V)  # (N, U, T)
     assert not e[:, :2].any() and torch.equal(e[:, 2], xs[:, :, 2, 0])
+    e = gk.gather_lattice(xs, lab, 0)[..., 1]  # (N, T, U)
+    assert not e[..., :2].any() and torch.equal(e[..., 2], xs[:, :, 2, 0])
     cols = torch.tensor([[U * V, -1, 0]], dtype=torch.int32)
     got = gk.gather_columns_flat(xs.view(N, T, U * V), cols)
     assert not got[..., :2].any() and torch.equal(got[..., 2], xs[:, :, 0, 0])
@@ -225,10 +288,43 @@ def test_out_of_range_labels_give_zero_not_a_neighbour():
     (lambda: gk.gather_fwd_sparse(torch.zeros(2, 3, 4, 5),
                                   torch.zeros(2, 4, dtype=torch.int32), 0, 5),
      "3-D"),
+    (lambda: gk.gather_lattice(torch.zeros(2, 3, 4, 5),
+                               torch.zeros(2, 4, dtype=torch.int32), -1),
+     "blank=-1"),
+    (lambda: gk.gather_lattice(torch.zeros(2, 3, 4, 5),
+                               torch.zeros(2, 3, dtype=torch.int32), 0),
+     r"shape \(2, 3\)|U\*V"),
+    (lambda: gk.gather_lattice(torch.zeros(2, 3, 4, 5, device="meta"),
+                               torch.zeros(2, 4, dtype=torch.int32), 0),
+     "unsupported device"),
 ])
 def test_wrappers_reject_what_the_kernel_does_not_take(call, match):
     with pytest.raises(ValueError, match=match):
         call()
+
+
+@pytest.mark.parametrize("name", list(gather_cases.CASES))
+def test_launch_checks_take_what_the_plain_versions_take(name):
+    """The one-expression check a CUDA launch passes (`_ready`, device
+    aside) accepts every shared case and gives the columns the kernel
+    gathers a frame: K for explicit columns, 2U for the blank/label
+    layouts (labels_ext is (N, U)); a mismatched index is refused."""
+    case = gather_cases.make_case(*gather_cases.CASES[name], device="cpu")
+    xs, xs3, lab = case["xs"], case["xs3"], case["labels_ext"]
+    blank, V = case["blank"], case["V"]
+    N, _, U, _ = xs.shape
+    cols = case["cols"]
+    assert gk._ready(xs3, cols, gk._COLUMNS) == (cols.shape[1], -1)
+    for layout, x in ((gk._LATTICE, xs), (gk._PLANAR_TU, xs),
+                      (gk._PLANAR_UT, xs3)):
+        assert gk._ready(x, lab, layout, blank, V) == (2 * U, -1)
+        with pytest.raises(ValueError):
+            gk._ready(x, lab[:, :-1], layout, blank, V)
+        with pytest.raises(ValueError):
+            gk._ready(x, lab[:1] if N > 1 else lab.repeat(2, 1), layout,
+                      blank, V)
+    with pytest.raises(ValueError, match="3-D"):
+        gk._ready(xs, lab, gk._PLANAR_UT, blank, V)
 
 
 def test_exp_gather_on_cpu(capsys):
@@ -261,3 +357,45 @@ def test_gather_wrappers_raise_on_card(cuda_device):
     cols = torch.zeros(2, 4, dtype=torch.int32, device=cuda_device)
     with pytest.raises(ValueError, match="contiguous"):
         gk.gather_columns_flat(xs, cols)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(gather_cases.CASES))
+def test_lattice_kernel_matches_main_path_plain_on_card(cuda_device, name):
+    """The lattice kernel against the main path's plain formulation
+    (`torch.gather` and a stack) on the card, exact, in xs's dtype."""
+    case = gather_cases.make_case(*gather_cases.CASES[name], device=cuda_device)
+    gather_cases.main_path_lattice(gk, port_gather.gather_blank_label_plain,
+                                   case)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["4d", "flat"])
+def test_main_path_gathers_through_the_kernel_on_card(cuda_device, layout):
+    """`rnnt_loss` on the card launches the lattice kernel once a call, and
+    gives the costs and gradient of the plain formulation bit for bit."""
+    rng = np.random.RandomState(7)
+    N, T, U, V = 3, 9, 5, 40
+    xs = torch.log_softmax(torch.tensor(rng.randn(N, T, U, V)), -1).float()
+    ys = torch.tensor(rng.randint(1, V, (N, U - 1)), dtype=torch.int32)
+    xn = torch.tensor([9, 4, 7], dtype=torch.int32)
+    yn = torch.tensor([4, 2, 3], dtype=torch.int32)
+    shape = (N, T, U * V) if layout == "flat" else (N, T, U, V)
+    x = xs.to(cuda_device).view(shape).requires_grad_()
+    args = (ys.to(cuda_device), xn.to(cuda_device), yn.to(cuda_device))
+    before = gk.LAUNCHES["gather_lattice"]
+    costs = wt.rnnt_loss(x, *args)
+    costs.sum().backward()
+    torch.cuda.synchronize()
+    assert gk.LAUNCHES["gather_lattice"] == before + 1
+    lab = torch.cat([args[0], torch.zeros(N, 1, dtype=torch.int32,
+                                          device=cuda_device)], 1)
+    lat = port_gather.gather_blank_label_plain(
+        x.detach().view(N, T, U, V), lab, 0).requires_grad_()
+    ref = wt.rnnt_loss(lat, args[0], args[1], args[2], blank=-1)
+    ref.sum().backward()
+    assert torch.equal(costs.detach(), ref.detach())
+    d = flat_kernels.flat_grad_write(
+        lat.grad[..., 0].contiguous(), lat.grad[..., 1].contiguous(), lab, 0,
+        V, U * V)
+    assert torch.equal(x.grad.reshape(-1), d.reshape(-1))

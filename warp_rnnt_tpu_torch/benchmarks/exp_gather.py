@@ -17,8 +17,10 @@ The torch formulations stand for the XLA ones:
   taa4d    `torch.gather` on (N, T, U, V), the blank as a slice
   slice    the blank through a stride-V view, the label by `torch.gather`
   kernel   the port's column-gather kernel (`gather_columns_flat`)
-  stream   `gather_fwd` (4-D in, two (N, T, U) channels)
-  sparse   `gather_fwd_sparse` (flat in, two (N, U, T) channels)
+  stream   `gather_fwd` (4-D in, (2, N, T, U) fp32)
+  sparse   `gather_fwd_sparse` (flat in, (2, N, U, T) fp32)
+  lattice  `gather_lattice` (4-D in, the (N, T, U, 2) lattice: the main
+           path's gather on the card)
   scatter  `scatter_bwd` ((N, T, U) cotangents -> dense (N, T, U, V))
 
 Every variant is first held against the plain gather (`gather_fwd_plain`;
@@ -124,13 +126,17 @@ def sparse(d):
     return gk.gather_fwd_sparse(d["xs3"], d["labels"], BLANK, V)
 
 
+def lattice(d):
+    return gk.gather_lattice(d["xs"], d["labels"], BLANK)
+
+
 def scatter(d):
     return gk.scatter_bwd(d["ct_b"], d["ct_l"], d["labels"], BLANK, V)
 
 
 VARIANTS = {"taa": taa, "col": col, "col4d": col4d, "taa4d": taa4d,
             "slice": slice_blank, "kernel": kernel, "stream": stream,
-            "sparse": sparse, "scatter": scatter}
+            "sparse": sparse, "lattice": lattice, "scatter": scatter}
 
 
 def check(variant, d, ref):
@@ -145,17 +151,17 @@ def check(variant, d, ref):
             if not torch.equal(out[s], want):
                 raise AssertionError(f"scatter: sample {n} != plain version")
         return
-    if variant in ("stream", "sparse"):
-        out = torch.stack(out, dim=-1)
-        if variant == "sparse":
-            out = out.transpose(1, 2)
+    if variant == "stream":
+        out = out.permute(1, 2, 3, 0)
+    elif variant == "sparse":
+        out = out.permute(1, 3, 2, 0)
     if not torch.equal(out, ref):
         raise AssertionError(f"{variant}: != the plain gather")
 
 
 def reference(d):
     """The (N, T, U, 2) blank/label lattice by the plain gather."""
-    return torch.stack(gk.gather_fwd_plain(d["xs"], d["labels"], BLANK), dim=-1)
+    return gk.gather_lattice_plain(d["xs"], d["labels"], BLANK)
 
 
 def bound_bytes(variant, N):

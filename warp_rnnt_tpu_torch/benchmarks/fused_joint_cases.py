@@ -33,6 +33,18 @@ KERNEL_CASES = {
     "H=512": (23, 2, 13, 5, 5000, 512, 3, (13, 9)),
 }
 
+# Widths the kernels pad (H not a multiple of 16) or slice (H > 512, in
+# slices of at most 512 columns), and more samples than a grid's y
+# dimension holds (N > 65535).
+WIDE_CASES = {
+    "H=40": (27, 2, 13, 5, 300, 40, 3, (13, 9)),
+    "H=200": (28, 2, 13, 5, 300, 200, 0, (13, 6)),
+    "H=640": (29, 2, 13, 5, 300, 640, 3, (13, 9)),
+    "H=1024 U>64": (30, 2, 5, 70, 130, 1024, 0, (5, 3)),
+    "H=2048": (31, 2, 50, 11, 1000, 2048, 0, (50, 33)),
+    "N=65537": (32, 65537, 1, 2, 64, 16, 0, (1,) * 65537),
+}
+
 # LLM-size vocabularies, where the JAX package takes its V-blocked kernels:
 # V=64000, and GPT-2's V=50257 (not a multiple of the 64-column chunk).
 LARGE_V_CASES = {

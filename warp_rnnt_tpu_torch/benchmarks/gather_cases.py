@@ -5,6 +5,9 @@ the `cuda`-marked tests.
 The kernels move values and at most widen them to fp32 (the write does one
 add where the label is the blank, in the plain version's order), so kernel
 and plain version must agree exactly (`torch.equal`), in every dtype.
+`main_path_lattice` also holds the main path's lattice against its plain
+formulation (`functional.gather.gather_blank_label_plain`: one
+`torch.gather` and a stack) where every label is in range.
 """
 
 from __future__ import annotations
@@ -64,6 +67,8 @@ def compare(gk, case):
         "gather_columns": (gk.gather_columns_flat, gk.gather_columns_flat_plain,
                            (xs3, case["cols"])),
         "gather_fwd": (gk.gather_fwd, gk.gather_fwd_plain, (xs, lab, blank)),
+        "gather_lattice": (gk.gather_lattice, gk.gather_lattice_plain,
+                           (xs, lab, blank)),
         "gather_fwd_sparse": (gk.gather_fwd_sparse, gk.gather_fwd_sparse_plain,
                               (xs3, lab, blank, V)),
         "flat_write": (gk.scatter_bwd, gk.scatter_bwd_plain,
@@ -76,3 +81,15 @@ def compare(gk, case):
             got, want = (got,), (want,)
         errs[name] = _exact(name, got, want)
     return errs
+
+
+def main_path_lattice(gk, gather_plain, case):
+    """The lattice kernel (`gk.gather_lattice`) against the main path's
+    plain formulation (``gather_plain``, `gather_blank_label_plain`) on the
+    case with its out-of-range labels replaced by the blank: exact, and in
+    xs's dtype.  Returns the max abs err (0.0); raises AssertionError."""
+    lab, blank, V = case["labels_ext"], case["blank"], case["V"]
+    lab = torch.where((lab >= 0) & (lab < V), lab, blank)
+    got = gk.gather_lattice(case["xs"], lab, blank)
+    return _exact("gather_lattice (main path)", (got,),
+                  (gather_plain(case["xs"], lab, blank),))

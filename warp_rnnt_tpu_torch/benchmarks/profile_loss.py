@@ -61,20 +61,21 @@ def _compact_step(case):
     return step
 
 
-def main(argv=None):
-    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    parser.add_argument("--path", choices=("main", *CASES), default="main")
-    args = parser.parse_args(argv)
+def profile(path="main"):
+    """Profile ITERS calls of one path's loss+grad step.  Returns {"wall_ms",
+    "busy_ms" (per call), "idle_share", "kernels_per_call", "rows": [(device
+    ms per call, launches per call, kernel name)], "device"}."""
     if not torch.cuda.is_available():
         raise SystemExit("profile_loss needs a CUDA device")
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile as torch_profile
 
-    step = _main_step() if args.path == "main" else _compact_step(args.path)
+    step = _main_step() if path == "main" else _compact_step(path)
     for _ in range(3):
         step()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with torch_profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(ITERS):
             step()
@@ -89,17 +90,27 @@ def main(argv=None):
         if dev_us is None:
             dev_us = ev.self_cuda_time_total
         if dev_us > 0:
-            rows.append((dev_us / 1e3, ev.count, ev.key))
+            rows.append((dev_us / 1e3 / ITERS, ev.count // ITERS, ev.key))
     rows.sort(reverse=True)
     busy_ms = sum(r[0] for r in rows)
-    print(f"{torch.cuda.get_device_name(0)} path={args.path}: {ITERS} calls,"
-          f" wall {wall_ms / ITERS:.4f} ms/call, device busy"
-          f" {busy_ms / ITERS:.4f} ms/call, idle share"
-          f" {1 - busy_ms / wall_ms:.3f}, {sum(r[1] for r in rows) // ITERS}"
-          " kernels/call")
-    for ms, count, key in rows:
-        print(f"{ms / ITERS:10.4f} ms/call {count // ITERS:4d} x/call"
-              f" {ms / wall_ms:6.3f} of wall  {key[:90]}")
+    return {"wall_ms": wall_ms / ITERS, "busy_ms": busy_ms,
+            "idle_share": 1 - busy_ms * ITERS / wall_ms,
+            "kernels_per_call": sum(r[1] for r in rows), "rows": rows,
+            "device": torch.cuda.get_device_name(0)}
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--path", choices=("main", *CASES), default="main")
+    args = parser.parse_args(argv)
+    r = profile(args.path)
+    print(f"{r['device']} path={args.path}: {ITERS} calls, wall"
+          f" {r['wall_ms']:.4f} ms/call, device busy {r['busy_ms']:.4f}"
+          f" ms/call, idle share {r['idle_share']:.3f},"
+          f" {r['kernels_per_call']} kernels/call")
+    for ms, count, key in r["rows"]:
+        print(f"{ms:10.4f} ms/call {count:4d} x/call"
+              f" {ms / r['wall_ms']:6.3f} of wall  {key[:90]}")
 
 
 if __name__ == "__main__":

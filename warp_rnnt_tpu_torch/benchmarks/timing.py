@@ -19,8 +19,9 @@ Two rules make a per-call device time trustworthy:
 Times come from `torch.cuda.Event`s recorded on the current stream around
 the chain, read after `synchronize()`.  A call whose device work is shorter
 than its host launch path reads the host in a chain; `bench_graph` times
-such calls on the device alone, replaying them from a CUDA graph.  There is
-no CPU route: without a CUDA device these functions raise.
+such calls on the device alone, replaying them from a CUDA graph, and
+`bench_host` the host alone, enqueueing them behind a device-side sleep.
+There is no CPU route: without a CUDA device these functions raise.
 """
 
 from __future__ import annotations
@@ -147,3 +148,25 @@ def bench_graph(fn, args, calls=32, flush_bytes=96 << 20):
 
     flush_ms = graph_ms(False) if flush_bytes else 0.0
     return max(graph_ms(True) - flush_ms, 0.0)
+
+
+def bench_host(fn, args, calls=200, repeats=5, sleep_cycles=200_000_000):
+    """Host microseconds per call of `fn(*args)`: the host's own cost of
+    issuing it, apart from the device's.  A device-side sleep of
+    `sleep_cycles` (about 0.1 s) is enqueued first, so the calls queue
+    behind it and none waits for the device; `calls` calls are timed on the
+    host clock, best of `repeats`, and the queue is drained after each."""
+    import time
+
+    _require_cuda()
+    fn(*args)
+    torch.cuda.synchronize()
+    best = float("inf")
+    for _ in range(repeats):
+        torch.cuda._sleep(sleep_cycles)
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn(*args)
+        best = min(best, (time.perf_counter() - t0) / calls * 1e6)
+        torch.cuda.synchronize()
+    return best

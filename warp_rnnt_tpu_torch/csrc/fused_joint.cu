@@ -16,6 +16,8 @@
 //   * fj_forward        <- `_fwd_kernel`  (blank, label logit, logZ)
 //   * fj_backward_dadc  <- `_bwd_kernel`, its d_a / d_c half
 //   * fj_backward_dwdb  <- `_bwd_kernel`, its d_W / d_b half
+//   * fj_hidden         <- the h = tanh(a + c) both kernels form in VMEM,
+//                          written once to memory for wide joints (below)
 // The TPU kernel walks its grid in order and carries d_c, d_W and d_b in
 // VMEM from one step to the next.  Hopper runs blocks in no order, so the
 // backward is two kernels that each own what they sum, and the sums that
@@ -33,7 +35,8 @@
 // Design (simple first; wgmma, TMA and double-buffered loads are later work):
 //   * A tile is 64 lattice rows of one sample: BT = 64 / min(U, 64) whole
 //     frames of all U rows, or for U > 64 one frame's rows in chunks of 64.
-//     Its h (64 x H bf16) is built once in shared memory, from float4 loads.
+//     Blocks are numbered sample-major along grid x, so N has no limit
+//     beyond the grid's 2^31 - 1 blocks.
 //   * V is walked in chunks of 64 columns.  The caller lays W out in chunks
 //     ((ceil(V/64), H, 64), zero columns past V), so each chunk is one
 //     contiguous block that cp.async copies into shared memory 16 bytes a
@@ -45,16 +48,35 @@
 //   * dadc: per chunk, dz = db*[v==blank] + de*[v==lab] - softmax*(db+de),
 //     rounded to bf16, and dh += dz @ W_chunk^T in registers.  At the end
 //     dpre = dh * (1 - h^2) (fp32 h) is summed over u into d_a partials
-//     (per U chunk) and over t into d_c partials (per tile).  The tile's
-//     bf16 h is written out for dwdb.
-//   * dwdb: one block per (V chunk, row group).  The W chunk stays in
-//     shared memory; the block walks its rows in tiles of 64, recomputes
-//     the chunk's logits from the stored h, forms dz, and accumulates
-//     d_W[:, chunk] += h^T @ dz in registers and d_b[chunk] += sum(dz) in
-//     fp32.  Row groups fill the card when V has few chunks.
+//     (per U chunk) and over t into d_c partials (per tile).
+//   * dwdb: one block per (V chunk, row group).  The block walks its rows in
+//     tiles of 64, recomputes the chunk's logits from the stored bf16 h,
+//     forms dz, and accumulates d_W[:, chunk] += h^T @ dz in registers and
+//     d_b[chunk] += sum(dz) in fp32.  Row groups fill the card when V has
+//     few chunks.
 //   * Rows with t >= xn[n] are skipped: the forward writes zeros there, the
 //     backward treats their dz as zero.  A tile with no live row does no
 //     product at all.
+//
+// Any H.  The caller pads H with zero columns of a and c and zero rows of W
+// up to S slices of HS columns, HS a multiple of 16 and at most 512 (S =
+// ceil(H / 512)): tanh(0) = 0 and a zero row of W adds nothing, and the
+// caller cuts d_a, d_c and d_W back.  Two things cap a slice at 512: a
+// block's 227 KB of shared memory (a W chunk of HS x 72 and an h tile of
+// 64 x (HS + 8) bf16, 167 KB at HS = 512), and registers (dadc's d_h tile
+// and dwdb's d_W tile, 64 x HS fp32 over 256 threads: 128 a thread at 512).
+//   * S = 1 (H <= 512): each tile's h is built once in shared memory from
+//     float4 loads of a and c, dadc writes it out as bf16 (R, H) for dwdb,
+//     and a block holds the whole W chunk.  The products are the bound's:
+//     one (forward), two (dadc), two (dwdb).
+//   * S > 1: fj_hidden writes h as bf16 (R, H) first (R*H*2 bytes, e.g.
+//     103 MB at the slice's lattice and H = 1024), and a chunk's logits sum
+//     S slice products, each slice's h rows and W rows copied into shared
+//     memory in turn.  dadc and dwdb split their output over S blocks a
+//     tile (dadc: d_h columns; dwdb: d_W rows), and each block forms the
+//     whole logits: S + 1 products instead of 2.  Against the R x H x V
+//     bound: forward 1x, dadc and dwdb (S + 1) / 2 each, so 1.5x at
+//     H = 640 or 1024 (S = 2), 2.5x at H = 2048 (S = 4).
 //
 // Launches on the caller's stream; allocates nothing; each entry returns
 // cudaGetLastError() (or the error of setting the shared-memory size) so
@@ -75,6 +97,7 @@ constexpr int kRows = 64;      // lattice rows per tile
 constexpr int kVC = 64;        // vocabulary columns per chunk
 constexpr int kLdW = kVC + 8;  // bf16 pitch of a W chunk or a dz chunk
 constexpr int kLdZ = kVC + 4;  // fp32 pitch of a logits chunk
+constexpr int kMaxHS = 512;    // widest H slice (shared memory, registers)
 
 using Acc = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
 using ARow = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>;
@@ -83,9 +106,10 @@ using BRow = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>;
 using BCol = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major>;
 
 // Tile geometry: rows i = tt * ut + uu of tile (tb, uc) are the cells
-// t = tb * bt + tt, u = uc * ut + uu.
+// t = tb * bt + tt, u = uc * ut + uu.  H is the padded width S * HS (the
+// row stride of a, c, h and the partials); HS the slice width.
 struct Geom {
-  int T, U, H, V, ut, bt, nuc;
+  int T, U, H, V, ut, bt, nuc, ntb, HS, S;
 };
 
 __device__ __forceinline__ bool tile_row(const Geom& g, int i, int tb, int uc,
@@ -97,9 +121,9 @@ __device__ __forceinline__ bool tile_row(const Geom& g, int i, int tb, int uc,
   return tt < g.bt && t < g.T && u < g.U;
 }
 
-// Dynamic shared memory: ws (H x kLdW bf16) | hs (kRows x (H + 8) bf16) |
+// Dynamic shared memory: ws (HS x kLdW bf16) | hs (kRows x (HS + 8) bf16) |
 // zs (kRows x kLdZ fp32) | dzs (kRows x kLdW bf16).  Every part is a
-// multiple of 128 bytes when H is a multiple of 16.
+// multiple of 128 bytes when HS is a multiple of 16.
 struct Smem {
   bf16* ws;
   bf16* hs;
@@ -108,46 +132,92 @@ struct Smem {
   int ldh;
 };
 
-__device__ __forceinline__ Smem carve(unsigned char* base, int H) {
+__device__ __forceinline__ Smem carve(unsigned char* base, int HS) {
   Smem s;
-  s.ldh = H + 8;
+  s.ldh = HS + 8;
   s.ws = reinterpret_cast<bf16*>(base);
-  s.hs = s.ws + (size_t)H * kLdW;
+  s.hs = s.ws + (size_t)HS * kLdW;
   s.zs = reinterpret_cast<float*>(s.hs + (size_t)kRows * s.ldh);
   s.dzs = reinterpret_cast<bf16*>(s.zs + kRows * kLdZ);
   return s;
 }
 
-size_t smem_bytes(int H) {
-  return (size_t)H * kLdW * 2 + (size_t)kRows * (H + 8) * 2 +
+size_t smem_bytes(int HS) {
+  return (size_t)HS * kLdW * 2 + (size_t)kRows * (HS + 8) * 2 +
          (size_t)kRows * kLdZ * 4 + (size_t)kRows * kLdW * 2;
 }
 
-// Chunk v0 / 64 of W -> ws, b[v0:v0+64] -> bs.  wc is W in chunks,
-// (ceil(V/64), H, 64) bf16 with zero columns past V, so each chunk is one
-// contiguous block, copied 16 bytes a thread with cp.async (all copies in
-// flight at once, no registers).  The caller syncs the block after.
-__device__ __forceinline__ void load_w_chunk(const bf16* __restrict__ wc,
-                                             const float* __restrict__ bias,
-                                             bf16* ws, float* bs, int H, int V,
-                                             int v0) {
-  const bf16* src = wc + (size_t)(v0 / kVC) * H * kVC;
-  for (int idx = threadIdx.x; idx < H * (kVC / 8); idx += kThreads) {
+// Rows [k0, k0 + K) of W chunk v0 / 64 -> ws.  wc is W in chunks,
+// (ceil(V/64), H, 64) bf16 with zero columns past V, so a chunk's rows are
+// one contiguous block, copied 16 bytes a thread with cp.async (all copies
+// in flight at once, no registers).  The caller commits and waits.
+__device__ __forceinline__ void load_w_rows(const bf16* __restrict__ wc,
+                                            bf16* ws, int H, int v0, int k0,
+                                            int K) {
+  const bf16* src = wc + ((size_t)(v0 / kVC) * H + k0) * kVC;
+  for (int idx = threadIdx.x; idx < K * (kVC / 8); idx += kThreads) {
     const int k = idx >> 3;
     const int part = (idx & 7) * 8;
     __pipeline_memcpy_async(ws + k * kLdW + part, src + k * kVC + part, 16);
   }
-  __pipeline_commit();
+}
+
+__device__ __forceinline__ void load_bias(const float* __restrict__ bias,
+                                          float* bs, int V, int v0) {
   if (threadIdx.x < kVC) {
     const int v = v0 + threadIdx.x;
     bs[threadIdx.x] = v < V ? bias[v] : 0.0f;
   }
+}
+
+// The whole of chunk v0 / 64 of W (H rows) -> ws, b[v0:v0+64] -> bs.  The
+// caller syncs the block after.
+__device__ __forceinline__ void load_w_chunk(const bf16* __restrict__ wc,
+                                             const float* __restrict__ bias,
+                                             bf16* ws, float* bs, int H, int V,
+                                             int v0) {
+  load_w_rows(wc, ws, H, v0, 0, H);
+  __pipeline_commit();
+  load_bias(bias, bs, V, v0);
   __pipeline_wait_prior(0);
 }
 
-// h = tanh(a[n, t] + c[n, u]) of the tile's live rows, rounded to bf16,
-// into hs (zeros elsewhere), four columns a thread-step with float4 loads;
-// with h16 set, live rows are also written there (flat row-major (R, H)).
+// Columns [k0, k0 + K) of rows hrow[r] of h (bf16, (R, H)) -> hs, zeros
+// for rows with hrow[r] < 0; cp.async 16 bytes a thread.  The caller
+// commits and waits.
+__device__ __forceinline__ void load_h_rows(const bf16* __restrict__ h16,
+                                            int H, const long long* hrow,
+                                            bf16* hs, int ldh, int k0, int K) {
+  const int K8 = K / 8;
+  for (int idx = threadIdx.x; idx < kRows * K8; idx += kThreads) {
+    const int r = idx / K8;
+    const int k = (idx - r * K8) * 8;
+    const long long row = hrow[r];
+    if (row >= 0) {
+      __pipeline_memcpy_async(hs + r * ldh + k, h16 + row * H + k0 + k, 16);
+    } else {
+      *reinterpret_cast<uint4*>(hs + r * ldh + k) = make_uint4(0, 0, 0, 0);
+    }
+  }
+}
+
+// bf16(tanh(a[n, t, k..k+3] + c[n, u, k..k+3])), packed; fp32 tanhf.
+__device__ __forceinline__ uint2 h4(const float* __restrict__ a,
+                                    const float* __restrict__ c, size_t ai,
+                                    size_t ci) {
+  const float4 av = *reinterpret_cast<const float4*>(a + ai);
+  const float4 cv = *reinterpret_cast<const float4*>(c + ci);
+  __nv_bfloat162 lo = __floats2bfloat162_rn(tanhf(av.x + cv.x), tanhf(av.y + cv.y));
+  __nv_bfloat162 hi = __floats2bfloat162_rn(tanhf(av.z + cv.z), tanhf(av.w + cv.w));
+  uint2 packed;
+  packed.x = *reinterpret_cast<unsigned int*>(&lo);
+  packed.y = *reinterpret_cast<unsigned int*>(&hi);
+  return packed;
+}
+
+// h of the tile's live rows, rounded to bf16, into hs (zeros elsewhere),
+// four columns a thread-step; with h16 set, live rows are also written
+// there (flat row-major (R, H)).  S = 1 only: hs holds all H columns.
 __device__ __forceinline__ void build_h(const Geom& g, const float* __restrict__ a,
                                         const float* __restrict__ c, bf16* hs,
                                         int ldh, int n, int tb, int uc, int xn,
@@ -158,21 +228,12 @@ __device__ __forceinline__ void build_h(const Geom& g, const float* __restrict__
     const int r = idx / H4;
     const int k4 = idx - r * H4;
     int t, u;
-    float4 hv = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    uint2 packed = make_uint2(0, 0);
     const bool live = tile_row(g, r, tb, uc, t, u) && t < xn;
     if (live) {
-      const float4 av =
-          reinterpret_cast<const float4*>(a + ((size_t)n * g.T + t) * g.H)[k4];
-      const float4 cv =
-          reinterpret_cast<const float4*>(c + ((size_t)n * g.U + u) * g.H)[k4];
-      hv = make_float4(tanhf(av.x + cv.x), tanhf(av.y + cv.y),
-                       tanhf(av.z + cv.z), tanhf(av.w + cv.w));
+      packed = h4(a, c, ((size_t)n * g.T + t) * g.H + 4 * k4,
+                  ((size_t)n * g.U + u) * g.H + 4 * k4);
     }
-    __nv_bfloat162 lo = __floats2bfloat162_rn(hv.x, hv.y);
-    __nv_bfloat162 hi = __floats2bfloat162_rn(hv.z, hv.w);
-    uint2 packed;
-    packed.x = *reinterpret_cast<unsigned int*>(&lo);
-    packed.y = *reinterpret_cast<unsigned int*>(&hi);
     *reinterpret_cast<uint2*>(hs + r * ldh + 4 * k4) = packed;
     if (h16 != nullptr && live) {
       *reinterpret_cast<uint2*>(
@@ -181,15 +242,13 @@ __device__ __forceinline__ void build_h(const Geom& g, const float* __restrict__
   }
 }
 
-// zs = hs @ ws: warp w computes rows 16*(w%4).. and column tiles 2*(w/4)
-// and 2*(w/4)+1 of the 64 x 64 chunk.
-__device__ __forceinline__ void chunk_logits(const Smem& s, int H, int warp) {
+// acc += hs[:, :K] @ ws[:K, :]: warp w computes rows 16*(w%4).. and column
+// tiles 2*(w/4) and 2*(w/4)+1 of the 64 x 64 chunk.
+__device__ __forceinline__ void logits_mma(Acc& acc0, Acc& acc1, const Smem& s,
+                                           int K, int warp) {
   const int rt = warp & 3;
   const int ct = (warp >> 2) * 2;
-  Acc acc0, acc1;
-  wmma::fill_fragment(acc0, 0.0f);
-  wmma::fill_fragment(acc1, 0.0f);
-  for (int k = 0; k < H; k += 16) {
+  for (int k = 0; k < K; k += 16) {
     ARow fa;
     BRow fb0, fb1;
     wmma::load_matrix_sync(fa, s.hs + rt * 16 * s.ldh + k, s.ldh);
@@ -198,10 +257,51 @@ __device__ __forceinline__ void chunk_logits(const Smem& s, int H, int warp) {
     wmma::mma_sync(acc0, fa, fb0, acc0);
     wmma::mma_sync(acc1, fa, fb1, acc1);
   }
+}
+
+__device__ __forceinline__ void store_logits(const Smem& s, const Acc& acc0,
+                                             const Acc& acc1, int warp) {
+  const int rt = warp & 3;
+  const int ct = (warp >> 2) * 2;
   wmma::store_matrix_sync(s.zs + rt * 16 * kLdZ + ct * 16, acc0, kLdZ,
                           wmma::mem_row_major);
   wmma::store_matrix_sync(s.zs + rt * 16 * kLdZ + (ct + 1) * 16, acc1, kLdZ,
                           wmma::mem_row_major);
+}
+
+// zs = hs @ ws (S = 1: both hold all H rows).
+__device__ __forceinline__ void chunk_logits(const Smem& s, int K, int warp) {
+  Acc acc0, acc1;
+  wmma::fill_fragment(acc0, 0.0f);
+  wmma::fill_fragment(acc1, 0.0f);
+  logits_mma(acc0, acc1, s, K, warp);
+  store_logits(s, acc0, acc1, warp);
+}
+
+// zs = h @ W[:, chunk v0 / 64] and bs = its bias, for S > 1: S slice
+// products, each slice's h rows (hrow, from h16) and W rows copied into hs
+// and ws in turn.  The caller syncs before (the last reads of hs, ws, zs and
+// bs done) and after (zs visible).
+__device__ __forceinline__ void sliced_logits(const Geom& g, const Smem& s,
+                                              const bf16* __restrict__ h16,
+                                              const long long* hrow,
+                                              const bf16* __restrict__ wc,
+                                              const float* __restrict__ bias,
+                                              float* bs, int v0, int warp) {
+  Acc acc0, acc1;
+  wmma::fill_fragment(acc0, 0.0f);
+  wmma::fill_fragment(acc1, 0.0f);
+  for (int sl = 0; sl < g.S; ++sl) {
+    if (sl > 0) __syncthreads();  // the last slice's products are done
+    load_h_rows(h16, g.H, hrow, s.hs, s.ldh, sl * g.HS, g.HS);
+    load_w_rows(wc, s.ws, g.H, v0, sl * g.HS, g.HS);
+    __pipeline_commit();
+    if (sl == 0) load_bias(bias, bs, g.V, v0);
+    __pipeline_wait_prior(0);
+    __syncthreads();
+    logits_mma(acc0, acc1, s, g.HS, warp);
+  }
+  store_logits(s, acc0, acc1, warp);
 }
 
 // d logit of one cell: db*[v==blank] + de*[v==lab] - softmax*(db+de).
@@ -211,8 +311,10 @@ __device__ __forceinline__ float dlogit(float z, float logz, float db, float de,
   return pick - expf(z - logz) * (db + de);
 }
 
-// Per-row metadata of a tile, in static shared memory.
+// Per-row metadata of a tile, in static shared memory; hrow is the row's
+// index in the flat (R, H) h, or -1 where the row is not live.
 struct Rows {
+  long long hrow[kRows];
   int live[kRows];
   int lab[kRows];
   float logz[kRows];
@@ -220,21 +322,34 @@ struct Rows {
   float de[kRows];
 };
 
+// Sample, tile and (dadc) H slice of a block of the sample-major grid x.
+__device__ __forceinline__ void block_tile(const Geom& g, int slices, int& n,
+                                           int& tb, int& uc, int& o) {
+  const int tiles = g.ntb * g.nuc;
+  const int bid = blockIdx.x;
+  const int rest = bid / slices;
+  o = bid - rest * slices;
+  n = rest / tiles;
+  const int tile = rest - n * tiles;
+  tb = tile / g.nuc;
+  uc = tile - tb * g.nuc;
+}
+
 __global__ void __launch_bounds__(kThreads)
 fwd_kernel(const float* __restrict__ a, const float* __restrict__ c,
            const bf16* __restrict__ w, const float* __restrict__ bias,
            const int* __restrict__ lab, const int* __restrict__ xn_arr,
-           float* __restrict__ blank_out, float* __restrict__ emit_out,
-           float* __restrict__ logz_out, Geom g, int blank) {
+           const bf16* __restrict__ h16, float* __restrict__ blank_out,
+           float* __restrict__ emit_out, float* __restrict__ logz_out, Geom g,
+           int blank) {
   extern __shared__ __align__(128) unsigned char smem[];
   __shared__ float bs[kVC];
-  const Smem s = carve(smem, g.H);
-  const int n = blockIdx.y;
-  const int tb = blockIdx.x / g.nuc;
-  const int uc = blockIdx.x - tb * g.nuc;
+  __shared__ long long hrow[kRows];
+  const Smem s = carve(smem, g.HS);
+  int n, tb, uc, o;
+  block_tile(g, 1, n, tb, uc, o);
   const int xn = xn_arr[n];
   const int tid = threadIdx.x;
-  const int H = g.H;
 
   // thread -> (row i, quarter q of the chunk's 64 columns)
   const int i = tid >> 2;
@@ -253,15 +368,25 @@ fwd_kernel(const float* __restrict__ a, const float* __restrict__ c,
     return;
   }
 
-  build_h(g, a, c, s.hs, s.ldh, n, tb, uc, xn, nullptr);
-  const int my_lab = valid ? lab[n * g.U + u] : -1;
+  if (g.S == 1) {
+    build_h(g, a, c, s.hs, s.ldh, n, tb, uc, xn, nullptr);
+  } else if (tid < kRows) {
+    int tr, ur;
+    const bool lr = tile_row(g, tid, tb, uc, tr, ur) && tr < xn;
+    hrow[tid] = lr ? ((long long)n * g.T + tr) * g.U + ur : -1;
+  }
+  const int my_lab = valid ? lab[(size_t)n * g.U + u] : -1;
 
   float m = -INFINITY, sum = 0.0f, bl = 0.0f, el = 0.0f;
   for (int v0 = 0; v0 < g.V; v0 += kVC) {
-    __syncthreads();  // hs built; the last chunk's ws and zs reads done
-    load_w_chunk(w, bias, s.ws, bs, H, g.V, v0);
-    __syncthreads();
-    chunk_logits(s, H, tid >> 5);
+    __syncthreads();  // hs built; the last chunk's ws, zs and bs reads done
+    if (g.S == 1) {
+      load_w_chunk(w, bias, s.ws, bs, g.H, g.V, v0);
+      __syncthreads();
+      chunk_logits(s, g.HS, tid >> 5);
+    } else {
+      sliced_logits(g, s, h16, hrow, w, bias, bs, v0, tid >> 5);
+    }
     __syncthreads();
     const int vend = min(kVC, g.V - v0);
     float zl[16];
@@ -301,20 +426,22 @@ fwd_kernel(const float* __restrict__ a, const float* __restrict__ c,
   }
 }
 
-// Row metadata of tile rows; rows that are not live get db = de = 0.
+// Row metadata of tile rows; rows that are not live get db = de = 0 and
+// hrow = -1 (``row`` is the cell's flat index).
 __device__ __forceinline__ void load_rows(Rows& rows, int i, bool live, int lab_v,
-                                          size_t cell,
+                                          size_t row,
                                           const float* __restrict__ logz,
                                           const float* __restrict__ dbl,
                                           const float* __restrict__ del) {
+  rows.hrow[i] = live ? (long long)row : -1;
   rows.live[i] = live;
   rows.lab[i] = lab_v;
-  rows.logz[i] = live ? logz[cell] : 0.0f;
-  rows.db[i] = live ? dbl[cell] : 0.0f;
-  rows.de[i] = live ? del[cell] : 0.0f;
+  rows.logz[i] = live ? logz[row] : 0.0f;
+  rows.db[i] = live ? dbl[row] : 0.0f;
+  rows.de[i] = live ? del[row] : 0.0f;
 }
 
-// dz chunk -> dzs (bf16); returns nothing.  Thread layout: any.
+// dz chunk -> dzs (bf16).  Thread layout: any.
 __device__ __forceinline__ void chunk_dz(const Smem& s, const float* bs,
                                          const Rows& rows, int v0, int V,
                                          int blank) {
@@ -330,6 +457,7 @@ __device__ __forceinline__ void chunk_dz(const Smem& s, const float* bs,
   }
 }
 
+// Block (n, tile, o): d_h columns [o*HS, (o+1)*HS) of one tile.
 template <int MAXF>
 __global__ void __launch_bounds__(kThreads, 1)
 dadc_kernel(const float* __restrict__ a, const float* __restrict__ c,
@@ -342,29 +470,29 @@ dadc_kernel(const float* __restrict__ a, const float* __restrict__ c,
   extern __shared__ __align__(128) unsigned char smem[];
   __shared__ float bs[kVC];
   __shared__ Rows rows;
-  const Smem s = carve(smem, g.H);
+  const Smem s = carve(smem, g.HS);
   const int H = g.H;
-  const int KT = H / 16;
-  const int n = blockIdx.y;
-  const int tb = blockIdx.x / g.nuc;
-  const int uc = blockIdx.x - tb * g.nuc;
-  const int ntb = gridDim.x / g.nuc;
+  const int HS = g.HS;
+  const int KT = HS / 16;
+  int n, tb, uc, o;
+  block_tile(g, g.S, n, tb, uc, o);
+  const int k0 = o * HS;
   const int xn = xn_arr[n];
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
 
   if (tb * g.bt >= xn) {  // no live row: the partials of this tile are zero
-    for (int idx = tid; idx < g.bt * H; idx += kThreads) {
-      const int tt = idx / H;
-      const int k = idx - tt * H;
+    for (int idx = tid; idx < g.bt * HS; idx += kThreads) {
+      const int tt = idx / HS;
+      const int k = k0 + idx - tt * HS;
       const int t = tb * g.bt + tt;
       if (t < g.T) da_part[(((size_t)n * g.T + t) * g.nuc + uc) * H + k] = 0.0f;
     }
-    for (int idx = tid; idx < g.ut * H; idx += kThreads) {
-      const int uu = idx / H;
-      const int k = idx - uu * H;
+    for (int idx = tid; idx < g.ut * HS; idx += kThreads) {
+      const int uu = idx / HS;
+      const int k = k0 + idx - uu * HS;
       const int u = uc * g.ut + uu;
-      if (u < g.U) dc_part[(((size_t)n * ntb + tb) * g.U + u) * H + k] = 0.0f;
+      if (u < g.U) dc_part[(((size_t)n * g.ntb + tb) * g.U + u) * H + k] = 0.0f;
     }
     return;
   }
@@ -373,12 +501,13 @@ dadc_kernel(const float* __restrict__ a, const float* __restrict__ c,
     int t, u;
     const bool valid = tile_row(g, tid, tb, uc, t, u);
     const bool live = valid && t < xn;
-    load_rows(rows, tid, live, valid ? lab[n * g.U + u] : -1,
+    load_rows(rows, tid, live, valid ? lab[(size_t)n * g.U + u] : -1,
               ((size_t)n * g.T + t) * g.U + u, logz, dbl, del);
   }
-  build_h(g, a, c, s.hs, s.ldh, n, tb, uc, xn, h16);
+  if (g.S == 1) build_h(g, a, c, s.hs, s.ldh, n, tb, uc, xn, h16);
 
   // dh accumulators: warp w holds row tile w%4 and column tiles w/4 + 2f
+  // of the block's slice
   const int rt = warp & 3;
   const int half = warp >> 2;
   Acc dh[MAXF];
@@ -387,11 +516,20 @@ dadc_kernel(const float* __restrict__ a, const float* __restrict__ c,
 
   for (int v0 = 0; v0 < g.V; v0 += kVC) {
     __syncthreads();
-    load_w_chunk(w, bias, s.ws, bs, H, g.V, v0);
-    __syncthreads();
-    chunk_logits(s, H, warp);
+    if (g.S == 1) {
+      load_w_chunk(w, bias, s.ws, bs, H, g.V, v0);
+      __syncthreads();
+      chunk_logits(s, HS, warp);
+    } else {
+      sliced_logits(g, s, h16, rows.hrow, w, bias, bs, v0, warp);
+    }
     __syncthreads();
     chunk_dz(s, bs, rows, v0, g.V, blank);
+    if (g.S > 1) {  // the slice's W rows, for dh
+      load_w_rows(w, s.ws, H, v0, k0, HS);
+      __pipeline_commit();
+      __pipeline_wait_prior(0);
+    }
     __syncthreads();
     for (int ks = 0; ks < kVC; ks += 16) {
       ARow fa;
@@ -431,7 +569,7 @@ dadc_kernel(const float* __restrict__ a, const float* __restrict__ c,
     for (int idx = tid; idx < kRows * width; idx += kThreads) {
       const int r = idx / width;
       const int bc = idx - r * width;
-      const int k = (2 * (bc >> 4) + p) * 16 + (bc & 15);
+      const int k = k0 + (2 * (bc >> 4) + p) * 16 + (bc & 15);
       float d = 0.0f;
       if (rows.live[r]) {
         int t, u;
@@ -450,7 +588,7 @@ dadc_kernel(const float* __restrict__ a, const float* __restrict__ c,
       if (t >= g.T) continue;
       float acc = 0.0f;
       for (int uu = 0; uu < g.ut; ++uu) acc += stage[(tt * g.ut + uu) * ldst + bc];
-      const int k = (2 * (bc >> 4) + p) * 16 + (bc & 15);
+      const int k = k0 + (2 * (bc >> 4) + p) * 16 + (bc & 15);
       da_part[(((size_t)n * g.T + t) * g.nuc + uc) * H + k] = acc;
     }
     for (int idx = tid; idx < g.ut * width; idx += kThreads) {
@@ -460,12 +598,14 @@ dadc_kernel(const float* __restrict__ a, const float* __restrict__ c,
       if (u >= g.U) continue;
       float acc = 0.0f;
       for (int tt = 0; tt < g.bt; ++tt) acc += stage[(tt * g.ut + uu) * ldst + bc];
-      const int k = (2 * (bc >> 4) + p) * 16 + (bc & 15);
-      dc_part[(((size_t)n * ntb + tb) * g.U + u) * H + k] = acc;
+      const int k = k0 + (2 * (bc >> 4) + p) * 16 + (bc & 15);
+      dc_part[(((size_t)n * g.ntb + tb) * g.U + u) * H + k] = acc;
     }
   }
 }
 
+// Block (V chunk, row group, o): d_W rows [o*HS, (o+1)*HS) of one chunk,
+// and (o = 0) its d_b.
 template <int MAXF>
 __global__ void __launch_bounds__(kThreads, 1)
 dwdb_kernel(const bf16* __restrict__ h16, const bf16* __restrict__ w,
@@ -478,12 +618,15 @@ dwdb_kernel(const bf16* __restrict__ h16, const bf16* __restrict__ w,
   __shared__ float bs[kVC];
   __shared__ float dbs[kThreads / kVC][kVC];
   __shared__ Rows rows;
-  const Smem s = carve(smem, g.H);
+  const Smem s = carve(smem, g.HS);
   const int H = g.H;
-  const int KT = H / 16;
+  const int HS = g.HS;
+  const int KT = HS / 16;
   const int V = g.V;
   const int v0 = blockIdx.x * kVC;
   const int grp = blockIdx.y;
+  const int o = blockIdx.z;
+  const int k0 = o * HS;
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const long long R = (long long)N * g.T * g.U;
@@ -491,10 +634,10 @@ dwdb_kernel(const bf16* __restrict__ h16, const bf16* __restrict__ w,
   const long long tile0 = (long long)grp * tiles_per_group;
   const long long tile1 = min(ntile, tile0 + tiles_per_group);
 
-  load_w_chunk(w, bias, s.ws, bs, H, V, v0);
+  if (g.S == 1) load_w_chunk(w, bias, s.ws, bs, H, V, v0);  // stays
 
   // d_W accumulators: warp w holds column tile w%4 of the chunk and row
-  // tiles (of H) w/4 + 2f
+  // tiles (of the slice) w/4 + 2f
   const int vt = warp & 3;
   const int hh = warp >> 2;
   Acc dw[MAXF];
@@ -507,7 +650,7 @@ dwdb_kernel(const bf16* __restrict__ h16, const bf16* __restrict__ w,
 
   for (long long tile = tile0; tile < tile1; ++tile) {
     const long long r0 = tile * kRows;
-    __syncthreads();  // the last tile's hs and dzs reads done
+    __syncthreads();  // the last tile's hs, zs, dzs and bs reads done
     if (tid < kRows) {
       const long long r = r0 + tid;
       bool live = false;
@@ -518,25 +661,20 @@ dwdb_kernel(const bf16* __restrict__ h16, const bf16* __restrict__ w,
         const int t = rem / g.U;
         const int u = rem - t * g.U;
         live = t < xn_arr[n];
-        lab_v = lab[n * g.U + u];
+        lab_v = lab[(size_t)n * g.U + u];
       }
       load_rows(rows, tid, live, lab_v, (size_t)r, logz, dbl, del);
     }
     __syncthreads();
-    for (int idx = tid; idx < kRows * (H / 8); idx += kThreads) {
-      const int r = idx / (H / 8);
-      const int k = (idx - r * (H / 8)) * 8;
-      if (rows.live[r]) {
-        __pipeline_memcpy_async(s.hs + r * s.ldh + k, h16 + (size_t)(r0 + r) * H + k,
-                                16);
-      } else {
-        *reinterpret_cast<uint4*>(s.hs + r * s.ldh + k) = make_uint4(0, 0, 0, 0);
-      }
+    if (g.S == 1) {
+      load_h_rows(h16, H, rows.hrow, s.hs, s.ldh, 0, HS);
+      __pipeline_commit();
+      __pipeline_wait_prior(0);
+      __syncthreads();
+      chunk_logits(s, HS, warp);
+    } else {
+      sliced_logits(g, s, h16, rows.hrow, w, bias, bs, v0, warp);
     }
-    __pipeline_commit();
-    __pipeline_wait_prior(0);
-    __syncthreads();
-    chunk_logits(s, H, warp);
     __syncthreads();
 #pragma unroll 4
     for (int rr = 0; rr < 16; ++rr) {
@@ -548,6 +686,11 @@ dwdb_kernel(const bf16* __restrict__ h16, const bf16* __restrict__ w,
       }
       dbsum += d;
       s.dzs[r * kLdW + col] = __float2bfloat16(d);
+    }
+    if (g.S > 1) {  // the slice's h columns, for d_W
+      load_h_rows(h16, H, rows.hrow, s.hs, s.ldh, k0, HS);
+      __pipeline_commit();
+      __pipeline_wait_prior(0);
     }
     __syncthreads();
     for (int ks = 0; ks < kRows; ks += 16) {
@@ -566,7 +709,7 @@ dwdb_kernel(const bf16* __restrict__ h16, const bf16* __restrict__ w,
   }
 
   __syncthreads();  // all shared reads done: reuse it as the d_W stage
-  float* stage = reinterpret_cast<float*>(smem);  // H x kLdZ fp32
+  float* stage = reinterpret_cast<float*>(smem);  // HS x kLdZ fp32
 #pragma unroll
   for (int f = 0; f < MAXF; ++f) {
     const int j = hh + 2 * f;
@@ -577,31 +720,61 @@ dwdb_kernel(const bf16* __restrict__ h16, const bf16* __restrict__ w,
   }
   dbs[rg][col] = dbsum;
   __syncthreads();
-  for (int idx = tid; idx < H * kVC; idx += kThreads) {
+  for (int idx = tid; idx < HS * kVC; idx += kThreads) {
     const int k = idx / kVC;
     const int v = idx - k * kVC;
-    if (v0 + v < V) dw_part[((size_t)grp * H + k) * V + v0 + v] = stage[k * kLdZ + v];
+    if (v0 + v < V) {
+      dw_part[((size_t)grp * H + k0 + k) * V + v0 + v] = stage[k * kLdZ + v];
+    }
   }
-  if (tid < kVC && v0 + tid < V) {
+  if (o == 0 && tid < kVC && v0 + tid < V) {
     float acc = 0.0f;
     for (int q = 0; q < kThreads / kVC; ++q) acc += dbs[q][tid];
     db_part[(size_t)grp * V + v0 + tid] = acc;
   }
 }
 
-Geom make_geom(int T, int U, int H, int V) {
+// h of every live cell as bf16 rows of (R, H); one block a cell, four
+// columns a thread-step (the bits build_h forms).  Rows of cells past xn
+// are not written: every reader zeroes them.
+__global__ void __launch_bounds__(kThreads)
+hidden_kernel(const float* __restrict__ a, const float* __restrict__ c,
+              const int* __restrict__ xn_arr, bf16* __restrict__ h16, Geom g) {
+  const long long row = blockIdx.x;
+  const long long TU = (long long)g.T * g.U;
+  const int n = (int)(row / TU);
+  const int rem = (int)(row - n * TU);
+  const int t = rem / g.U;
+  const int u = rem - t * g.U;
+  if (t >= xn_arr[n]) return;
+  const int H4 = g.H / 4;
+  for (int k4 = threadIdx.x; k4 < H4; k4 += kThreads) {
+    *reinterpret_cast<uint2*>(h16 + row * g.H + 4 * k4) =
+        h4(a, c, ((size_t)n * g.T + t) * g.H + 4 * k4,
+           ((size_t)n * g.U + u) * g.H + 4 * k4);
+  }
+}
+
+// H is the padded width, S its slice count (H = S * HS, HS a multiple of
+// 16 up to kMaxHS; the caller checks).
+Geom make_geom(int T, int U, int H, int V, int S) {
   Geom g;
   g.T = T;
   g.U = U;
   g.H = H;
   g.V = V;
+  g.S = S;
+  g.HS = H / S;
   g.ut = U < kRows ? U : kRows;
   g.bt = kRows / g.ut;
   g.nuc = (U + g.ut - 1) / g.ut;
+  g.ntb = (T + g.bt - 1) / g.bt;
   return g;
 }
 
-int row_tiles(const Geom& g) { return ((g.T + g.bt - 1) / g.bt) * g.nuc; }
+bool bad_slices(int H, int S) {
+  return S < 1 || H % S != 0 || (H / S) % 16 != 0 || H / S > kMaxHS;
+}
 
 template <typename K>
 cudaError_t set_smem(K kernel, size_t bytes) {
@@ -613,45 +786,58 @@ cudaError_t set_smem(K kernel, size_t bytes) {
 
 // Tiles of one sample along T (times U chunks), for the caller's d_c
 // partials: (N, fj_t_tiles, U, H).
-extern "C" int fj_t_tiles(int T, int U) {
-  const Geom g = make_geom(T, U, 16, 1);
-  return (T + g.bt - 1) / g.bt;
-}
+extern "C" int fj_t_tiles(int T, int U) { return make_geom(T, U, 16, 1, 1).ntb; }
 
 // U chunks of a frame, for the caller's d_a partials: (N, T, fj_u_chunks, H).
-extern "C" int fj_u_chunks(int U) { return make_geom(1, U, 16, 1).nuc; }
+extern "C" int fj_u_chunks(int U) { return make_geom(1, U, 16, 1, 1).nuc; }
 
-extern "C" int fj_forward(const float* a, const float* c, const void* w,
-                          const float* bias, const int* lab, const int* xn,
-                          float* blank_out, float* emit_out, float* logz_out,
-                          int N, int T, int U, int H, int V, int blank,
-                          void* stream) {
-  const Geom g = make_geom(T, U, H, V);
-  const size_t bytes = smem_bytes(H) - (size_t)kRows * kLdW * 2;  // no dzs
-  cudaError_t err = set_smem(fwd_kernel, bytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  fwd_kernel<<<dim3(row_tiles(g), N), kThreads, bytes,
-               static_cast<cudaStream_t>(stream)>>>(
-      a, c, static_cast<const bf16*>(w), bias, lab, xn, blank_out, emit_out,
-      logz_out, g, blank);
+extern "C" int fj_hidden(const float* a, const float* c, const int* xn,
+                         void* h16, int N, int T, int U, int H, void* stream) {
+  if (H % 16 != 0) return static_cast<int>(cudaErrorInvalidValue);
+  const Geom g = make_geom(T, U, H, 1, 1);
+  const long long R = (long long)N * T * U;
+  hidden_kernel<<<static_cast<unsigned int>(R), kThreads, 0,
+                  static_cast<cudaStream_t>(stream)>>>(
+      a, c, xn, static_cast<bf16*>(h16), g);
   return static_cast<int>(cudaGetLastError());
 }
 
+extern "C" int fj_forward(const float* a, const float* c, const void* w,
+                          const float* bias, const int* lab, const int* xn,
+                          const void* h16, float* blank_out, float* emit_out,
+                          float* logz_out, int N, int T, int U, int H, int V,
+                          int blank, int S, void* stream) {
+  if (bad_slices(H, S)) return static_cast<int>(cudaErrorInvalidValue);
+  const Geom g = make_geom(T, U, H, V, S);
+  const size_t bytes = smem_bytes(g.HS) - (size_t)kRows * kLdW * 2;  // no dzs
+  cudaError_t err = set_smem(fwd_kernel, bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long blocks = (long long)N * g.ntb * g.nuc;
+  fwd_kernel<<<static_cast<unsigned int>(blocks), kThreads, bytes,
+               static_cast<cudaStream_t>(stream)>>>(
+      a, c, static_cast<const bf16*>(w), bias, lab, xn,
+      static_cast<const bf16*>(h16), blank_out, emit_out, logz_out, g, blank);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// h16: written here when S = 1, read (from fj_hidden) when S > 1.
 extern "C" int fj_backward_dadc(const float* a, const float* c, const void* w,
                                 const float* bias, const int* lab,
                                 const int* xn, const float* logz,
                                 const float* db, const float* de,
                                 float* da_part, float* dc_part, void* h16,
                                 int N, int T, int U, int H, int V, int blank,
-                                void* stream) {
-  const Geom g = make_geom(T, U, H, V);
-  const size_t bytes = smem_bytes(H);
-  const dim3 grid(row_tiles(g), N);
+                                int S, void* stream) {
+  if (bad_slices(H, S)) return static_cast<int>(cudaErrorInvalidValue);
+  const Geom g = make_geom(T, U, H, V, S);
+  const size_t bytes = smem_bytes(g.HS);
+  const long long blocks = (long long)N * g.ntb * g.nuc * S;
+  const dim3 grid(static_cast<unsigned int>(blocks));
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bf16* wb = static_cast<const bf16*>(w);
   bf16* hb = static_cast<bf16*>(h16);
   cudaError_t err;
-  if (H <= 256) {
+  if (g.HS <= 256) {
     err = set_smem(dadc_kernel<8>, bytes);
     if (err != cudaSuccess) return static_cast<int>(err);
     dadc_kernel<8><<<grid, kThreads, bytes, st>>>(
@@ -671,18 +857,21 @@ extern "C" int fj_backward_dwdb(const void* h16, const void* w,
                                 const float* db, const float* de,
                                 float* dw_part, float* db_part, int N, int T,
                                 int U, int H, int V, int blank, int groups,
-                                void* stream) {
-  const Geom g = make_geom(T, U, H, V);
-  const size_t bytes = smem_bytes(H);
+                                int S, void* stream) {
+  if (bad_slices(H, S) || groups < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const Geom g = make_geom(T, U, H, V, S);
+  const size_t bytes = smem_bytes(g.HS);
   const long long R = (long long)N * T * U;
   const long long ntile = (R + kRows - 1) / kRows;
   const int per = static_cast<int>((ntile + groups - 1) / groups);
-  const dim3 grid((V + kVC - 1) / kVC, groups);
+  const dim3 grid((V + kVC - 1) / kVC, groups, S);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bf16* hb = static_cast<const bf16*>(h16);
   const bf16* wb = static_cast<const bf16*>(w);
   cudaError_t err;
-  if (H <= 256) {
+  if (g.HS <= 256) {
     err = set_smem(dwdb_kernel<8>, bytes);
     if (err != cudaSuccess) return static_cast<int>(err);
     dwdb_kernel<8><<<grid, kThreads, bytes, st>>>(

@@ -3,7 +3,9 @@
 //
 // Replaces the Pallas TPU kernels `_fused_kernel` and `_beta_only_kernel`
 // (warp_rnnt_tpu/ops/pallas_impl.py).  Same recurrence, same masking, same
-// -1e30 sentinel at invalid cells:
+// -1e30 sentinel at invalid cells; a log-prob below the sentinel (-inf) is
+// read as the sentinel, so a cell whose blank and label are both -inf stays
+// finite, as in the JAX scan (the Pallas kernel gives NaN there):
 //
 //   alpha[t, u] = LSE(alpha[t-1, u] + blank[t-1, u], alpha[t, u-1] + emit[t, u-1])
 //   beta[t, u]  = LSE(beta[t+1, u] + blank[t, u],    beta[t, u+1] + emit[t, u])
@@ -34,6 +36,15 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr float kNeg = -1.0e30f;
+
+// A log-prob as the sweeps read it: values below the sentinel, -inf among
+// them, become the sentinel, so that lae never meets two -inf (|a - b| would
+// be NaN where the JAX scan's safe logaddexp gives -inf); a NaN stays NaN.
+// Finite log-probs at or above -1e30 pass unchanged.
+__device__ __forceinline__ float ld(const float* p) {
+  const float x = *p;
+  return x < kNeg ? kNeg : x;
+}
 
 // logaddexp on finite sentinel values; fp32, precise expf/log1pf.
 __device__ __forceinline__ float lae(float a, float b) {
@@ -89,18 +100,18 @@ lattice_kernel(const float* __restrict__ blank, const float* __restrict__ emit,
       if (in) {
         const size_t cell = (size_t)t * U + u;
         if (alpha_dir) {
-          m = t == 0 ? 0.0f : bl[cell - U];
+          m = t == 0 ? 0.0f : ld(bl + cell - U);
           if (u == 0) {
             b = t == 0 ? 0.0f : kNeg;
           } else if (u - 1 < yn && t < xn) {
-            b = out[cell - 1] + em[cell - 1];
+            b = out[cell - 1] + ld(em + cell - 1);
           }
         } else {
-          m = bl[cell];
+          m = ld(bl + cell);
           if (t == xn - 1 && u == yn) {
-            b = bl[cell];
+            b = m;
           } else if (u < yn && t < xn && u + 1 < U) {
-            b = em[cell] + out[cell + 1];
+            b = ld(em + cell) + out[cell + 1];
           }
         }
       }

@@ -2,8 +2,16 @@
 `warp_rnnt_tpu/functional/gather.py`).
 
 From each (V,) row of log-probs only the blank entry and one label entry
-survive.  The forward is two `torch.gather`-style reads.  The backward is the
-dense compare-select write
+survive, as the (N, T, U, 2) lattice the loss core takes, in the input's
+dtype.  On the card the forward is one launch of the column-gather kernel
+(`ops.gather_kernels.gather_lattice`, `csrc/gather.cu`), which writes the
+interleaved lattice itself; on the CPU it is `gather_blank_label_plain`,
+one `torch.gather` and a stack.  The two give the same values bit for bit
+(values are moved, never rounded), with one difference outside the
+function's domain: a label outside [0, V) gives 0 in the kernel, where
+`torch.gather` raises on the CPU and stops with a device-side assert on the
+card.  There is no fallback between the two.  The backward is the dense
+compare-select write
 
     d_xs[n, t, u, v] = ct[..., 0] * [v == blank] + ct[..., 1] * [v == loc[n, u]]
 
@@ -22,7 +30,16 @@ from __future__ import annotations
 
 import torch
 
-from warp_rnnt_tpu_torch.ops import flat_kernels
+from warp_rnnt_tpu_torch.ops import flat_kernels, gather_kernels
+
+
+def gather_blank_label_plain(xs, loc_rows, blank: int):
+    """The plain forward: xs (N, T, U, V), loc_rows (N, U) int32 ->
+    (N, T, U, 2) in xs's dtype, by one `torch.gather` and a stack."""
+    N, T, U, V = xs.shape
+    idx = loc_rows.long()[:, None, :, None].expand(N, T, U, 1)
+    label_col = torch.gather(xs, 3, idx)[..., 0]
+    return torch.stack([xs[..., blank], label_col], dim=-1)
 
 
 class _GatherBlankLabel(torch.autograd.Function):
@@ -30,14 +47,13 @@ class _GatherBlankLabel(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, xs, loc_rows, blank):
-        N, T, U, V = xs.shape
-        idx = loc_rows.long()[:, None, :, None].expand(N, T, U, 1)
-        label_col = torch.gather(xs, 3, idx)[..., 0]
         ctx.save_for_backward(loc_rows)
         ctx.blank = blank
-        ctx.shape = (N, T, U, V)
+        ctx.shape = tuple(xs.shape)
         ctx.dtype = xs.dtype
-        return torch.stack([xs[..., blank], label_col], dim=-1)
+        if xs.is_cuda:
+            return gather_kernels.gather_lattice(xs, loc_rows, blank)
+        return gather_blank_label_plain(xs, loc_rows, blank)
 
     @staticmethod
     def backward(ctx, ct):
@@ -52,8 +68,8 @@ class _GatherBlankLabel(torch.autograd.Function):
 
 
 def gather_blank_label(xs, loc_rows, blank: int):
-    """xs (N, T, U, V), loc_rows (N, U) int32 -> (N, T, U, 2):
-    [blank entry, loc entry] of every row."""
+    """xs (N, T, U, V), loc_rows (N, U) int32 -> (N, T, U, 2) in xs's
+    dtype: [blank entry, loc entry] of every row."""
     return _GatherBlankLabel.apply(xs, loc_rows, blank)
 
 

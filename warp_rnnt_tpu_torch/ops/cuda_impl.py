@@ -67,8 +67,17 @@ def _shift_right(x, k, fill):
 
 
 def _lae(a, b):
-    """logaddexp on finite sentinel values (never sees true -inf)."""
+    """logaddexp on finite sentinel values (never sees true -inf: the
+    log-probs are read through `_floor`)."""
     return torch.maximum(a, b) + torch.log1p(torch.exp(-(a - b).abs()))
+
+
+def _floor(x):
+    """Log-probs below the sentinel (-inf among them) read as the sentinel,
+    as the kernel's loads do; finite values at or above it and NaN pass
+    unchanged.  Without it a cell whose blank and label are both -inf gives
+    ``|a - b|`` = NaN in `_lae`, where the JAX scan stays finite."""
+    return torch.where(x < NEG, NEG, x)
 
 
 def _scan(m, b):
@@ -87,8 +96,8 @@ def _scan(m, b):
 def alpha_beta_plain(blank_lp, emit_lp, xn, yn, compute_alpha: bool = True):
     """Plain torch twin of the lattice kernels: (alphas or None, betas)."""
     _check(blank_lp, emit_lp, xn, yn)
-    blank_lp = blank_lp.float()
-    emit_lp = emit_lp.float()
+    blank_lp = _floor(blank_lp.float())
+    emit_lp = _floor(emit_lp.float())
     N, T, U = blank_lp.shape
     t_iota = torch.arange(T, device=blank_lp.device)[None, :]
     xn = xn[:, None]

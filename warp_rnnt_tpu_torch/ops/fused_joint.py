@@ -32,8 +32,14 @@ What the JAX module has and this one does not:
     them (JAX forced to 128-column blocks), and `chip_smoke.py` holds the
     kernels against the plain versions at V=64000 and V=50257.
 
-What bounds the kernels and what their design does about it is noted at the
-top of `csrc/fused_joint.cu`.
+The kernels take any joint width H >= 1 and any N.  `h_plan` pads H up to
+S slices of at most 512 columns, each a multiple of 16 (zero columns of a
+and c, zero rows of W: tanh(0) = 0 adds nothing), and the backward cuts
+d_a, d_c and d_W back to H (`pad_h`, `unpad_h`).  At S > 1 (H > 512) a
+fourth kernel first writes the joint activations h as bf16 (N*T*U, H),
+which the other three read a slice at a time; the cost of each route
+against the R x H x V bound is noted at the top of `csrc/fused_joint.cu`,
+with what bounds the kernels and what their design does about it.
 """
 
 from __future__ import annotations
@@ -47,21 +53,22 @@ from warp_rnnt_tpu_torch.functional.loss import _labels_ext
 from warp_rnnt_tpu_torch.ops import _build
 
 # Launches per kernel, counted where the kernel is launched and nowhere else.
-LAUNCHES = {"fused_joint_fwd": 0, "fused_joint_bwd_dadc": 0,
-            "fused_joint_bwd_dwdb": 0}
+LAUNCHES = {"fused_joint_hidden": 0, "fused_joint_fwd": 0,
+            "fused_joint_bwd_dadc": 0, "fused_joint_bwd_dwdb": 0}
 
-MAX_H = 512  # the backward kernels keep d_h / d_W tiles in registers
+_SLICE = 512  # widest H slice of the kernels (shared memory, registers)
 
 
 def _lib():
     lib = _build.load("fused_joint")
     if not getattr(lib, "_typed", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.fj_forward.argtypes = [p] * 9 + [i] * 6 + [p]
-        lib.fj_backward_dadc.argtypes = [p] * 12 + [i] * 6 + [p]
-        lib.fj_backward_dwdb.argtypes = [p] * 10 + [i] * 7 + [p]
-        for fn in (lib.fj_forward, lib.fj_backward_dadc, lib.fj_backward_dwdb,
-                   lib.fj_t_tiles, lib.fj_u_chunks):
+        lib.fj_hidden.argtypes = [p] * 4 + [i] * 4 + [p]
+        lib.fj_forward.argtypes = [p] * 10 + [i] * 7 + [p]
+        lib.fj_backward_dadc.argtypes = [p] * 12 + [i] * 7 + [p]
+        lib.fj_backward_dwdb.argtypes = [p] * 10 + [i] * 8 + [p]
+        for fn in (lib.fj_hidden, lib.fj_forward, lib.fj_backward_dadc,
+                   lib.fj_backward_dwdb, lib.fj_t_tiles, lib.fj_u_chunks):
             fn.restype = i
         lib.fj_t_tiles.argtypes = [i, i]
         lib.fj_u_chunks.argtypes = [i]
@@ -169,6 +176,32 @@ def joint_lattice_bwd_plain(a, c, w, b, labels_ext, xn, yn, logz, db, de,
     return bwd_dadc_plain(*args) + bwd_dwdb_plain(*args)
 
 
+def h_plan(H: int):
+    """(Hp, S): the kernels' width for a joint of width H >= 1, S slices of
+    Hp / S columns, each a multiple of 16 and at most 512; S = ceil(H / 512)
+    and the slices as even as 16 allows (H=200 -> (208, 1), 640 -> (640, 2),
+    1000 -> (1024, 2), 2048 -> (2048, 4))."""
+    S = -(-H // _SLICE)
+    return S * (-(-H // (16 * S)) * 16), S
+
+
+def pad_h(a, c, w, Hp: int):
+    """a (N, T, H), c (N, U, H), w (H, V) with zero columns of a and c and
+    zero rows of w up to width Hp: the same logits, since tanh(0) = 0 and a
+    zero row of W adds nothing."""
+    extra = Hp - a.shape[-1]
+    if extra == 0:
+        return a, c, w
+    pad = torch.nn.functional.pad
+    return pad(a, (0, extra)), pad(c, (0, extra)), pad(w, (0, 0, 0, extra))
+
+
+def unpad_h(d_a, d_c, d_w, H: int):
+    """The gradients of `pad_h`'s operands cut back to width H (the padded
+    columns and rows hold zeros)."""
+    return d_a[..., :H], d_c[..., :H], d_w[:H]
+
+
 def _chunked(w16, V):
     """(H, V) bf16 -> (ceil(V/64), H, 64), zero columns past V: each 64-column
     chunk of W one contiguous block, as the kernels load it."""
@@ -179,29 +212,53 @@ def _chunked(w16, V):
 
 
 def _kernel_inputs(a, c, w, b, labels_ext, xn, blank):
-    """Cast and check the kernels' operands: a, c, b fp32, w bf16 in
-    64-column chunks, labels_ext and xn int32, all contiguous on one CUDA
-    device."""
+    """Cast, pad and check the kernels' operands: a, c, b fp32, w bf16 in
+    64-column chunks, a, c and w padded to `h_plan`'s width, labels_ext and
+    xn int32, all contiguous on one CUDA device.  Returns (operands, dims
+    (N, T, U, Hp, V, S), H)."""
     N, T, U, H, V = _shapes(a, c, w, b, labels_ext, xn)
     if not 0 <= blank < V:
         raise ValueError(f"blank={blank} outside [0, {V})")
-    if H % 16 or not 16 <= H <= MAX_H:
-        raise ValueError(
-            f"joint width H={H} not supported by the CUDA kernels: it must be"
-            f" a multiple of 16 in [16, {MAX_H}]"
-        )
+    if min(N, T, U, H, V) < 1:
+        raise ValueError(f"empty joint (N, T, U, H, V) = {(N, T, U, H, V)}")
     if a.device.type != "cuda":
         raise ValueError(f"unsupported device {a.device}")
-    if N > 65535 or min(T, U, V) < 1:
-        raise ValueError(f"unsupported lattice (N, T, U, V) = {(N, T, U, V)}")
-    ops = (a.float().contiguous(), c.float().contiguous(),
-           _chunked(w.to(torch.bfloat16), V), b.float().contiguous())
     for name, x in (("labels_ext", labels_ext), ("xn", xn)):
         if x.dtype != torch.int32:
             raise ValueError(f"{name} must be torch.int32, got {x.dtype}")
         if not x.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    return ops, (N, T, U, H, V)
+    Hp, S = h_plan(H)
+    a, c, w = pad_h(a.float(), c.float(), w.to(torch.bfloat16), Hp)
+    ops = (a.contiguous(), c.contiguous(), _chunked(w, V), b.float().contiguous())
+    return ops, (N, T, U, Hp, V, S), H
+
+
+def hidden_plain(a, c, xn):
+    """Plain torch version of the h kernel: bf16(tanh(a[n, t] + c[n, u]))
+    as rows (N*T*U, H), zero rows at frames t >= xn (which the kernel
+    leaves unwritten)."""
+    N, T, H = a.shape
+    U = c.shape[1]
+    h = torch.tanh(a.float()[:, :, None, :] + c.float()[:, None, :, :])
+    h = torch.where(_live(xn, T)[..., None], h, 0.0)
+    return h.to(torch.bfloat16).reshape(N * T * U, H)
+
+
+def _hidden(a, c, xn, dims):
+    """The h kernel (S > 1): bf16(tanh(a + c)) of every live cell, rows of
+    (N*T*U, Hp); rows of cells past xn are left unwritten (no kernel reads
+    them)."""
+    N, T, U, Hp, _, _ = dims
+    lib = _lib()
+    h16 = torch.empty((N * T * U, Hp), dtype=torch.bfloat16, device=a.device)
+    stream = torch.cuda.current_stream(a.device).cuda_stream
+    with torch.cuda.device(a.device):
+        code = lib.fj_hidden(a.data_ptr(), c.data_ptr(), xn.data_ptr(),
+                             h16.data_ptr(), N, T, U, Hp, stream)
+    _build.check(lib, "fj_error_string", code, "fj_hidden")
+    LAUNCHES["fused_joint_hidden"] += 1
+    return h16
 
 
 def _lattice_operand(x, name, shape):
@@ -220,8 +277,10 @@ def joint_lattice_fwd(a, c, w, b, labels_ext, xn, yn, blank: int):
     """
     if a.device.type == "cpu":
         return joint_lattice_fwd_plain(a, c, w, b, labels_ext, xn, yn, blank)
-    (a, c, w, b), (N, T, U, H, V) = _kernel_inputs(a, c, w, b, labels_ext, xn,
-                                                    blank)
+    ops, dims, _ = _kernel_inputs(a, c, w, b, labels_ext, xn, blank)
+    a, c, w, b = ops
+    N, T, U, Hp, V, S = dims
+    h16 = _hidden(a, c, xn, dims) if S > 1 else None
     lib = _lib()
     out = [torch.empty((N, T, U), dtype=torch.float32, device=a.device)
            for _ in range(3)]
@@ -229,34 +288,40 @@ def joint_lattice_fwd(a, c, w, b, labels_ext, xn, yn, blank: int):
     with torch.cuda.device(a.device):
         code = lib.fj_forward(
             a.data_ptr(), c.data_ptr(), w.data_ptr(), b.data_ptr(),
-            labels_ext.data_ptr(), xn.data_ptr(), *(o.data_ptr() for o in out),
-            N, T, U, H, V, blank, stream,
+            labels_ext.data_ptr(), xn.data_ptr(),
+            None if h16 is None else h16.data_ptr(),
+            *(o.data_ptr() for o in out), N, T, U, Hp, V, blank, S, stream,
         )
     _build.check(lib, "fj_error_string", code, "fj_forward")
     LAUNCHES["fused_joint_fwd"] += 1
     return tuple(out)
 
 
-def _bwd_dadc(ops, labels_ext, xn, lat, dims, blank):
-    """The d_a / d_c kernel: returns (d_a, d_c, h16), h16 the (N*T*U, H)
-    bf16 joint activations that the d_W / d_b kernel reads."""
+def _bwd_dadc(ops, labels_ext, xn, lat, dims, blank, h16=None):
+    """The d_a / d_c kernel: returns (d_a, d_c, h16) at the padded width,
+    h16 the (N*T*U, Hp) bf16 joint activations that the d_W / d_b kernel
+    reads: written by this kernel at S = 1, by the h kernel before it at
+    S > 1 (or given)."""
     a, c, w, b = ops
     logz, db, de = lat
-    N, T, U, H, V = dims
+    N, T, U, Hp, V, S = dims
     lib = _lib()
     dev = a.device
-    da_part = torch.empty((N, T, lib.fj_u_chunks(U), H), dtype=torch.float32,
+    if h16 is None:
+        h16 = (_hidden(a, c, xn, dims) if S > 1 else
+               torch.empty((N * T * U, Hp), dtype=torch.bfloat16, device=dev))
+    da_part = torch.empty((N, T, lib.fj_u_chunks(U), Hp), dtype=torch.float32,
                           device=dev)
-    dc_part = torch.empty((N, lib.fj_t_tiles(T, U), U, H), dtype=torch.float32,
-                          device=dev)
-    h16 = torch.empty((N * T * U, H), dtype=torch.bfloat16, device=dev)
+    dc_part = torch.empty((N, lib.fj_t_tiles(T, U), U, Hp),
+                          dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         code = lib.fj_backward_dadc(
             a.data_ptr(), c.data_ptr(), w.data_ptr(), b.data_ptr(),
             labels_ext.data_ptr(), xn.data_ptr(), logz.data_ptr(),
             db.data_ptr(), de.data_ptr(), da_part.data_ptr(),
-            dc_part.data_ptr(), h16.data_ptr(), N, T, U, H, V, blank, stream,
+            dc_part.data_ptr(), h16.data_ptr(), N, T, U, Hp, V, blank, S,
+            stream,
         )
     _build.check(lib, "fj_error_string", code, "fj_backward_dadc")
     LAUNCHES["fused_joint_bwd_dadc"] += 1
@@ -280,22 +345,22 @@ def _row_groups(device, V, rows):
 
 
 def _bwd_dwdb(h16, ops, labels_ext, xn, lat, dims, blank):
-    """The d_W / d_b kernel: returns (d_w, d_b)."""
+    """The d_W / d_b kernel: returns (d_w, d_b), d_w at the padded width."""
     _, _, w, b = ops
     logz, db, de = lat
-    N, T, U, H, V = dims
+    N, T, U, Hp, V, S = dims
     lib = _lib()
     dev = w.device
     groups = _row_groups(dev, V, N * T * U)
-    dw_part = torch.empty((groups, H, V), dtype=torch.float32, device=dev)
+    dw_part = torch.empty((groups, Hp, V), dtype=torch.float32, device=dev)
     db_part = torch.empty((groups, V), dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         code = lib.fj_backward_dwdb(
             h16.data_ptr(), w.data_ptr(), b.data_ptr(), labels_ext.data_ptr(),
             xn.data_ptr(), logz.data_ptr(), db.data_ptr(), de.data_ptr(),
-            dw_part.data_ptr(), db_part.data_ptr(), N, T, U, H, V, blank,
-            groups, stream,
+            dw_part.data_ptr(), db_part.data_ptr(), N, T, U, Hp, V, blank,
+            groups, S, stream,
         )
     _build.check(lib, "fj_error_string", code, "fj_backward_dwdb")
     LAUNCHES["fused_joint_bwd_dwdb"] += 1
@@ -303,11 +368,11 @@ def _bwd_dwdb(h16, ops, labels_ext, xn, lat, dims, blank):
 
 
 def _bwd_operands(a, c, w, b, labels_ext, xn, logz, db, de, blank):
-    ops, dims = _kernel_inputs(a, c, w, b, labels_ext, xn, blank)
-    N, T, U, _, _ = dims
+    ops, dims, H = _kernel_inputs(a, c, w, b, labels_ext, xn, blank)
+    N, T, U = dims[:3]
     lat = tuple(_lattice_operand(x, name, (N, T, U))
                 for x, name in ((logz, "logz"), (db, "db"), (de, "de")))
-    return ops, lat, dims
+    return ops, lat, dims, H
 
 
 def joint_lattice_bwd(a, c, w, b, labels_ext, xn, yn, logz, db, de,
@@ -322,11 +387,11 @@ def joint_lattice_bwd(a, c, w, b, labels_ext, xn, yn, logz, db, de,
     if a.device.type == "cpu":
         return joint_lattice_bwd_plain(a, c, w, b, labels_ext, xn, yn, logz,
                                        db, de, blank)
-    ops, lat, dims = _bwd_operands(a, c, w, b, labels_ext, xn, logz, db, de,
-                                   blank)
+    ops, lat, dims, H = _bwd_operands(a, c, w, b, labels_ext, xn, logz, db, de,
+                                      blank)
     d_a, d_c, h16 = _bwd_dadc(ops, labels_ext, xn, lat, dims, blank)
     d_w, d_b = _bwd_dwdb(h16, ops, labels_ext, xn, lat, dims, blank)
-    return d_a, d_c, d_w, d_b
+    return (*unpad_h(d_a, d_c, d_w, H), d_b)
 
 
 class _FusedJointCore(torch.autograd.Function):
