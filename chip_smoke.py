@@ -76,6 +76,15 @@ Phases, in order; any failure exits non-zero before the last line:
      just before; costs against `impl="scan"` on the card, the gradient of
      three whole samples against one-sample calls (offsets below 2^31) and
      of the last against the plain CPU path; loss+grad ms and peak memory.
+Slice 6 (the fused backward kernels on wgmma) adds, inside phases 6-8 and
+12: two backward calls bit-equal (full width, H=512); each backward
+kernel's registers, spills and shared memory; one bf16 torch.matmul at the
+slice's shape as a yardstick; the kernels against their plain versions and
+their times at H=512 and V=50257; and `rnnt_loss_joint` padded and fused
+in turns at V=28, 256 and 1000, and at V=5000 and 64000 for H=256, 512,
+640 and 1024, chained and under the profiler (device busy ms, idle share),
+the readings CUDA "auto" rests on.  The backward's h kernel
+(the h image) is the sub-entry "image" of the h kernel's entry.
 
 It prints the kernels' JSON line and the card's line, and last
 `{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}`.
@@ -515,7 +524,9 @@ def check_fused_main(torch, wt, cases_mod, joint, fjin, loss, grads, costs_g,
 def time_fused_kernels(torch, fj, timing, full_case, rates, card, tag=""):
     """Each fused kernel and its plain version (CUDA events, chained), its
     bound by bf16 tensor-core operations, on the operands of ``full_case``;
-    at H > 512 also the h kernel, bound by its bytes."""
+    past one forward slice (H > 512) also the forward's h kernel (rows),
+    past one backward slice (H > 256) the backward's (the h image), each
+    bound by its bytes at the unpadded H."""
     (a, c, w, b, lab, xn, yn), (db, de) = full_case
     N, T, H = a.shape
     U, V = c.shape[1], w.shape[1]
@@ -524,8 +535,8 @@ def time_fused_kernels(torch, fj, timing, full_case, rates, card, tag=""):
     bl, el, logz = fj.joint_lattice_fwd(a, c, w, b, lab, xn, yn, blank)
     ops_k, lat, dims, _ = fj._bwd_operands(a, c, w, b, lab, xn, logz, db, de,
                                            blank)
-    Hp, S = dims[3], dims[5]
-    h16 = fj._hidden(ops_k[0], ops_k[1], xn, dims) if S > 1 else None
+    image = dims[5] > 1  # the h image kernel runs
+    h16 = fj._hidden_image(ops_k[0], ops_k[1], xn, dims) if image else None
     _, _, h16 = fj._bwd_dadc(ops_k, lab, xn, lat, dims, blank, h16)
     args = (a, c, w, b, lab, xn, yn, logz, db, de, blank)
     first = lambda out: out[0].view(-1)[0]  # noqa: E731
@@ -546,12 +557,19 @@ def time_fused_kernels(torch, fj, timing, full_case, rates, card, tag=""):
          R * H * 2 + H * V * 2 + V * 4 + 3 * R * 4 + (H * V + V) * 4, 2 * prod,
          BF16),
     ]
-    if S > 1:  # a, c in, h out as bf16; an add and a tanh an element
-        runs.append(("fused_joint_hidden",
-                     lambda *x: fj._hidden(ops_k[0], ops_k[1], xn, dims),
-                     fj.hidden_plain, (a, c, xn),
-                     (N * T * H + N * U * H) * 4 + N * 4 + R * H * 2, 2 * R * H,
-                     1))
+    # the h kernels: a, c in, h out as bf16 (counted R x H, unpadded); an
+    # add and a tanh an element
+    h_bytes = (N * T * H + N * U * H) * 4 + N * 4 + R * H * 2
+    if fj.h_plan(H)[1] > 1:  # the forward's h rows, at its own width
+        fops, fdims, _ = fj._kernel_inputs(a, c, w, b, lab, xn, blank)
+        runs.append(("fused_joint_hidden", lambda *x: fj._hidden(*x, fdims),
+                     fj.hidden_plain, (fops[0], fops[1], xn), h_bytes,
+                     2 * R * H, 1))
+    if image:  # the backward's h image
+        runs.append(("fused_joint_hidden_image",
+                     lambda *x: fj._hidden_image(*x, dims),
+                     lambda *x: fj.hidden_image_plain(*x, dims[5]),
+                     (ops_k[0], ops_k[1], xn), h_bytes, 2 * R * H, 1))
     times = {}
     for name, fn, plain, fargs, nbytes, nops, rate in runs:
         ms = timing.bench_scalar_chain(fn, fargs, 10, reduce_out=first)
@@ -832,8 +850,9 @@ def phase_large_v(torch, np, wt, fj, cases_mod, carry, counters):
     `rnnt_loss_fused_joint` at V=64000 once (loss+grad and no-grad costs,
     counts set to 0 just before), held against the padded layout of
     `rnnt_loss_joint` (loss rtol 2e-3, gradients 2e-2, w_out and b_out per
-    column group).  Returns (kernel errs, launches, V=64000 operands)."""
-    errs, keep = {}, None
+    column group).  Returns (kernel errs, launches, V=64000 operands,
+    {"V=50257": kernel operands})."""
+    errs, keep, fulls = {}, None, {}
     for name, d in LARGE_V.items():
         _, params = carry(fj_tree(np, SEED + 3, d["F"], d["H"], d["V"]),
                           device="cuda")
@@ -855,6 +874,8 @@ def phase_large_v(torch, np, wt, fj, cases_mod, carry, counters):
         errs[name] = {k: cases_mod.max_err(r) for k, r in readings.items()}
         if keep is None:
             keep = (jin, params, full)
+        else:
+            fulls[name] = full
     jin, params, full = keep
     f, g, labels, xn, yn = jin
     reset(counters)
@@ -892,7 +913,7 @@ def phase_large_v(torch, np, wt, fj, cases_mod, carry, counters):
             f"fused V=64000 vs padded grad {name}", got, ref_grads[name], 2e-2,
             groups if name in ("w_out", "b_out") else None)
         print(f"fused V=64000 vs padded grad {name}: {json.dumps(r)}")
-    return errs, launches, keep
+    return errs, launches, keep, fulls
 
 
 def time_packed_kernels(torch, pk, timing, case, rates, card, tag):
@@ -1297,7 +1318,7 @@ WIDE_TIMED = (640, 1024)
 # more samples than a grid's y dimension holds.
 WIDE_SMALL = {"H=2048": dict(N=2, T=50, U=11, V=1000, H=2048, F=256),
               "N=65537": dict(N=65537, T=1, U=2, V=64, H=16, F=16)}
-FJ_WIDE_PATH = ("fused_joint_hidden", *FJ_PATH)
+FJ_WIDE_PATH = ("fused_joint_hidden", "fused_joint_hidden_image", *FJ_PATH)
 
 
 def neg_inf_inputs(torch, np, headline):
@@ -1398,16 +1419,21 @@ def wide_inputs(torch, np, carry, d, seed):
 def wide_entry_points(torch, wt, fj, cases_mod, counters, jin, params, tag):
     """Loss+grad through `rnnt_loss_fused_joint` and
     `rnnt_loss_joint(layout="fused")`, counts set to 0 just before and read
-    just after (the three fused kernels and the alpha+beta sweep; the h
-    kernel when H takes more than one slice, and only then), each against
+    just after (the three fused kernels and the alpha+beta sweep; the
+    forward's h kernel when H takes more than one `h_plan` slice, the
+    backward's when it takes more than one `bwd_plan` slice, each then and
+    only then), each against
     the padded layout (loss rtol 2e-3,
     gradients 2e-2 of their largest, w_out and b_out per column group).
     Returns the launches of the first."""
     f, g, labels, xn, yn = jin
     H, V = params["w_out"].shape
-    sliced = fj.h_plan(H)[1] > 1
-    want = tuple(k for k in FJ_WIDE_PATH if k != "lattice_beta_only"
-                 and (sliced or k != "fused_joint_hidden"))
+    skip = {"lattice_beta_only"}
+    if fj.h_plan(H)[1] == 1:
+        skip.add("fused_joint_hidden")
+    if fj.bwd_plan(H)[1] == 1:
+        skip.add("fused_joint_hidden_image")
+    want = tuple(k for k in FJ_WIDE_PATH if k not in skip)
 
     def loss_grad(layout):
         fr, gr = f.detach().requires_grad_(), g.detach().requires_grad_()
@@ -1456,8 +1482,9 @@ def phase_wide_fused(torch, np, wt, fj, cases_mod, carry, counters):
     """Fault 2: (a) the kernels against their plain versions (1e-3 per
     column group, `fused_joint_cases.compare`) on `WIDE_CASES` (H=40, 200,
     640, 1024 with U > 64, 2048, and N=65537) and at the fused slice's
-    lattice at H=200, 640 and 1024; the h kernel against its plain version
-    on live rows (one bf16 ulp of |h| <= 1, 2^-8); (b) the two entry points
+    lattice at H=200, 640 and 1024; each h kernel against its plain
+    version (one bf16 ulp of |h| <= 1, 2^-8: the rows on live rows, the
+    image whole); (b) the two entry points
     at those three widths, at H=2048 (N=2, T=50, U=11, V=1000) and at
     N=65537 (T=1, U=2, V=64, H=16), each against the padded layout.
     Returns (errs, launches at H=640, {H: full-width kernel operands})."""
@@ -1493,6 +1520,20 @@ def phase_wide_fused(torch, np, wt, fj, cases_mod, carry, counters):
             if err > 2.0 ** -8:
                 raise AssertionError(f"h kernel H={H} != plain version")
             del h16, want
+        if fj.bwd_plan(H)[1] > 1:  # the backward's h image
+            a, c, _, _, _, xn, _ = ops
+            Hp, S = fj.bwd_plan(H)
+            pa, pc, _ = fj.pad_h(a.float(), c.float(), ops[2], Hp)
+            pa, pc = pa.contiguous(), pc.contiguous()
+            img = fj._hidden_image(pa, pc, xn,
+                                   (d["N"], d["T"], d["U"], Hp, d["V"], S))
+            want = fj.hidden_image_plain(pa, pc, xn, S)
+            err = float((img.float() - want.float()).abs().max())
+            errs[H]["fused_joint_hidden_image"] = err
+            print(f"fused_joint_hidden_image H={H}: max abs err {err}")
+            if err > 2.0 ** -8:
+                raise AssertionError(f"h image kernel H={H} != plain version")
+            del img, want
         got = wide_entry_points(torch, wt, fj, cases_mod, counters, jin,
                                 params, f"H={H}")
         if H == 640:
@@ -1506,6 +1547,93 @@ def phase_wide_fused(torch, np, wt, fj, cases_mod, carry, counters):
         del jin, params
     torch.cuda.empty_cache()
     return errs, launches, fulls
+
+
+# ---- slice 6: the backward kernels on wgmma --------------------------------
+
+# The fused slice's lattice at the backward's two-slice width.
+FJ_H512 = dict(FJ, H=512)
+# The joint-layout sweep that decides CUDA "auto", padded and fused in
+# turns: JL_SWEEP, and JL (V=5000) and V=64000 (N=2, 20 labels) at each
+# joint width of ROUTE_H (640: NeMo's Conformer-Transducer joint).
+ROUTE_H = (256, 512, 640, 1024)
+ROUTE_SWEEP = (*JL_SWEEP, *(dict(JL, H=h) for h in ROUTE_H),
+               *(dict(N=2, T=150, L=20, V=64000, H=h, F=256) for h in ROUTE_H))
+
+
+def check_deterministic(torch, fj, full_case, tag):
+    """Two backward calls on the same operands give bit-equal d_a, d_c,
+    d_W and d_b (partials summed in a fixed order, no atomics)."""
+    (a, c, w, b, lab, xn, yn), (db, de) = full_case
+    logz = fj.joint_lattice_fwd(a, c, w, b, lab, xn, yn, 0)[2]
+    first = fj.joint_lattice_bwd(a, c, w, b, lab, xn, yn, logz, db, de, 0)
+    second = fj.joint_lattice_bwd(a, c, w, b, lab, xn, yn, logz, db, de, 0)
+    same = [bool(torch.equal(x, y)) for x, y in zip(first, second)]
+    print(f"fused backward {tag}: two calls bit-equal (d_a, d_c, d_W, d_b)"
+          f" {same}")
+    if not all(same):
+        raise AssertionError(f"fused backward {tag} is not deterministic")
+
+
+def print_backward_attrs(fj):
+    """Registers at entry, spills, shared memory and ring stages of each
+    backward kernel, one slice (H=256) and sliced (H=512)."""
+    for H in (256, 512):
+        for name, attrs in fj.backward_attrs(H).items():
+            print(f"{name} H={H} (bwd_plan {fj.bwd_plan(H)}): {json.dumps(attrs)}")
+            if attrs["spill_bytes"]:
+                print(f"WARNING: {name} spills {attrs['spill_bytes']} bytes"
+                      " a thread")
+
+
+def time_matmul(torch, timing, rates, card):
+    """One bf16 torch.matmul (R, H) x (H, V) at the fused slice's shape: the
+    card's attainable rate for one of the fused kernels' products, printed
+    as a yardstick (not the same function as any kernel)."""
+    R, H, V = FJ["N"] * FJ["T"] * FJ["U"], FJ["H"], FJ["V"]
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 30)
+    x = torch.randn(R, H, generator=gen, device="cuda").to(torch.bfloat16)
+    w = torch.randn(H, V, generator=gen, device="cuda").to(torch.bfloat16)
+    ms = timing.bench_scalar_chain(torch.matmul, (x, w), 10,
+                                   reduce_out=lambda o: o.view(-1)[0].float())
+    b_ms, _ = bound_ms(0, 2 * R * H * V, rates, BF16)
+    print(f"time matmul bf16 (R,H)x(H,V) R={R} H={H} V={V}: ms={ms}"
+          f" bound_ms={b_ms} ({2 * R * H * V / ms / 1e9:.1f} TFLOP/s) [{card}]")
+    return ms
+
+
+def time_route_sweep(torch, np, wt, timing, profile_step, carry, card):
+    """`rnnt_loss_joint` loss+grad, padded and fused in turns (padded,
+    fused, fused, padded) at each cell of ROUTE_SWEEP, random lengths:
+    chained ms, then the device busy ms, the idle share and the kernels a
+    call under the profiler, in turns again; the readings
+    `functional/joint_loss._CUDA_FUSED_MIN_V` and `_CUDA_FUSED_MAX_H` rest
+    on."""
+    out = {}
+    turns = ("padded", "fused", "fused", "padded")
+    for i, dims in enumerate(ROUTE_SWEEP):
+        params = carry(fj_tree(np, SEED + 40 + i, dims["F"], dims["H"],
+                               dims["V"]), device="cuda")[1]
+        f, g, labels, xn, yn = joint_inputs(torch, np, dims, SEED + 50 + i)
+        steps = {k: joint_step(wt, k, g, params, labels, xn, yn)
+                 for k in ("padded", "fused")}
+        reads = {k: {"ms": [], "busy_ms": [], "idle_share": [], "kernels": []}
+                 for k in steps}
+        for layout in turns:
+            reads[layout]["ms"].append(
+                peak_and_time(torch, timing, steps[layout], f, 8)[0])
+        for layout in turns:
+            prof = profile_step(lambda: steps[layout](f))
+            reads[layout]["busy_ms"].append(prof["busy_ms"])
+            reads[layout]["idle_share"].append(prof["idle_share"])
+            reads[layout]["kernels"].append(prof["kernels_per_call"])
+        out[f"V={dims['V']} H={dims['H']}"] = reads
+        print(f"route sweep V={dims['V']} H={dims['H']} N={dims['N']}"
+              f" T={dims['T']} labels={dims['L']} (turns padded, fused, fused,"
+              f" padded): {json.dumps(reads)} [{card}]")
+        del params, f, g, steps
+        torch.cuda.empty_cache()
+    return out
 
 
 def main():
@@ -1578,6 +1706,8 @@ def main():
     fjin = fj_inputs(torch, SEED + 1)
     full_case = fj_full_case(torch, fj, fjin, params)
     errs.update(phase_fused_kernels(torch, fj, fj_cases, full_case))
+    check_deterministic(torch, fj, full_case, "full width")
+    print_backward_attrs(fj)
     fj_launches, *fj_out = phase_fused_main(
         torch, wt, [cuda_impl.LAUNCHES, fk.LAUNCHES, fj.LAUNCHES], fjin, params
     )
@@ -1585,7 +1715,19 @@ def main():
     del fj_out
     times.update(phase_fused_times(torch, wt, fj, timing, joint, fjin, params,
                                    full_case, rates, card))
+    time_matmul(torch, timing, rates, card)
     del joint, fjin, params, full_case
+    # slice 6: the kernels at the backward's two-slice width H=512
+    jin512, params512 = wide_inputs(torch, np, carry_flax_joint, FJ_H512,
+                                    SEED + 31)
+    full512 = fj_full_case(torch, fj, jin512, params512)
+    r = fj_cases.compare(fj, *full512, 0)
+    torch.cuda.synchronize()
+    print(f"fused joint kernels fused slice H=512: {json.dumps(r)}")
+    check_deterministic(torch, fj, full512, "H=512")
+    h512_times = time_fused_kernels(torch, fj, timing, full512, rates, card,
+                                    " H=512")
+    del jin512, params512, full512
 
     # slice 3: the compact layout at cases A and B, rnnt_loss_joint in every
     # layout, the fused joint at LLM-size vocabularies
@@ -1619,22 +1761,20 @@ def main():
     route = phase_joint_layouts(torch, wt, jl, fj_cases, counters, jin, jparams)
     time_joint_layouts(torch, wt, timing, jin, jparams,
                        ("padded", "compact", "fused"), card, f"V={JL['V']}")
-    for dims in JL_SWEEP:
-        sparams = carry_flax_joint(
-            fj_tree(np, SEED + 7, dims["F"], dims["H"], dims["V"]),
-            device="cuda")[1]
-        time_joint_layouts(torch, wt, timing,
-                           joint_inputs(torch, np, dims, SEED + 8), sparams,
-                           ("padded", "compact", "fused"), card,
-                           f"V={dims['V']} T={dims['T']} labels={dims['L']}")
     print(f"joint auto route on cuda: {route} at V={JL['V']};"
           f" _CUDA_FUSED_MIN_V={jl._CUDA_FUSED_MIN_V}")
-    del jin, jparams, sparams
+    del jin, jparams
 
-    large_errs, large_launches, keep = phase_large_v(
+    large_errs, large_launches, keep, large_fulls = phase_large_v(
         torch, np, wt, fj, fj_cases, carry_flax_joint, counters)
     large_times = time_large_v(torch, wt, fj, timing, keep, rates, card)
-    del keep
+    v50257_times = time_fused_kernels(torch, fj, timing, large_fulls["V=50257"],
+                                      rates, card, " V=50257")
+    del keep, large_fulls
+    from warp_rnnt_tpu_torch.benchmarks.profile_loss import profile_step
+    route_reads = time_route_sweep(torch, np, wt, timing, profile_step,
+                                   carry_flax_joint, card)
+    print(f"route sweep readings: {json.dumps(route_reads)}")
     torch.cuda.empty_cache()
 
     # slice 5: the fused joint at H=200/640/1024/2048 and N=65537, and the
@@ -1696,19 +1836,32 @@ def main():
                                   "warp_rnnt_tpu/functional/gather.py:139"
                                   " (XLA gathers; no TPU kernel)"),
                "fused_joint_hidden": ("fused_joint.cu",
-                                      f"{fj_src}:60 and {fj_src}:100 (h)")}
-    errs["fused_joint_hidden"] = max(e.get("fused_joint_hidden", 0.0)
-                                     for e in wide_errs.values())
-    times["fused_joint_hidden"] = wide_times[1024]["fused_joint_hidden"]
+                                      f"{fj_src}:60 and {fj_src}:245 (h)")}
+    # the backward's h kernel: a sub-entry of the forward's h kernel
+    image = "fused_joint_hidden_image"
+    image_source = ("fused_joint.cu", f"{fj_src}:100, {fj_src}:294 and"
+                    f" {fj_src}:356 (h)")
+    for k in ("fused_joint_hidden", image):
+        errs[k] = max(e.get(k, 0.0) for e in wide_errs.values())
+        times[k] = wide_times[1024][k]
     path_launches = {**launches, **fj_launches, **compact_launches["A"],
                      **{k: gather_launches[k] for k in GATHER_PATH[:3]},
-                     "fused_joint_hidden": wide_launches["fused_joint_hidden"]}
+                     **{k: wide_launches[k] for k in ("fused_joint_hidden", image)}}
+
+    def base_entry(name, src, replaces):
+        return {"name": name, "route": "cuda",
+                "source": f"warp_rnnt_tpu_torch/csrc/{src}", "replaces": replaces,
+                "launches": path_launches[name], "max_abs_err": errs[name],
+                "library_ms": None, **times[name]}
+
+    def wide_entries(name):
+        return {f"H={H}": {"launches": wide_launches[name],
+                           "max_abs_err": wide_errs[H][name], **wt_times[name]}
+                for H, wt_times in wide_times.items()}
+
     kernels = []
     for name, (src, replaces) in sources.items():
-        entry = {"name": name, "route": "cuda",
-                 "source": f"warp_rnnt_tpu_torch/csrc/{src}", "replaces": replaces,
-                 "launches": path_launches[name], "max_abs_err": errs[name],
-                 "library_ms": None, **times[name]}
+        entry = base_entry(name, src, replaces)
         if name in gather_times[N]:
             entry.update({f"N={n}": gather_times[n][name] for n in GATHER_N[1:]})
         if name == "flat_write":
@@ -1722,11 +1875,14 @@ def main():
             entry["V=64000"] = {
                 "launches": large_launches[name], **large_times[name],
                 "max_abs_err": max(e[name] for e in large_errs.values())}
+            entry["V=50257"] = {**v50257_times[name],
+                                "max_abs_err": large_errs["V=50257"][name]}
+            entry["H=512"] = h512_times[name]
         if name.startswith("fused"):
-            for H, wt_times in wide_times.items():
-                entry[f"H={H}"] = {"launches": wide_launches[name],
-                                   "max_abs_err": wide_errs[H][name],
-                                   **wt_times[name]}
+            entry.update(wide_entries(name))
+        if name == "fused_joint_hidden":
+            entry["image"] = {**base_entry(image, *image_source),
+                              "H=512": h512_times[image], **wide_entries(image)}
         kernels.append(entry)
     print(f"whole run from the build: {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))

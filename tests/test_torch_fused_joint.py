@@ -21,8 +21,13 @@ port (the plain torch versions of the CUDA kernels):
     against JAX at H=40 and H=640 (wider than one 512-column slice);
   * the comparison that holds the kernels to their plain versions
     (`benchmarks/fused_joint_cases.py`) rejects a backward with a dropped or
-    mis-scaled softmax term.
-Kernel-against-plain-version tests need the card and are marked `cuda`.
+    mis-scaled softmax term;
+  * the backward kernels' planning: `bwd_plan`'s widths, the W and h
+    images read back by the kernels' address rules, the tiles' cover of
+    the lattice, and every (tile, chunk, slice) owned by one block
+    (`_v_parts`, `_row_groups`).
+Kernel-against-plain-version tests need the card and are marked `cuda`
+(with two backward calls bit-equal).
 """
 
 import inspect
@@ -365,6 +370,190 @@ def test_h_plan(H, want):
     assert 0 <= Hp - H < 16 * S
 
 
+@pytest.mark.parametrize("H,want", [(1, (64, 1)), (64, (64, 1)), (200, (256, 1)),
+                                    (256, (256, 1)), (257, (384, 2)),
+                                    (272, (384, 2)), (512, (512, 2)),
+                                    (640, (768, 3)), (1000, (1024, 4)),
+                                    (2048, (2048, 8))])
+def test_bwd_plan(H, want):
+    """The backward's slices: whole wgmma N tiles (64 columns), at most 256
+    (a warpgroup's d_h or d_W in registers), as few and as even as that
+    allows; never narrower than H."""
+    Hp, S = fj.bwd_plan(H)
+    assert (Hp, S) == want
+    assert Hp % S == 0 and (Hp // S) % 64 == 0 and Hp // S <= 256
+    assert 0 <= Hp - H < 64 * S
+
+
+# ---- the backward kernels' address and ownership rules, as in
+# `csrc/fused_joint.cu` --------------------------------------------------
+
+def _w_image_offset(k, v, HS):
+    """Element offset of W[k, v] (k within the slice) in its W image block:
+    8 x 8 core matrices of 16-byte rows, each row 8 columns v of one k;
+    k-neighbouring core matrices 128 bytes apart, v-neighbouring HS * 16
+    (the descriptors `desc_w`, `desc_wt`)."""
+    return (k // 8) * 64 + (v // 8) * HS * 8 + (k % 8) * 8 + v % 8
+
+
+def _dadc_blocks(tiles, S, chunks, parts):
+    """{(tile, slice, 64-column chunk): block (x, o, p)} of `dadc_kernel`:
+    block x owns tiles 2x and 2x + 1 (one a consumer warpgroup), o its d_h
+    slice, p the chunks [p * cpp, (p + 1) * cpp), cpp = ceil(chunks /
+    parts)."""
+    cpp = -(-chunks // parts)
+    return {(t, o, ch): (t // 2, o, ch // cpp) for o in range(S)
+            for t in range(tiles) for ch in range(chunks)}
+
+
+def _dwdb_blocks(tiles, V, groups, S):
+    """{(tile, 64-column chunk, slice): block (q, grp, o)} of `dwdb_kernel`:
+    block q owns chunks 2q and 2q + 1 (one a consumer warpgroup), grp the
+    tiles [grp * per, (grp + 1) * per), per = ceil(tiles / groups), o its
+    d_W slice."""
+    per = -(-tiles // groups)
+    out = {}
+    for q in range(-(-V // 128)):
+        for grp in range(groups):
+            for o in range(S):
+                for t in range(grp * per, min(tiles, (grp + 1) * per)):
+                    for ch in (2 * q, 2 * q + 1):
+                        if ch * 64 < V:
+                            out[(t, ch, o)] = (q, grp, o)
+    return out
+
+
+@pytest.mark.parametrize("V,HS,S", [(200, 64, 1), (320, 128, 2), (64, 256, 1)])
+def test_w_image_reads_back_w_and_bias(V, HS, S):
+    """`_w_image` is a permutation of W (zero columns past V): read back by
+    the kernels' address rule (`_w_image_offset`) every block gives its
+    slice and chunk of W, then the chunk's biases (-inf past V); the chunk
+    count is even, so 128-column chunks are whole."""
+    rng = np.random.RandomState(V + HS)
+    w = torch.tensor(rng.randn(HS * S, V), dtype=torch.float32).to(torch.bfloat16)
+    b = torch.tensor(rng.randn(V), dtype=torch.float32)
+    img = fj._w_image(w, b, V, HS * S, S)
+    nc = fj._w_chunks(V)
+    assert nc % 2 == 0 and (nc - 2) * 64 < V <= nc * 64
+    assert img.shape == (S, nc, HS * 64 + 128) and img.dtype == torch.bfloat16
+    k, v = torch.meshgrid(torch.arange(HS), torch.arange(64), indexing="ij")
+    off = _w_image_offset(k, v, HS)
+    assert sorted(off.flatten().tolist()) == list(range(HS * 64))
+    wpad = torch.nn.functional.pad(w, (0, nc * 64 - V))
+    for s in range(S):
+        for ch in range(nc):
+            block = img[s, ch]
+            want = wpad[s * HS:(s + 1) * HS, ch * 64:(ch + 1) * 64]
+            assert torch.equal(block[off], want)
+            bias = block[HS * 64:].contiguous().view(torch.float32)
+            cols = torch.arange(ch * 64, ch * 64 + 64)
+            ref = torch.where(cols < V, b[cols.clamp(max=V - 1)],
+                              float("-inf"))
+            assert torch.equal(bias, ref)
+
+
+@pytest.mark.parametrize("N,T,U", [(2, 7, 5), (1, 3, 70), (3, 2, 129),
+                                   (2, 9, 21)])
+def test_tile_cells_cover_the_lattice_once(N, T, U):
+    """Every lattice cell is one row of one tile; a tile is 64 rows of one
+    sample (whole frames when U <= 64, one frame's U chunk otherwise)."""
+    cells = fj.tile_cells(N, T, U)
+    assert cells.shape == (fj.n_tiles(N, T, U), 64)
+    got = cells[cells >= 0]
+    assert sorted(got.tolist()) == list(range(N * T * U))
+    n = torch.where(cells >= 0, cells // (T * U), -1)
+    for row in n:
+        assert len(set(row[row >= 0].tolist())) == 1
+
+
+@pytest.mark.parametrize("N,T,U,S", [(2, 7, 5, 1), (1, 3, 70, 2), (2, 4, 9, 3)])
+def test_hidden_image_reads_back_h(N, T, U, S):
+    """The backward's h image (`h_image`, which `hidden_image_plain` applies
+    to `hidden_plain`'s rows) read back by the kernels' address rule,
+    (row/8)*64 + (k/8)*512 + (row%8)*8 + k%8 inside block (tile, slice),
+    gives bf16 h of each tile row, zero where the row is not live or past
+    the lattice."""
+    HS = 64
+    rng = np.random.RandomState(N * T * U)
+    a = torch.tensor(rng.randn(N, T, HS * S), dtype=torch.float32)
+    c = torch.tensor(rng.randn(N, U, HS * S), dtype=torch.float32)
+    xn = torch.tensor(rng.randint(1, T + 1, N), dtype=torch.int32)
+    rows = fj.hidden_plain(a, c, xn)
+    img = fj.h_image(rows, N, T, U, S)
+    tiles = fj.n_tiles(N, T, U)
+    assert img.shape == (tiles, S, 64 * HS)
+    assert fj.hidden_image_plain(a, c, xn, S).shape == img.shape
+    cells = fj.tile_cells(N, T, U)
+    r, k = torch.meshgrid(torch.arange(64), torch.arange(HS), indexing="ij")
+    off = (r // 8) * 64 + (k // 8) * 512 + (r % 8) * 8 + k % 8
+    for tile in range(tiles):
+        for s in range(S):
+            got = img[tile, s][off]
+            for i in range(64):
+                cell = int(cells[tile, i])
+                want = (rows[cell, s * HS:(s + 1) * HS] if cell >= 0
+                        else torch.zeros(HS, dtype=torch.bfloat16))
+                assert torch.equal(got[i], want)
+
+
+@pytest.mark.parametrize("tiles,S,V", [(1, 1, 77), (7, 1, 5000), (8, 3, 200),
+                                       (100, 1, 64000), (50, 1, 50257)])
+def test_dadc_schedule_owns_each_tile_slice_chunk_once(tiles, S, V):
+    """`_v_parts`' count at 132 SMs, and `_dadc_blocks`: each (tile, slice,
+    64-column chunk) has one d_a / d_c block, at most two tiles a block, no
+    V part empty; the d_a and d_c partials (one per block) are summed in a
+    fixed order."""
+    chunks = -(-V // 64)
+    parts = fj._v_parts(132, tiles, S, V)
+    assert 1 <= parts <= chunks
+    cpp = -(-chunks // parts)
+    assert (parts - 1) * cpp < chunks
+    own = _dadc_blocks(tiles, S, chunks, parts)
+    assert set(own) == {(t, o, ch) for t in range(tiles) for o in range(S)
+                        for ch in range(chunks)}
+    blocks = {}
+    for (t, o, ch), blk in own.items():
+        blocks.setdefault(blk, set()).add(t)
+    assert len(blocks) == -(-tiles // 2) * S * parts
+    assert all(len(ts) <= 2 for ts in blocks.values())
+
+
+def test_v_parts_fill_the_card():
+    """V=64000 at N=2 (100 tiles, 50 blocks) takes 5 V parts, 250 blocks;
+    V=50257 at N=1 (25 blocks) 5; the fused slice (400 blocks, three
+    waves) and wide grids 1."""
+    assert fj._v_parts(132, 100, 1, 64000) == 5
+    assert fj._v_parts(132, 50, 1, 50257) == 5
+    assert fj._v_parts(132, 800, 1, 5000) == 1
+    assert fj._v_parts(132, 800, 4, 5000) == 1
+
+
+@pytest.mark.parametrize("tiles,V,S", [(800, 5000, 1), (13, 200, 2),
+                                       (1, 64, 1), (65537, 64, 1)])
+def test_dwdb_schedule_owns_each_tile_chunk_slice_once(tiles, V, S):
+    """`_row_groups`' count at 132 SMs, and `_dwdb_blocks`: every (tile,
+    64-column chunk, slice) is owned by exactly one block, each group's
+    tiles are consecutive, and at most ~3 waves of blocks fill the card."""
+    groups = fj._row_groups(132, V, tiles, S)
+    chunks = -(-V // 128)
+    assert 1 <= groups <= tiles and chunks * S * groups <= max(3 * 132, chunks * S)
+    own = _dwdb_blocks(tiles, V, groups, S)
+    want = {(t, ch, o) for t in range(tiles) for ch in range(-(-V // 64))
+            for o in range(S)}
+    assert set(own) == want
+    per = -(-tiles // groups)
+    for (t, ch, o), (q, grp, o2) in own.items():
+        assert q == ch // 2 and o2 == o and grp == t // per
+
+
+def test_row_groups_fill_the_card():
+    """V=5000 (40 chunks of 128): 3 groups, 120 blocks on 132 SMs; fewer
+    chunks take more groups."""
+    assert fj._row_groups(132, 5000, 800) == 3
+    assert fj._row_groups(132, 64, 800) > 100
+    assert fj._row_groups(132, 64000, 80) == 1
+
+
 def test_padded_operands_give_the_unpadded_outputs():
     """The plain versions on `pad_h`'s operands (H=40 -> 48 zero-padded
     columns of a and c, rows of W) give the unpadded forward and, through
@@ -544,10 +733,29 @@ def test_kernels_match_plain_on_card_large_v(cuda_device, case):
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", list(cases.WIDE_CASES))
 def test_kernels_match_plain_on_card_wide(cuda_device, case):
-    """H not a multiple of 16 (padded), H > 512 (the sliced route and its
-    h kernel, launched then and only then), and N > 65535 (grid x)."""
+    """H not a multiple of 16 (padded), H past a slice (the sliced route
+    and its h kernels, each launched then and only then: the forward's h
+    rows past one `h_plan` slice, the backward's h image past one
+    `bwd_plan` slice), and N > 65535 (grid x)."""
     ops, cot = cases.kernel_case(*cases.WIDE_CASES[case], device=cuda_device)
-    before = fj.LAUNCHES["fused_joint_hidden"]
+    names = ("fused_joint_hidden", "fused_joint_hidden_image")
+    before = {k: fj.LAUNCHES[k] for k in names}
     cases.compare(fj, ops, cot, cases.WIDE_CASES[case][6])
-    sliced = fj.h_plan(cases.WIDE_CASES[case][5])[1] > 1
-    assert (fj.LAUNCHES["fused_joint_hidden"] > before) == sliced
+    H = cases.WIDE_CASES[case][5]
+    for name, plan in zip(names, (fj.h_plan, fj.bwd_plan)):
+        assert (fj.LAUNCHES[name] > before[name]) == (plan(H)[1] > 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["ragged", "H=272 xn=1"])
+def test_backward_is_deterministic_on_card(cuda_device, case):
+    """Two backward calls give bit-equal d_a, d_c, d_W and d_b: the
+    partials are summed in a fixed order, with no atomics."""
+    ops, (db, de) = cases.kernel_case(*cases.KERNEL_CASES[case],
+                                      device=cuda_device)
+    blank = cases.KERNEL_CASES[case][6]
+    logz = fj.joint_lattice_fwd(*ops, blank)[2]
+    first = fj.joint_lattice_bwd(*ops, logz, db, de, blank)
+    second = fj.joint_lattice_bwd(*ops, logz, db, de, blank)
+    for x, y in zip(first, second):
+        assert torch.equal(x, y)

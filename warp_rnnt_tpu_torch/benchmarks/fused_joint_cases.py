@@ -24,17 +24,26 @@ BWD_RTOL = 1e-3
 GROUPS = ("blank", "label", "other")
 
 # name: (seed, N, T, U, V, H, blank, xn).  xn=2 is shorter than one 64-row
-# tile (7 frames at U=9); V=200 and V=130 are not multiples of the 64-column
-# chunk; U=70 spans more than one tile per frame.
+# tile (7 frames at U=9); V=200, V=130 and V=320 are not multiples of the
+# backward's 128-column chunk (V=320: an odd count of 64-column blocks);
+# U=70 and U=65 span more than one tile per frame, U=129 more than one
+# backward block (128 rows); H=256 is the backward's slice width, H=272
+# one step of 16 above it (two slices); R=6 is less than one tile; xn=1
+# leaves one live frame.
 KERNEL_CASES = {
     "ragged": (20, 3, 37, 9, 200, 32, 0, (37, 2, 20)),
     "U>32 blank=3": (21, 2, 19, 37, 64, 16, 3, (19, 11)),
     "U>64": (22, 2, 7, 70, 130, 48, 0, (7, 3)),
     "H=512": (23, 2, 13, 5, 5000, 512, 3, (13, 9)),
+    "U=65 V=320": (40, 2, 5, 65, 320, 64, 0, (5, 2)),
+    "U=129 xn=1": (41, 2, 4, 129, 130, 128, 5, (4, 1)),
+    "H=256": (42, 2, 9, 21, 1000, 256, 0, (9, 4)),
+    "H=272 xn=1": (43, 2, 9, 21, 1000, 272, 7, (9, 1)),
+    "R<64": (44, 1, 2, 3, 77, 32, 0, (2,)),
 }
 
-# Widths the kernels pad (H not a multiple of 16) or slice (H > 512, in
-# slices of at most 512 columns), and more samples than a grid's y
+# Widths the kernels pad (H not a multiple of 16) or slice (H > 256 in the
+# backward, H > 512 in the forward), and more samples than a grid's y
 # dimension holds (N > 65535).
 WIDE_CASES = {
     "H=40": (27, 2, 13, 5, 300, 40, 3, (13, 9)),

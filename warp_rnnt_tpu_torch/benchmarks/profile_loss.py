@@ -62,15 +62,20 @@ def _compact_step(case):
 
 
 def profile(path="main"):
-    """Profile ITERS calls of one path's loss+grad step.  Returns {"wall_ms",
-    "busy_ms" (per call), "idle_share", "kernels_per_call", "rows": [(device
-    ms per call, launches per call, kernel name)], "device"}."""
+    """Profile ITERS calls of one path's loss+grad step (`profile_step`)."""
+    return profile_step(_main_step() if path == "main" else _compact_step(path))
+
+
+def profile_step(step):
+    """Profile ITERS calls of ``step()`` after three unprofiled ones.
+    Returns {"wall_ms", "busy_ms" (per call), "idle_share",
+    "kernels_per_call", "rows": [(device ms per call, launches per call,
+    kernel name)], "device"}."""
     if not torch.cuda.is_available():
         raise SystemExit("profile_loss needs a CUDA device")
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as torch_profile
 
-    step = _main_step() if path == "main" else _compact_step(path)
     for _ in range(3):
         step()
     torch.cuda.synchronize()

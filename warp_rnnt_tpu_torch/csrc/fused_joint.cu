@@ -11,14 +11,16 @@
 // the label logit and logsumexp(z).  These kernels compute them, and the
 // backward, without the (N, T, U, V) logits ever being written to memory.
 //
-// Replaces the single-V-block Pallas TPU kernels of
-// warp_rnnt_tpu/ops/fused_joint.py:
-//   * fj_forward        <- `_fwd_kernel`  (blank, label logit, logZ)
-//   * fj_backward_dadc  <- `_bwd_kernel`, its d_a / d_c half
-//   * fj_backward_dwdb  <- `_bwd_kernel`, its d_W / d_b half
-//   * fj_hidden         <- the h = tanh(a + c) both kernels form in VMEM,
-//                          written once to memory for wide joints (below)
-// The TPU kernel walks its grid in order and carries d_c, d_W and d_b in
+// Replaces the Pallas TPU kernels of warp_rnnt_tpu/ops/fused_joint.py:
+//   * fj_forward        <- `_fwd_kernel`, `_fwd_kernel_vb` (blank, label
+//                          logit, logZ)
+//   * fj_backward_dadc  <- `_bwd_kernel`, its d_a / d_c half, and
+//                          `_bwd_dadc_kernel_vb`
+//   * fj_backward_dwdb  <- `_bwd_kernel`, its d_W / d_b half, and
+//                          `_bwd_dwdb_kernel_vb`
+//   * fj_hidden, fj_hidden_image <- the h = tanh(a + c) the TPU kernels form
+//                          in VMEM, written once to memory for wide joints
+// The TPU kernels walk their grid in order and carry d_c, d_W and d_b in
 // VMEM from one step to the next.  Hopper runs blocks in no order, so the
 // backward is two kernels that each own what they sum, and the sums that
 // cross blocks leave as partials that the caller adds in a fixed order
@@ -28,55 +30,89 @@
 // slice's shape (N=16, T=150, U=21, V=5000, H=256; R = N*T*U = 50,400 rows)
 // one product R x H x V is 2*R*H*V = 129 GFLOP, 0.130 ms at 989 TFLOP/s.
 // The forward does one product (bound 0.130 ms); each backward kernel
-// recomputes the logits and does one more (bound 0.261 ms each; the
-// backward as a whole needs three products, 0.391 ms).  Bytes are small:
-// a, c, W and the (N, T, U) lattices are ~30 MB.
+// recomputes the logits and does one more (bound 0.261 ms each).  Bytes are
+// small: a, c, W and the (N, T, U) lattices are ~30 MB.
 //
-// Design (simple first; wgmma, TMA and double-buffered loads are later work):
-//   * A tile is 64 lattice rows of one sample: BT = 64 / min(U, 64) whole
-//     frames of all U rows, or for U > 64 one frame's rows in chunks of 64.
-//     Blocks are numbered sample-major along grid x, so N has no limit
-//     beyond the grid's 2^31 - 1 blocks.
-//   * V is walked in chunks of 64 columns.  The caller lays W out in chunks
-//     ((ceil(V/64), H, 64), zero columns past V), so each chunk is one
-//     contiguous block that cp.async copies into shared memory 16 bytes a
-//     thread, all copies in flight at once.  The chunk's logits are formed
-//     by the 8 warps with `nvcuda::wmma` bf16 16x16x16 products, fp32
-//     accumulate.
-//   * Forward: a running (max, sum) per row gives logZ over the chunks; the
-//     blank and label columns are picked where a chunk holds them.
-//   * dadc: per chunk, dz = db*[v==blank] + de*[v==lab] - softmax*(db+de),
-//     rounded to bf16, and dh += dz @ W_chunk^T in registers.  At the end
-//     dpre = dh * (1 - h^2) (fp32 h) is summed over u into d_a partials
-//     (per U chunk) and over t into d_c partials (per tile).
-//   * dwdb: one block per (V chunk, row group).  The block walks its rows in
-//     tiles of 64, recomputes the chunk's logits from the stored bf16 h,
-//     forms dz, and accumulates d_W[:, chunk] += h^T @ dz in registers and
-//     d_b[chunk] += sum(dz) in fp32.  Row groups fill the card when V has
-//     few chunks.
-//   * Rows with t >= xn[n] are skipped: the forward writes zeros there, the
-//     backward treats their dz as zero.  A tile with no live row does no
-//     product at all.
+// Rows.  A tile is 64 lattice rows of one sample: BT = 64 / min(U, 64)
+// whole frames of all U rows, or for U > 64 one frame's rows in chunks of
+// 64.  Tiles are numbered sample-major; rows with t >= xn[n] read as dead
+// (dz = 0, h = 0), and a tile with no live row skips its products.
+//
+// The forward (simple; its redesign is later work): one block a tile, V
+// walked in 64-column chunks that cp.async copies into shared memory, the
+// chunk's logits by 8 warps with `nvcuda::wmma` 16x16x16 products, a
+// running (max, sum) per row.  H is padded to S slices of at most 512
+// columns (`h_plan`); at S > 1 fj_hidden writes h as bf16 rows (R, H) and
+// the chunk's logits sum S slice products.
+//
+// The backward (dadc_kernel, dwdb_kernel).  Both recompute the logits and
+// form dz = db*[v==blank] + de*[v==lab] - softmax*(db+de), rounded to bf16,
+// then: dadc d_h = dz @ W^T, dpre = d_h * (1 - h^2) with fp32 h, summed
+// over u (d_a partials per U chunk) and over t (d_c partials per tile);
+// dwdb d_W = h_bf16^T @ dz and d_b = sum(dz) in fp32.
+//   * Every product is `wgmma.mma_async` m64n64k16 bf16, fp32 accumulators
+//     in registers, issued by two consumer warpgroups; a third warpgroup
+//     gives up its registers (setmaxnreg 40; consumers 232) and one of its
+//     threads keeps a ring of shared-memory stages full with 1-D
+//     `cp.async.bulk` copies, signalled by full/empty mbarriers.  The
+//     caller lays the operands out in memory as the shared-memory images
+//     wgmma reads (no swizzle: 8 x 16-byte core matrices, 128 bytes each),
+//     so a stage is one to three contiguous blocks:
+//       - W image: block (slice s, 64-column chunk) = HS x 64 bf16, element
+//         (k, v) at (k/8)*64 + (v/8)*HS*8 + (k%8)*8 + v%8, then the chunk's
+//         64 biases fp32, -inf past V (so dz is 0 there).  One copy serves
+//         both products: B of z = h @ W (MN-major: LBO 128 B, SBO HS*16 B)
+//         and of d_h = dz @ W^T (K-major: LBO HS*16 B, SBO 128 B).
+//       - h image: block (tile, slice s) = 64 x HS bf16, element (r, k) at
+//         (r/8)*64 + (k/8)*512 + (r%8)*8 + k%8: A of z (K-major: LBO 1 KB,
+//         SBO 128 B) and, transposed, A of d_W = h^T @ dz (MN-major: LBO
+//         128 B, SBO 1 KB).
+//   * dadc: a block owns two tiles (one a consumer warpgroup), one H slice
+//     of d_h and one part of V (a grid of few tiles splits V to fill the
+//     card, `_v_parts`), and walks its 64-column chunks through a ring of
+//     up to 4 W stages (33 KB each at HS = 256); h of its 128 rows stays in
+//     shared memory (64 KB a slice), built from a and c and also written
+//     out as the h image for dwdb.  Per chunk a warpgroup forms z (64 x 64, 32
+//     registers), then dz in registers from the z accumulators, packs it
+//     to bf16 pairs and feeds them as the register A operand of the d_h
+//     products (d_h: 64 x HS fp32, 128 registers at HS = 256); the logits
+//     never go through shared memory.  The epilogue stages d_h in the freed
+//     shared memory for the fp32 (1 - h^2) and the sums over u and t.
+//   * dwdb: a block owns one 128-column chunk of V (64 a consumer
+//     warpgroup), one group of consecutive tiles and one H slice of d_W.
+//     The chunk's W (66 KB a slice at HS = 256) stays in shared memory;
+//     the tiles' h come through a ring of up to 4 stages (32 KB each).  Per tile a
+//     warpgroup forms z, then dz, adds it to its fp32 d_b sums, stores it
+//     once as bf16 (8 KB, the B image of d_W's product), fences the async
+//     proxy (fence.proxy.async) and syncs its warpgroup before the d_W
+//     products (d_W: HS x 64 fp32, 128 registers at HS = 256).  Row groups
+//     fill the card when V has few chunks (`_row_groups`).
+//   * Determinism: d_a, d_c, d_W and d_b leave as partials (per U chunk,
+//     tile, V part, row group) that the caller sums in a fixed order.
+// Against the five limits of the earlier `nvcuda::wmma` backward: (1)
+// wmma fragments reloaded from shared memory every k-step -> wgmma reads
+// its operands by descriptor, A of d_h from registers; (2) one block of
+// 8 warps an SM, nothing hiding their stalls -> 3 warpgroups, registers
+// moved to the consumers, two consumers interleaving on the tensor
+// cores; (3) load, product, store, elementwise and product in strict
+// turns -> the producer fills the next stages while the consumers
+// multiply; (4) the logits' round trip through shared memory -> none in
+// dadc, one bf16 store of dz in dwdb; (5) 64 x 64 tiles in 16 x 32 warp
+// pieces -> 128 rows or columns a block, 64 x 64 x HS a warpgroup.
 //
 // Any H.  The caller pads H with zero columns of a and c and zero rows of W
-// up to S slices of HS columns, HS a multiple of 16 and at most 512 (S =
-// ceil(H / 512)): tanh(0) = 0 and a zero row of W adds nothing, and the
-// caller cuts d_a, d_c and d_W back.  Two things cap a slice at 512: a
-// block's 227 KB of shared memory (a W chunk of HS x 72 and an h tile of
-// 64 x (HS + 8) bf16, 167 KB at HS = 512), and registers (dadc's d_h tile
-// and dwdb's d_W tile, 64 x HS fp32 over 256 threads: 128 a thread at 512).
-//   * S = 1 (H <= 512): each tile's h is built once in shared memory from
-//     float4 loads of a and c, dadc writes it out as bf16 (R, H) for dwdb,
-//     and a block holds the whole W chunk.  The products are the bound's:
-//     one (forward), two (dadc), two (dwdb).
-//   * S > 1: fj_hidden writes h as bf16 (R, H) first (R*H*2 bytes, e.g.
-//     103 MB at the slice's lattice and H = 1024), and a chunk's logits sum
-//     S slice products, each slice's h rows and W rows copied into shared
-//     memory in turn.  dadc and dwdb split their output over S blocks a
-//     tile (dadc: d_h columns; dwdb: d_W rows), and each block forms the
-//     whole logits: S + 1 products instead of 2.  Against the R x H x V
-//     bound: forward 1x, dadc and dwdb (S + 1) / 2 each, so 1.5x at
-//     H = 640 or 1024 (S = 2), 2.5x at H = 2048 (S = 4).
+// (tanh(0) = 0, a zero row of W adds nothing) and cuts the gradients back.
+// The backward takes S slices of HS columns, HS a multiple of 64 and at
+// most 256 (S = ceil(H / 256)): d_h and d_W of a warpgroup are 64 x HS
+// fp32, 128 registers a thread at HS = 256.
+//   * S = 1 (H <= 256): the two products the bound counts, per kernel.
+//   * S > 1: fj_hidden_image writes the h image first; each backward block
+//     owns one slice of d_h (dadc) or d_W (dwdb), forms the whole logits
+//     from all S slices (a stage then holds the slice's W and h, the
+//     block's own slice last) and does one more product: S + 1 products
+//     against the bound's 2.  With the padding, against the R x H x V bound: 1x at
+//     H = 256, 1.28x at H = 200 (256), 1.5x at H = 512, 2.4x at H = 640
+//     (768), 2.5x at H = 1024, 4.5x at H = 2048.
 //
 // Launches on the caller's stream; allocates nothing; each entry returns
 // cudaGetLastError() (or the error of setting the shared-memory size) so
@@ -87,23 +123,16 @@
 #include <cuda_runtime.h>
 #include <mma.h>
 
+#include <cstdint>
+
 namespace {
 
 using namespace nvcuda;
 using bf16 = __nv_bfloat16;
 
-constexpr int kThreads = 256;  // 8 warps
+constexpr int kThreads = 256;  // 8 warps (forward, h kernels)
 constexpr int kRows = 64;      // lattice rows per tile
 constexpr int kVC = 64;        // vocabulary columns per chunk
-constexpr int kLdW = kVC + 8;  // bf16 pitch of a W chunk or a dz chunk
-constexpr int kLdZ = kVC + 4;  // fp32 pitch of a logits chunk
-constexpr int kMaxHS = 512;    // widest H slice (shared memory, registers)
-
-using Acc = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
-using ARow = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>;
-using ACol = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major>;
-using BRow = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>;
-using BCol = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major>;
 
 // Tile geometry: rows i = tt * ut + uu of tile (tb, uc) are the cells
 // t = tb * bt + tt, u = uc * ut + uu.  H is the padded width S * HS (the
@@ -121,14 +150,37 @@ __device__ __forceinline__ bool tile_row(const Geom& g, int i, int tb, int uc,
   return tt < g.bt && t < g.T && u < g.U;
 }
 
-// Dynamic shared memory: ws (HS x kLdW bf16) | hs (kRows x (HS + 8) bf16) |
-// zs (kRows x kLdZ fp32) | dzs (kRows x kLdW bf16).  Every part is a
-// multiple of 128 bytes when HS is a multiple of 16.
+// bf16(tanh(a[n, t, k..k+3] + c[n, u, k..k+3])), packed; fp32 tanhf.
+__device__ __forceinline__ uint2 h4(const float* __restrict__ a,
+                                    const float* __restrict__ c, size_t ai,
+                                    size_t ci) {
+  const float4 av = *reinterpret_cast<const float4*>(a + ai);
+  const float4 cv = *reinterpret_cast<const float4*>(c + ci);
+  __nv_bfloat162 lo = __floats2bfloat162_rn(tanhf(av.x + cv.x), tanhf(av.y + cv.y));
+  __nv_bfloat162 hi = __floats2bfloat162_rn(tanhf(av.z + cv.z), tanhf(av.w + cv.w));
+  uint2 packed;
+  packed.x = *reinterpret_cast<unsigned int*>(&lo);
+  packed.y = *reinterpret_cast<unsigned int*>(&hi);
+  return packed;
+}
+
+// ---- the forward (nvcuda::wmma) and its h rows: forward-only helpers ----
+
+constexpr int kLdW = kVC + 8;  // bf16 pitch of a W chunk
+constexpr int kLdZ = kVC + 4;  // fp32 pitch of a logits chunk
+constexpr int kMaxHS = 512;    // widest forward H slice (shared memory)
+
+using Acc = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
+using ARow = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>;
+using BRow = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>;
+
+// Dynamic shared memory of the forward: ws (HS x kLdW bf16) | hs (kRows x
+// (HS + 8) bf16) | zs (kRows x kLdZ fp32).  Every part is a multiple of 128
+// bytes when HS is a multiple of 16.
 struct Smem {
   bf16* ws;
   bf16* hs;
   float* zs;
-  bf16* dzs;
   int ldh;
 };
 
@@ -138,13 +190,12 @@ __device__ __forceinline__ Smem carve(unsigned char* base, int HS) {
   s.ws = reinterpret_cast<bf16*>(base);
   s.hs = s.ws + (size_t)HS * kLdW;
   s.zs = reinterpret_cast<float*>(s.hs + (size_t)kRows * s.ldh);
-  s.dzs = reinterpret_cast<bf16*>(s.zs + kRows * kLdZ);
   return s;
 }
 
 size_t smem_bytes(int HS) {
   return (size_t)HS * kLdW * 2 + (size_t)kRows * (HS + 8) * 2 +
-         (size_t)kRows * kLdZ * 4 + (size_t)kRows * kLdW * 2;
+         (size_t)kRows * kLdZ * 4;
 }
 
 // Rows [k0, k0 + K) of W chunk v0 / 64 -> ws.  wc is W in chunks,
@@ -201,27 +252,11 @@ __device__ __forceinline__ void load_h_rows(const bf16* __restrict__ h16,
   }
 }
 
-// bf16(tanh(a[n, t, k..k+3] + c[n, u, k..k+3])), packed; fp32 tanhf.
-__device__ __forceinline__ uint2 h4(const float* __restrict__ a,
-                                    const float* __restrict__ c, size_t ai,
-                                    size_t ci) {
-  const float4 av = *reinterpret_cast<const float4*>(a + ai);
-  const float4 cv = *reinterpret_cast<const float4*>(c + ci);
-  __nv_bfloat162 lo = __floats2bfloat162_rn(tanhf(av.x + cv.x), tanhf(av.y + cv.y));
-  __nv_bfloat162 hi = __floats2bfloat162_rn(tanhf(av.z + cv.z), tanhf(av.w + cv.w));
-  uint2 packed;
-  packed.x = *reinterpret_cast<unsigned int*>(&lo);
-  packed.y = *reinterpret_cast<unsigned int*>(&hi);
-  return packed;
-}
-
 // h of the tile's live rows, rounded to bf16, into hs (zeros elsewhere),
-// four columns a thread-step; with h16 set, live rows are also written
-// there (flat row-major (R, H)).  S = 1 only: hs holds all H columns.
+// four columns a thread-step.  S = 1 only: hs holds all H columns.
 __device__ __forceinline__ void build_h(const Geom& g, const float* __restrict__ a,
                                         const float* __restrict__ c, bf16* hs,
-                                        int ldh, int n, int tb, int uc, int xn,
-                                        bf16* __restrict__ h16) {
+                                        int ldh, int n, int tb, int uc, int xn) {
   const int H4 = g.H / 4;
 #pragma unroll 4
   for (int idx = threadIdx.x; idx < kRows * H4; idx += kThreads) {
@@ -229,16 +264,11 @@ __device__ __forceinline__ void build_h(const Geom& g, const float* __restrict__
     const int k4 = idx - r * H4;
     int t, u;
     uint2 packed = make_uint2(0, 0);
-    const bool live = tile_row(g, r, tb, uc, t, u) && t < xn;
-    if (live) {
+    if (tile_row(g, r, tb, uc, t, u) && t < xn) {
       packed = h4(a, c, ((size_t)n * g.T + t) * g.H + 4 * k4,
                   ((size_t)n * g.U + u) * g.H + 4 * k4);
     }
     *reinterpret_cast<uint2*>(hs + r * ldh + 4 * k4) = packed;
-    if (h16 != nullptr && live) {
-      *reinterpret_cast<uint2*>(
-          h16 + (((size_t)n * g.T + t) * g.U + u) * g.H + 4 * k4) = packed;
-    }
   }
 }
 
@@ -304,33 +334,12 @@ __device__ __forceinline__ void sliced_logits(const Geom& g, const Smem& s,
   store_logits(s, acc0, acc1, warp);
 }
 
-// d logit of one cell: db*[v==blank] + de*[v==lab] - softmax*(db+de).
-__device__ __forceinline__ float dlogit(float z, float logz, float db, float de,
-                                        int v, int blank, int lab) {
-  const float pick = (v == blank ? db : 0.0f) + (v == lab ? de : 0.0f);
-  return pick - expf(z - logz) * (db + de);
-}
-
-// Per-row metadata of a tile, in static shared memory; hrow is the row's
-// index in the flat (R, H) h, or -1 where the row is not live.
-struct Rows {
-  long long hrow[kRows];
-  int live[kRows];
-  int lab[kRows];
-  float logz[kRows];
-  float db[kRows];
-  float de[kRows];
-};
-
-// Sample, tile and (dadc) H slice of a block of the sample-major grid x.
-__device__ __forceinline__ void block_tile(const Geom& g, int slices, int& n,
-                                           int& tb, int& uc, int& o) {
+// Sample and tile of a forward block of the sample-major grid x.
+__device__ __forceinline__ void block_tile(const Geom& g, int& n, int& tb,
+                                           int& uc) {
   const int tiles = g.ntb * g.nuc;
-  const int bid = blockIdx.x;
-  const int rest = bid / slices;
-  o = bid - rest * slices;
-  n = rest / tiles;
-  const int tile = rest - n * tiles;
+  n = blockIdx.x / tiles;
+  const int tile = blockIdx.x - n * tiles;
   tb = tile / g.nuc;
   uc = tile - tb * g.nuc;
 }
@@ -346,8 +355,8 @@ fwd_kernel(const float* __restrict__ a, const float* __restrict__ c,
   __shared__ float bs[kVC];
   __shared__ long long hrow[kRows];
   const Smem s = carve(smem, g.HS);
-  int n, tb, uc, o;
-  block_tile(g, 1, n, tb, uc, o);
+  int n, tb, uc;
+  block_tile(g, n, tb, uc);
   const int xn = xn_arr[n];
   const int tid = threadIdx.x;
 
@@ -369,7 +378,7 @@ fwd_kernel(const float* __restrict__ a, const float* __restrict__ c,
   }
 
   if (g.S == 1) {
-    build_h(g, a, c, s.hs, s.ldh, n, tb, uc, xn, nullptr);
+    build_h(g, a, c, s.hs, s.ldh, n, tb, uc, xn);
   } else if (tid < kRows) {
     int tr, ur;
     const bool lr = tile_row(g, tid, tb, uc, tr, ur) && tr < xn;
@@ -426,315 +435,7 @@ fwd_kernel(const float* __restrict__ a, const float* __restrict__ c,
   }
 }
 
-// Row metadata of tile rows; rows that are not live get db = de = 0 and
-// hrow = -1 (``row`` is the cell's flat index).
-__device__ __forceinline__ void load_rows(Rows& rows, int i, bool live, int lab_v,
-                                          size_t row,
-                                          const float* __restrict__ logz,
-                                          const float* __restrict__ dbl,
-                                          const float* __restrict__ del) {
-  rows.hrow[i] = live ? (long long)row : -1;
-  rows.live[i] = live;
-  rows.lab[i] = lab_v;
-  rows.logz[i] = live ? logz[row] : 0.0f;
-  rows.db[i] = live ? dbl[row] : 0.0f;
-  rows.de[i] = live ? del[row] : 0.0f;
-}
-
-// dz chunk -> dzs (bf16).  Thread layout: any.
-__device__ __forceinline__ void chunk_dz(const Smem& s, const float* bs,
-                                         const Rows& rows, int v0, int V,
-                                         int blank) {
-  for (int idx = threadIdx.x; idx < kRows * kVC; idx += kThreads) {
-    const int r = idx / kVC;
-    const int col = idx - r * kVC;
-    float d = 0.0f;
-    if (rows.live[r] && v0 + col < V) {
-      d = dlogit(s.zs[r * kLdZ + col] + bs[col], rows.logz[r], rows.db[r],
-                 rows.de[r], v0 + col, blank, rows.lab[r]);
-    }
-    s.dzs[r * kLdW + col] = __float2bfloat16(d);
-  }
-}
-
-// Block (n, tile, o): d_h columns [o*HS, (o+1)*HS) of one tile.
-template <int MAXF>
-__global__ void __launch_bounds__(kThreads, 1)
-dadc_kernel(const float* __restrict__ a, const float* __restrict__ c,
-            const bf16* __restrict__ w, const float* __restrict__ bias,
-            const int* __restrict__ lab, const int* __restrict__ xn_arr,
-            const float* __restrict__ logz, const float* __restrict__ dbl,
-            const float* __restrict__ del, float* __restrict__ da_part,
-            float* __restrict__ dc_part, bf16* __restrict__ h16, Geom g,
-            int blank) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  __shared__ float bs[kVC];
-  __shared__ Rows rows;
-  const Smem s = carve(smem, g.HS);
-  const int H = g.H;
-  const int HS = g.HS;
-  const int KT = HS / 16;
-  int n, tb, uc, o;
-  block_tile(g, g.S, n, tb, uc, o);
-  const int k0 = o * HS;
-  const int xn = xn_arr[n];
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-
-  if (tb * g.bt >= xn) {  // no live row: the partials of this tile are zero
-    for (int idx = tid; idx < g.bt * HS; idx += kThreads) {
-      const int tt = idx / HS;
-      const int k = k0 + idx - tt * HS;
-      const int t = tb * g.bt + tt;
-      if (t < g.T) da_part[(((size_t)n * g.T + t) * g.nuc + uc) * H + k] = 0.0f;
-    }
-    for (int idx = tid; idx < g.ut * HS; idx += kThreads) {
-      const int uu = idx / HS;
-      const int k = k0 + idx - uu * HS;
-      const int u = uc * g.ut + uu;
-      if (u < g.U) dc_part[(((size_t)n * g.ntb + tb) * g.U + u) * H + k] = 0.0f;
-    }
-    return;
-  }
-
-  if (tid < kRows) {
-    int t, u;
-    const bool valid = tile_row(g, tid, tb, uc, t, u);
-    const bool live = valid && t < xn;
-    load_rows(rows, tid, live, valid ? lab[(size_t)n * g.U + u] : -1,
-              ((size_t)n * g.T + t) * g.U + u, logz, dbl, del);
-  }
-  if (g.S == 1) build_h(g, a, c, s.hs, s.ldh, n, tb, uc, xn, h16);
-
-  // dh accumulators: warp w holds row tile w%4 and column tiles w/4 + 2f
-  // of the block's slice
-  const int rt = warp & 3;
-  const int half = warp >> 2;
-  Acc dh[MAXF];
-#pragma unroll
-  for (int f = 0; f < MAXF; ++f) wmma::fill_fragment(dh[f], 0.0f);
-
-  for (int v0 = 0; v0 < g.V; v0 += kVC) {
-    __syncthreads();
-    if (g.S == 1) {
-      load_w_chunk(w, bias, s.ws, bs, H, g.V, v0);
-      __syncthreads();
-      chunk_logits(s, HS, warp);
-    } else {
-      sliced_logits(g, s, h16, rows.hrow, w, bias, bs, v0, warp);
-    }
-    __syncthreads();
-    chunk_dz(s, bs, rows, v0, g.V, blank);
-    if (g.S > 1) {  // the slice's W rows, for dh
-      load_w_rows(w, s.ws, H, v0, k0, HS);
-      __pipeline_commit();
-      __pipeline_wait_prior(0);
-    }
-    __syncthreads();
-    for (int ks = 0; ks < kVC; ks += 16) {
-      ARow fa;
-      wmma::load_matrix_sync(fa, s.dzs + rt * 16 * kLdW + ks, kLdW);
-#pragma unroll
-      for (int f = 0; f < MAXF; ++f) {
-        const int j = half + 2 * f;
-        if (j < KT) {
-          BCol fb;  // W^T: element (v, h) = ws[h][v]
-          wmma::load_matrix_sync(fb, s.ws + j * 16 * kLdW + ks, kLdW);
-          wmma::mma_sync(dh[f], fa, fb, dh[f]);
-        }
-      }
-    }
-  }
-
-  // dpre = dh * (1 - h^2), staged in the freed ws/zs space one column half
-  // at a time, then summed over u (d_a) and over t (d_c).
-  float* stage = reinterpret_cast<float*>(smem);
-  const int nf_max = (KT + 1) / 2;
-  const int ldst = nf_max * 16 + 4;
-  for (int p = 0; p < 2; ++p) {
-    const int nf = (KT - p + 1) / 2;  // column tiles j = p + 2f < KT
-    const int width = nf * 16;
-    __syncthreads();
-    if (half == p) {
-#pragma unroll
-      for (int f = 0; f < MAXF; ++f) {
-        if (f < nf) {
-          wmma::store_matrix_sync(stage + rt * 16 * ldst + f * 16, dh[f], ldst,
-                                  wmma::mem_row_major);
-        }
-      }
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int idx = tid; idx < kRows * width; idx += kThreads) {
-      const int r = idx / width;
-      const int bc = idx - r * width;
-      const int k = k0 + (2 * (bc >> 4) + p) * 16 + (bc & 15);
-      float d = 0.0f;
-      if (rows.live[r]) {
-        int t, u;
-        tile_row(g, r, tb, uc, t, u);
-        const float hv = tanhf(a[((size_t)n * g.T + t) * H + k] +
-                               c[((size_t)n * g.U + u) * H + k]);
-        d = stage[r * ldst + bc] * (1.0f - hv * hv);
-      }
-      stage[r * ldst + bc] = d;
-    }
-    __syncthreads();
-    for (int idx = tid; idx < g.bt * width; idx += kThreads) {
-      const int tt = idx / width;
-      const int bc = idx - tt * width;
-      const int t = tb * g.bt + tt;
-      if (t >= g.T) continue;
-      float acc = 0.0f;
-      for (int uu = 0; uu < g.ut; ++uu) acc += stage[(tt * g.ut + uu) * ldst + bc];
-      const int k = k0 + (2 * (bc >> 4) + p) * 16 + (bc & 15);
-      da_part[(((size_t)n * g.T + t) * g.nuc + uc) * H + k] = acc;
-    }
-    for (int idx = tid; idx < g.ut * width; idx += kThreads) {
-      const int uu = idx / width;
-      const int bc = idx - uu * width;
-      const int u = uc * g.ut + uu;
-      if (u >= g.U) continue;
-      float acc = 0.0f;
-      for (int tt = 0; tt < g.bt; ++tt) acc += stage[(tt * g.ut + uu) * ldst + bc];
-      const int k = k0 + (2 * (bc >> 4) + p) * 16 + (bc & 15);
-      dc_part[(((size_t)n * g.ntb + tb) * g.U + u) * H + k] = acc;
-    }
-  }
-}
-
-// Block (V chunk, row group, o): d_W rows [o*HS, (o+1)*HS) of one chunk,
-// and (o = 0) its d_b.
-template <int MAXF>
-__global__ void __launch_bounds__(kThreads, 1)
-dwdb_kernel(const bf16* __restrict__ h16, const bf16* __restrict__ w,
-            const float* __restrict__ bias, const int* __restrict__ lab,
-            const int* __restrict__ xn_arr, const float* __restrict__ logz,
-            const float* __restrict__ dbl, const float* __restrict__ del,
-            float* __restrict__ dw_part, float* __restrict__ db_part, Geom g,
-            int N, int blank, int tiles_per_group) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  __shared__ float bs[kVC];
-  __shared__ float dbs[kThreads / kVC][kVC];
-  __shared__ Rows rows;
-  const Smem s = carve(smem, g.HS);
-  const int H = g.H;
-  const int HS = g.HS;
-  const int KT = HS / 16;
-  const int V = g.V;
-  const int v0 = blockIdx.x * kVC;
-  const int grp = blockIdx.y;
-  const int o = blockIdx.z;
-  const int k0 = o * HS;
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const long long R = (long long)N * g.T * g.U;
-  const long long ntile = (R + kRows - 1) / kRows;
-  const long long tile0 = (long long)grp * tiles_per_group;
-  const long long tile1 = min(ntile, tile0 + tiles_per_group);
-
-  if (g.S == 1) load_w_chunk(w, bias, s.ws, bs, H, V, v0);  // stays
-
-  // d_W accumulators: warp w holds column tile w%4 of the chunk and row
-  // tiles (of the slice) w/4 + 2f
-  const int vt = warp & 3;
-  const int hh = warp >> 2;
-  Acc dw[MAXF];
-#pragma unroll
-  for (int f = 0; f < MAXF; ++f) wmma::fill_fragment(dw[f], 0.0f);
-  // d_b: thread owns column tid%64 for rows 16*(tid/64) .. +15 of a tile
-  const int col = tid & (kVC - 1);
-  const int rg = tid / kVC;
-  float dbsum = 0.0f;
-
-  for (long long tile = tile0; tile < tile1; ++tile) {
-    const long long r0 = tile * kRows;
-    __syncthreads();  // the last tile's hs, zs, dzs and bs reads done
-    if (tid < kRows) {
-      const long long r = r0 + tid;
-      bool live = false;
-      int lab_v = -1;
-      if (r < R) {
-        const int n = (int)(r / ((long long)g.T * g.U));
-        const int rem = (int)(r - (long long)n * g.T * g.U);
-        const int t = rem / g.U;
-        const int u = rem - t * g.U;
-        live = t < xn_arr[n];
-        lab_v = lab[(size_t)n * g.U + u];
-      }
-      load_rows(rows, tid, live, lab_v, (size_t)r, logz, dbl, del);
-    }
-    __syncthreads();
-    if (g.S == 1) {
-      load_h_rows(h16, H, rows.hrow, s.hs, s.ldh, 0, HS);
-      __pipeline_commit();
-      __pipeline_wait_prior(0);
-      __syncthreads();
-      chunk_logits(s, HS, warp);
-    } else {
-      sliced_logits(g, s, h16, rows.hrow, w, bias, bs, v0, warp);
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int rr = 0; rr < 16; ++rr) {
-      const int r = rg * 16 + rr;
-      float d = 0.0f;
-      if (rows.live[r] && v0 + col < V) {
-        d = dlogit(s.zs[r * kLdZ + col] + bs[col], rows.logz[r], rows.db[r],
-                   rows.de[r], v0 + col, blank, rows.lab[r]);
-      }
-      dbsum += d;
-      s.dzs[r * kLdW + col] = __float2bfloat16(d);
-    }
-    if (g.S > 1) {  // the slice's h columns, for d_W
-      load_h_rows(h16, H, rows.hrow, s.hs, s.ldh, k0, HS);
-      __pipeline_commit();
-      __pipeline_wait_prior(0);
-    }
-    __syncthreads();
-    for (int ks = 0; ks < kRows; ks += 16) {
-      BRow fb;
-      wmma::load_matrix_sync(fb, s.dzs + ks * kLdW + vt * 16, kLdW);
-#pragma unroll
-      for (int f = 0; f < MAXF; ++f) {
-        const int j = hh + 2 * f;
-        if (j < KT) {
-          ACol fa;  // h^T: element (h, r) = hs[r][h]
-          wmma::load_matrix_sync(fa, s.hs + ks * s.ldh + j * 16, s.ldh);
-          wmma::mma_sync(dw[f], fa, fb, dw[f]);
-        }
-      }
-    }
-  }
-
-  __syncthreads();  // all shared reads done: reuse it as the d_W stage
-  float* stage = reinterpret_cast<float*>(smem);  // HS x kLdZ fp32
-#pragma unroll
-  for (int f = 0; f < MAXF; ++f) {
-    const int j = hh + 2 * f;
-    if (j < KT) {
-      wmma::store_matrix_sync(stage + j * 16 * kLdZ + vt * 16, dw[f], kLdZ,
-                              wmma::mem_row_major);
-    }
-  }
-  dbs[rg][col] = dbsum;
-  __syncthreads();
-  for (int idx = tid; idx < HS * kVC; idx += kThreads) {
-    const int k = idx / kVC;
-    const int v = idx - k * kVC;
-    if (v0 + v < V) {
-      dw_part[((size_t)grp * H + k0 + k) * V + v0 + v] = stage[k * kLdZ + v];
-    }
-  }
-  if (o == 0 && tid < kVC && v0 + tid < V) {
-    float acc = 0.0f;
-    for (int q = 0; q < kThreads / kVC; ++q) acc += dbs[q][tid];
-    db_part[(size_t)grp * V + v0 + tid] = acc;
-  }
-}
-
-// h of every live cell as bf16 rows of (R, H); one block a cell, four
+// h of every live cell as bf16 rows of (R, H) for the forward's slices; one block a cell, four
 // columns a thread-step (the bits build_h forms).  Rows of cells past xn
 // are not written: every reader zeroes them.
 __global__ void __launch_bounds__(kThreads)
@@ -752,6 +453,642 @@ hidden_kernel(const float* __restrict__ a, const float* __restrict__ c,
     *reinterpret_cast<uint2*>(h16 + row * g.H + 4 * k4) =
         h4(a, c, ((size_t)n * g.T + t) * g.H + 4 * k4,
            ((size_t)n * g.U + u) * g.H + 4 * k4);
+  }
+}
+
+// ---- the backward: wgmma, bulk copies in an mbarrier ring ----------------
+
+constexpr int kBwdThreads = 384;  // warpgroups 0 and 1 consume, 2 produces
+constexpr int kBwdSlice = 256;    // widest backward H slice (registers)
+constexpr int kMaxStages = 4;
+constexpr int kSmemCap = 232448;  // shared memory a block may use
+constexpr int kStaticSlack = 4096;  // static shared memory, with room
+constexpr int kDzBytes = 64 * 64 * 2;
+
+// W image block (slice, 64-column chunk): HS x 64 bf16 and 64 fp32 biases.
+__host__ __device__ constexpr int w_block_bytes(int HS) { return HS * 128 + 256; }
+// h image block (tile, slice): 64 rows x HS bf16.
+__host__ __device__ constexpr int h_block_bytes(int HS) { return HS * 128; }
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// wgmma shared-memory matrix descriptor, no swizzle: lbo is the byte
+// stride between core matrices along K, sbo along M or N.
+__device__ __forceinline__ uint64_t make_desc(const void* p, uint32_t lbo,
+                                              uint32_t sbo) {
+  uint64_t d = (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4);
+  d |= (uint64_t)((lbo >> 4) & 0x3FFF) << 16;
+  d |= (uint64_t)((sbo >> 4) & 0x3FFF) << 32;
+  return d;
+}
+
+// h image as A of z (rows x k, K-major), k16 step ks.
+__device__ __forceinline__ uint64_t desc_h(const void* h, int ks) {
+  return make_desc(static_cast<const unsigned char*>(h) + ks * 2048, 1024, 128);
+}
+// h image as A of d_W (k x rows, MN-major), M tile j, k16 step kk.
+__device__ __forceinline__ uint64_t desc_ht(const void* h, int j, int kk) {
+  return make_desc(static_cast<const unsigned char*>(h) + j * 8192 + kk * 256,
+                   128, 1024);
+}
+// W image as B of z (k x v, MN-major), k16 step ks.
+template <int HS>
+__device__ __forceinline__ uint64_t desc_w(const void* w, int ks) {
+  return make_desc(static_cast<const unsigned char*>(w) + ks * 256, 128, HS * 16);
+}
+// W image as B of d_h (v x k, K-major), N tile j, k16 step kk.
+template <int HS>
+__device__ __forceinline__ uint64_t desc_wt(const void* w, int j, int kk) {
+  return make_desc(static_cast<const unsigned char*>(w) + j * 1024 + kk * HS * 32,
+                   HS * 16, 128);
+}
+// dz image (rows x 64 v, element (r, v) at (r/8)*64 + (v/8)*512 + (r%8)*8
+// + v%8) as B of d_W (MN-major), k16 step kk.
+__device__ __forceinline__ uint64_t desc_dz(const void* dz, int kk) {
+  return make_desc(static_cast<const unsigned char*>(dz) + kk * 256, 128, 1024);
+}
+
+// d[64 x 64] (+)= A[64 x 16] @ B[16 x 64], both from shared memory; TA / TB
+// 1 for an MN-major operand.  Thread layout of d: warp w, lane l holds rows
+// 16w + l/4 (+8 for d[4j+2], d[4j+3]) and columns 8j + 2(l%4) (+1).
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da, uint64_t db,
+                                         int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p,"
+      " 1, 1, %35, %36;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+}
+
+// The same with A from registers: a[0..3] hold bf16 pairs of rows
+// 16w + l/4 (a[1], a[3]: +8) and columns 2(l%4) (a[2], a[3]: +8), which is
+// the layout of two n8 blocks of a product's accumulators.
+template <int TB>
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
+                                         uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34,"
+      " %35}, %36, p, 1, 1, %38;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d),
+        "n"(TB));
+}
+
+// Keep the compiler from moving accumulator reads and writes across the
+// asynchronous products.
+__device__ __forceinline__ void fence_acc(float (&d)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit_wait() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// Generic-proxy writes to shared memory made visible to wgmma and bulk copies.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+__device__ __forceinline__ void named_bar(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+template <int R>
+__device__ __forceinline__ void reg_alloc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+template <int R>
+__device__ __forceinline__ void reg_dealloc() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* b, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(b)),
+               "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* b, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   smem_u32(b)),
+               "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* b) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(b))
+               : "memory");
+}
+// Wait until the phase of parity ``parity`` has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* b, int parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(b)), "r"(parity)
+        : "memory");
+  }
+}
+// bytes (a multiple of 16, both ends 16-byte aligned) global -> shared,
+// counted on barrier b.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* b) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0],"
+      " [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(b))
+      : "memory");
+}
+
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ void tile_coords(const Geom& g, int tile, int& n,
+                                            int& tb, int& uc) {
+  const int per_n = g.ntb * g.nuc;
+  n = tile / per_n;
+  const int rest = tile - n * per_n;
+  tb = rest / g.nuc;
+  uc = rest - tb * g.nuc;
+}
+
+// The lattice terms of row i of tile (n, tb, uc).  A row that is not live
+// reads db = de = 0 and logZ = +inf, so its dz is exactly 0.
+struct RowTerms {
+  float logz, db, de;
+  int lab;
+};
+
+__device__ __forceinline__ RowTerms row_terms(const Geom& g, int n, int tb, int uc,
+                                              int i, int xn,
+                                              const int* __restrict__ lab,
+                                              const float* __restrict__ logz,
+                                              const float* __restrict__ dbl,
+                                              const float* __restrict__ del) {
+  RowTerms r{INFINITY, 0.0f, 0.0f, -1};
+  int t, u;
+  if (tile_row(g, i, tb, uc, t, u) && t < xn) {
+    const size_t cell = ((size_t)n * g.T + t) * g.U + u;
+    r.logz = logz[cell];
+    r.db = dbl[cell];
+    r.de = del[cell];
+    r.lab = lab[(size_t)n * g.U + u];
+  }
+  return r;
+}
+
+// d logit of one cell: db*[v==blank] + de*[v==lab] - softmax*(db+de).
+__device__ __forceinline__ float dz_of(float z, float bias, const RowTerms& r,
+                                       int v, int blank) {
+  const float pick = (v == blank ? r.db : 0.0f) + (v == r.lab ? r.de : 0.0f);
+  return pick - expf(z + bias - r.logz) * (r.db + r.de);
+}
+
+// bf16 h of the tile's rows, columns [k0, k0 + HS), as the h image (zeros
+// for rows that are not live), to shared memory sdst and / or global gdst;
+// 8 columns (16 bytes) a thread-step, threads lt of nthr, 8 rows of one
+// core matrix side by side.
+__device__ __forceinline__ void build_h_image(const Geom& g,
+                                              const float* __restrict__ a,
+                                              const float* __restrict__ c, int n,
+                                              int tb, int uc, int xn, int k0,
+                                              int HS, bf16* sdst, bf16* gdst,
+                                              int lt, int nthr) {
+  const int K8 = HS / 8;
+  for (int idx = lt; idx < 64 * K8; idx += nthr) {
+    const int rr = idx & 7;
+    const int rest = idx >> 3;
+    const int rb = rest / K8;
+    const int k8 = rest - rb * K8;
+    const int r = rb * 8 + rr;
+    int t, u;
+    uint4 packed = make_uint4(0, 0, 0, 0);
+    if (tile_row(g, r, tb, uc, t, u) && t < xn) {
+      const size_t ai = ((size_t)n * g.T + t) * g.H + k0 + 8 * k8;
+      const size_t ci = ((size_t)n * g.U + u) * g.H + k0 + 8 * k8;
+      const uint2 lo = h4(a, c, ai, ci);
+      const uint2 hi = h4(a, c, ai + 4, ci + 4);
+      packed = make_uint4(lo.x, lo.y, hi.x, hi.y);
+    }
+    const int off = rb * 64 + k8 * 512 + rr * 8;
+    if (sdst != nullptr) *reinterpret_cast<uint4*>(sdst + off) = packed;
+    if (gdst != nullptr) *reinterpret_cast<uint4*>(gdst + off) = packed;
+  }
+}
+
+// Block (x, o, p): tiles 2x and 2x + 1 (one a consumer warpgroup), d_h
+// columns [o*HS, (o+1)*HS), 64-column chunks [p*cpp, (p+1)*cpp) of V (its
+// own d_a / d_c partials: a grid with few tiles splits V to fill the
+// card).  Shared memory: S = 1: the two tiles' h
+// images, then the ring of W blocks; S > 1: the ring, each stage a W block
+// and the two tiles' h blocks of one slice.
+template <int NT>
+__global__ void __launch_bounds__(kBwdThreads, 1)
+dadc_kernel(const float* __restrict__ a, const float* __restrict__ c,
+            const unsigned char* __restrict__ wimg, const int* __restrict__ lab,
+            const int* __restrict__ xn_arr, const float* __restrict__ logz,
+            const float* __restrict__ dbl, const float* __restrict__ del,
+            float* __restrict__ da_part, float* __restrict__ dc_part,
+            bf16* __restrict__ h16, Geom g, int ntiles, int nchunks, int blank,
+            int cpp, int stages) {
+  constexpr int HS = NT * 64;
+  constexpr int WB = w_block_bytes(HS);
+  constexpr int HB = h_block_bytes(HS);
+  extern __shared__ __align__(128) unsigned char smem[];
+  __shared__ __align__(8) uint64_t full[kMaxStages], empty[kMaxStages];
+  const int tid = threadIdx.x;
+  const int S = g.S;
+  const int o = blockIdx.y;
+  const int part = blockIdx.z;
+  const int parts = gridDim.z;
+  const int ch0 = part * cpp;
+  const int ch1 = min(nchunks, ch0 + cpp);
+  const int tile0 = 2 * blockIdx.x;
+  const bool resident = S == 1;
+  unsigned char* ring = smem + (resident ? 2 * HB : 0);
+  const int EB = WB + (resident ? 0 : 2 * HB);
+  if (tid == 0) {
+    for (int i = 0; i < stages; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], 8);  // one arrival per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (tid >= 256) {  // producer: one thread keeps the ring full
+    reg_dealloc<40>();
+    if (tid == 256) {
+      const int nc2 = nchunks + (nchunks & 1);
+      const int tile1 = tile0 + 1 < ntiles ? tile0 + 1 : tile0;  // absent: a copy
+      int stage = 0, phase = 0;
+      for (int ch = ch0; ch < ch1; ++ch) {
+        for (int si = 0; si < S; ++si) {
+          const int s = (o + 1 + si) % S;  // the block's own slice last
+          mbar_wait(&empty[stage], phase ^ 1);
+          unsigned char* dst = ring + stage * EB;
+          mbar_expect_tx(&full[stage], EB);
+          bulk_load(dst, wimg + ((size_t)s * nc2 + ch) * WB, WB, &full[stage]);
+          if (!resident) {
+            bulk_load(dst + WB, h16 + ((size_t)tile0 * S + s) * HS * 64, HB,
+                      &full[stage]);
+            bulk_load(dst + WB + HB, h16 + ((size_t)tile1 * S + s) * HS * 64, HB,
+                      &full[stage]);
+          }
+          if (++stage == stages) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
+      }
+    }
+  } else {
+    reg_alloc<232>();
+    const int wg = tid >> 7;
+    const int lt = tid & 127;
+    const int lane = tid & 31;
+    const int t4 = lane & 3;
+    const int r0 = 16 * (lt >> 5) + (lane >> 2);
+    const int tile = tile0 + wg;
+    const bool active = tile < ntiles;
+    int n = 0, tb = 0, uc = 0;
+    if (active) tile_coords(g, tile, n, tb, uc);
+    const int xn = active ? xn_arr[n] : 0;
+    const bool busy = active && tb * g.bt < xn;
+    const RowTerms rw0 = row_terms(g, n, tb, uc, r0, xn, lab, logz, dbl, del);
+    const RowTerms rw1 = row_terms(g, n, tb, uc, r0 + 8, xn, lab, logz, dbl, del);
+    if (resident && active) {  // the first V part also writes h for dwdb
+      build_h_image(g, a, c, n, tb, uc, xn, 0, HS,
+                    reinterpret_cast<bf16*>(smem + wg * HB),
+                    part == 0 ? h16 + (size_t)tile * HS * 64 : nullptr, lt, 128);
+      fence_proxy_async();
+    }
+    named_bar(1 + wg, 128);
+
+    float dh[NT][32];
+    float z[32];
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) dh[j][i] = 0.0f;
+    int stage = 0, phase = 0;
+    for (int ch = ch0; ch < ch1; ++ch) {
+      for (int si = 0; si < S; ++si) {
+        mbar_wait(&full[stage], phase);
+        const unsigned char* e = ring + stage * EB;
+        if (busy) {
+          const unsigned char* hA = resident ? smem + wg * HB : e + WB + wg * HB;
+          wg_fence();
+#pragma unroll
+          for (int ks = 0; ks < HS / 16; ++ks) {
+            wgmma_ss<0, 1>(z, desc_h(hA, ks), desc_w<HS>(e, ks), si > 0 || ks > 0);
+          }
+          wg_commit_wait();
+          fence_acc(z);
+          if (si == S - 1) {  // z complete: dz, then d_h += dz @ W^T
+            const float* bias = reinterpret_cast<const float*>(e + HS * 128);
+            uint32_t ar[4][4];
+#pragma unroll
+            for (int kk = 0; kk < 4; ++kk) {
+              float d[8];
+#pragma unroll
+              for (int q = 0; q < 8; ++q) {
+                const int col = 16 * kk + 8 * (q >> 2) + 2 * t4 + (q & 1);
+                d[q] = dz_of(z[8 * kk + q], bias[col], (q & 2) ? rw1 : rw0,
+                             ch * 64 + col, blank);
+              }
+              ar[kk][0] = pack2(d[0], d[1]);
+              ar[kk][1] = pack2(d[2], d[3]);
+              ar[kk][2] = pack2(d[4], d[5]);
+              ar[kk][3] = pack2(d[6], d[7]);
+            }
+            wg_fence();
+#pragma unroll
+            for (int j = 0; j < NT; ++j)
+#pragma unroll
+              for (int kk = 0; kk < 4; ++kk)
+                wgmma_rs<0>(dh[j], ar[kk], desc_wt<HS>(e, j, kk), 1);
+            wg_commit_wait();
+#pragma unroll
+            for (int j = 0; j < NT; ++j) fence_acc(dh[j]);
+          }
+        }
+        __syncwarp();
+        if (lane == 0) mbar_arrive(&empty[stage]);
+        if (++stage == stages) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+    }
+
+    // dpre = d_h * (1 - h^2), staged in the freed shared memory, then
+    // summed over u (d_a) and over t (d_c).
+    named_bar(3, 256);  // both warpgroups are done with the ring and h
+    if (!active) return;
+    constexpr int ld = HS + 4;
+    float* st = reinterpret_cast<float*>(smem) + wg * 64 * ld;
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int col = 64 * j + 8 * i + 2 * t4;
+        *reinterpret_cast<float2*>(st + r0 * ld + col) =
+            make_float2(dh[j][4 * i], dh[j][4 * i + 1]);
+        *reinterpret_cast<float2*>(st + (r0 + 8) * ld + col) =
+            make_float2(dh[j][4 * i + 2], dh[j][4 * i + 3]);
+      }
+    named_bar(1 + wg, 128);
+    const int k0 = o * HS;
+    for (int idx = lt; idx < 64 * HS; idx += 128) {
+      const int r = idx / HS;
+      const int k = idx - r * HS;
+      int t, u;
+      float d = 0.0f;
+      if (tile_row(g, r, tb, uc, t, u) && t < xn) {
+        const float hv = tanhf(a[((size_t)n * g.T + t) * g.H + k0 + k] +
+                               c[((size_t)n * g.U + u) * g.H + k0 + k]);
+        d = st[r * ld + k] * (1.0f - hv * hv);
+      }
+      st[r * ld + k] = d;
+    }
+    named_bar(1 + wg, 128);
+    for (int idx = lt; idx < g.bt * HS; idx += 128) {
+      const int tt = idx / HS;
+      const int k = idx - tt * HS;
+      const int t = tb * g.bt + tt;
+      if (t >= g.T) continue;
+      float acc = 0.0f;
+      for (int uu = 0; uu < g.ut; ++uu) acc += st[(tt * g.ut + uu) * ld + k];
+      da_part[((((size_t)n * g.T + t) * g.nuc + uc) * parts + part) * g.H + k0 +
+              k] = acc;
+    }
+    for (int idx = lt; idx < g.ut * HS; idx += 128) {
+      const int uu = idx / HS;
+      const int k = idx - uu * HS;
+      const int u = uc * g.ut + uu;
+      if (u >= g.U) continue;
+      float acc = 0.0f;
+      for (int tt = 0; tt < g.bt; ++tt) acc += st[(tt * g.ut + uu) * ld + k];
+      dc_part[((((size_t)n * g.ntb + tb) * parts + part) * g.U + u) * g.H + k0 +
+              k] = acc;
+    }
+  }
+}
+
+// Block (q, grp, o): columns [128q, 128q + 128) of V (64 a consumer
+// warpgroup), tiles [grp*per, (grp+1)*per), d_W rows [o*HS, (o+1)*HS) and
+// (o = 0) d_b.  Shared memory: the two warpgroups' dz images; S = 1: the
+// chunk's two W blocks, then the ring of h blocks; S > 1: the ring, each
+// stage the chunk's two W blocks and the tile's h block of one slice.
+template <int NT>
+__global__ void __launch_bounds__(kBwdThreads, 1)
+dwdb_kernel(const bf16* __restrict__ h16, const unsigned char* __restrict__ wimg,
+            const int* __restrict__ lab, const int* __restrict__ xn_arr,
+            const float* __restrict__ logz, const float* __restrict__ dbl,
+            const float* __restrict__ del, float* __restrict__ dw_part,
+            float* __restrict__ db_part, Geom g, int ntiles, int nchunks,
+            int blank, int per, int stages) {
+  constexpr int HS = NT * 64;
+  constexpr int WB = w_block_bytes(HS);
+  constexpr int HB = h_block_bytes(HS);
+  extern __shared__ __align__(128) unsigned char smem[];
+  __shared__ __align__(8) uint64_t full[kMaxStages], empty[kMaxStages], wbar;
+  __shared__ float red[2][4][64];
+  const int tid = threadIdx.x;
+  const int S = g.S;
+  const int q = blockIdx.x;
+  const int grp = blockIdx.y;
+  const int o = blockIdx.z;
+  const bool resident = S == 1;
+  unsigned char* wres = smem + 2 * kDzBytes;
+  unsigned char* ring = wres + (resident ? 2 * WB : 0);
+  const int EB = resident ? HB : 2 * WB + HB;
+  const int nc2 = nchunks + (nchunks & 1);
+  const int first = grp * per;
+  const int last = min(ntiles, first + per);
+  if (tid == 0) {
+    for (int i = 0; i < stages; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], 8);
+    }
+    mbar_init(&wbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (tid >= 256) {  // producer
+    reg_dealloc<40>();
+    if (tid == 256) {
+      if (resident) {
+        mbar_expect_tx(&wbar, 2 * WB);
+        bulk_load(wres, wimg + (size_t)(2 * q) * WB, 2 * WB, &wbar);
+      }
+      int stage = 0, phase = 0;
+      for (int tile = first; tile < last; ++tile) {
+        for (int si = 0; si < S; ++si) {
+          const int s = (o + 1 + si) % S;  // the block's own slice last
+          mbar_wait(&empty[stage], phase ^ 1);
+          unsigned char* dst = ring + stage * EB;
+          mbar_expect_tx(&full[stage], EB);
+          if (resident) {
+            bulk_load(dst, h16 + (size_t)tile * HS * 64, HB, &full[stage]);
+          } else {
+            bulk_load(dst, wimg + ((size_t)s * nc2 + 2 * q) * WB, 2 * WB,
+                      &full[stage]);
+            bulk_load(dst + 2 * WB, h16 + ((size_t)tile * S + s) * HS * 64, HB,
+                      &full[stage]);
+          }
+          if (++stage == stages) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
+      }
+    }
+  } else {
+    reg_alloc<232>();
+    const int wg = tid >> 7;
+    const int lt = tid & 127;
+    const int warp = lt >> 5;
+    const int lane = tid & 31;
+    const int t4 = lane & 3;
+    const int r0 = 16 * warp + (lane >> 2);
+    const int vc = q * 128 + wg * 64;  // first column of this warpgroup
+    bf16* dz = reinterpret_cast<bf16*>(smem + wg * kDzBytes);
+    if (resident) mbar_wait(&wbar, 0);
+
+    float dw[NT][32];
+    float z[32];
+    float dbs[16];
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) dw[j][i] = 0.0f;
+#pragma unroll
+    for (int i = 0; i < 16; ++i) dbs[i] = 0.0f;
+    int stage = 0, phase = 0;
+    for (int tile = first; tile < last; ++tile) {
+      int n, tb, uc;
+      tile_coords(g, tile, n, tb, uc);
+      const int xn = xn_arr[n];
+      const bool busy = tb * g.bt < xn;
+      const RowTerms rw0 = row_terms(g, n, tb, uc, r0, xn, lab, logz, dbl, del);
+      const RowTerms rw1 = row_terms(g, n, tb, uc, r0 + 8, xn, lab, logz, dbl, del);
+      for (int si = 0; si < S; ++si) {
+        mbar_wait(&full[stage], phase);
+        const unsigned char* e = ring + stage * EB;
+        if (busy) {
+          const unsigned char* hA = resident ? e : e + 2 * WB;
+          const unsigned char* wb = (resident ? wres : e) + wg * WB;
+          wg_fence();
+#pragma unroll
+          for (int ks = 0; ks < HS / 16; ++ks) {
+            wgmma_ss<0, 1>(z, desc_h(hA, ks), desc_w<HS>(wb, ks), si > 0 || ks > 0);
+          }
+          wg_commit_wait();
+          fence_acc(z);
+          if (si == S - 1) {  // z complete: dz, d_b, then d_W += h^T @ dz
+            const float* bias = reinterpret_cast<const float*>(wb + HS * 128);
+#pragma unroll
+            for (int j = 0; j < 8; ++j)
+#pragma unroll
+              for (int x = 0; x < 4; ++x) {
+                const int col = 8 * j + 2 * t4 + (x & 1);
+                z[4 * j + x] = dz_of(z[4 * j + x], bias[col], (x & 2) ? rw1 : rw0,
+                                     vc + col, blank);
+              }
+#pragma unroll
+            for (int j = 0; j < 8; ++j) {
+              dbs[2 * j] += z[4 * j] + z[4 * j + 2];
+              dbs[2 * j + 1] += z[4 * j + 1] + z[4 * j + 3];
+            }
+            named_bar(1 + wg, 128);  // every warp's last d_W product is done
+#pragma unroll
+            for (int j = 0; j < 8; ++j) {
+              const int off = (r0 >> 3) * 64 + j * 512 + (r0 & 7) * 8 + 2 * t4;
+              *reinterpret_cast<uint32_t*>(dz + off) = pack2(z[4 * j], z[4 * j + 1]);
+              *reinterpret_cast<uint32_t*>(dz + off + 64) =
+                  pack2(z[4 * j + 2], z[4 * j + 3]);  // row r0 + 8
+            }
+            fence_proxy_async();
+            named_bar(1 + wg, 128);
+            wg_fence();
+#pragma unroll
+            for (int j = 0; j < NT; ++j)
+#pragma unroll
+              for (int kk = 0; kk < 4; ++kk)
+                wgmma_ss<1, 1>(dw[j], desc_ht(hA, j, kk), desc_dz(dz, kk), 1);
+            wg_commit_wait();
+#pragma unroll
+            for (int j = 0; j < NT; ++j) fence_acc(dw[j]);
+          }
+        }
+        __syncwarp();
+        if (lane == 0) mbar_arrive(&empty[stage]);
+        if (++stage == stages) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+    }
+
+    const size_t row0 = (size_t)grp * g.H + o * HS;
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int x = 0; x < 4; ++x) {
+          const int h = 64 * j + r0 + ((x & 2) ? 8 : 0);
+          const int v = vc + 8 * i + 2 * t4 + (x & 1);
+          if (v < g.V) dw_part[(row0 + h) * g.V + v] = dw[j][4 * i + x];
+        }
+    if (o == 0) {  // d_b: over the lanes of a column, then the four warps
+#pragma unroll
+      for (int i = 0; i < 16; ++i) {
+        float x = dbs[i];
+        x += __shfl_xor_sync(0xffffffffu, x, 4);
+        x += __shfl_xor_sync(0xffffffffu, x, 8);
+        x += __shfl_xor_sync(0xffffffffu, x, 16);
+        dbs[i] = x;
+      }
+      if (lane < 4) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          red[wg][warp][8 * j + 2 * lane] = dbs[2 * j];
+          red[wg][warp][8 * j + 2 * lane + 1] = dbs[2 * j + 1];
+        }
+      }
+      named_bar(1 + wg, 128);
+      if (lt < 64 && vc + lt < g.V) {
+        db_part[(size_t)grp * g.V + vc + lt] =
+            ((red[wg][0][lt] + red[wg][1][lt]) + red[wg][2][lt]) + red[wg][3][lt];
+      }
+    }
+  }
+}
+
+// The h image of every tile and slice (S > 1), zeros for rows that are not
+// live; one block a tile.
+__global__ void __launch_bounds__(kThreads)
+hidden_image_kernel(const float* __restrict__ a, const float* __restrict__ c,
+                    const int* __restrict__ xn_arr, bf16* __restrict__ h16, Geom g) {
+  int n, tb, uc;
+  tile_coords(g, blockIdx.x, n, tb, uc);
+  const int xn = xn_arr[n];
+  for (int s = 0; s < g.S; ++s) {
+    build_h_image(g, a, c, n, tb, uc, xn, s * g.HS, g.HS, nullptr,
+                  h16 + ((size_t)blockIdx.x * g.S + s) * g.HS * 64, threadIdx.x,
+                  kThreads);
   }
 }
 
@@ -782,14 +1119,75 @@ cudaError_t set_smem(K kernel, size_t bytes) {
                               static_cast<int>(bytes));
 }
 
+bool bad_bwd_slices(int H, int S) {
+  return S < 1 || H % S != 0 || (H / S) % 64 != 0 || H / S > kBwdSlice;
+}
+
+// Stages of a ring of ``entry``-byte stages beside ``fixed`` bytes, up to
+// kMaxStages; 0 if fewer than two fit.
+int ring_stages(size_t fixed, size_t entry) {
+  const long long room = (long long)kSmemCap - kStaticSlack - (long long)fixed;
+  const long long n = room / (long long)entry;
+  if (n < 2) return 0;
+  return n < kMaxStages ? static_cast<int>(n) : kMaxStages;
+}
+
+// Shared memory of the two backward kernels: ``fixed`` bytes beside a ring
+// of ``entry``-byte stages (the layouts above each kernel).
+void dadc_smem(int HS, int S, size_t& fixed, size_t& entry) {
+  fixed = S == 1 ? (size_t)2 * h_block_bytes(HS) : 0;
+  entry = w_block_bytes(HS) + (S == 1 ? 0 : 2 * h_block_bytes(HS));
+}
+
+void dwdb_smem(int HS, int S, size_t& fixed, size_t& entry) {
+  fixed = 2 * kDzBytes + (S == 1 ? (size_t)2 * w_block_bytes(HS) : 0);
+  entry = h_block_bytes(HS) + (S == 1 ? 0 : 2 * w_block_bytes(HS));
+}
+
+struct DadcArgs {
+  const float *a, *c;
+  const unsigned char* wimg;
+  const int *lab, *xn;
+  const float *logz, *db, *de;
+  float *da_part, *dc_part;
+  bf16* h16;
+  Geom g;
+  int ntiles, nchunks, blank, cpp, stages;
+};
+
+template <int NT>
+cudaError_t launch_dadc(const DadcArgs& p, dim3 grid, size_t bytes,
+                        cudaStream_t st) {
+  cudaError_t err = set_smem(dadc_kernel<NT>, bytes);
+  if (err != cudaSuccess) return err;
+  dadc_kernel<NT><<<grid, kBwdThreads, bytes, st>>>(
+      p.a, p.c, p.wimg, p.lab, p.xn, p.logz, p.db, p.de, p.da_part, p.dc_part,
+      p.h16, p.g, p.ntiles, p.nchunks, p.blank, p.cpp, p.stages);
+  return cudaGetLastError();
+}
+
+struct DwdbArgs {
+  const bf16* h16;
+  const unsigned char* wimg;
+  const int *lab, *xn;
+  const float *logz, *db, *de;
+  float *dw_part, *db_part;
+  Geom g;
+  int ntiles, nchunks, blank, per, stages;
+};
+
+template <int NT>
+cudaError_t launch_dwdb(const DwdbArgs& p, dim3 grid, size_t bytes,
+                        cudaStream_t st) {
+  cudaError_t err = set_smem(dwdb_kernel<NT>, bytes);
+  if (err != cudaSuccess) return err;
+  dwdb_kernel<NT><<<grid, kBwdThreads, bytes, st>>>(
+      p.h16, p.wimg, p.lab, p.xn, p.logz, p.db, p.de, p.dw_part, p.db_part, p.g,
+      p.ntiles, p.nchunks, p.blank, p.per, p.stages);
+  return cudaGetLastError();
+}
+
 }  // namespace
-
-// Tiles of one sample along T (times U chunks), for the caller's d_c
-// partials: (N, fj_t_tiles, U, H).
-extern "C" int fj_t_tiles(int T, int U) { return make_geom(T, U, 16, 1, 1).ntb; }
-
-// U chunks of a frame, for the caller's d_a partials: (N, T, fj_u_chunks, H).
-extern "C" int fj_u_chunks(int U) { return make_geom(1, U, 16, 1, 1).nuc; }
 
 extern "C" int fj_hidden(const float* a, const float* c, const int* xn,
                          void* h16, int N, int T, int U, int H, void* stream) {
@@ -802,6 +1200,19 @@ extern "C" int fj_hidden(const float* a, const float* c, const int* xn,
   return static_cast<int>(cudaGetLastError());
 }
 
+// h16: the backward's h image, (tiles, S, 64 x H/S) bf16.
+extern "C" int fj_hidden_image(const float* a, const float* c, const int* xn,
+                               void* h16, int N, int T, int U, int H, int S,
+                               void* stream) {
+  if (bad_bwd_slices(H, S)) return static_cast<int>(cudaErrorInvalidValue);
+  const Geom g = make_geom(T, U, H, 1, S);
+  const long long tiles = (long long)N * g.ntb * g.nuc;
+  hidden_image_kernel<<<static_cast<unsigned int>(tiles), kThreads, 0,
+                        static_cast<cudaStream_t>(stream)>>>(
+      a, c, xn, static_cast<bf16*>(h16), g);
+  return static_cast<int>(cudaGetLastError());
+}
+
 extern "C" int fj_forward(const float* a, const float* c, const void* w,
                           const float* bias, const int* lab, const int* xn,
                           const void* h16, float* blank_out, float* emit_out,
@@ -809,7 +1220,7 @@ extern "C" int fj_forward(const float* a, const float* c, const void* w,
                           int blank, int S, void* stream) {
   if (bad_slices(H, S)) return static_cast<int>(cudaErrorInvalidValue);
   const Geom g = make_geom(T, U, H, V, S);
-  const size_t bytes = smem_bytes(g.HS) - (size_t)kRows * kLdW * 2;  // no dzs
+  const size_t bytes = smem_bytes(g.HS);
   cudaError_t err = set_smem(fwd_kernel, bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   const long long blocks = (long long)N * g.ntb * g.nuc;
@@ -820,69 +1231,118 @@ extern "C" int fj_forward(const float* a, const float* c, const void* w,
   return static_cast<int>(cudaGetLastError());
 }
 
-// h16: written here when S = 1, read (from fj_hidden) when S > 1.
-extern "C" int fj_backward_dadc(const float* a, const float* c, const void* w,
-                                const float* bias, const int* lab,
-                                const int* xn, const float* logz,
+// wimg: the W image, (S, chunks rounded up to even, w_block_bytes) bytes.
+// h16: the h image, (tiles, S, 64 x H/S) bf16; written here when S = 1,
+// read (from fj_hidden_image) when S > 1.  parts: V parts of ceil(chunks /
+// parts) 64-column chunks; da_part (N, T, U chunks, parts, H), dc_part
+// (N, T tiles, parts, U, H).
+extern "C" int fj_backward_dadc(const float* a, const float* c, const void* wimg,
+                                const int* lab, const int* xn, const float* logz,
                                 const float* db, const float* de,
                                 float* da_part, float* dc_part, void* h16,
                                 int N, int T, int U, int H, int V, int blank,
-                                int S, void* stream) {
-  if (bad_slices(H, S)) return static_cast<int>(cudaErrorInvalidValue);
-  const Geom g = make_geom(T, U, H, V, S);
-  const size_t bytes = smem_bytes(g.HS);
-  const long long blocks = (long long)N * g.ntb * g.nuc * S;
-  const dim3 grid(static_cast<unsigned int>(blocks));
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bf16* wb = static_cast<const bf16*>(w);
-  bf16* hb = static_cast<bf16*>(h16);
-  cudaError_t err;
-  if (g.HS <= 256) {
-    err = set_smem(dadc_kernel<8>, bytes);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    dadc_kernel<8><<<grid, kThreads, bytes, st>>>(
-        a, c, wb, bias, lab, xn, logz, db, de, da_part, dc_part, hb, g, blank);
-  } else {
-    err = set_smem(dadc_kernel<16>, bytes);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    dadc_kernel<16><<<grid, kThreads, bytes, st>>>(
-        a, c, wb, bias, lab, xn, logz, db, de, da_part, dc_part, hb, g, blank);
-  }
-  return static_cast<int>(cudaGetLastError());
-}
-
-extern "C" int fj_backward_dwdb(const void* h16, const void* w,
-                                const float* bias, const int* lab,
-                                const int* xn, const float* logz,
-                                const float* db, const float* de,
-                                float* dw_part, float* db_part, int N, int T,
-                                int U, int H, int V, int blank, int groups,
-                                int S, void* stream) {
-  if (bad_slices(H, S) || groups < 1) {
+                                int S, int parts, void* stream) {
+  const int nchunks = (V + 63) / 64;
+  if (bad_bwd_slices(H, S) || parts < 1 || parts > nchunks || parts > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const Geom g = make_geom(T, U, H, V, S);
-  const size_t bytes = smem_bytes(g.HS);
-  const long long R = (long long)N * T * U;
-  const long long ntile = (R + kRows - 1) / kRows;
-  const int per = static_cast<int>((ntile + groups - 1) / groups);
-  const dim3 grid((V + kVC - 1) / kVC, groups, S);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bf16* hb = static_cast<const bf16*>(h16);
-  const bf16* wb = static_cast<const bf16*>(w);
-  cudaError_t err;
-  if (g.HS <= 256) {
-    err = set_smem(dwdb_kernel<8>, bytes);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    dwdb_kernel<8><<<grid, kThreads, bytes, st>>>(
-        hb, wb, bias, lab, xn, logz, db, de, dw_part, db_part, g, N, blank, per);
-  } else {
-    err = set_smem(dwdb_kernel<16>, bytes);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    dwdb_kernel<16><<<grid, kThreads, bytes, st>>>(
-        hb, wb, bias, lab, xn, logz, db, de, dw_part, db_part, g, N, blank, per);
+  const long long tiles = (long long)N * g.ntb * g.nuc;
+  const int HS = g.HS;
+  size_t fixed, entry;
+  dadc_smem(HS, S, fixed, entry);
+  const int stages = ring_stages(fixed, entry);
+  if (stages == 0 || tiles > 0x7fffffffLL) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
+  size_t bytes = fixed + (size_t)stages * entry;
+  const size_t stage_bytes = (size_t)2 * 64 * (HS + 4) * 4;  // the epilogue's
+  if (bytes < stage_bytes) bytes = stage_bytes;
+  const DadcArgs p{a, c, static_cast<const unsigned char*>(wimg), lab, xn, logz,
+                   db, de, da_part, dc_part, static_cast<bf16*>(h16), g,
+                   static_cast<int>(tiles), nchunks, blank,
+                   (nchunks + parts - 1) / parts, stages};
+  const dim3 grid(static_cast<unsigned int>((tiles + 1) / 2), S, parts);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  switch (HS / 64) {
+    case 1: err = launch_dadc<1>(p, grid, bytes, st); break;
+    case 2: err = launch_dadc<2>(p, grid, bytes, st); break;
+    case 3: err = launch_dadc<3>(p, grid, bytes, st); break;
+    default: err = launch_dadc<4>(p, grid, bytes, st); break;
+  }
+  return static_cast<int>(err);
+}
+
+// groups: row groups, each of ceil(tiles / groups) consecutive tiles.
+extern "C" int fj_backward_dwdb(const void* h16, const void* wimg,
+                                const int* lab, const int* xn,
+                                const float* logz, const float* db,
+                                const float* de, float* dw_part, float* db_part,
+                                int N, int T, int U, int H, int V, int blank,
+                                int groups, int S, void* stream) {
+  if (bad_bwd_slices(H, S) || groups < 1 || groups > 65535) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const Geom g = make_geom(T, U, H, V, S);
+  const long long tiles = (long long)N * g.ntb * g.nuc;
+  const int HS = g.HS;
+  size_t fixed, entry;
+  dwdb_smem(HS, S, fixed, entry);
+  const int stages = ring_stages(fixed, entry);
+  if (stages == 0 || tiles > 0x7fffffffLL) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const size_t bytes = fixed + (size_t)stages * entry;
+  const DwdbArgs p{static_cast<const bf16*>(h16),
+                   static_cast<const unsigned char*>(wimg), lab, xn, logz, db, de,
+                   dw_part, db_part, g, static_cast<int>(tiles), (V + 63) / 64,
+                   blank, static_cast<int>((tiles + groups - 1) / groups), stages};
+  const dim3 grid((V + 127) / 128, groups, S);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  switch (HS / 64) {
+    case 1: err = launch_dwdb<1>(p, grid, bytes, st); break;
+    case 2: err = launch_dwdb<2>(p, grid, bytes, st); break;
+    case 3: err = launch_dwdb<3>(p, grid, bytes, st); break;
+    default: err = launch_dwdb<4>(p, grid, bytes, st); break;
+  }
+  return static_cast<int>(err);
+}
+
+// What the compiler gave a backward kernel (kernel 0: dadc, 1: dwdb) at
+// slice width HS and S slices: out = registers a thread at entry, local
+// memory bytes a thread (spills), static and dynamic shared memory bytes,
+// ring stages.
+extern "C" int fj_backward_attrs(int kernel, int HS, int S, int* out) {
+  if (bad_bwd_slices(HS * S, S)) return static_cast<int>(cudaErrorInvalidValue);
+  cudaFuncAttributes attr;
+  const void* fn = nullptr;
+  const int nt = HS / 64;
+  if (kernel == 0) {
+    const void* k[4] = {(const void*)dadc_kernel<1>, (const void*)dadc_kernel<2>,
+                        (const void*)dadc_kernel<3>, (const void*)dadc_kernel<4>};
+    fn = k[nt - 1];
+  } else {
+    const void* k[4] = {(const void*)dwdb_kernel<1>, (const void*)dwdb_kernel<2>,
+                        (const void*)dwdb_kernel<3>, (const void*)dwdb_kernel<4>};
+    fn = k[nt - 1];
+  }
+  const cudaError_t err = cudaFuncGetAttributes(&attr, fn);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  size_t fixed, entry;
+  if (kernel == 0) {
+    dadc_smem(HS, S, fixed, entry);
+  } else {
+    dwdb_smem(HS, S, fixed, entry);
+  }
+  const int stages = ring_stages(fixed, entry);
+  out[0] = attr.numRegs;
+  out[1] = static_cast<int>(attr.localSizeBytes);
+  out[2] = static_cast<int>(attr.sharedSizeBytes);
+  out[3] = static_cast<int>(fixed + (size_t)stages * entry);
+  out[4] = stages;
+  return 0;
 }
 
 extern "C" const char* fj_error_string(int code) {

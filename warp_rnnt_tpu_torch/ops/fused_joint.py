@@ -32,14 +32,19 @@ What the JAX module has and this one does not:
     them (JAX forced to 128-column blocks), and `chip_smoke.py` holds the
     kernels against the plain versions at V=64000 and V=50257.
 
-The kernels take any joint width H >= 1 and any N.  `h_plan` pads H up to
-S slices of at most 512 columns, each a multiple of 16 (zero columns of a
-and c, zero rows of W: tanh(0) = 0 adds nothing), and the backward cuts
-d_a, d_c and d_W back to H (`pad_h`, `unpad_h`).  At S > 1 (H > 512) a
-fourth kernel first writes the joint activations h as bf16 (N*T*U, H),
-which the other three read a slice at a time; the cost of each route
-against the R x H x V bound is noted at the top of `csrc/fused_joint.cu`,
-with what bounds the kernels and what their design does about it.
+The kernels take any joint width H >= 1 and any N.  The forward pads H up
+to S slices of at most 512 columns, each a multiple of 16 (`h_plan`), the
+backward to slices of at most 256 columns, each a multiple of 64
+(`bwd_plan`): zero columns of a and c, zero rows of W (tanh(0) = 0 adds
+nothing); the backward cuts d_a, d_c and d_W back to H (`pad_h`,
+`unpad_h`).  Past one slice an h kernel first writes the joint
+activations as bf16, which the other kernels read a slice at a time: rows
+(N*T*U, H) for the forward (`_hidden`, at H > 512), the tiled image of
+`h_image` for the backward (`_hidden_image`, at H > 256).  The backward kernels read W and h as the shared-memory
+images `wgmma` takes (`_w_image`, `h_image`), which these wrappers and the
+d_a / d_c kernel lay out; the cost of each route against the R x H x V
+bound is noted at the top of `csrc/fused_joint.cu`, with what bounds the
+kernels and what their design does about it.
 """
 
 from __future__ import annotations
@@ -53,10 +58,15 @@ from warp_rnnt_tpu_torch.functional.loss import _labels_ext
 from warp_rnnt_tpu_torch.ops import _build
 
 # Launches per kernel, counted where the kernel is launched and nowhere else.
-LAUNCHES = {"fused_joint_hidden": 0, "fused_joint_fwd": 0,
-            "fused_joint_bwd_dadc": 0, "fused_joint_bwd_dwdb": 0}
+LAUNCHES = {"fused_joint_hidden": 0, "fused_joint_hidden_image": 0,
+            "fused_joint_fwd": 0, "fused_joint_bwd_dadc": 0,
+            "fused_joint_bwd_dwdb": 0}
 
-_SLICE = 512  # widest H slice of the kernels (shared memory, registers)
+_SLICE = 512  # widest H slice of the forward kernel (shared memory)
+_BWD_SLICE = 256  # widest H slice of the backward kernels (registers)
+_BWD_STEP = 64  # the backward's slices are multiples of one wgmma N tile
+_ROWS = 64  # lattice rows per tile (one wgmma M tile)
+_VC = 64  # vocabulary columns per W image block
 
 
 def _lib():
@@ -64,14 +74,15 @@ def _lib():
     if not getattr(lib, "_typed", False):
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.fj_hidden.argtypes = [p] * 4 + [i] * 4 + [p]
+        lib.fj_hidden_image.argtypes = [p] * 4 + [i] * 5 + [p]
         lib.fj_forward.argtypes = [p] * 10 + [i] * 7 + [p]
-        lib.fj_backward_dadc.argtypes = [p] * 12 + [i] * 7 + [p]
-        lib.fj_backward_dwdb.argtypes = [p] * 10 + [i] * 8 + [p]
-        for fn in (lib.fj_hidden, lib.fj_forward, lib.fj_backward_dadc,
-                   lib.fj_backward_dwdb, lib.fj_t_tiles, lib.fj_u_chunks):
+        lib.fj_backward_dadc.argtypes = [p] * 11 + [i] * 8 + [p]
+        lib.fj_backward_dwdb.argtypes = [p] * 9 + [i] * 8 + [p]
+        lib.fj_backward_attrs.argtypes = [i, i, i, p]
+        for fn in (lib.fj_hidden, lib.fj_hidden_image, lib.fj_forward,
+                   lib.fj_backward_dadc, lib.fj_backward_dwdb,
+                   lib.fj_backward_attrs):
             fn.restype = i
-        lib.fj_t_tiles.argtypes = [i, i]
-        lib.fj_u_chunks.argtypes = [i]
         lib.fj_error_string.argtypes = [i]
         lib.fj_error_string.restype = ctypes.c_char_p
         lib._typed = True
@@ -177,12 +188,23 @@ def joint_lattice_bwd_plain(a, c, w, b, labels_ext, xn, yn, logz, db, de,
 
 
 def h_plan(H: int):
-    """(Hp, S): the kernels' width for a joint of width H >= 1, S slices of
-    Hp / S columns, each a multiple of 16 and at most 512; S = ceil(H / 512)
-    and the slices as even as 16 allows (H=200 -> (208, 1), 640 -> (640, 2),
-    1000 -> (1024, 2), 2048 -> (2048, 4))."""
+    """(Hp, S): the forward kernel's width for a joint of width H >= 1, S
+    slices of Hp / S columns, each a multiple of 16 and at most 512;
+    S = ceil(H / 512) and the slices as even as 16 allows (H=200 -> (208,
+    1), 640 -> (640, 2), 1000 -> (1024, 2), 2048 -> (2048, 4))."""
     S = -(-H // _SLICE)
     return S * (-(-H // (16 * S)) * 16), S
+
+
+def bwd_plan(H: int):
+    """(Hp, S): the backward kernels' width for a joint of width H >= 1, S
+    slices of Hp / S columns, each a multiple of 64 (one wgmma N tile) and
+    at most 256 (a warpgroup's d_h or d_W, 64 x 256 fp32, is 128 registers
+    a thread); S = ceil(H / 256) and the slices as even as 64 allows
+    (H=200 -> (256, 1), 512 -> (512, 2), 640 -> (768, 3), 2048 ->
+    (2048, 8))."""
+    S = -(-H // _BWD_SLICE)
+    return S * (-(-H // (_BWD_STEP * S)) * _BWD_STEP), S
 
 
 def pad_h(a, c, w, Hp: int):
@@ -204,17 +226,104 @@ def unpad_h(d_a, d_c, d_w, H: int):
 
 def _chunked(w16, V):
     """(H, V) bf16 -> (ceil(V/64), H, 64), zero columns past V: each 64-column
-    chunk of W one contiguous block, as the kernels load it."""
+    chunk of W one contiguous block, as the forward kernel loads it."""
     H = w16.shape[0]
     chunks = -(-V // 64)
     w16 = torch.nn.functional.pad(w16, (0, chunks * 64 - V))
     return w16.view(H, chunks, 64).transpose(0, 1).contiguous()
 
 
-def _kernel_inputs(a, c, w, b, labels_ext, xn, blank):
-    """Cast, pad and check the kernels' operands: a, c, b fp32, w bf16 in
-    64-column chunks, a, c and w padded to `h_plan`'s width, labels_ext and
-    xn int32, all contiguous on one CUDA device.  Returns (operands, dims
+def _w_chunks(V):
+    """64-column W image blocks of a slice: ceil(V/64) rounded up to even,
+    so the d_W / d_b kernel's 128-column chunks are whole."""
+    chunks = -(-V // _VC)
+    return chunks + chunks % 2
+
+
+def _w_image(w16, b, V, Hp, S):
+    """The backward's W image, (S, `_w_chunks`(V), HS*64 + 128) bf16: block
+    (s, chunk) holds W[s*HS:(s+1)*HS, 64*chunk:64*chunk+64] as 8 x 8 core
+    matrices of 16-byte rows, each row 8 columns v of one k (element (k, v)
+    at (k/8)*64 + (v/8)*HS*8 + (k%8)*8 + v%8, the address rule of the
+    kernels' descriptors `desc_w` and `desc_wt`), zero past V, and then the
+    chunk's 64 biases as fp32 (-inf past V, so the kernels' dz is 0 there).
+    Each block is one contiguous copy into shared memory."""
+    HS = Hp // S
+    nc = _w_chunks(V)
+    w16 = torch.nn.functional.pad(w16, (0, nc * _VC - V))
+    img = (w16.view(S, HS // 8, 8, nc, 8, 8)   # s, kb, kr, chunk, vb, vr
+           .permute(0, 3, 4, 1, 2, 5)          # s, chunk, vb, kb, kr, vr
+           .reshape(S, nc, HS * _VC))
+    bias = torch.nn.functional.pad(b.float(), (0, nc * _VC - V),
+                                   value=float("-inf"))
+    bias = bias.view(nc, _VC).view(torch.bfloat16).expand(S, nc, 2 * _VC)
+    return torch.cat((img, bias), 2).contiguous()
+
+
+def _geom(T: int, U: int):
+    """(ut, bt, nuc, ntb) of the kernels' 64-row tiles: ut = min(U, 64) rows
+    of bt = 64 // ut frames, nuc U chunks of a frame, ntb frame blocks of a
+    sample (`make_geom` in `csrc/fused_joint.cu`)."""
+    ut = min(U, _ROWS)
+    bt = _ROWS // ut
+    return ut, bt, -(-U // ut), -(-T // bt)
+
+
+def n_tiles(N: int, T: int, U: int) -> int:
+    """Tiles of the lattice, numbered sample-major: (n, frame block, U
+    chunk)."""
+    _, _, nuc, ntb = _geom(T, U)
+    return N * ntb * nuc
+
+
+def tile_cells(N: int, T: int, U: int):
+    """(tiles, 64) long: the flat cell (n*T + t)*U + u of each tile row, -1
+    for rows past the lattice (`tile_row`)."""
+    ut, bt, nuc, ntb = _geom(T, U)
+    tile = torch.arange(n_tiles(N, T, U))[:, None]
+    i = torch.arange(_ROWS)[None, :]
+    n, rest = tile // (ntb * nuc), tile % (ntb * nuc)
+    tb, uc = rest // nuc, rest % nuc
+    tt, uu = i // ut, i % ut
+    t, u = tb * bt + tt, uc * ut + uu
+    valid = (tt < bt) & (t < T) & (u < U)
+    return torch.where(valid, (n * T + t) * U + u, -1)
+
+
+def hidden_plain(a, c, xn):
+    """Plain torch version of the forward's h kernel: bf16(tanh(a[n, t] +
+    c[n, u])) as rows (N*T*U, H), zero rows at frames t >= xn (which the
+    kernel leaves unwritten)."""
+    N, T, H = a.shape
+    U = c.shape[1]
+    h = torch.tanh(a.float()[:, :, None, :] + c.float()[:, None, :, :])
+    h = torch.where(_live(xn, T)[..., None], h, 0.0)
+    return h.to(torch.bfloat16).reshape(N * T * U, H)
+
+
+def hidden_image_plain(a, c, xn, S):
+    """Plain torch version of the backward's h image: `h_image` of
+    `hidden_plain`'s rows."""
+    N, T, _ = a.shape
+    return h_image(hidden_plain(a, c, xn), N, T, c.shape[1], S)
+
+
+def h_image(rows, N, T, U, S):
+    """The backward's h image of bf16 rows (N*T*U, H): (tiles, S, 64 * HS)
+    bf16, block (tile, s) holding rows[cell, s*HS + k] of the tile's cells
+    at (row/8)*64 + (k/8)*512 + (row%8)*8 + k%8, zeros for tile rows past
+    the lattice."""
+    HS = rows.shape[1] // S
+    cells = tile_cells(N, T, U).to(rows.device)
+    h = torch.where((cells >= 0)[..., None], rows[cells.clamp(min=0)], 0.0)
+    h = h.to(torch.bfloat16).view(-1, 8, 8, S, HS // 8, 8)  # rb, rr, s, kb, kr
+    return h.permute(0, 3, 4, 1, 2, 5).reshape(-1, S, _ROWS * HS).contiguous()
+
+
+def _kernel_inputs(a, c, w, b, labels_ext, xn, blank, plan=h_plan):
+    """Cast, pad and check the kernels' operands: a, c, b fp32, w bf16, a, c
+    and w padded to ``plan``'s width, labels_ext and xn int32, all
+    contiguous on one CUDA device.  Returns (operands (a, c, w, b), dims
     (N, T, U, Hp, V, S), H)."""
     N, T, U, H, V = _shapes(a, c, w, b, labels_ext, xn)
     if not 0 <= blank < V:
@@ -228,27 +337,16 @@ def _kernel_inputs(a, c, w, b, labels_ext, xn, blank):
             raise ValueError(f"{name} must be torch.int32, got {x.dtype}")
         if not x.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    Hp, S = h_plan(H)
+    Hp, S = plan(H)
     a, c, w = pad_h(a.float(), c.float(), w.to(torch.bfloat16), Hp)
-    ops = (a.contiguous(), c.contiguous(), _chunked(w, V), b.float().contiguous())
+    ops = (a.contiguous(), c.contiguous(), w, b.float().contiguous())
     return ops, (N, T, U, Hp, V, S), H
 
 
-def hidden_plain(a, c, xn):
-    """Plain torch version of the h kernel: bf16(tanh(a[n, t] + c[n, u]))
-    as rows (N*T*U, H), zero rows at frames t >= xn (which the kernel
-    leaves unwritten)."""
-    N, T, H = a.shape
-    U = c.shape[1]
-    h = torch.tanh(a.float()[:, :, None, :] + c.float()[:, None, :, :])
-    h = torch.where(_live(xn, T)[..., None], h, 0.0)
-    return h.to(torch.bfloat16).reshape(N * T * U, H)
-
-
 def _hidden(a, c, xn, dims):
-    """The h kernel (S > 1): bf16(tanh(a + c)) of every live cell, rows of
-    (N*T*U, Hp); rows of cells past xn are left unwritten (no kernel reads
-    them)."""
+    """The h kernel for the forward (S > 1): bf16(tanh(a + c)) of every live
+    cell, rows of (N*T*U, Hp); rows of cells past xn are left unwritten (no
+    kernel reads them)."""
     N, T, U, Hp, _, _ = dims
     lib = _lib()
     h16 = torch.empty((N * T * U, Hp), dtype=torch.bfloat16, device=a.device)
@@ -258,6 +356,22 @@ def _hidden(a, c, xn, dims):
                              h16.data_ptr(), N, T, U, Hp, stream)
     _build.check(lib, "fj_error_string", code, "fj_hidden")
     LAUNCHES["fused_joint_hidden"] += 1
+    return h16
+
+
+def _hidden_image(a, c, xn, dims):
+    """The h kernel for the backward (S > 1): the h image of every tile and
+    slice (`hidden_image_plain`), zeros for rows that are not live."""
+    N, T, U, Hp, _, S = dims
+    lib = _lib()
+    h16 = torch.empty((n_tiles(N, T, U), S, _ROWS * (Hp // S)),
+                      dtype=torch.bfloat16, device=a.device)
+    stream = torch.cuda.current_stream(a.device).cuda_stream
+    with torch.cuda.device(a.device):
+        code = lib.fj_hidden_image(a.data_ptr(), c.data_ptr(), xn.data_ptr(),
+                                   h16.data_ptr(), N, T, U, Hp, S, stream)
+    _build.check(lib, "fj_error_string", code, "fj_hidden_image")
+    LAUNCHES["fused_joint_hidden_image"] += 1
     return h16
 
 
@@ -280,6 +394,7 @@ def joint_lattice_fwd(a, c, w, b, labels_ext, xn, yn, blank: int):
     ops, dims, _ = _kernel_inputs(a, c, w, b, labels_ext, xn, blank)
     a, c, w, b = ops
     N, T, U, Hp, V, S = dims
+    w = _chunked(w, V)
     h16 = _hidden(a, c, xn, dims) if S > 1 else None
     lib = _lib()
     out = [torch.empty((N, T, U), dtype=torch.float32, device=a.device)
@@ -297,67 +412,83 @@ def joint_lattice_fwd(a, c, w, b, labels_ext, xn, yn, blank: int):
     return tuple(out)
 
 
+def _fullest(sms: int, unit: int, most: int) -> int:
+    """The count k in [1, most] whose k * unit blocks (one per SM) leave the
+    last wave fullest; the fewest on a tie."""
+    def fill(k):
+        blocks = unit * k
+        return blocks / (-(-blocks // sms) * sms)
+
+    return max(range(1, max(1, most) + 1), key=lambda k: (fill(k), -k))
+
+
+def _row_groups(sms: int, V: int, tiles: int, S: int = 1):
+    """Row groups of the d_W / d_b kernel (one block per 128-column chunk,
+    group and slice): up to about three waves of blocks and one group per
+    tile (each group's d_W partial is H x V fp32)."""
+    unit = -(-V // (2 * _VC)) * S
+    return _fullest(sms, unit, min(tiles, -(-3 * sms // unit), 65535))
+
+
+def _v_parts(sms: int, tiles: int, S: int, V: int) -> int:
+    """V parts of the d_a / d_c kernel (one block per tile pair, slice and
+    part): up to about three waves of blocks, no part empty.  A grid of
+    few tiles (small N at a large V) splits V to fill the card."""
+    unit = -(-tiles // 2) * S
+    chunks = -(-V // _VC)
+    parts = _fullest(sms, unit, min(chunks, -(-3 * sms // unit), 65535))
+    return -(-chunks // -(-chunks // parts))
+
+
 def _bwd_dadc(ops, labels_ext, xn, lat, dims, blank, h16=None):
     """The d_a / d_c kernel: returns (d_a, d_c, h16) at the padded width,
-    h16 the (N*T*U, Hp) bf16 joint activations that the d_W / d_b kernel
-    reads: written by this kernel at S = 1, by the h kernel before it at
-    S > 1 (or given)."""
-    a, c, w, b = ops
+    h16 the backward's h image that the d_W / d_b kernel reads: written by
+    this kernel at S = 1, by the h kernel before it at S > 1 (or given)."""
+    a, c, wimg = ops
     logz, db, de = lat
     N, T, U, Hp, V, S = dims
     lib = _lib()
     dev = a.device
     if h16 is None:
-        h16 = (_hidden(a, c, xn, dims) if S > 1 else
-               torch.empty((N * T * U, Hp), dtype=torch.bfloat16, device=dev))
-    da_part = torch.empty((N, T, lib.fj_u_chunks(U), Hp), dtype=torch.float32,
+        h16 = (_hidden_image(a, c, xn, dims) if S > 1 else
+               torch.empty((n_tiles(N, T, U), S, _ROWS * (Hp // S)),
+                           dtype=torch.bfloat16, device=dev))
+    _, _, nuc, ntb = _geom(T, U)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    parts = _v_parts(sms, n_tiles(N, T, U), S, V)
+    da_part = torch.empty((N, T, nuc, parts, Hp), dtype=torch.float32,
                           device=dev)
-    dc_part = torch.empty((N, lib.fj_t_tiles(T, U), U, Hp),
-                          dtype=torch.float32, device=dev)
+    dc_part = torch.empty((N, ntb, parts, U, Hp), dtype=torch.float32,
+                          device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         code = lib.fj_backward_dadc(
-            a.data_ptr(), c.data_ptr(), w.data_ptr(), b.data_ptr(),
-            labels_ext.data_ptr(), xn.data_ptr(), logz.data_ptr(),
-            db.data_ptr(), de.data_ptr(), da_part.data_ptr(),
-            dc_part.data_ptr(), h16.data_ptr(), N, T, U, Hp, V, blank, S,
-            stream,
+            a.data_ptr(), c.data_ptr(), wimg.data_ptr(), labels_ext.data_ptr(),
+            xn.data_ptr(), logz.data_ptr(), db.data_ptr(), de.data_ptr(),
+            da_part.data_ptr(), dc_part.data_ptr(), h16.data_ptr(), N, T, U,
+            Hp, V, blank, S, parts, stream,
         )
     _build.check(lib, "fj_error_string", code, "fj_backward_dadc")
     LAUNCHES["fused_joint_bwd_dadc"] += 1
     # partials summed in a fixed order: deterministic
-    return da_part.sum(2), dc_part.sum(1), h16
-
-
-def _row_groups(device, V, rows):
-    """Row groups of the d_W / d_b kernel (one block per V chunk and group,
-    one block per SM): the count, up to about three waves of blocks and one
-    group per 64-row tile, whose last wave is fullest; the fewest on a tie."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    chunks = -(-V // 64)
-    most = max(1, min(-(-rows // 64), -(-3 * sms // chunks)))
-
-    def fill(groups):
-        blocks = chunks * groups
-        return blocks / (-(-blocks // sms) * sms)
-
-    return max(range(1, most + 1), key=lambda g: (fill(g), -g))
+    return da_part.sum((2, 3)), dc_part.sum((1, 2)), h16
 
 
 def _bwd_dwdb(h16, ops, labels_ext, xn, lat, dims, blank):
     """The d_W / d_b kernel: returns (d_w, d_b), d_w at the padded width."""
-    _, _, w, b = ops
+    wimg = ops[2]
     logz, db, de = lat
     N, T, U, Hp, V, S = dims
     lib = _lib()
-    dev = w.device
-    groups = _row_groups(dev, V, N * T * U)
+    dev = wimg.device
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    groups = _row_groups(sms, V, n_tiles(N, T, U), S)
     dw_part = torch.empty((groups, Hp, V), dtype=torch.float32, device=dev)
     db_part = torch.empty((groups, V), dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         code = lib.fj_backward_dwdb(
-            h16.data_ptr(), w.data_ptr(), b.data_ptr(), labels_ext.data_ptr(),
+            h16.data_ptr(), wimg.data_ptr(), labels_ext.data_ptr(),
             xn.data_ptr(), logz.data_ptr(), db.data_ptr(), de.data_ptr(),
             dw_part.data_ptr(), db_part.data_ptr(), N, T, U, Hp, V, blank,
             groups, S, stream,
@@ -367,12 +498,31 @@ def _bwd_dwdb(h16, ops, labels_ext, xn, lat, dims, blank):
     return dw_part.sum(0), db_part.sum(0)
 
 
+def backward_attrs(H: int):
+    """{kernel: {registers, spill_bytes, static_smem, dynamic_smem, stages}}
+    of the two backward kernels at `bwd_plan(H)`, as the compiler built
+    them (registers at entry: the consumers raise theirs to 232)."""
+    Hp, S = bwd_plan(H)
+    lib = _lib()
+    out = {}
+    for idx, name in enumerate(("fused_joint_bwd_dadc", "fused_joint_bwd_dwdb")):
+        vals = (ctypes.c_int * 5)()
+        code = lib.fj_backward_attrs(idx, Hp // S, S, vals)
+        _build.check(lib, "fj_error_string", code, "fj_backward_attrs")
+        out[name] = dict(zip(("registers", "spill_bytes", "static_smem",
+                              "dynamic_smem", "stages"), vals))
+    return out
+
+
 def _bwd_operands(a, c, w, b, labels_ext, xn, logz, db, de, blank):
-    ops, dims, H = _kernel_inputs(a, c, w, b, labels_ext, xn, blank)
-    N, T, U = dims[:3]
+    """The backward kernels' operands: (a, c, W image) at `bwd_plan`'s
+    width, the three lattices, dims (N, T, U, Hp, V, S) and H."""
+    (a, c, w, b), dims, H = _kernel_inputs(a, c, w, b, labels_ext, xn, blank,
+                                           bwd_plan)
+    N, T, U, Hp, V, S = dims
     lat = tuple(_lattice_operand(x, name, (N, T, U))
                 for x, name in ((logz, "logz"), (db, "db"), (de, "de")))
-    return ops, lat, dims, H
+    return (a, c, _w_image(w, b, V, Hp, S)), lat, dims, H
 
 
 def joint_lattice_bwd(a, c, w, b, labels_ext, xn, yn, logz, db, de,
