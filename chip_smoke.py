@@ -83,8 +83,16 @@ slice's shape as a yardstick; the kernels against their plain versions and
 their times at H=512 and V=50257; and `rnnt_loss_joint` padded and fused
 in turns at V=28, 256 and 1000, and at V=5000 and 64000 for H=256, 512,
 640 and 1024, chained and under the profiler (device busy ms, idle share),
-the readings CUDA "auto" rests on.  The backward's h kernel
-(the h image) is the sub-entry "image" of the h kernel's entry.
+the readings CUDA "auto" rests on.
+Slice 7 (the fused forward on wgmma, on the backward's W and h images)
+adds: two forward calls bit-equal (full width, H=512, V=64000); the
+forward's registers, spills and shared memory beside the backward's (also
+in the kernels line); the forward's time at every timed shape (H=256,
+512, 640, 1024, V=64000, V=50257) beside one bf16 torch.matmul of the
+same (R, H) x (H, V); and the fused slice's step under the profiler
+(kernels a call, idle share, device time by kernel).  One h kernel is
+left, the h image kernel, counted `fused_joint_hidden` (once before the
+forward, once before the backward past one 256-column slice).
 
 It prints the kernels' JSON line and the card's line, and last
 `{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}`.
@@ -523,9 +531,9 @@ def check_fused_main(torch, wt, cases_mod, joint, fjin, loss, grads, costs_g,
 
 def time_fused_kernels(torch, fj, timing, full_case, rates, card, tag=""):
     """Each fused kernel and its plain version (CUDA events, chained), its
-    bound by bf16 tensor-core operations, on the operands of ``full_case``;
-    past one forward slice (H > 512) also the forward's h kernel (rows),
-    past one backward slice (H > 256) the backward's (the h image), each
+    bound by bf16 tensor-core operations, on the operands of ``full_case``,
+    and beside the forward one bf16 torch.matmul of the same (R, H) x (H,
+    V) (`time_matmul`); past one slice (H > 256) also the h image kernel,
     bound by its bytes at the unpadded H."""
     (a, c, w, b, lab, xn, yn), (db, de) = full_case
     N, T, H = a.shape
@@ -545,8 +553,10 @@ def time_fused_kernels(torch, fj, timing, full_case, rates, card, tag=""):
     # or three lattices in and the gradients out (bwd)
     io_in = (N * T * H + N * U * H) * 4 + H * V * 2 + V * 4 + N * U * 4
     runs = [
-        ("fused_joint_fwd", fj.joint_lattice_fwd, fj.joint_lattice_fwd_plain,
-         (a, c, w, b, lab, xn, yn, blank), io_in + 3 * R * 4, prod, BF16),
+        ("fused_joint_fwd",
+         lambda *x: fj._fwd_launch(ops_k, lab, xn, dims, blank, h16),
+         fj.joint_lattice_fwd_plain, (a, c, w, b, lab, xn, yn, blank),
+         io_in + 3 * R * 4, prod, BF16),
         ("fused_joint_bwd_dadc",
          lambda *x: fj._bwd_dadc(ops_k, lab, xn, lat, dims, blank, h16),
          fj.bwd_dadc_plain, args, io_in + 3 * R * 4 + (N * T + N * U) * H * 4,
@@ -557,16 +567,11 @@ def time_fused_kernels(torch, fj, timing, full_case, rates, card, tag=""):
          R * H * 2 + H * V * 2 + V * 4 + 3 * R * 4 + (H * V + V) * 4, 2 * prod,
          BF16),
     ]
-    # the h kernels: a, c in, h out as bf16 (counted R x H, unpadded); an
+    # the h kernel: a, c in, h out as bf16 (counted R x H, unpadded); an
     # add and a tanh an element
     h_bytes = (N * T * H + N * U * H) * 4 + N * 4 + R * H * 2
-    if fj.h_plan(H)[1] > 1:  # the forward's h rows, at its own width
-        fops, fdims, _ = fj._kernel_inputs(a, c, w, b, lab, xn, blank)
-        runs.append(("fused_joint_hidden", lambda *x: fj._hidden(*x, fdims),
-                     fj.hidden_plain, (fops[0], fops[1], xn), h_bytes,
-                     2 * R * H, 1))
-    if image:  # the backward's h image
-        runs.append(("fused_joint_hidden_image",
+    if image:
+        runs.append(("fused_joint_hidden",
                      lambda *x: fj._hidden_image(*x, dims),
                      lambda *x: fj.hidden_image_plain(*x, dims[5]),
                      (ops_k[0], ops_k[1], xn), h_bytes, 2 * R * H, 1))
@@ -577,8 +582,12 @@ def time_fused_kernels(torch, fj, timing, full_case, rates, card, tag=""):
                                              reduce_out=first)
         b_ms, b_by = bound_ms(nbytes, nops, rates, rate)
         times[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
-        print(f"time {name}{tag}: ms={ms} plain_ms={plain_ms} bound_ms={b_ms}"
-              f" bound_by={b_by} [{card}]")
+        if name == "fused_joint_fwd":  # without the host (the V parts' merge)
+            times[name]["device_ms"] = timing.bench_graph(fn, fargs)
+        print(f"time {name}{tag}: {json.dumps(times[name])} ({b_ms / ms:.3f} of"
+              f" the bound) [{card}]")
+    times["fused_joint_fwd"]["matmul_ms"] = time_matmul(torch, timing, rates,
+                                                        card, R, H, V)
     return times
 
 
@@ -633,6 +642,15 @@ def phase_fused_times(torch, wt, fj, timing, joint, fjin, params, full_case,
         ng = timing.bench_scalar_chain(
             lambda x: wt.rnnt_loss_fused_joint(x, g, params, labels, xn, yn),
             (f,), 10)
+    from warp_rnnt_tpu_torch.benchmarks.profile_loss import profile_step
+
+    for name, step in (("fused", fused_step), ("unfused", unfused_step)):
+        prof = profile_step(lambda: step(f))
+        print(f"profile loss+grad {name} joint: {prof['kernels_per_call']}"
+              f" kernels a call, idle share {prof['idle_share']}, device busy"
+              f" {prof['busy_ms']} ms, wall {prof['wall_ms']} ms [{card}]")
+        for ms, count, key in prof["rows"][:12]:
+            print(f"profile {name} {ms:.4f} ms/call {count} x/call {key[:80]}")
     # the least the fused loss+grad needs: forward product + the backward's
     # three (logits, dh, dW)
     e2e_bound, _ = bound_ms(0, 4 * prod, rates, BF16)
@@ -1318,7 +1336,7 @@ WIDE_TIMED = (640, 1024)
 # more samples than a grid's y dimension holds.
 WIDE_SMALL = {"H=2048": dict(N=2, T=50, U=11, V=1000, H=2048, F=256),
               "N=65537": dict(N=65537, T=1, U=2, V=64, H=16, F=16)}
-FJ_WIDE_PATH = ("fused_joint_hidden", "fused_joint_hidden_image", *FJ_PATH)
+FJ_WIDE_PATH = ("fused_joint_hidden", *FJ_PATH)
 
 
 def neg_inf_inputs(torch, np, headline):
@@ -1419,20 +1437,16 @@ def wide_inputs(torch, np, carry, d, seed):
 def wide_entry_points(torch, wt, fj, cases_mod, counters, jin, params, tag):
     """Loss+grad through `rnnt_loss_fused_joint` and
     `rnnt_loss_joint(layout="fused")`, counts set to 0 just before and read
-    just after (the three fused kernels and the alpha+beta sweep; the
-    forward's h kernel when H takes more than one `h_plan` slice, the
-    backward's when it takes more than one `bwd_plan` slice, each then and
-    only then), each against
-    the padded layout (loss rtol 2e-3,
-    gradients 2e-2 of their largest, w_out and b_out per column group).
-    Returns the launches of the first."""
+    just after (the three fused kernels and the alpha+beta sweep; the h
+    image kernel when H takes more than one `bwd_plan` slice, then and only
+    then), each against the padded layout (loss rtol 2e-3, gradients 2e-2
+    of their largest, w_out and b_out per column group).  Returns the
+    launches of the first."""
     f, g, labels, xn, yn = jin
     H, V = params["w_out"].shape
     skip = {"lattice_beta_only"}
-    if fj.h_plan(H)[1] == 1:
-        skip.add("fused_joint_hidden")
     if fj.bwd_plan(H)[1] == 1:
-        skip.add("fused_joint_hidden_image")
+        skip.add("fused_joint_hidden")
     want = tuple(k for k in FJ_WIDE_PATH if k not in skip)
 
     def loss_grad(layout):
@@ -1482,9 +1496,8 @@ def phase_wide_fused(torch, np, wt, fj, cases_mod, carry, counters):
     """Fault 2: (a) the kernels against their plain versions (1e-3 per
     column group, `fused_joint_cases.compare`) on `WIDE_CASES` (H=40, 200,
     640, 1024 with U > 64, 2048, and N=65537) and at the fused slice's
-    lattice at H=200, 640 and 1024; each h kernel against its plain
-    version (one bf16 ulp of |h| <= 1, 2^-8: the rows on live rows, the
-    image whole); (b) the two entry points
+    lattice at H=200, 640 and 1024; the h image kernel against its plain
+    version (one bf16 ulp of |h| <= 1, 2^-8); (b) the two entry points
     at those three widths, at H=2048 (N=2, T=50, U=11, V=1000) and at
     N=65537 (T=1, U=2, V=64, H=16), each against the padded layout.
     Returns (errs, launches at H=640, {H: full-width kernel operands})."""
@@ -1506,21 +1519,7 @@ def phase_wide_fused(torch, np, wt, fj, cases_mod, carry, counters):
         torch.cuda.synchronize()
         errs[H] = {k: cases_mod.max_err(v) for k, v in r.items()}
         print(f"fused joint kernels fused slice H={H}: {json.dumps(r)}")
-        if fj.h_plan(H)[1] > 1:
-            a, c, _, _, _, xn, _ = ops
-            Hp, S = fj.h_plan(H)
-            pa, pc, _ = fj.pad_h(a.float(), c.float(), ops[2], Hp)
-            h16 = fj._hidden(pa.contiguous(), pc.contiguous(), xn,
-                             (d["N"], d["T"], d["U"], Hp, d["V"], S))
-            want = fj.hidden_plain(pa, pc, xn)
-            live = fj._live(xn, d["T"]).expand(d["N"], d["T"], d["U"]).reshape(-1)
-            err = float((h16[live].float() - want[live].float()).abs().max())
-            errs[H]["fused_joint_hidden"] = err
-            print(f"fused_joint_hidden H={H}: max abs err on live rows {err}")
-            if err > 2.0 ** -8:
-                raise AssertionError(f"h kernel H={H} != plain version")
-            del h16, want
-        if fj.bwd_plan(H)[1] > 1:  # the backward's h image
+        if fj.bwd_plan(H)[1] > 1:  # the h image
             a, c, _, _, _, xn, _ = ops
             Hp, S = fj.bwd_plan(H)
             pa, pc, _ = fj.pad_h(a.float(), c.float(), ops[2], Hp)
@@ -1529,8 +1528,8 @@ def phase_wide_fused(torch, np, wt, fj, cases_mod, carry, counters):
                                    (d["N"], d["T"], d["U"], Hp, d["V"], S))
             want = fj.hidden_image_plain(pa, pc, xn, S)
             err = float((img.float() - want.float()).abs().max())
-            errs[H]["fused_joint_hidden_image"] = err
-            print(f"fused_joint_hidden_image H={H}: max abs err {err}")
+            errs[H]["fused_joint_hidden"] = err
+            print(f"fused_joint_hidden H={H}: max abs err {err}")
             if err > 2.0 ** -8:
                 raise AssertionError(f"h image kernel H={H} != plain version")
             del img, want
@@ -1562,10 +1561,17 @@ ROUTE_SWEEP = (*JL_SWEEP, *(dict(JL, H=h) for h in ROUTE_H),
 
 
 def check_deterministic(torch, fj, full_case, tag):
-    """Two backward calls on the same operands give bit-equal d_a, d_c,
-    d_W and d_b (partials summed in a fixed order, no atomics)."""
+    """Two forward calls on the same operands give bit-equal blank logits,
+    label logits and logZ, and two backward calls bit-equal d_a, d_c, d_W
+    and d_b (partials summed in a fixed order, no atomics)."""
     (a, c, w, b, lab, xn, yn), (db, de) = full_case
-    logz = fj.joint_lattice_fwd(a, c, w, b, lab, xn, yn, 0)[2]
+    fwd = [fj.joint_lattice_fwd(a, c, w, b, lab, xn, yn, 0) for _ in range(2)]
+    same = [bool(torch.equal(x, y)) for x, y in zip(*fwd)]
+    print(f"fused forward {tag}: two calls bit-equal (blank, label, logZ)"
+          f" {same}")
+    if not all(same):
+        raise AssertionError(f"fused forward {tag} is not deterministic")
+    logz = fwd[0][2]
     first = fj.joint_lattice_bwd(a, c, w, b, lab, xn, yn, logz, db, de, 0)
     second = fj.joint_lattice_bwd(a, c, w, b, lab, xn, yn, logz, db, de, 0)
     same = [bool(torch.equal(x, y)) for x, y in zip(first, second)]
@@ -1575,22 +1581,26 @@ def check_deterministic(torch, fj, full_case, tag):
         raise AssertionError(f"fused backward {tag} is not deterministic")
 
 
-def print_backward_attrs(fj):
-    """Registers at entry, spills, shared memory and ring stages of each
-    backward kernel, one slice (H=256) and sliced (H=512)."""
+def kernel_attrs(fj):
+    """Registers at entry, spills, shared memory and ring stages of the
+    forward and each backward kernel, one slice (H=256) and sliced
+    (H=512); {kernel: {"H=256": attrs, "H=512": attrs}}."""
+    out = {}
     for H in (256, 512):
-        for name, attrs in fj.backward_attrs(H).items():
+        for name, attrs in fj.kernel_attrs(H).items():
             print(f"{name} H={H} (bwd_plan {fj.bwd_plan(H)}): {json.dumps(attrs)}")
+            out.setdefault(name, {})[f"H={H}"] = attrs
             if attrs["spill_bytes"]:
                 print(f"WARNING: {name} spills {attrs['spill_bytes']} bytes"
                       " a thread")
+    return out
 
 
-def time_matmul(torch, timing, rates, card):
-    """One bf16 torch.matmul (R, H) x (H, V) at the fused slice's shape: the
-    card's attainable rate for one of the fused kernels' products, printed
-    as a yardstick (not the same function as any kernel)."""
-    R, H, V = FJ["N"] * FJ["T"] * FJ["U"], FJ["H"], FJ["V"]
+def time_matmul(torch, timing, rates, card, R=FJ["N"] * FJ["T"] * FJ["U"],
+                H=FJ["H"], V=FJ["V"]):
+    """One bf16 torch.matmul (R, H) x (H, V), the fused slice's by default:
+    the card's attainable rate for one of the fused kernels' products,
+    printed as a yardstick (not the same function as any kernel)."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 30)
     x = torch.randn(R, H, generator=gen, device="cuda").to(torch.bfloat16)
     w = torch.randn(H, V, generator=gen, device="cuda").to(torch.bfloat16)
@@ -1707,7 +1717,7 @@ def main():
     full_case = fj_full_case(torch, fj, fjin, params)
     errs.update(phase_fused_kernels(torch, fj, fj_cases, full_case))
     check_deterministic(torch, fj, full_case, "full width")
-    print_backward_attrs(fj)
+    attrs = kernel_attrs(fj)
     fj_launches, *fj_out = phase_fused_main(
         torch, wt, [cuda_impl.LAUNCHES, fk.LAUNCHES, fj.LAUNCHES], fjin, params
     )
@@ -1715,7 +1725,6 @@ def main():
     del fj_out
     times.update(phase_fused_times(torch, wt, fj, timing, joint, fjin, params,
                                    full_case, rates, card))
-    time_matmul(torch, timing, rates, card)
     del joint, fjin, params, full_case
     # slice 6: the kernels at the backward's two-slice width H=512
     jin512, params512 = wide_inputs(torch, np, carry_flax_joint, FJ_H512,
@@ -1767,6 +1776,7 @@ def main():
 
     large_errs, large_launches, keep, large_fulls = phase_large_v(
         torch, np, wt, fj, fj_cases, carry_flax_joint, counters)
+    check_deterministic(torch, fj, keep[2], "V=64000")
     large_times = time_large_v(torch, wt, fj, timing, keep, rates, card)
     v50257_times = time_fused_kernels(torch, fj, timing, large_fulls["V=50257"],
                                       rates, card, " V=50257")
@@ -1836,17 +1846,15 @@ def main():
                                   "warp_rnnt_tpu/functional/gather.py:139"
                                   " (XLA gathers; no TPU kernel)"),
                "fused_joint_hidden": ("fused_joint.cu",
-                                      f"{fj_src}:60 and {fj_src}:245 (h)")}
-    # the backward's h kernel: a sub-entry of the forward's h kernel
-    image = "fused_joint_hidden_image"
-    image_source = ("fused_joint.cu", f"{fj_src}:100, {fj_src}:294 and"
-                    f" {fj_src}:356 (h)")
-    for k in ("fused_joint_hidden", image):
-        errs[k] = max(e.get(k, 0.0) for e in wide_errs.values())
-        times[k] = wide_times[1024][k]
+                                      f"{fj_src}:60, {fj_src}:245, {fj_src}:100,"
+                                      f" {fj_src}:294 and {fj_src}:356 (h)")}
+    # the h image kernel: its numbers at H=1024, launches at H=640
+    errs["fused_joint_hidden"] = max(e.get("fused_joint_hidden", 0.0)
+                                     for e in wide_errs.values())
+    times["fused_joint_hidden"] = wide_times[1024]["fused_joint_hidden"]
     path_launches = {**launches, **fj_launches, **compact_launches["A"],
                      **{k: gather_launches[k] for k in GATHER_PATH[:3]},
-                     **{k: wide_launches[k] for k in ("fused_joint_hidden", image)}}
+                     "fused_joint_hidden": wide_launches["fused_joint_hidden"]}
 
     def base_entry(name, src, replaces):
         return {"name": name, "route": "cuda",
@@ -1881,8 +1889,9 @@ def main():
         if name.startswith("fused"):
             entry.update(wide_entries(name))
         if name == "fused_joint_hidden":
-            entry["image"] = {**base_entry(image, *image_source),
-                              "H=512": h512_times[image], **wide_entries(image)}
+            entry["H=512"] = h512_times[name]
+        if name in attrs:
+            entry["attrs"] = attrs[name]
         kernels.append(entry)
     print(f"whole run from the build: {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -16,18 +16,20 @@ port (the plain torch versions of the CUDA kernels):
     carried across, within 2 bf16 ulps of the output's scale;
   * gradients exactly zero outside the lengths, the no-grad route, and the
     `ValueError`s;
-  * the kernels' padding of H: `h_plan`'s widths, and the plain versions on
-    `pad_h`'s operands giving the unpadded outputs (H=40); the wrapper
-    against JAX at H=40 and H=640 (wider than one 512-column slice);
+  * the kernels' padding of H: the plain versions on `pad_h`'s operands
+    (`bwd_plan`'s width) giving the unpadded outputs (H=40); the wrapper
+    against JAX at H=40 and H=640 (three 256-column slices);
   * the comparison that holds the kernels to their plain versions
     (`benchmarks/fused_joint_cases.py`) rejects a backward with a dropped or
     mis-scaled softmax term;
-  * the backward kernels' planning: `bwd_plan`'s widths, the W and h
-    images read back by the kernels' address rules, the tiles' cover of
-    the lattice, and every (tile, chunk, slice) owned by one block
-    (`_v_parts`, `_row_groups`).
+  * the kernels' planning: `bwd_plan`'s widths, the W and h images read
+    back by the kernels' address rules, the tiles' cover of the lattice,
+    and every (tile, chunk, slice) owned by one block (`_v_parts`,
+    `_row_groups`);
+  * the forward's V parts: the plain logits cut into parts, their per-row
+    partials merged by `merge_v_parts`, equal the plain forward.
 Kernel-against-plain-version tests need the card and are marked `cuda`
-(with two backward calls bit-equal).
+(with two forward and two backward calls bit-equal).
 """
 
 import inspect
@@ -356,27 +358,13 @@ def test_kernel_wrapper_checks_raise(case, match):
         fj._kernel_inputs(*tt(a, c, w, b), lab, torch.tensor(xn), blank)
 
 
-@pytest.mark.parametrize("H,want", [(1, (16, 1)), (16, (16, 1)), (40, (48, 1)),
-                                    (200, (208, 1)), (512, (512, 1)),
-                                    (513, (544, 2)), (640, (640, 2)),
-                                    (1000, (1024, 2)), (2048, (2048, 4)),
-                                    (2500, (2560, 5))])
-def test_h_plan(H, want):
-    """Whole slices of at most 512 columns, each a multiple of 16, as few
-    and as even as that allows; never narrower than H."""
-    Hp, S = fj.h_plan(H)
-    assert (Hp, S) == want
-    assert Hp % S == 0 and (Hp // S) % 16 == 0 and Hp // S <= 512
-    assert 0 <= Hp - H < 16 * S
-
-
 @pytest.mark.parametrize("H,want", [(1, (64, 1)), (64, (64, 1)), (200, (256, 1)),
                                     (256, (256, 1)), (257, (384, 2)),
                                     (272, (384, 2)), (512, (512, 2)),
                                     (640, (768, 3)), (1000, (1024, 4)),
                                     (2048, (2048, 8))])
 def test_bwd_plan(H, want):
-    """The backward's slices: whole wgmma N tiles (64 columns), at most 256
+    """The kernels' slices: whole wgmma N tiles (64 columns), at most 256
     (a warpgroup's d_h or d_W in registers), as few and as even as that
     allows; never narrower than H."""
     Hp, S = fj.bwd_plan(H)
@@ -528,6 +516,103 @@ def test_v_parts_fill_the_card():
     assert fj._v_parts(132, 800, 4, 5000) == 1
 
 
+def _fwd_blocks(tiles, V, parts):
+    """{(tile, 64-column chunk): block (x, p)} of `fwd_kernel`: block x owns
+    tiles 2x and 2x + 1 (one a consumer warpgroup), p the chunks [p * cpp,
+    (p + 1) * cpp) of the ceil(V / 64) that hold a column of V, cpp =
+    ceil(chunks / parts); every slice sums into the same logits."""
+    chunks = -(-V // 64)
+    cpp = -(-chunks // parts)
+    return {(t, ch): (t // 2, ch // cpp) for t in range(tiles)
+            for ch in range(chunks)}
+
+
+@pytest.mark.parametrize("tiles,V", [(800, 5000), (100, 64000), (50, 50257),
+                                     (2, 65), (2, 1025), (65537, 64)])
+def test_fwd_schedule_owns_each_tile_chunk_once(tiles, V):
+    """`_v_parts`' count for the forward (no slice dimension) at 132 SMs,
+    and `_fwd_blocks`: each (tile,
+    chunk) has one forward block, at most two tiles a block, no V part
+    empty; the parts cover the chunks that hold a column of V once, and
+    the W image's other blocks (`_w_chunks`) hold padding only.  At the
+    large-V cells (V=64000, N=2: 100 tiles; V=50257, N=1: 50) the grid is
+    about a wave of 132 SMs or more."""
+    parts = fj._v_parts(132, tiles, 1, V)
+    chunks = -(-V // 64)
+    cpp = -(-chunks // parts)
+    assert 1 <= parts <= chunks and (parts - 1) * cpp < chunks
+    own = _fwd_blocks(tiles, V, parts)
+    assert set(own) == {(t, ch) for t in range(tiles) for ch in range(chunks)}
+    assert set(p for _, p in own.values()) == set(range(parts))
+    blocks = {}
+    for (t, _), blk in own.items():
+        blocks.setdefault(blk, set()).add(t)
+    assert len(blocks) == -(-tiles // 2) * parts
+    assert all(len(ts) <= 2 for ts in blocks.values())
+    assert all(ch * 64 >= V for ch in range(chunks, fj._w_chunks(V)))
+    if V >= 50257:
+        assert len(blocks) >= 0.9 * 132
+
+
+def _fwd_partials(ops, blank, parts, chunks):
+    """Plain per-part (max, sum of exp(z - max), blank logit, label logit)
+    of the logits cut into ``parts`` parts of ceil(chunks / parts) 64-column
+    chunks (columns past V padding, -inf): what the forward kernel writes
+    when it splits V.  (4, parts, N, T, U)."""
+    a, c, w, b, lab, xn, yn = ops
+    z = fj._logits(a, c, w, b)[3]
+    V = z.shape[-1]
+    z = torch.nn.functional.pad(z, (0, chunks * 64 - V), value=float("-inf"))
+    cpp = -(-chunks // parts)
+    labs = lab.long()[:, None, :].expand(z.shape[:3])
+    out = []
+    for p in range(parts):
+        lo, hi = p * cpp * 64, min(chunks, (p + 1) * cpp) * 64
+        zz = z[..., lo:hi]
+        m = zz.amax(-1)
+        ref = torch.where(torch.isfinite(m), m, 0.0)
+        s = torch.exp(zz - ref[..., None]).sum(-1)
+        bl = zz[..., blank - lo] if lo <= blank < hi else torch.zeros_like(m)
+        inside = (labs >= lo) & (labs < hi)
+        el = torch.where(inside, torch.gather(
+            zz, 3, (labs - lo).clamp(0, hi - lo - 1)[..., None])[..., 0], 0.0)
+        out.append(torch.stack((m, s, bl, el)))
+    return torch.stack(out, 1)
+
+
+# name: (kernel case (seed, N, T, U, V, H, blank, xn), parts, chunks or None
+# for ceil(V / 64))
+_MERGE_CASES = {
+    "V<64": ((50, 2, 6, 4, 40, 16, 0, (6, 3)), 1, None),
+    "V not a multiple of 64": ((51, 2, 5, 3, 130, 16, 0, (5, 2)), 2, None),
+    "one part": ((52, 1, 7, 5, 200, 16, 3, (7,)), 1, None),
+    "parts = chunks": ((53, 2, 4, 3, 300, 16, 0, (4, 1)), 5, None),
+    "all-padding part": ((54, 2, 4, 3, 64, 16, 0, (4, 3)), 2, 2),
+    "blank in the last part": ((55, 1, 5, 4, 320, 16, 319, (5,)), 3, None),
+    "label in the last part": ((56, 2, 5, 4, 257, 16, 0, (5, 4)), 3, None),
+}
+
+
+@pytest.mark.parametrize("name", list(_MERGE_CASES))
+def test_merge_v_parts_gives_the_plain_forward(name):
+    """The partials of the plain logits, cut into V parts and merged by
+    `merge_v_parts`, equal `joint_lattice_fwd_plain` (fp32 sums in another
+    order: 1e-5), exactly 0 at frames t >= xn."""
+    case, parts, chunks = _MERGE_CASES[name]
+    ops, _ = cases.kernel_case(*case, device="cpu")
+    blank, V = case[6], case[4]
+    if name == "label in the last part":
+        ops[4][:, 0] = V - 1
+    part = _fwd_partials(ops, blank, parts, chunks or -(-V // 64))
+    live = fj._live(ops[5], case[2])
+    got = fj.merge_v_parts(part, live)
+    want = fj.joint_lattice_fwd_plain(*ops, blank)
+    for g, w_ in zip(got, want):
+        assert torch.isfinite(g).all()
+        torch.testing.assert_close(g, w_, rtol=1e-5, atol=1e-5)
+        assert (g[~live.expand_as(g)] == 0).all()
+
+
 @pytest.mark.parametrize("tiles,V,S", [(800, 5000, 1), (13, 200, 2),
                                        (1, 64, 1), (65537, 64, 1)])
 def test_dwdb_schedule_owns_each_tile_chunk_slice_once(tiles, V, S):
@@ -555,15 +640,17 @@ def test_row_groups_fill_the_card():
 
 
 def test_padded_operands_give_the_unpadded_outputs():
-    """The plain versions on `pad_h`'s operands (H=40 -> 48 zero-padded
-    columns of a and c, rows of W) give the unpadded forward and, through
-    `unpad_h`, the unpadded backward (fp32 sums of other lengths: 1e-6);
-    the padded columns and rows of d_a, d_c and d_W are exactly 0."""
+    """The plain versions on `pad_h`'s operands (H=40 -> `bwd_plan`'s 64
+    zero-padded columns of a and c, rows of W) give the unpadded forward
+    and, through `unpad_h`, the unpadded backward (fp32 sums of other
+    lengths: 1e-6); the padded columns and rows of d_a, d_c and d_W are
+    exactly 0."""
     ops, (db, de) = cases.kernel_case(33, 2, 11, 5, 70, 40, 3, (11, 6), "cpu")
     a, c, w, b, lab, xn, yn = ops
-    Hp, _ = fj.h_plan(40)
+    Hp, _ = fj.bwd_plan(40)
     pa, pc, pw = fj.pad_h(a, c, w, Hp)
-    assert pa.shape[-1] == pc.shape[-1] == pw.shape[0] == Hp == 48
+    assert pa.shape[-1] == pc.shape[-1] == pw.shape[0] == Hp == 64
+    assert fj.pad_h(a, c, None, Hp)[2] is None
     assert all(x is y for x, y in zip(fj.pad_h(a, c, w, 40), (a, c, w)))
     want = fj.joint_lattice_fwd_plain(*ops, 3)
     got = fj.joint_lattice_fwd_plain(pa, pc, pw, b, lab, xn, yn, 3)
@@ -583,8 +670,8 @@ def test_padded_operands_give_the_unpadded_outputs():
 @pytest.mark.parametrize("H", [40, 640])
 def test_wide_joint_matches_jax(H):
     """`rnnt_loss_fused_joint` (plain versions here) against JAX's at a
-    joint width that is no multiple of 16 and one past a 512-column slice
-    (JAX's kernels take any H): loss rtol 2e-3 and the gradients of f, g and
+    joint width that is no multiple of 16 and one of three 256-column
+    slices (JAX's kernels take any H): loss rtol 2e-3 and the gradients of f, g and
     the four parameters within the tolerances of `test_fused_joint.py:
     161-165`."""
     rng = np.random.RandomState(12)
@@ -733,17 +820,15 @@ def test_kernels_match_plain_on_card_large_v(cuda_device, case):
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", list(cases.WIDE_CASES))
 def test_kernels_match_plain_on_card_wide(cuda_device, case):
-    """H not a multiple of 16 (padded), H past a slice (the sliced route
-    and its h kernels, each launched then and only then: the forward's h
-    rows past one `h_plan` slice, the backward's h image past one
-    `bwd_plan` slice), and N > 65535 (grid x)."""
+    """H not a multiple of 64 (padded), H past a slice (the sliced route
+    and its h kernel, launched if and only if `bwd_plan` gives more than
+    one slice), and N > 65535 (grid x)."""
     ops, cot = cases.kernel_case(*cases.WIDE_CASES[case], device=cuda_device)
-    names = ("fused_joint_hidden", "fused_joint_hidden_image")
-    before = {k: fj.LAUNCHES[k] for k in names}
+    before = fj.LAUNCHES["fused_joint_hidden"]
     cases.compare(fj, ops, cot, cases.WIDE_CASES[case][6])
     H = cases.WIDE_CASES[case][5]
-    for name, plan in zip(names, (fj.h_plan, fj.bwd_plan)):
-        assert (fj.LAUNCHES[name] > before[name]) == (plan(H)[1] > 1)
+    launched = fj.LAUNCHES["fused_joint_hidden"] > before
+    assert launched == (fj.bwd_plan(H)[1] > 1)
 
 
 @pytest.mark.cuda
@@ -757,5 +842,19 @@ def test_backward_is_deterministic_on_card(cuda_device, case):
     logz = fj.joint_lattice_fwd(*ops, blank)[2]
     first = fj.joint_lattice_bwd(*ops, logz, db, de, blank)
     second = fj.joint_lattice_bwd(*ops, logz, db, de, blank)
+    for x, y in zip(first, second):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["ragged", "V=64000"])
+def test_forward_is_deterministic_on_card(cuda_device, case):
+    """Two forward calls give bit-equal blank logits, label logits and
+    logZ, with one V part ("ragged") and with 125, merged in a fixed
+    order (V=64000 at N=1, T=20, U=6: two tiles, one block a part)."""
+    spec = {**cases.KERNEL_CASES, **cases.LARGE_V_CASES}[case]
+    ops, _ = cases.kernel_case(*spec, device=cuda_device)
+    first = fj.joint_lattice_fwd(*ops, spec[6])
+    second = fj.joint_lattice_fwd(*ops, spec[6])
     for x, y in zip(first, second):
         assert torch.equal(x, y)

@@ -140,18 +140,20 @@ def test_pack_joint_metadata_matches_jax(xn, yn):
 
 def test_auto_route_on_cuda_takes_fused_from_the_measured_v():
     """On a CUDA device "auto" takes "fused" from `_CUDA_FUSED_MIN_V` (5000)
-    at joint widths up to `_CUDA_FUSED_MAX_H` (256), both from the H100
+    at joint widths up to `_CUDA_FUSED_MAX_H` (512), both from the H100
     readings beside them, and "padded" elsewhere; T, U and N do not move
     the answer."""
     route = joint_loss.joint_layout_route
     assert joint_loss._CUDA_FUSED_MIN_V == 5000
-    assert joint_loss._CUDA_FUSED_MAX_H == 256
+    assert joint_loss._CUDA_FUSED_MAX_H == 512
     assert route(150, 41, 256, 28, N=16, platform="cuda") == "padded"
     assert route(150, 21, 256, 4999, N=16, platform="cuda") == "padded"
     assert route(150, 21, 256, 5000, N=16, platform="cuda") == "fused"
     assert route(150, 21, 256, 64000, N=2, platform="cuda") == "fused"
     assert route(10, 4, 200, 64000, N=1, platform="cuda") == "fused"
-    assert route(150, 21, 257, 5000, N=16, platform="cuda") == "padded"
+    assert route(150, 21, 257, 5000, N=16, platform="cuda") == "fused"
+    assert route(150, 21, 512, 5000, N=16, platform="cuda") == "fused"
+    assert route(150, 21, 513, 5000, N=16, platform="cuda") == "padded"
     assert route(150, 21, 640, 64000, N=2, platform="cuda") == "padded"
 
 
@@ -160,9 +162,9 @@ def test_auto_route_on_cuda_takes_fused_from_the_measured_v():
 # `_CUDA_FUSED_MIN_V` / `_CUDA_FUSED_MAX_H` give on CUDA.
 _ROUTE_CELLS = [(28, 256, 16, "padded"), (256, 256, 16, "padded"),
                 (1000, 256, 16, "padded"), (5000, 256, 16, "fused"),
-                (5000, 512, 16, "padded"), (5000, 640, 16, "padded"),
+                (5000, 512, 16, "fused"), (5000, 640, 16, "padded"),
                 (5000, 1024, 16, "padded"), (64000, 256, 2, "fused"),
-                (64000, 512, 2, "padded"), (64000, 640, 2, "padded"),
+                (64000, 512, 2, "fused"), (64000, 640, 2, "padded"),
                 (64000, 1024, 2, "padded")]
 
 
@@ -170,8 +172,8 @@ _ROUTE_CELLS = [(28, 256, 16, "padded"), (256, 256, 16, "padded"),
 def test_auto_route_at_each_measured_cell(V, H, N, want):
     """Each measured cell routes as the readings decided on CUDA (fused
     only where it won every reading at every measured V above, and at
-    every H below: H=512 ties at V=64000, so it stays padded at V=5000
-    too); the CPU answer is "padded" everywhere, as in JAX."""
+    every H below: H=640 ties at V=5000 and loses at V=64000, so it stays
+    padded at both); the CPU answer is "padded" everywhere, as in JAX."""
     U = 41 if V == 28 else 21
     route = joint_loss.joint_layout_route
     assert route(150, U, H, V, N=N, platform="cuda") == want

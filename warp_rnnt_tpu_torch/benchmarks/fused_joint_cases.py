@@ -27,9 +27,12 @@ GROUPS = ("blank", "label", "other")
 # tile (7 frames at U=9); V=200, V=130 and V=320 are not multiples of the
 # backward's 128-column chunk (V=320: an odd count of 64-column blocks);
 # U=70 and U=65 span more than one tile per frame, U=129 more than one
-# backward block (128 rows); H=256 is the backward's slice width, H=272
+# backward block (128 rows); H=256 is the kernels' slice width, H=272
 # one step of 16 above it (two slices); R=6 is less than one tile; xn=1
-# leaves one live frame.
+# leaves one live frame.  The forward's V edges: V=64 is one chunk; V=65
+# two, the second holding one column (the blank), each its own V part (two
+# tiles, one block); V=1025 at two tiles splits V into 17 one-chunk parts,
+# the last holding one column (the blank).
 KERNEL_CASES = {
     "ragged": (20, 3, 37, 9, 200, 32, 0, (37, 2, 20)),
     "U>32 blank=3": (21, 2, 19, 37, 64, 16, 3, (19, 11)),
@@ -40,11 +43,13 @@ KERNEL_CASES = {
     "H=256": (42, 2, 9, 21, 1000, 256, 0, (9, 4)),
     "H=272 xn=1": (43, 2, 9, 21, 1000, 272, 7, (9, 1)),
     "R<64": (44, 1, 2, 3, 77, 32, 0, (2,)),
+    "V=64": (46, 2, 9, 5, 64, 32, 0, (9, 4)),
+    "V=65": (47, 2, 9, 5, 65, 32, 64, (9, 7)),
+    "V=1025 parts": (45, 1, 20, 6, 1025, 64, 1024, (17,)),
 }
 
-# Widths the kernels pad (H not a multiple of 16) or slice (H > 256 in the
-# backward, H > 512 in the forward), and more samples than a grid's y
-# dimension holds (N > 65535).
+# Widths the kernels pad (H not a multiple of 64) or slice (H > 256), and
+# more samples than a grid's y dimension holds (N > 65535).
 WIDE_CASES = {
     "H=40": (27, 2, 13, 5, 300, 40, 3, (13, 9)),
     "H=200": (28, 2, 13, 5, 300, 200, 0, (13, 6)),

@@ -12,25 +12,25 @@
 // backward, without the (N, T, U, V) logits ever being written to memory.
 //
 // Replaces the Pallas TPU kernels of warp_rnnt_tpu/ops/fused_joint.py:
-//   * fj_forward        <- `_fwd_kernel`, `_fwd_kernel_vb` (blank, label
-//                          logit, logZ)
+//   * fj_forward        <- `_fwd_kernel` (:60) and `_fwd_kernel_vb` (:245)
+//                          (blank logit, label logit, logZ)
 //   * fj_backward_dadc  <- `_bwd_kernel`, its d_a / d_c half, and
 //                          `_bwd_dadc_kernel_vb`
 //   * fj_backward_dwdb  <- `_bwd_kernel`, its d_W / d_b half, and
 //                          `_bwd_dwdb_kernel_vb`
-//   * fj_hidden, fj_hidden_image <- the h = tanh(a + c) the TPU kernels form
-//                          in VMEM, written once to memory for wide joints
-// The TPU kernels walk their grid in order and carry d_c, d_W and d_b in
-// VMEM from one step to the next.  Hopper runs blocks in no order, so the
-// backward is two kernels that each own what they sum, and the sums that
-// cross blocks leave as partials that the caller adds in a fixed order
-// (deterministic; no atomics).
+//   * fj_hidden_image   <- the h = tanh(a + c) the TPU kernels form in VMEM,
+//                          written once to memory for wide joints
+// The TPU kernels walk their grid in order and carry logZ's running sums,
+// d_c, d_W and d_b in VMEM from one step to the next.  Hopper runs blocks
+// in no order, so sums that cross blocks leave as partials that the caller
+// adds in a fixed order (deterministic; no atomics).
 //
 // What bounds them on this card: bf16 tensor-core operations.  At the
 // slice's shape (N=16, T=150, U=21, V=5000, H=256; R = N*T*U = 50,400 rows)
 // one product R x H x V is 2*R*H*V = 129 GFLOP, 0.130 ms at 989 TFLOP/s.
-// The forward does one product (bound 0.130 ms); each backward kernel
-// recomputes the logits and does one more (bound 0.261 ms each).  Bytes are
+// The forward does one product and R x V exps (252 M; the SFUs' 16 a clock
+// an SM give ~0.06 ms, under the product); each backward kernel recomputes
+// the logits and does one more product (bound 0.261 ms each).  Bytes are
 // small: a, c, W and the (N, T, U) lattices are ~30 MB.
 //
 // Rows.  A tile is 64 lattice rows of one sample: BT = 64 / min(U, 64)
@@ -38,101 +38,142 @@
 // 64.  Tiles are numbered sample-major; rows with t >= xn[n] read as dead
 // (dz = 0, h = 0), and a tile with no live row skips its products.
 //
-// The forward (simple; its redesign is later work): one block a tile, V
-// walked in 64-column chunks that cp.async copies into shared memory, the
-// chunk's logits by 8 warps with `nvcuda::wmma` 16x16x16 products, a
-// running (max, sum) per row.  H is padded to S slices of at most 512
-// columns (`h_plan`); at S > 1 fj_hidden writes h as bf16 rows (R, H) and
-// the chunk's logits sum S slice products.
+// Layouts, one of each for all three kernels.  Every product is
+// `wgmma.mma_async` m64n64k16 bf16 with fp32 accumulators in registers,
+// issued by two consumer warpgroups; a third warpgroup gives up its
+// registers (setmaxnreg 40; consumers 232) and one of its threads keeps a
+// ring of shared-memory stages full with 1-D `cp.async.bulk` copies,
+// signalled by full/empty mbarriers.  The caller lays the operands out in
+// memory as the shared-memory images wgmma reads (no swizzle: 8 x 16-byte
+// core matrices, 128 bytes each), so a stage is one to three contiguous
+// blocks:
+//   - W image: block (slice s, 64-column chunk) = HS x 64 bf16, element
+//     (k, v) at (k/8)*64 + (v/8)*HS*8 + (k%8)*8 + v%8, then the chunk's
+//     64 biases fp32, -inf past V (so dz is 0 and exp(z) is 0 there).  One
+//     copy serves every product: B of z = h @ W (MN-major: LBO 128 B, SBO
+//     HS*16 B) and of d_h = dz @ W^T (K-major: LBO HS*16 B, SBO 128 B).
+//   - h image: block (tile, slice s) = 64 x HS bf16, element (r, k) at
+//     (r/8)*64 + (k/8)*512 + (r%8)*8 + k%8: A of z (K-major: LBO 1 KB,
+//     SBO 128 B) and, transposed, A of d_W = h^T @ dz (MN-major: LBO
+//     128 B, SBO 1 KB).
+// H is padded to S slices of HS columns, HS a multiple of 64 and at most
+// 256 (S = ceil(H / 256); `bwd_plan`): d_h and d_W of a warpgroup are
+// 64 x HS fp32, 128 registers a thread at HS = 256.  The caller pads with
+// zero columns of a and c and zero rows of W (tanh(0) = 0, a zero row of W
+// adds nothing) and cuts the gradients back.  Past one slice
+// fj_hidden_image writes the h image first (once before the forward, once
+// before the backward).
+//
+// The forward (fwd_kernel).  A block owns two tiles (one a consumer
+// warpgroup) and one part of V (`_v_parts`: a grid of few tiles splits V
+// to fill the card), and walks its 64-column chunks:
+//   * S = 1: each consumer builds its tile's h straight into registers, in
+//     the layout of wgmma's register A operand (rows r0, r0 + 8, columns
+//     16k + 2(l%4) (+1, +8, +9) of k16 step k: 16 * HS/64 registers, 64 at
+//     HS = 256), from a and c with the tanhf of the h image kernel, once.
+//     Each product then reads only its W block from shared memory (2 KB a
+//     k16 step against the 4 KB of two shared operands).  The ring holds up
+//     to 4 W blocks (33 KB each at HS = 256: 132 KB).
+//   * S > 1: a stage holds the slice's W block and the two tiles' h blocks
+//     (97 KB at HS = 256: 2 stages); the S slice products of a chunk sum
+//     into the same z (the forward keeps no d_h), so the forward does the
+//     bound's one product at every H.  The h blocks are read again from L2
+//     for every chunk: S * 97 KB a block and chunk at HS = 256.
+//   * Every slice runs all HS/16 k steps: against the R x H x V bound the
+//     padding costs 1.28x at H = 200 (256), 1x at H = 256, 512, 1024 and
+//     2048, 1.2x at H = 640 (768), and 1.011x at V = 5000 (5056 columns);
+//     64-row tiles of 63 rows at U = 21 add 1.016x.  Stopping the last
+//     slice's k loop at H rounded up to 16 (the rows of W past it are
+//     zero) is not done: a guard between the products made ptxas serialize
+//     every wgmma of the kernel (C7520, below).  S = 1 and S > 1 are
+//     separate instantiations (RES) for the same reason.
+//   * The exp pass overlaps the products across the two consumer
+//     warpgroups, not within one.  Per stage a warpgroup waits for its
+//     turn (named barrier 1 + wg), issues its products, gives the other
+//     warpgroup its turn, waits for its own products (wait_group 0) and
+//     releases the stage; after a chunk's last slice it runs the chunk's
+//     exp pass in registers while the other warpgroup's products run.  In
+//     step, both would leave the tensor cores idle through both exp passes
+//     (at HS = 256 one chunk's 4096 exps a warpgroup take about two thirds
+//     of its product's time).  Two accumulator sets a warpgroup (issue
+//     chunk k + 1, then wait_group 1 and chunk k's exp pass) were built
+//     and measured slower on an H100 at 700 W, and are not kept.  Each
+//     thread keeps a running (max, sum) of its own columns of rows r0 and
+//     r0 + 8 (the accumulator layout of wgmma_ss), picks the blank and
+//     label logits where it holds them, and merges with its quad
+//     (shuffles xor 1, 2) once at the end.  The logits never go through
+//     shared memory.  Registers: h 64, z 32, biases 16, the rows' state
+//     ~30, under the consumers' 232.
+//   * A branch on a value ptxas cannot prove warp-uniform (a tile's
+//     lengths) around a wgmma, or between its issue and its wait, makes
+//     ptxas serialize every wgmma of the kernel (C7520): a tile with no
+//     live row takes a separate path that only walks the ring and the
+//     turns, and every wgmma sits inside the other.
+//   * Dead rows write zeros; a dead tile skips its products.  With one V
+//     part the block writes blank logit, label logit and logZ; with more,
+//     each part writes per-row (max, sum, blank logit, label logit) and the
+//     caller merges them in a fixed order (`merge_v_parts`).
+// Against the four limits of the earlier forward (fragments reloaded from
+// shared memory with the legacy tensor-core path; one 8-warp block a
+// 64-row tile running copy, barrier, product, barrier, exp pass in strict
+// turns; h rows copied again for every slice and chunk with a wait and two
+// block barriers a slice; a second layout of W and h): wgmma reads W by
+// descriptor and h from registers (S = 1); the producer fills the next
+// stages, one warpgroup's products overlap the other's exp pass, and no
+// block barrier stands in the loop; at S > 1 the slices come through the
+// same ring as contiguous bulk copies, each stage released as soon as its
+// products are done; and the forward reads the backward's W image (laid
+// out once a loss+grad and kept for the backward) and h image.
 //
 // The backward (dadc_kernel, dwdb_kernel).  Both recompute the logits and
 // form dz = db*[v==blank] + de*[v==lab] - softmax*(db+de), rounded to bf16,
 // then: dadc d_h = dz @ W^T, dpre = d_h * (1 - h^2) with fp32 h, summed
 // over u (d_a partials per U chunk) and over t (d_c partials per tile);
 // dwdb d_W = h_bf16^T @ dz and d_b = sum(dz) in fp32.
-//   * Every product is `wgmma.mma_async` m64n64k16 bf16, fp32 accumulators
-//     in registers, issued by two consumer warpgroups; a third warpgroup
-//     gives up its registers (setmaxnreg 40; consumers 232) and one of its
-//     threads keeps a ring of shared-memory stages full with 1-D
-//     `cp.async.bulk` copies, signalled by full/empty mbarriers.  The
-//     caller lays the operands out in memory as the shared-memory images
-//     wgmma reads (no swizzle: 8 x 16-byte core matrices, 128 bytes each),
-//     so a stage is one to three contiguous blocks:
-//       - W image: block (slice s, 64-column chunk) = HS x 64 bf16, element
-//         (k, v) at (k/8)*64 + (v/8)*HS*8 + (k%8)*8 + v%8, then the chunk's
-//         64 biases fp32, -inf past V (so dz is 0 there).  One copy serves
-//         both products: B of z = h @ W (MN-major: LBO 128 B, SBO HS*16 B)
-//         and of d_h = dz @ W^T (K-major: LBO HS*16 B, SBO 128 B).
-//       - h image: block (tile, slice s) = 64 x HS bf16, element (r, k) at
-//         (r/8)*64 + (k/8)*512 + (r%8)*8 + k%8: A of z (K-major: LBO 1 KB,
-//         SBO 128 B) and, transposed, A of d_W = h^T @ dz (MN-major: LBO
-//         128 B, SBO 1 KB).
 //   * dadc: a block owns two tiles (one a consumer warpgroup), one H slice
-//     of d_h and one part of V (a grid of few tiles splits V to fill the
-//     card, `_v_parts`), and walks its 64-column chunks through a ring of
-//     up to 4 W stages (33 KB each at HS = 256); h of its 128 rows stays in
-//     shared memory (64 KB a slice), built from a and c and also written
-//     out as the h image for dwdb.  Per chunk a warpgroup forms z (64 x 64, 32
-//     registers), then dz in registers from the z accumulators, packs it
-//     to bf16 pairs and feeds them as the register A operand of the d_h
-//     products (d_h: 64 x HS fp32, 128 registers at HS = 256); the logits
-//     never go through shared memory.  The epilogue stages d_h in the freed
-//     shared memory for the fp32 (1 - h^2) and the sums over u and t.
+//     of d_h and one part of V (`_v_parts`), and walks its 64-column chunks
+//     through a ring of up to 4 W stages (33 KB each at HS = 256); h of its
+//     128 rows stays in shared memory (64 KB a slice), built from a and c
+//     and also written out as the h image for dwdb.  Per chunk a warpgroup
+//     forms z (64 x 64, 32 registers), then dz in registers from the z
+//     accumulators, packs it to bf16 pairs and feeds them as the register
+//     A operand of the d_h products (d_h: 64 x HS fp32, 128 registers at
+//     HS = 256).  The epilogue stages d_h in the freed shared memory for
+//     the fp32 (1 - h^2) and the sums over u and t.
 //   * dwdb: a block owns one 128-column chunk of V (64 a consumer
 //     warpgroup), one group of consecutive tiles and one H slice of d_W.
 //     The chunk's W (66 KB a slice at HS = 256) stays in shared memory;
-//     the tiles' h come through a ring of up to 4 stages (32 KB each).  Per tile a
-//     warpgroup forms z, then dz, adds it to its fp32 d_b sums, stores it
-//     once as bf16 (8 KB, the B image of d_W's product), fences the async
-//     proxy (fence.proxy.async) and syncs its warpgroup before the d_W
-//     products (d_W: HS x 64 fp32, 128 registers at HS = 256).  Row groups
-//     fill the card when V has few chunks (`_row_groups`).
+//     the tiles' h come through a ring of up to 4 stages (32 KB each).  Per
+//     tile a warpgroup forms z, then dz, adds it to its fp32 d_b sums,
+//     stores it once as bf16 (8 KB, the B image of d_W's product), fences
+//     the async proxy (fence.proxy.async) and syncs its warpgroup before
+//     the d_W products (d_W: HS x 64 fp32, 128 registers at HS = 256).  Row
+//     groups fill the card when V has few chunks (`_row_groups`).
+//   * Past one slice each backward block owns one slice of d_h (dadc) or
+//     d_W (dwdb), forms the whole logits from all S slices (a stage then
+//     holds the slice's W and h, the block's own slice last) and does one
+//     more product: S + 1 products against the bound's 2.  With the
+//     padding, against the R x H x V bound: 1x at H = 256, 1.28x at H = 200
+//     (256), 1.5x at H = 512, 2.4x at H = 640 (768), 2.5x at H = 1024, 4.5x
+//     at H = 2048.
 //   * Determinism: d_a, d_c, d_W and d_b leave as partials (per U chunk,
 //     tile, V part, row group) that the caller sums in a fixed order.
-// Against the five limits of the earlier `nvcuda::wmma` backward: (1)
-// wmma fragments reloaded from shared memory every k-step -> wgmma reads
-// its operands by descriptor, A of d_h from registers; (2) one block of
-// 8 warps an SM, nothing hiding their stalls -> 3 warpgroups, registers
-// moved to the consumers, two consumers interleaving on the tensor
-// cores; (3) load, product, store, elementwise and product in strict
-// turns -> the producer fills the next stages while the consumers
-// multiply; (4) the logits' round trip through shared memory -> none in
-// dadc, one bf16 store of dz in dwdb; (5) 64 x 64 tiles in 16 x 32 warp
-// pieces -> 128 rows or columns a block, 64 x 64 x HS a warpgroup.
-//
-// Any H.  The caller pads H with zero columns of a and c and zero rows of W
-// (tanh(0) = 0, a zero row of W adds nothing) and cuts the gradients back.
-// The backward takes S slices of HS columns, HS a multiple of 64 and at
-// most 256 (S = ceil(H / 256)): d_h and d_W of a warpgroup are 64 x HS
-// fp32, 128 registers a thread at HS = 256.
-//   * S = 1 (H <= 256): the two products the bound counts, per kernel.
-//   * S > 1: fj_hidden_image writes the h image first; each backward block
-//     owns one slice of d_h (dadc) or d_W (dwdb), forms the whole logits
-//     from all S slices (a stage then holds the slice's W and h, the
-//     block's own slice last) and does one more product: S + 1 products
-//     against the bound's 2.  With the padding, against the R x H x V bound: 1x at
-//     H = 256, 1.28x at H = 200 (256), 1.5x at H = 512, 2.4x at H = 640
-//     (768), 2.5x at H = 1024, 4.5x at H = 2048.
 //
 // Launches on the caller's stream; allocates nothing; each entry returns
 // cudaGetLastError() (or the error of setting the shared-memory size) so
 // the caller can raise on a refused launch.
 
 #include <cuda_bf16.h>
-#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 
 #include <cstdint>
 
 namespace {
 
-using namespace nvcuda;
 using bf16 = __nv_bfloat16;
 
-constexpr int kThreads = 256;  // 8 warps (forward, h kernels)
+constexpr int kThreads = 256;  // 8 warps (the h image kernel)
 constexpr int kRows = 64;      // lattice rows per tile
-constexpr int kVC = 64;        // vocabulary columns per chunk
 
 // Tile geometry: rows i = tt * ut + uu of tile (tb, uc) are the cells
 // t = tb * bt + tt, u = uc * ut + uu.  H is the padded width S * HS (the
@@ -164,302 +205,10 @@ __device__ __forceinline__ uint2 h4(const float* __restrict__ a,
   return packed;
 }
 
-// ---- the forward (nvcuda::wmma) and its h rows: forward-only helpers ----
+// ---- wgmma, bulk copies in an mbarrier ring (all three kernels) ----------
 
-constexpr int kLdW = kVC + 8;  // bf16 pitch of a W chunk
-constexpr int kLdZ = kVC + 4;  // fp32 pitch of a logits chunk
-constexpr int kMaxHS = 512;    // widest forward H slice (shared memory)
-
-using Acc = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
-using ARow = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>;
-using BRow = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>;
-
-// Dynamic shared memory of the forward: ws (HS x kLdW bf16) | hs (kRows x
-// (HS + 8) bf16) | zs (kRows x kLdZ fp32).  Every part is a multiple of 128
-// bytes when HS is a multiple of 16.
-struct Smem {
-  bf16* ws;
-  bf16* hs;
-  float* zs;
-  int ldh;
-};
-
-__device__ __forceinline__ Smem carve(unsigned char* base, int HS) {
-  Smem s;
-  s.ldh = HS + 8;
-  s.ws = reinterpret_cast<bf16*>(base);
-  s.hs = s.ws + (size_t)HS * kLdW;
-  s.zs = reinterpret_cast<float*>(s.hs + (size_t)kRows * s.ldh);
-  return s;
-}
-
-size_t smem_bytes(int HS) {
-  return (size_t)HS * kLdW * 2 + (size_t)kRows * (HS + 8) * 2 +
-         (size_t)kRows * kLdZ * 4;
-}
-
-// Rows [k0, k0 + K) of W chunk v0 / 64 -> ws.  wc is W in chunks,
-// (ceil(V/64), H, 64) bf16 with zero columns past V, so a chunk's rows are
-// one contiguous block, copied 16 bytes a thread with cp.async (all copies
-// in flight at once, no registers).  The caller commits and waits.
-__device__ __forceinline__ void load_w_rows(const bf16* __restrict__ wc,
-                                            bf16* ws, int H, int v0, int k0,
-                                            int K) {
-  const bf16* src = wc + ((size_t)(v0 / kVC) * H + k0) * kVC;
-  for (int idx = threadIdx.x; idx < K * (kVC / 8); idx += kThreads) {
-    const int k = idx >> 3;
-    const int part = (idx & 7) * 8;
-    __pipeline_memcpy_async(ws + k * kLdW + part, src + k * kVC + part, 16);
-  }
-}
-
-__device__ __forceinline__ void load_bias(const float* __restrict__ bias,
-                                          float* bs, int V, int v0) {
-  if (threadIdx.x < kVC) {
-    const int v = v0 + threadIdx.x;
-    bs[threadIdx.x] = v < V ? bias[v] : 0.0f;
-  }
-}
-
-// The whole of chunk v0 / 64 of W (H rows) -> ws, b[v0:v0+64] -> bs.  The
-// caller syncs the block after.
-__device__ __forceinline__ void load_w_chunk(const bf16* __restrict__ wc,
-                                             const float* __restrict__ bias,
-                                             bf16* ws, float* bs, int H, int V,
-                                             int v0) {
-  load_w_rows(wc, ws, H, v0, 0, H);
-  __pipeline_commit();
-  load_bias(bias, bs, V, v0);
-  __pipeline_wait_prior(0);
-}
-
-// Columns [k0, k0 + K) of rows hrow[r] of h (bf16, (R, H)) -> hs, zeros
-// for rows with hrow[r] < 0; cp.async 16 bytes a thread.  The caller
-// commits and waits.
-__device__ __forceinline__ void load_h_rows(const bf16* __restrict__ h16,
-                                            int H, const long long* hrow,
-                                            bf16* hs, int ldh, int k0, int K) {
-  const int K8 = K / 8;
-  for (int idx = threadIdx.x; idx < kRows * K8; idx += kThreads) {
-    const int r = idx / K8;
-    const int k = (idx - r * K8) * 8;
-    const long long row = hrow[r];
-    if (row >= 0) {
-      __pipeline_memcpy_async(hs + r * ldh + k, h16 + row * H + k0 + k, 16);
-    } else {
-      *reinterpret_cast<uint4*>(hs + r * ldh + k) = make_uint4(0, 0, 0, 0);
-    }
-  }
-}
-
-// h of the tile's live rows, rounded to bf16, into hs (zeros elsewhere),
-// four columns a thread-step.  S = 1 only: hs holds all H columns.
-__device__ __forceinline__ void build_h(const Geom& g, const float* __restrict__ a,
-                                        const float* __restrict__ c, bf16* hs,
-                                        int ldh, int n, int tb, int uc, int xn) {
-  const int H4 = g.H / 4;
-#pragma unroll 4
-  for (int idx = threadIdx.x; idx < kRows * H4; idx += kThreads) {
-    const int r = idx / H4;
-    const int k4 = idx - r * H4;
-    int t, u;
-    uint2 packed = make_uint2(0, 0);
-    if (tile_row(g, r, tb, uc, t, u) && t < xn) {
-      packed = h4(a, c, ((size_t)n * g.T + t) * g.H + 4 * k4,
-                  ((size_t)n * g.U + u) * g.H + 4 * k4);
-    }
-    *reinterpret_cast<uint2*>(hs + r * ldh + 4 * k4) = packed;
-  }
-}
-
-// acc += hs[:, :K] @ ws[:K, :]: warp w computes rows 16*(w%4).. and column
-// tiles 2*(w/4) and 2*(w/4)+1 of the 64 x 64 chunk.
-__device__ __forceinline__ void logits_mma(Acc& acc0, Acc& acc1, const Smem& s,
-                                           int K, int warp) {
-  const int rt = warp & 3;
-  const int ct = (warp >> 2) * 2;
-  for (int k = 0; k < K; k += 16) {
-    ARow fa;
-    BRow fb0, fb1;
-    wmma::load_matrix_sync(fa, s.hs + rt * 16 * s.ldh + k, s.ldh);
-    wmma::load_matrix_sync(fb0, s.ws + k * kLdW + ct * 16, kLdW);
-    wmma::load_matrix_sync(fb1, s.ws + k * kLdW + (ct + 1) * 16, kLdW);
-    wmma::mma_sync(acc0, fa, fb0, acc0);
-    wmma::mma_sync(acc1, fa, fb1, acc1);
-  }
-}
-
-__device__ __forceinline__ void store_logits(const Smem& s, const Acc& acc0,
-                                             const Acc& acc1, int warp) {
-  const int rt = warp & 3;
-  const int ct = (warp >> 2) * 2;
-  wmma::store_matrix_sync(s.zs + rt * 16 * kLdZ + ct * 16, acc0, kLdZ,
-                          wmma::mem_row_major);
-  wmma::store_matrix_sync(s.zs + rt * 16 * kLdZ + (ct + 1) * 16, acc1, kLdZ,
-                          wmma::mem_row_major);
-}
-
-// zs = hs @ ws (S = 1: both hold all H rows).
-__device__ __forceinline__ void chunk_logits(const Smem& s, int K, int warp) {
-  Acc acc0, acc1;
-  wmma::fill_fragment(acc0, 0.0f);
-  wmma::fill_fragment(acc1, 0.0f);
-  logits_mma(acc0, acc1, s, K, warp);
-  store_logits(s, acc0, acc1, warp);
-}
-
-// zs = h @ W[:, chunk v0 / 64] and bs = its bias, for S > 1: S slice
-// products, each slice's h rows (hrow, from h16) and W rows copied into hs
-// and ws in turn.  The caller syncs before (the last reads of hs, ws, zs and
-// bs done) and after (zs visible).
-__device__ __forceinline__ void sliced_logits(const Geom& g, const Smem& s,
-                                              const bf16* __restrict__ h16,
-                                              const long long* hrow,
-                                              const bf16* __restrict__ wc,
-                                              const float* __restrict__ bias,
-                                              float* bs, int v0, int warp) {
-  Acc acc0, acc1;
-  wmma::fill_fragment(acc0, 0.0f);
-  wmma::fill_fragment(acc1, 0.0f);
-  for (int sl = 0; sl < g.S; ++sl) {
-    if (sl > 0) __syncthreads();  // the last slice's products are done
-    load_h_rows(h16, g.H, hrow, s.hs, s.ldh, sl * g.HS, g.HS);
-    load_w_rows(wc, s.ws, g.H, v0, sl * g.HS, g.HS);
-    __pipeline_commit();
-    if (sl == 0) load_bias(bias, bs, g.V, v0);
-    __pipeline_wait_prior(0);
-    __syncthreads();
-    logits_mma(acc0, acc1, s, g.HS, warp);
-  }
-  store_logits(s, acc0, acc1, warp);
-}
-
-// Sample and tile of a forward block of the sample-major grid x.
-__device__ __forceinline__ void block_tile(const Geom& g, int& n, int& tb,
-                                           int& uc) {
-  const int tiles = g.ntb * g.nuc;
-  n = blockIdx.x / tiles;
-  const int tile = blockIdx.x - n * tiles;
-  tb = tile / g.nuc;
-  uc = tile - tb * g.nuc;
-}
-
-__global__ void __launch_bounds__(kThreads)
-fwd_kernel(const float* __restrict__ a, const float* __restrict__ c,
-           const bf16* __restrict__ w, const float* __restrict__ bias,
-           const int* __restrict__ lab, const int* __restrict__ xn_arr,
-           const bf16* __restrict__ h16, float* __restrict__ blank_out,
-           float* __restrict__ emit_out, float* __restrict__ logz_out, Geom g,
-           int blank) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  __shared__ float bs[kVC];
-  __shared__ long long hrow[kRows];
-  const Smem s = carve(smem, g.HS);
-  int n, tb, uc;
-  block_tile(g, n, tb, uc);
-  const int xn = xn_arr[n];
-  const int tid = threadIdx.x;
-
-  // thread -> (row i, quarter q of the chunk's 64 columns)
-  const int i = tid >> 2;
-  const int q = tid & 3;
-  int t, u;
-  const bool valid = tile_row(g, i, tb, uc, t, u);
-  const bool live = valid && t < xn;
-  const size_t cell = ((size_t)n * g.T + t) * g.U + u;
-
-  if (tb * g.bt >= xn) {  // no live row: zeros (the core masks them)
-    if (valid && q == 0) {
-      blank_out[cell] = 0.0f;
-      emit_out[cell] = 0.0f;
-      logz_out[cell] = 0.0f;
-    }
-    return;
-  }
-
-  if (g.S == 1) {
-    build_h(g, a, c, s.hs, s.ldh, n, tb, uc, xn);
-  } else if (tid < kRows) {
-    int tr, ur;
-    const bool lr = tile_row(g, tid, tb, uc, tr, ur) && tr < xn;
-    hrow[tid] = lr ? ((long long)n * g.T + tr) * g.U + ur : -1;
-  }
-  const int my_lab = valid ? lab[(size_t)n * g.U + u] : -1;
-
-  float m = -INFINITY, sum = 0.0f, bl = 0.0f, el = 0.0f;
-  for (int v0 = 0; v0 < g.V; v0 += kVC) {
-    __syncthreads();  // hs built; the last chunk's ws, zs and bs reads done
-    if (g.S == 1) {
-      load_w_chunk(w, bias, s.ws, bs, g.H, g.V, v0);
-      __syncthreads();
-      chunk_logits(s, g.HS, tid >> 5);
-    } else {
-      sliced_logits(g, s, h16, hrow, w, bias, bs, v0, tid >> 5);
-    }
-    __syncthreads();
-    const int vend = min(kVC, g.V - v0);
-    float zl[16];
-    float cmax = -INFINITY;
-#pragma unroll
-    for (int j = 0; j < 16; ++j) {
-      const int col = q * 16 + j;
-      zl[j] = -INFINITY;
-      if (col < vend) {
-        const float z = s.zs[i * kLdZ + col] + bs[col];
-        zl[j] = z;
-        cmax = fmaxf(cmax, z);
-        if (v0 + col == blank) bl = z;
-        if (v0 + col == my_lab) el = z;
-      }
-    }
-    cmax = fmaxf(cmax, __shfl_xor_sync(0xffffffffu, cmax, 1));
-    cmax = fmaxf(cmax, __shfl_xor_sync(0xffffffffu, cmax, 2));
-    const float mn = fmaxf(m, cmax);  // finite: column 0 of a chunk is < V
-    float ps = 0.0f;
-#pragma unroll
-    for (int j = 0; j < 16; ++j) ps += expf(zl[j] - mn);
-    ps += __shfl_xor_sync(0xffffffffu, ps, 1);
-    ps += __shfl_xor_sync(0xffffffffu, ps, 2);
-    sum = sum * expf(m - mn) + ps;
-    m = mn;
-  }
-  // one lane of the row found each pick; the others hold 0
-  bl += __shfl_xor_sync(0xffffffffu, bl, 1);
-  bl += __shfl_xor_sync(0xffffffffu, bl, 2);
-  el += __shfl_xor_sync(0xffffffffu, el, 1);
-  el += __shfl_xor_sync(0xffffffffu, el, 2);
-  if (valid && q == 0) {
-    blank_out[cell] = live ? bl : 0.0f;
-    emit_out[cell] = live ? el : 0.0f;
-    logz_out[cell] = live ? m + logf(sum) : 0.0f;
-  }
-}
-
-// h of every live cell as bf16 rows of (R, H) for the forward's slices; one block a cell, four
-// columns a thread-step (the bits build_h forms).  Rows of cells past xn
-// are not written: every reader zeroes them.
-__global__ void __launch_bounds__(kThreads)
-hidden_kernel(const float* __restrict__ a, const float* __restrict__ c,
-              const int* __restrict__ xn_arr, bf16* __restrict__ h16, Geom g) {
-  const long long row = blockIdx.x;
-  const long long TU = (long long)g.T * g.U;
-  const int n = (int)(row / TU);
-  const int rem = (int)(row - n * TU);
-  const int t = rem / g.U;
-  const int u = rem - t * g.U;
-  if (t >= xn_arr[n]) return;
-  const int H4 = g.H / 4;
-  for (int k4 = threadIdx.x; k4 < H4; k4 += kThreads) {
-    *reinterpret_cast<uint2*>(h16 + row * g.H + 4 * k4) =
-        h4(a, c, ((size_t)n * g.T + t) * g.H + 4 * k4,
-           ((size_t)n * g.U + u) * g.H + 4 * k4);
-  }
-}
-
-// ---- the backward: wgmma, bulk copies in an mbarrier ring ----------------
-
-constexpr int kBwdThreads = 384;  // warpgroups 0 and 1 consume, 2 produces
-constexpr int kBwdSlice = 256;    // widest backward H slice (registers)
+constexpr int kRingThreads = 384;  // warpgroups 0 and 1 consume, 2 produces
+constexpr int kMaxSlice = 256;     // widest H slice (registers)
 constexpr int kMaxStages = 4;
 constexpr int kSmemCap = 232448;  // shared memory a block may use
 constexpr int kStaticSlack = 4096;  // static shared memory, with room
@@ -548,9 +297,16 @@ __device__ __forceinline__ void fence_acc(float (&d)[32]) {
 __device__ __forceinline__ void wg_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
-__device__ __forceinline__ void wg_commit_wait() {
+__device__ __forceinline__ void wg_commit() {
   asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// Wait until the warpgroup's committed groups are done.
+__device__ __forceinline__ void wg_wait() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit_wait() {
+  wg_commit();
+  wg_wait();
 }
 // Generic-proxy writes to shared memory made visible to wgmma and bulk copies.
 __device__ __forceinline__ void fence_proxy_async() {
@@ -558,6 +314,9 @@ __device__ __forceinline__ void fence_proxy_async() {
 }
 __device__ __forceinline__ void named_bar(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+__device__ __forceinline__ void named_bar_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 template <int R>
 __device__ __forceinline__ void reg_alloc() {
@@ -684,6 +443,306 @@ __device__ __forceinline__ void build_h_image(const Geom& g,
   }
 }
 
+// ---- the forward -----------------------------------------------------------
+
+constexpr float kLog2e = 1.4426950408889634f;
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// One row of the forward's epilogue, as one thread holds it: the running
+// (max, sum of exp) over the thread's own columns, the blank and label
+// logits where the thread holds them (else 0), the row's label and where
+// its a and c start.
+struct FwdRow {
+  float m, s, bl, el;
+  int lab;
+  bool valid, live;
+  size_t cell, ai, ci;
+};
+
+__device__ __forceinline__ FwdRow fwd_row(const Geom& g, int n, int tb, int uc,
+                                          int i, int xn,
+                                          const int* __restrict__ lab) {
+  FwdRow r{-INFINITY, 0.0f, 0.0f, 0.0f, -1, false, false, 0, 0, 0};
+  int t, u;
+  r.valid = tile_row(g, i, tb, uc, t, u);
+  if (r.valid) {
+    r.cell = ((size_t)n * g.T + t) * g.U + u;
+    r.live = t < xn;
+  }
+  if (r.live) {
+    r.lab = lab[(size_t)n * g.U + u];
+    r.ai = ((size_t)n * g.T + t) * g.H;
+    r.ci = ((size_t)n * g.U + u) * g.H;
+  }
+  return r;
+}
+
+// bf16(tanh(a + c)) of columns k, k + 1 of a live row, packed (the tanhf
+// of h4); 0 for a row that is not live.
+__device__ __forceinline__ uint32_t h2(const float* __restrict__ a,
+                                       const float* __restrict__ c,
+                                       const FwdRow& r, int k) {
+  if (!r.live) return 0u;
+  const float2 av = *reinterpret_cast<const float2*>(a + r.ai + k);
+  const float2 cv = *reinterpret_cast<const float2*>(c + r.ci + k);
+  return pack2(tanhf(av.x + cv.x), tanhf(av.y + cv.y));
+}
+
+// Fold one row's values x[0..15] (its 16 logits of the chunk, bias added)
+// into its running (max, sum).  A thread whose columns are all padding
+// (-inf) keeps (-inf, 0).
+__device__ __forceinline__ void fold_row(FwdRow& r, const float (&x)[16]) {
+  float cm = r.m;
+#pragma unroll
+  for (int i = 0; i < 16; ++i) cm = fmaxf(cm, x[i]);
+  const float ref = cm == -INFINITY ? 0.0f : cm;
+  const float mref = ref * kLog2e;
+  float ps = 0.0f;
+#pragma unroll
+  for (int i = 0; i < 16; ++i) ps += ex2(fmaf(x[i], kLog2e, -mref));
+  r.s = r.s * ex2(fmaf(r.m, kLog2e, -mref)) + ps;
+  r.m = cm;
+}
+
+// Chunk ch's logits z (64 x 64 accumulators, thread layout of wgmma_ss:
+// z[4j + x] is row r0 (x < 2) or r0 + 8, column 8j + 2t4 + (x & 1)) plus
+// the chunk's biases bias[2j + (x & 1)], folded into the two rows; the
+// blank and label logits picked where this thread holds them.
+__device__ __forceinline__ void fold_chunk(const float (&z)[32],
+                                           const float (&bias)[16], int ch,
+                                           int t4, int blank, FwdRow& w0,
+                                           FwdRow& w1) {
+  float x0[16], x1[16];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    x0[2 * j] = z[4 * j] + bias[2 * j];
+    x0[2 * j + 1] = z[4 * j + 1] + bias[2 * j + 1];
+    x1[2 * j] = z[4 * j + 2] + bias[2 * j];
+    x1[2 * j + 1] = z[4 * j + 3] + bias[2 * j + 1];
+  }
+  if ((blank >> 6) == ch || (w0.lab >> 6) == ch || (w1.lab >> 6) == ch) {
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      const int v = ch * 64 + 8 * (i >> 1) + 2 * t4 + (i & 1);
+      if (v == blank) {
+        w0.bl = x0[i];
+        w1.bl = x1[i];
+      }
+      if (v == w0.lab) w0.el = x0[i];
+      if (v == w1.lab) w1.el = x1[i];
+    }
+  }
+  fold_row(w0, x0);
+  fold_row(w1, x1);
+}
+
+// The row's (max, sum, blank, label) merged over the quad that holds its
+// 64 columns of every chunk (lanes xor 1, 2).
+__device__ __forceinline__ void quad_merge(FwdRow& r) {
+  float m = fmaxf(r.m, __shfl_xor_sync(0xffffffffu, r.m, 1));
+  m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 2));
+  const float ref = m == -INFINITY ? 0.0f : m;
+  float s = r.s * ex2((r.m - ref) * kLog2e);
+  s += __shfl_xor_sync(0xffffffffu, s, 1);
+  s += __shfl_xor_sync(0xffffffffu, s, 2);
+  r.bl += __shfl_xor_sync(0xffffffffu, r.bl, 1);
+  r.bl += __shfl_xor_sync(0xffffffffu, r.bl, 2);
+  r.el += __shfl_xor_sync(0xffffffffu, r.el, 1);
+  r.el += __shfl_xor_sync(0xffffffffu, r.el, 2);
+  r.m = m;
+  r.s = s;
+}
+
+// Block (x, p): tiles 2x and 2x + 1 (one a consumer warpgroup), 64-column
+// chunks [p*cpp, (p+1)*cpp) of V.  Shared memory: the ring; a stage is the
+// chunk's W block of one slice and, at S > 1, the two tiles' h blocks of
+// that slice.  RES: S = 1, h in registers.  out: one V part: (3, R) blank
+// logit, label logit, logZ; more: (4, parts, R) max, sum, blank logit,
+// label logit of each part.
+template <int NT, bool RES>
+__global__ void __launch_bounds__(kRingThreads, 1)
+fwd_kernel(const float* __restrict__ a, const float* __restrict__ c,
+           const unsigned char* __restrict__ wimg, const int* __restrict__ lab,
+           const int* __restrict__ xn_arr, const bf16* __restrict__ h16,
+           float* __restrict__ out, Geom g, long long R, int ntiles,
+           int nchunks, int blank, int cpp, int stages) {
+  constexpr int HS = NT * 64;
+  constexpr int KS = HS / 16;
+  constexpr int WB = w_block_bytes(HS);
+  constexpr int HB = h_block_bytes(HS);
+  extern __shared__ __align__(128) unsigned char smem[];
+  __shared__ __align__(8) uint64_t full[kMaxStages], empty[kMaxStages];
+  const int tid = threadIdx.x;
+  const int S = g.S;
+  const int part = blockIdx.y;
+  const int parts = gridDim.y;
+  const int ch0 = part * cpp;
+  const int ch1 = min(nchunks, ch0 + cpp);
+  const int tile0 = 2 * blockIdx.x;
+  constexpr int EB = WB + (RES ? 0 : 2 * HB);
+  if (tid == 0) {
+    for (int i = 0; i < stages; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], 8);  // one arrival per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (tid >= 256) {  // producer: one thread keeps the ring full
+    reg_dealloc<40>();
+    if (tid == 256) {
+      const int nc2 = nchunks + (nchunks & 1);
+      const int tile1 = tile0 + 1 < ntiles ? tile0 + 1 : tile0;  // absent: a copy
+      int stage = 0, phase = 0;
+      for (int ch = ch0; ch < ch1; ++ch) {
+        for (int s = 0; s < S; ++s) {
+          mbar_wait(&empty[stage], phase ^ 1);
+          unsigned char* dst = smem + stage * EB;
+          mbar_expect_tx(&full[stage], EB);
+          bulk_load(dst, wimg + ((size_t)s * nc2 + ch) * WB, WB, &full[stage]);
+          if constexpr (!RES) {
+            bulk_load(dst + WB, h16 + ((size_t)tile0 * S + s) * HS * 64, HB,
+                      &full[stage]);
+            bulk_load(dst + WB + HB, h16 + ((size_t)tile1 * S + s) * HS * 64, HB,
+                      &full[stage]);
+          }
+          if (++stage == stages) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
+      }
+    }
+    return;
+  }
+
+  reg_alloc<232>();
+  const int wg = tid >> 7;
+  const int lt = tid & 127;
+  const int lane = tid & 31;
+  const int t4 = lane & 3;
+  const int r0 = 16 * (lt >> 5) + (lane >> 2);
+  const int tile = tile0 + wg;
+  const bool active = tile < ntiles;
+  int n = 0, tb = 0, uc = 0;
+  if (active) tile_coords(g, tile, n, tb, uc);
+  const int xn = active ? xn_arr[n] : 0;
+  const bool busy = active && tb * g.bt < xn;
+  FwdRow w0 = fwd_row(g, n, tb, uc, r0, xn, lab);
+  FwdRow w1 = fwd_row(g, n, tb, uc, r0 + 8, xn, lab);
+
+  // Turns: before each stage's products a warpgroup waits for its turn
+  // (barrier 1 + wg, 256 threads) and, once they are issued, gives the
+  // other its turn; warpgroup 1 gives warpgroup 0 the first.  So the two
+  // issue in alternation, and one's exp pass runs while the other's
+  // products do (in step, both would leave the tensor cores idle through
+  // their exp passes).  A tile with no live row keeps the turns too.
+  const int mine = 1 + wg, other = 2 - wg;
+  if (wg == 1) named_bar_arrive(other, 256);
+  int stage = 0, phase = 0;
+  if (!busy) {  // no live row: the stages are released unread
+    for (int i = 0; i < (ch1 - ch0) * S; ++i) {
+      mbar_wait(&full[stage], phase);
+      named_bar(mine, 256);
+      named_bar_arrive(other, 256);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[stage]);
+      if (++stage == stages) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+  } else {  // every wgmma inside one branch: no accumulator crosses it
+    // S = 1: h of rows r0 and r0 + 8 as the register A operand of each
+    // k16 step (a[1], a[3]: row r0 + 8; a[2], a[3]: columns + 8)
+    uint32_t hA[RES ? KS : 1][4];
+    if constexpr (RES) {
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks) {
+        const int k = 16 * ks + 2 * t4;
+        hA[ks][0] = h2(a, c, w0, k);
+        hA[ks][1] = h2(a, c, w1, k);
+        hA[ks][2] = h2(a, c, w0, k + 8);
+        hA[ks][3] = h2(a, c, w1, k + 8);
+      }
+    }
+
+    // Per chunk: the S slice products into z, each stage released once
+    // its products are done; then the last stage's biases to registers
+    // and the exp pass.
+    float z[32];
+    for (int ch = ch0; ch < ch1; ++ch) {
+      for (int si = 0; si < S; ++si) {
+        mbar_wait(&full[stage], phase);
+        const unsigned char* e = smem + (size_t)stage * EB;
+        named_bar(mine, 256);
+        wg_fence();
+        if constexpr (RES) {
+#pragma unroll
+          for (int ks = 0; ks < KS; ++ks) {
+            wgmma_rs<1>(z, hA[ks], desc_w<HS>(e, ks), ks > 0);
+          }
+        } else {
+          const unsigned char* hs = e + WB + wg * HB;
+#pragma unroll
+          for (int ks = 0; ks < KS; ++ks) {
+            wgmma_ss<0, 1>(z, desc_h(hs, ks), desc_w<HS>(e, ks), si > 0 || ks > 0);
+          }
+        }
+        wg_commit();
+        named_bar_arrive(other, 256);
+        wg_wait();
+        fence_acc(z);
+        float bias[16];
+        if (si == S - 1) {  // every slice's W block carries the biases
+          const float* bsm = reinterpret_cast<const float*>(e + HS * 128);
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            const float2 bv = *reinterpret_cast<const float2*>(bsm + 8 * j + 2 * t4);
+            bias[2 * j] = bv.x;
+            bias[2 * j + 1] = bv.y;
+          }
+        }
+        __syncwarp();
+        if (lane == 0) mbar_arrive(&empty[stage]);
+        if (++stage == stages) {
+          stage = 0;
+          phase ^= 1;
+        }
+        if (si == S - 1) fold_chunk(z, bias, ch, t4, blank, w0, w1);
+      }
+    }
+  }
+  if (wg == 0) named_bar(mine, 256);  // the last turn warpgroup 1 gave
+
+  quad_merge(w0);
+  quad_merge(w1);
+  if (t4 != 0 || !active) return;  // an absent tile's rows read as tile 0's
+  const size_t stride = (size_t)parts * R;
+  auto write = [&](const FwdRow& r) {
+    if (!r.valid) return;
+    if (parts == 1) {
+      out[r.cell] = r.live ? r.bl : 0.0f;
+      out[R + r.cell] = r.live ? r.el : 0.0f;
+      out[2 * R + r.cell] = r.live ? r.m + logf(r.s) : 0.0f;
+    } else {
+      float* o = out + (size_t)part * R + r.cell;
+      o[0] = r.live ? r.m : 0.0f;
+      o[stride] = r.live ? r.s : 0.0f;
+      o[2 * stride] = r.live ? r.bl : 0.0f;
+      o[3 * stride] = r.live ? r.el : 0.0f;
+    }
+  };
+  write(w0);
+  write(w1);
+}
+
 // Block (x, o, p): tiles 2x and 2x + 1 (one a consumer warpgroup), d_h
 // columns [o*HS, (o+1)*HS), 64-column chunks [p*cpp, (p+1)*cpp) of V (its
 // own d_a / d_c partials: a grid with few tiles splits V to fill the
@@ -691,7 +750,7 @@ __device__ __forceinline__ void build_h_image(const Geom& g,
 // images, then the ring of W blocks; S > 1: the ring, each stage a W block
 // and the two tiles' h blocks of one slice.
 template <int NT>
-__global__ void __launch_bounds__(kBwdThreads, 1)
+__global__ void __launch_bounds__(kRingThreads, 1)
 dadc_kernel(const float* __restrict__ a, const float* __restrict__ c,
             const unsigned char* __restrict__ wimg, const int* __restrict__ lab,
             const int* __restrict__ xn_arr, const float* __restrict__ logz,
@@ -890,7 +949,7 @@ dadc_kernel(const float* __restrict__ a, const float* __restrict__ c,
 // chunk's two W blocks, then the ring of h blocks; S > 1: the ring, each
 // stage the chunk's two W blocks and the tile's h block of one slice.
 template <int NT>
-__global__ void __launch_bounds__(kBwdThreads, 1)
+__global__ void __launch_bounds__(kRingThreads, 1)
 dwdb_kernel(const bf16* __restrict__ h16, const unsigned char* __restrict__ wimg,
             const int* __restrict__ lab, const int* __restrict__ xn_arr,
             const float* __restrict__ logz, const float* __restrict__ dbl,
@@ -1093,7 +1152,7 @@ hidden_image_kernel(const float* __restrict__ a, const float* __restrict__ c,
 }
 
 // H is the padded width, S its slice count (H = S * HS, HS a multiple of
-// 16 up to kMaxHS; the caller checks).
+// 64 up to kMaxSlice; the caller checks).
 Geom make_geom(int T, int U, int H, int V, int S) {
   Geom g;
   g.T = T;
@@ -1109,18 +1168,14 @@ Geom make_geom(int T, int U, int H, int V, int S) {
   return g;
 }
 
-bool bad_slices(int H, int S) {
-  return S < 1 || H % S != 0 || (H / S) % 16 != 0 || H / S > kMaxHS;
-}
-
 template <typename K>
 cudaError_t set_smem(K kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(bytes));
 }
 
-bool bad_bwd_slices(int H, int S) {
-  return S < 1 || H % S != 0 || (H / S) % 64 != 0 || H / S > kBwdSlice;
+bool bad_slices(int H, int S) {
+  return S < 1 || H % S != 0 || (H / S) % 64 != 0 || H / S > kMaxSlice;
 }
 
 // Stages of a ring of ``entry``-byte stages beside ``fixed`` bytes, up to
@@ -1132,8 +1187,13 @@ int ring_stages(size_t fixed, size_t entry) {
   return n < kMaxStages ? static_cast<int>(n) : kMaxStages;
 }
 
-// Shared memory of the two backward kernels: ``fixed`` bytes beside a ring
-// of ``entry``-byte stages (the layouts above each kernel).
+// Shared memory of each kernel: ``fixed`` bytes beside a ring of
+// ``entry``-byte stages (the layouts above each kernel).
+void fwd_smem(int HS, int S, size_t& fixed, size_t& entry) {
+  fixed = 0;
+  entry = w_block_bytes(HS) + (S == 1 ? 0 : 2 * h_block_bytes(HS));
+}
+
 void dadc_smem(int HS, int S, size_t& fixed, size_t& entry) {
   fixed = S == 1 ? (size_t)2 * h_block_bytes(HS) : 0;
   entry = w_block_bytes(HS) + (S == 1 ? 0 : 2 * h_block_bytes(HS));
@@ -1142,6 +1202,35 @@ void dadc_smem(int HS, int S, size_t& fixed, size_t& entry) {
 void dwdb_smem(int HS, int S, size_t& fixed, size_t& entry) {
   fixed = 2 * kDzBytes + (S == 1 ? (size_t)2 * w_block_bytes(HS) : 0);
   entry = h_block_bytes(HS) + (S == 1 ? 0 : 2 * w_block_bytes(HS));
+}
+
+struct FwdArgs {
+  const float *a, *c;
+  const unsigned char* wimg;
+  const int *lab, *xn;
+  const bf16* h16;
+  float* out;
+  Geom g;
+  long long R;
+  int ntiles, nchunks, blank, cpp, stages;
+};
+
+template <int NT, bool RES>
+cudaError_t launch_fwd(const FwdArgs& p, dim3 grid, size_t bytes,
+                       cudaStream_t st) {
+  cudaError_t err = set_smem(fwd_kernel<NT, RES>, bytes);
+  if (err != cudaSuccess) return err;
+  fwd_kernel<NT, RES><<<grid, kRingThreads, bytes, st>>>(
+      p.a, p.c, p.wimg, p.lab, p.xn, p.h16, p.out, p.g, p.R, p.ntiles,
+      p.nchunks, p.blank, p.cpp, p.stages);
+  return cudaGetLastError();
+}
+
+template <int NT>
+cudaError_t launch_fwd(const FwdArgs& p, dim3 grid, size_t bytes,
+                       cudaStream_t st) {
+  return p.g.S == 1 ? launch_fwd<NT, true>(p, grid, bytes, st)
+                    : launch_fwd<NT, false>(p, grid, bytes, st);
 }
 
 struct DadcArgs {
@@ -1160,7 +1249,7 @@ cudaError_t launch_dadc(const DadcArgs& p, dim3 grid, size_t bytes,
                         cudaStream_t st) {
   cudaError_t err = set_smem(dadc_kernel<NT>, bytes);
   if (err != cudaSuccess) return err;
-  dadc_kernel<NT><<<grid, kBwdThreads, bytes, st>>>(
+  dadc_kernel<NT><<<grid, kRingThreads, bytes, st>>>(
       p.a, p.c, p.wimg, p.lab, p.xn, p.logz, p.db, p.de, p.da_part, p.dc_part,
       p.h16, p.g, p.ntiles, p.nchunks, p.blank, p.cpp, p.stages);
   return cudaGetLastError();
@@ -1181,7 +1270,7 @@ cudaError_t launch_dwdb(const DwdbArgs& p, dim3 grid, size_t bytes,
                         cudaStream_t st) {
   cudaError_t err = set_smem(dwdb_kernel<NT>, bytes);
   if (err != cudaSuccess) return err;
-  dwdb_kernel<NT><<<grid, kBwdThreads, bytes, st>>>(
+  dwdb_kernel<NT><<<grid, kRingThreads, bytes, st>>>(
       p.h16, p.wimg, p.lab, p.xn, p.logz, p.db, p.de, p.dw_part, p.db_part, p.g,
       p.ntiles, p.nchunks, p.blank, p.per, p.stages);
   return cudaGetLastError();
@@ -1189,22 +1278,11 @@ cudaError_t launch_dwdb(const DwdbArgs& p, dim3 grid, size_t bytes,
 
 }  // namespace
 
-extern "C" int fj_hidden(const float* a, const float* c, const int* xn,
-                         void* h16, int N, int T, int U, int H, void* stream) {
-  if (H % 16 != 0) return static_cast<int>(cudaErrorInvalidValue);
-  const Geom g = make_geom(T, U, H, 1, 1);
-  const long long R = (long long)N * T * U;
-  hidden_kernel<<<static_cast<unsigned int>(R), kThreads, 0,
-                  static_cast<cudaStream_t>(stream)>>>(
-      a, c, xn, static_cast<bf16*>(h16), g);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// h16: the backward's h image, (tiles, S, 64 x H/S) bf16.
+// h16: the h image, (tiles, S, 64 x H/S) bf16.
 extern "C" int fj_hidden_image(const float* a, const float* c, const int* xn,
                                void* h16, int N, int T, int U, int H, int S,
                                void* stream) {
-  if (bad_bwd_slices(H, S)) return static_cast<int>(cudaErrorInvalidValue);
+  if (bad_slices(H, S)) return static_cast<int>(cudaErrorInvalidValue);
   const Geom g = make_geom(T, U, H, 1, S);
   const long long tiles = (long long)N * g.ntb * g.nuc;
   hidden_image_kernel<<<static_cast<unsigned int>(tiles), kThreads, 0,
@@ -1213,25 +1291,46 @@ extern "C" int fj_hidden_image(const float* a, const float* c, const int* xn,
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int fj_forward(const float* a, const float* c, const void* w,
-                          const float* bias, const int* lab, const int* xn,
-                          const void* h16, float* blank_out, float* emit_out,
-                          float* logz_out, int N, int T, int U, int H, int V,
-                          int blank, int S, void* stream) {
-  if (bad_slices(H, S)) return static_cast<int>(cudaErrorInvalidValue);
+// wimg: the W image, (S, chunks rounded up to even, w_block_bytes) bytes.
+// h16: the h image (S > 1; unread at S = 1).  parts: V parts of
+// ceil(chunks / parts) 64-column chunks, none empty.  out: parts = 1: (3,
+// N*T*U) blank logit, label logit, logZ; parts > 1: (4, parts, N*T*U) max,
+// sum, blank logit, label logit of each part.
+extern "C" int fj_forward(const float* a, const float* c, const void* wimg,
+                          const int* lab, const int* xn, const void* h16,
+                          float* out, int N, int T, int U, int H, int V,
+                          int blank, int S, int parts, void* stream) {
+  const int nchunks = (V + 63) / 64;
+  if (bad_slices(H, S) || parts < 1 || parts > nchunks || parts > 65535) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int cpp = (nchunks + parts - 1) / parts;
   const Geom g = make_geom(T, U, H, V, S);
-  const size_t bytes = smem_bytes(g.HS);
-  cudaError_t err = set_smem(fwd_kernel, bytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const long long blocks = (long long)N * g.ntb * g.nuc;
-  fwd_kernel<<<static_cast<unsigned int>(blocks), kThreads, bytes,
-               static_cast<cudaStream_t>(stream)>>>(
-      a, c, static_cast<const bf16*>(w), bias, lab, xn,
-      static_cast<const bf16*>(h16), blank_out, emit_out, logz_out, g, blank);
-  return static_cast<int>(cudaGetLastError());
+  const long long tiles = (long long)N * g.ntb * g.nuc;
+  const int HS = g.HS;
+  size_t fixed, entry;
+  fwd_smem(HS, S, fixed, entry);
+  const int stages = ring_stages(fixed, entry);
+  if (stages == 0 || tiles > 0x7fffffffLL || (parts - 1) * cpp >= nchunks ||
+      (S > 1 && h16 == nullptr)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const FwdArgs p{a, c, static_cast<const unsigned char*>(wimg), lab, xn,
+                  static_cast<const bf16*>(h16), out, g, (long long)N * T * U,
+                  static_cast<int>(tiles), nchunks, blank, cpp, stages};
+  const dim3 grid(static_cast<unsigned int>((tiles + 1) / 2), parts);
+  const size_t bytes = fixed + (size_t)stages * entry;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  switch (HS / 64) {
+    case 1: err = launch_fwd<1>(p, grid, bytes, st); break;
+    case 2: err = launch_fwd<2>(p, grid, bytes, st); break;
+    case 3: err = launch_fwd<3>(p, grid, bytes, st); break;
+    default: err = launch_fwd<4>(p, grid, bytes, st); break;
+  }
+  return static_cast<int>(err);
 }
 
-// wimg: the W image, (S, chunks rounded up to even, w_block_bytes) bytes.
 // h16: the h image, (tiles, S, 64 x H/S) bf16; written here when S = 1,
 // read (from fj_hidden_image) when S > 1.  parts: V parts of ceil(chunks /
 // parts) 64-column chunks; da_part (N, T, U chunks, parts, H), dc_part
@@ -1243,7 +1342,7 @@ extern "C" int fj_backward_dadc(const float* a, const float* c, const void* wimg
                                 int N, int T, int U, int H, int V, int blank,
                                 int S, int parts, void* stream) {
   const int nchunks = (V + 63) / 64;
-  if (bad_bwd_slices(H, S) || parts < 1 || parts > nchunks || parts > 65535) {
+  if (bad_slices(H, S) || parts < 1 || parts > nchunks || parts > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const Geom g = make_geom(T, U, H, V, S);
@@ -1281,7 +1380,7 @@ extern "C" int fj_backward_dwdb(const void* h16, const void* wimg,
                                 const float* de, float* dw_part, float* db_part,
                                 int N, int T, int U, int H, int V, int blank,
                                 int groups, int S, void* stream) {
-  if (bad_bwd_slices(H, S) || groups < 1 || groups > 65535) {
+  if (bad_slices(H, S) || groups < 1 || groups > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const Geom g = make_geom(T, U, H, V, S);
@@ -1310,31 +1409,33 @@ extern "C" int fj_backward_dwdb(const void* h16, const void* wimg,
   return static_cast<int>(err);
 }
 
-// What the compiler gave a backward kernel (kernel 0: dadc, 1: dwdb) at
+// What the compiler gave a kernel (0: dadc, 1: dwdb, 2: the forward) at
 // slice width HS and S slices: out = registers a thread at entry, local
 // memory bytes a thread (spills), static and dynamic shared memory bytes,
 // ring stages.
-extern "C" int fj_backward_attrs(int kernel, int HS, int S, int* out) {
-  if (bad_bwd_slices(HS * S, S)) return static_cast<int>(cudaErrorInvalidValue);
-  cudaFuncAttributes attr;
-  const void* fn = nullptr;
-  const int nt = HS / 64;
-  if (kernel == 0) {
-    const void* k[4] = {(const void*)dadc_kernel<1>, (const void*)dadc_kernel<2>,
-                        (const void*)dadc_kernel<3>, (const void*)dadc_kernel<4>};
-    fn = k[nt - 1];
-  } else {
-    const void* k[4] = {(const void*)dwdb_kernel<1>, (const void*)dwdb_kernel<2>,
-                        (const void*)dwdb_kernel<3>, (const void*)dwdb_kernel<4>};
-    fn = k[nt - 1];
+extern "C" int fj_kernel_attrs(int kernel, int HS, int S, int* out) {
+  if (bad_slices(HS * S, S) || kernel < 0 || kernel > 2) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
-  const cudaError_t err = cudaFuncGetAttributes(&attr, fn);
+  const void* fns[3][4] = {
+      {(const void*)dadc_kernel<1>, (const void*)dadc_kernel<2>,
+       (const void*)dadc_kernel<3>, (const void*)dadc_kernel<4>},
+      {(const void*)dwdb_kernel<1>, (const void*)dwdb_kernel<2>,
+       (const void*)dwdb_kernel<3>, (const void*)dwdb_kernel<4>},
+      {S == 1 ? (const void*)fwd_kernel<1, true> : (const void*)fwd_kernel<1, false>,
+       S == 1 ? (const void*)fwd_kernel<2, true> : (const void*)fwd_kernel<2, false>,
+       S == 1 ? (const void*)fwd_kernel<3, true> : (const void*)fwd_kernel<3, false>,
+       S == 1 ? (const void*)fwd_kernel<4, true> : (const void*)fwd_kernel<4, false>}};
+  cudaFuncAttributes attr;
+  const cudaError_t err = cudaFuncGetAttributes(&attr, fns[kernel][HS / 64 - 1]);
   if (err != cudaSuccess) return static_cast<int>(err);
   size_t fixed, entry;
   if (kernel == 0) {
     dadc_smem(HS, S, fixed, entry);
-  } else {
+  } else if (kernel == 1) {
     dwdb_smem(HS, S, fixed, entry);
+  } else {
+    fwd_smem(HS, S, fixed, entry);
   }
   const int stages = ring_stages(fixed, entry);
   out[0] = attr.numRegs;

@@ -42,51 +42,53 @@ from warp_rnnt_tpu_torch.ops.packed_kernels import row_coordinates
 # and H <= _CUDA_FUSED_MAX_H (None: never), "padded" elsewhere.  The JAX
 # package's `_FUSED_MIN_V = 40` is a TPU measurement and is not carried
 # over: on the TPU a wider joint only widens the fused win, here it does
-# not.  Past one 256-column backward slice (`ops.fused_joint.bwd_plan`)
-# the fused backward does S + 1 products against the bound's 2 (1.5x at
-# H=512, 2.4x at H=640, 2.5x at H=1024), while the padded layout's
-# products grow only as H.  Loss+grad ms of `rnnt_loss_joint`, bf16
-# joint, F=256, T=150, 20 labels (40 at V=28), random lengths, padded and
-# fused in turns (padded, fused, fused, padded): chained, then the device
-# busy ms a call under the profiler, in turns again; two calls, on an
-# NVIDIA H100 80GB HBM3 at 700.00 W (`chip_smoke.py` `time_route_sweep`;
-# call 1 took no device readings below V=5000):
+# not.  Past one 256-column slice (`ops.fused_joint.bwd_plan`) the fused
+# backward does S + 1 products against the bound's 2 (1.5x at H=512, 2.4x
+# at H=640, 2.5x at H=1024), while the padded layout's products grow only
+# as H; the forward does one at every H.  Loss+grad ms of
+# `rnnt_loss_joint`, bf16 joint, F=256, T=150, 20 labels (40 at V=28),
+# random lengths, padded and fused in turns (padded, fused, fused,
+# padded): chained, then the device busy ms a call under the profiler, in
+# turns again; two calls, on an NVIDIA H100 80GB HBM3 at 700.00 W
+# (`chip_smoke.py` `time_route_sweep`), with the forward on wgmma:
 #   V      H     N   call  chained: padded     fused        device: padded     fused
-#   28     256   16  1      4.38  4.27   4.41  4.68        -            -
-#                    2      1.85  1.92   2.16  2.05       0.91  0.91   0.91  0.90
-#   256    256   16  1      6.14  5.94   5.87  5.23        -            -
-#                    2      2.46  2.24   2.29  2.26       0.96  0.96   0.58  0.58
-#   1000   256   16  1      5.35  5.48   6.20  5.33        -            -
-#                    2      3.01  2.26   2.15  2.17       2.20  2.21   0.97  0.97
-#   5000   256   16  1      8.61  8.62   5.15  5.10       8.59  8.59   2.81  2.80
-#                    2      8.60  8.60   2.80  2.88       8.60  8.59   2.81  2.80
-#   5000   512   16  1      8.93  9.12   7.57  6.38       9.08  9.08   6.79  6.77
-#                    2      9.06  9.10   6.87  6.91       9.08  9.07   6.86  6.77
-#   5000   640   16  1      9.60  9.62  11.59 11.40       9.58  9.59  11.52 11.51
-#                    2      9.56  9.58  11.49 11.51       9.57  9.56  11.53 11.54
-#   5000   1024  16  1     10.19 10.21  20.58 20.44      10.18 10.17  20.48 20.44
-#                    2     10.16 10.16  20.50 20.59      10.17  9.73  20.52 21.84
-#   64000  256   2   1     13.03 13.02   6.65  7.18      13.07 13.08   6.53  6.54
-#                    2     13.04 13.04   6.51  6.52      13.07 13.09   6.54  6.55
-#   64000  512   2   1     13.79 13.74  13.81 13.84      13.83 13.84  13.77 13.80
-#                    2     13.71 13.75  13.82 13.83      13.83 13.80  13.83 13.77
-#   64000  640   2   1     14.25 14.23  24.26 24.29      14.27 14.27  24.40 24.48
-#                    2     14.19 14.25  24.29 24.36      14.27 14.25  24.35 24.38
-#   64000  1024  2   1     15.52 15.47  40.26 40.76      15.60 15.57  40.64 40.36
-#                    2     15.50 15.51  40.15 40.29      15.60 15.59  40.65 40.25
+#   28     256   16  1      5.17  5.41   5.36  5.08       0.91  0.91   0.95  0.95
+#                    2      7.29  7.45   6.85  7.58       0.91  0.91   0.95  0.96
+#   256    256   16  1      6.56  5.77   6.56  5.83       0.96  0.96   0.55  0.55
+#                    2      7.26  6.34   6.61  6.43       0.96  0.96   0.55  0.55
+#   1000   256   16  1      6.33  5.41   6.26  5.89       2.21  2.21   0.80  0.80
+#                    2      7.15  6.86   8.04  6.96       2.21  2.21   0.80  0.80
+#   5000   256   16  1      8.40  8.64   6.35  4.95       8.59  8.60   1.88  1.88
+#                    2      8.32  8.55   8.14  7.35       8.57  8.62   1.86  1.87
+#   5000   512   16  1      8.29  9.14   6.41  6.32       9.10  9.08   5.13  5.10
+#                    2      9.14  9.05   7.37  7.01       9.09  9.12   5.05  5.03
+#   5000   640   16  1      9.66  9.70   9.84  9.61       9.64  9.63   9.73  9.37
+#                    2      9.55  9.61   9.66  8.95       9.59  9.58   9.53  9.53
+#   5000   1024  16  1     10.21 10.07  16.31 16.29      10.19 10.17  16.30 16.33
+#                    2     10.19 10.17  16.22 16.14      10.19 10.17  15.97 15.96
+#   64000  256   2   1     12.94 13.02   7.02  6.83      13.09 13.07   2.68  2.67
+#                    2     13.00 13.02   6.56  6.71      13.08 12.72   2.65  2.66
+#   64000  512   2   1     13.77 13.80   8.55  8.65      13.84 13.56   8.51  8.46
+#                    2     13.80 13.80   8.98  8.75      13.94 13.81   8.48  8.44
+#   64000  640   2   1     14.18 14.22  15.85 15.61      14.29 14.26  15.63 15.63
+#                    2     14.18 14.24  15.36 15.48      14.30 14.27  15.43 15.41
+#   64000  1024  2   1     15.55 15.59  27.44 27.39      15.61 15.58  27.22 27.40
+#                    2     15.56 15.61  27.40 27.13      15.64 15.60  27.17 26.96
 # The chained times read the host where the device is idle (fused below
 # V=5000 and at V=5000, H=256; both layouts below V=1000), and the host's
 # speed differs from call to call.  Fused wins every reading, chained and
-# on the device, at V=5000 and 64000 for H=256, and at V=5000 for H=512;
-# below V=5000 the chained readings overlap, and at V=64000, H=512 the two
-# layouts tie (padded ahead chained, level on the device).  From H=640
-# padded wins every reading.  So fused from V=5000 (the smallest measured
-# V from which fused wins every reading at every measured V above it) and
-# up to H=256 (the widest measured H at which it does).  Fused also holds
-# far less peak memory (0.055 against 1.93 GiB at V=5000, H=256); a caller
-# short of memory asks for layout="fused" at any V and H.
+# on the device, at V=5000 and 64000 for H=256 and 512; below V=5000 the
+# chained readings overlap; at H=640 the two tie at V=5000 (fused 0.5 %
+# ahead on the device in call 2, mixed chained) and padded wins at
+# V=64000; at H=1024 padded wins every reading.  So fused from V=5000
+# (the smallest measured V from which fused wins every reading at every
+# measured V above it) and up to H=512 (the widest measured H at which it
+# does).  With the earlier, fragment-based forward the two tied at
+# V=64000, H=512 (13.8 against 13.8 ms), so the limit was 256.  Fused also
+# holds far less peak memory (0.056 against 1.93 GiB at V=5000, H=256); a
+# caller short of memory asks for layout="fused" at any V and H.
 _CUDA_FUSED_MIN_V: Optional[int] = 5000
-_CUDA_FUSED_MAX_H: int = 256
+_CUDA_FUSED_MAX_H: int = 512
 
 
 def joint_layout_route(T: int, U: int, H: int, V: int, N: int = 1,
@@ -97,7 +99,7 @@ def joint_layout_route(T: int, U: int, H: int, V: int, N: int = 1,
     None: "cuda" when a CUDA device is present).  The CPU answer is
     "padded", as the JAX package answers off the TPU.  The CUDA answer
     comes from `_CUDA_FUSED_MIN_V` and `_CUDA_FUSED_MAX_H`, set from the
-    H100 times beside them: "fused" from V=5000 at joint widths up to 256,
+    H100 times beside them: "fused" from V=5000 at joint widths up to 512,
     "padded" elsewhere.  T, U and N are accepted for API parity and do not
     move the answer.  U counts lattice rows (labels + 1).
     """

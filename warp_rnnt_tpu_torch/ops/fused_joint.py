@@ -32,19 +32,19 @@ What the JAX module has and this one does not:
     them (JAX forced to 128-column blocks), and `chip_smoke.py` holds the
     kernels against the plain versions at V=64000 and V=50257.
 
-The kernels take any joint width H >= 1 and any N.  The forward pads H up
-to S slices of at most 512 columns, each a multiple of 16 (`h_plan`), the
-backward to slices of at most 256 columns, each a multiple of 64
-(`bwd_plan`): zero columns of a and c, zero rows of W (tanh(0) = 0 adds
-nothing); the backward cuts d_a, d_c and d_W back to H (`pad_h`,
-`unpad_h`).  Past one slice an h kernel first writes the joint
-activations as bf16, which the other kernels read a slice at a time: rows
-(N*T*U, H) for the forward (`_hidden`, at H > 512), the tiled image of
-`h_image` for the backward (`_hidden_image`, at H > 256).  The backward kernels read W and h as the shared-memory
-images `wgmma` takes (`_w_image`, `h_image`), which these wrappers and the
-d_a / d_c kernel lay out; the cost of each route against the R x H x V
-bound is noted at the top of `csrc/fused_joint.cu`, with what bounds the
-kernels and what their design does about it.
+The kernels take any joint width H >= 1 and any N.  All three pad H up to
+S slices of at most 256 columns, each a multiple of 64 (`bwd_plan`): zero
+columns of a and c, zero rows of W (tanh(0) = 0 adds nothing); the
+backward cuts d_a, d_c and d_W back to H (`pad_h`, `unpad_h`).  They read
+W and h as the shared-memory images `wgmma` takes: the W image
+(`_w_image`), laid out once a loss+grad and kept from the forward for the
+backward, and past one slice the h image of `h_image`, which the h kernel
+(`_hidden_image`) writes before the forward and again before the backward.
+A grid of few tiles splits V over blocks (`_v_parts`); the forward's
+parts then leave per-row partials that `merge_v_parts` combines.  The cost
+of each route against the R x H x V bound is noted at the top of
+`csrc/fused_joint.cu`, with what bounds the kernels and what their design
+does about it.
 """
 
 from __future__ import annotations
@@ -58,13 +58,11 @@ from warp_rnnt_tpu_torch.functional.loss import _labels_ext
 from warp_rnnt_tpu_torch.ops import _build
 
 # Launches per kernel, counted where the kernel is launched and nowhere else.
-LAUNCHES = {"fused_joint_hidden": 0, "fused_joint_hidden_image": 0,
-            "fused_joint_fwd": 0, "fused_joint_bwd_dadc": 0,
-            "fused_joint_bwd_dwdb": 0}
+LAUNCHES = {"fused_joint_hidden": 0, "fused_joint_fwd": 0,
+            "fused_joint_bwd_dadc": 0, "fused_joint_bwd_dwdb": 0}
 
-_SLICE = 512  # widest H slice of the forward kernel (shared memory)
-_BWD_SLICE = 256  # widest H slice of the backward kernels (registers)
-_BWD_STEP = 64  # the backward's slices are multiples of one wgmma N tile
+_MAX_SLICE = 256  # widest H slice of the kernels (a warpgroup's registers)
+_SLICE_STEP = 64  # the slices are multiples of one wgmma N tile
 _ROWS = 64  # lattice rows per tile (one wgmma M tile)
 _VC = 64  # vocabulary columns per W image block
 
@@ -73,15 +71,13 @@ def _lib():
     lib = _build.load("fused_joint")
     if not getattr(lib, "_typed", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.fj_hidden.argtypes = [p] * 4 + [i] * 4 + [p]
         lib.fj_hidden_image.argtypes = [p] * 4 + [i] * 5 + [p]
-        lib.fj_forward.argtypes = [p] * 10 + [i] * 7 + [p]
+        lib.fj_forward.argtypes = [p] * 7 + [i] * 8 + [p]
         lib.fj_backward_dadc.argtypes = [p] * 11 + [i] * 8 + [p]
         lib.fj_backward_dwdb.argtypes = [p] * 9 + [i] * 8 + [p]
-        lib.fj_backward_attrs.argtypes = [i, i, i, p]
-        for fn in (lib.fj_hidden, lib.fj_hidden_image, lib.fj_forward,
-                   lib.fj_backward_dadc, lib.fj_backward_dwdb,
-                   lib.fj_backward_attrs):
+        lib.fj_kernel_attrs.argtypes = [i, i, i, p]
+        for fn in (lib.fj_hidden_image, lib.fj_forward, lib.fj_backward_dadc,
+                   lib.fj_backward_dwdb, lib.fj_kernel_attrs):
             fn.restype = i
         lib.fj_error_string.argtypes = [i]
         lib.fj_error_string.restype = ctypes.c_char_p
@@ -187,50 +183,33 @@ def joint_lattice_bwd_plain(a, c, w, b, labels_ext, xn, yn, logz, db, de,
     return bwd_dadc_plain(*args) + bwd_dwdb_plain(*args)
 
 
-def h_plan(H: int):
-    """(Hp, S): the forward kernel's width for a joint of width H >= 1, S
-    slices of Hp / S columns, each a multiple of 16 and at most 512;
-    S = ceil(H / 512) and the slices as even as 16 allows (H=200 -> (208,
-    1), 640 -> (640, 2), 1000 -> (1024, 2), 2048 -> (2048, 4))."""
-    S = -(-H // _SLICE)
-    return S * (-(-H // (16 * S)) * 16), S
-
-
 def bwd_plan(H: int):
-    """(Hp, S): the backward kernels' width for a joint of width H >= 1, S
+    """(Hp, S): the kernels' width for a joint of width H >= 1, S
     slices of Hp / S columns, each a multiple of 64 (one wgmma N tile) and
     at most 256 (a warpgroup's d_h or d_W, 64 x 256 fp32, is 128 registers
     a thread); S = ceil(H / 256) and the slices as even as 64 allows
     (H=200 -> (256, 1), 512 -> (512, 2), 640 -> (768, 3), 2048 ->
     (2048, 8))."""
-    S = -(-H // _BWD_SLICE)
-    return S * (-(-H // (_BWD_STEP * S)) * _BWD_STEP), S
+    S = -(-H // _MAX_SLICE)
+    return S * (-(-H // (_SLICE_STEP * S)) * _SLICE_STEP), S
 
 
 def pad_h(a, c, w, Hp: int):
     """a (N, T, H), c (N, U, H), w (H, V) with zero columns of a and c and
     zero rows of w up to width Hp: the same logits, since tanh(0) = 0 and a
-    zero row of W adds nothing."""
+    zero row of W adds nothing.  A w of None stays None."""
     extra = Hp - a.shape[-1]
     if extra == 0:
         return a, c, w
     pad = torch.nn.functional.pad
-    return pad(a, (0, extra)), pad(c, (0, extra)), pad(w, (0, 0, 0, extra))
+    return (pad(a, (0, extra)), pad(c, (0, extra)),
+            None if w is None else pad(w, (0, 0, 0, extra)))
 
 
 def unpad_h(d_a, d_c, d_w, H: int):
     """The gradients of `pad_h`'s operands cut back to width H (the padded
     columns and rows hold zeros)."""
     return d_a[..., :H], d_c[..., :H], d_w[:H]
-
-
-def _chunked(w16, V):
-    """(H, V) bf16 -> (ceil(V/64), H, 64), zero columns past V: each 64-column
-    chunk of W one contiguous block, as the forward kernel loads it."""
-    H = w16.shape[0]
-    chunks = -(-V // 64)
-    w16 = torch.nn.functional.pad(w16, (0, chunks * 64 - V))
-    return w16.view(H, chunks, 64).transpose(0, 1).contiguous()
 
 
 def _w_chunks(V):
@@ -240,17 +219,19 @@ def _w_chunks(V):
     return chunks + chunks % 2
 
 
-def _w_image(w16, b, V, Hp, S):
-    """The backward's W image, (S, `_w_chunks`(V), HS*64 + 128) bf16: block
-    (s, chunk) holds W[s*HS:(s+1)*HS, 64*chunk:64*chunk+64] as 8 x 8 core
-    matrices of 16-byte rows, each row 8 columns v of one k (element (k, v)
-    at (k/8)*64 + (v/8)*HS*8 + (k%8)*8 + v%8, the address rule of the
-    kernels' descriptors `desc_w` and `desc_wt`), zero past V, and then the
-    chunk's 64 biases as fp32 (-inf past V, so the kernels' dz is 0 there).
-    Each block is one contiguous copy into shared memory."""
+def _w_image(w, b, V, Hp, S):
+    """The kernels' W image, (S, `_w_chunks`(V), HS*64 + 128) bf16: block
+    (s, chunk) holds bf16 W[s*HS:(s+1)*HS, 64*chunk:64*chunk+64] as 8 x 8
+    core matrices of 16-byte rows, each row 8 columns v of one k (element
+    (k, v) at (k/8)*64 + (v/8)*HS*8 + (k%8)*8 + v%8, the address rule of
+    the kernels' descriptors `desc_w` and `desc_wt`), zero past V and in
+    the rows past w's own up to Hp, and then the chunk's 64 biases as fp32
+    (-inf past V, so the kernels' exp and dz are 0 there).  Each block is
+    one contiguous copy into shared memory."""
     HS = Hp // S
     nc = _w_chunks(V)
-    w16 = torch.nn.functional.pad(w16, (0, nc * _VC - V))
+    w16 = torch.nn.functional.pad(w.to(torch.bfloat16),
+                                  (0, nc * _VC - V, 0, Hp - w.shape[0]))
     img = (w16.view(S, HS // 8, 8, nc, 8, 8)   # s, kb, kr, chunk, vb, vr
            .permute(0, 3, 4, 1, 2, 5)          # s, chunk, vb, kb, kr, vr
            .reshape(S, nc, HS * _VC))
@@ -291,9 +272,8 @@ def tile_cells(N: int, T: int, U: int):
 
 
 def hidden_plain(a, c, xn):
-    """Plain torch version of the forward's h kernel: bf16(tanh(a[n, t] +
-    c[n, u])) as rows (N*T*U, H), zero rows at frames t >= xn (which the
-    kernel leaves unwritten)."""
+    """bf16(tanh(a[n, t] + c[n, u])) as rows (N*T*U, H), zero rows at
+    frames t >= xn: the rows `hidden_image_plain` lays out."""
     N, T, H = a.shape
     U = c.shape[1]
     h = torch.tanh(a.float()[:, :, None, :] + c.float()[:, None, :, :])
@@ -302,14 +282,14 @@ def hidden_plain(a, c, xn):
 
 
 def hidden_image_plain(a, c, xn, S):
-    """Plain torch version of the backward's h image: `h_image` of
-    `hidden_plain`'s rows."""
+    """Plain torch version of the h kernel: `h_image` of `hidden_plain`'s
+    rows."""
     N, T, _ = a.shape
     return h_image(hidden_plain(a, c, xn), N, T, c.shape[1], S)
 
 
 def h_image(rows, N, T, U, S):
-    """The backward's h image of bf16 rows (N*T*U, H): (tiles, S, 64 * HS)
+    """The kernels' h image of bf16 rows (N*T*U, H): (tiles, S, 64 * HS)
     bf16, block (tile, s) holding rows[cell, s*HS + k] of the tile's cells
     at (row/8)*64 + (k/8)*512 + (row%8)*8 + k%8, zeros for tile rows past
     the lattice."""
@@ -320,11 +300,11 @@ def h_image(rows, N, T, U, S):
     return h.permute(0, 3, 4, 1, 2, 5).reshape(-1, S, _ROWS * HS).contiguous()
 
 
-def _kernel_inputs(a, c, w, b, labels_ext, xn, blank, plan=h_plan):
-    """Cast, pad and check the kernels' operands: a, c, b fp32, w bf16, a, c
-    and w padded to ``plan``'s width, labels_ext and xn int32, all
-    contiguous on one CUDA device.  Returns (operands (a, c, w, b), dims
-    (N, T, U, Hp, V, S), H)."""
+def _kernel_inputs(a, c, w, b, labels_ext, xn, blank):
+    """Cast, pad and check the kernels' operands: a, c, b fp32, a and c
+    padded to `bwd_plan`'s width, labels_ext and xn int32, all contiguous
+    on one CUDA device; w as given (`_w_image` casts and pads it).
+    Returns (operands (a, c, w, b), dims (N, T, U, Hp, V, S), H)."""
     N, T, U, H, V = _shapes(a, c, w, b, labels_ext, xn)
     if not 0 <= blank < V:
         raise ValueError(f"blank={blank} outside [0, {V})")
@@ -337,31 +317,15 @@ def _kernel_inputs(a, c, w, b, labels_ext, xn, blank, plan=h_plan):
             raise ValueError(f"{name} must be torch.int32, got {x.dtype}")
         if not x.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    Hp, S = plan(H)
-    a, c, w = pad_h(a.float(), c.float(), w.to(torch.bfloat16), Hp)
+    Hp, S = bwd_plan(H)
+    a, c, _ = pad_h(a.float(), c.float(), None, Hp)
     ops = (a.contiguous(), c.contiguous(), w, b.float().contiguous())
     return ops, (N, T, U, Hp, V, S), H
 
 
-def _hidden(a, c, xn, dims):
-    """The h kernel for the forward (S > 1): bf16(tanh(a + c)) of every live
-    cell, rows of (N*T*U, Hp); rows of cells past xn are left unwritten (no
-    kernel reads them)."""
-    N, T, U, Hp, _, _ = dims
-    lib = _lib()
-    h16 = torch.empty((N * T * U, Hp), dtype=torch.bfloat16, device=a.device)
-    stream = torch.cuda.current_stream(a.device).cuda_stream
-    with torch.cuda.device(a.device):
-        code = lib.fj_hidden(a.data_ptr(), c.data_ptr(), xn.data_ptr(),
-                             h16.data_ptr(), N, T, U, Hp, stream)
-    _build.check(lib, "fj_error_string", code, "fj_hidden")
-    LAUNCHES["fused_joint_hidden"] += 1
-    return h16
-
-
 def _hidden_image(a, c, xn, dims):
-    """The h kernel for the backward (S > 1): the h image of every tile and
-    slice (`hidden_image_plain`), zeros for rows that are not live."""
+    """The h kernel (S > 1): the h image of every tile and slice
+    (`hidden_image_plain`), zeros for rows that are not live."""
     N, T, U, Hp, _, S = dims
     lib = _lib()
     h16 = torch.empty((n_tiles(N, T, U), S, _ROWS * (Hp // S)),
@@ -371,7 +335,7 @@ def _hidden_image(a, c, xn, dims):
         code = lib.fj_hidden_image(a.data_ptr(), c.data_ptr(), xn.data_ptr(),
                                    h16.data_ptr(), N, T, U, Hp, S, stream)
     _build.check(lib, "fj_error_string", code, "fj_hidden_image")
-    LAUNCHES["fused_joint_hidden_image"] += 1
+    LAUNCHES["fused_joint_hidden"] += 1
     return h16
 
 
@@ -379,6 +343,58 @@ def _lattice_operand(x, name, shape):
     if tuple(x.shape) != shape:
         raise ValueError(f"{name} must be {shape}, got {tuple(x.shape)}")
     return x.float().contiguous()
+
+
+def merge_v_parts(part, live):
+    """The forward's V parts merged: part (4, parts, N, T, U) holds each
+    part's per-row max, sum of exp(z - max), blank logit and label logit
+    (0 where the part does not hold the column); returns (blank_logit,
+    emit_logit, logZ), zero where ``live`` (N, T, 1) is false.  logZ is the
+    logsumexp of the parts' (max, sum), taken over the parts in order; a
+    part whose columns are all padding has max -inf and sum 0 and adds
+    nothing.  Each pick sits in exactly one part, so the picks are sums."""
+    m, s = part[0], part[1]
+    ref = torch.nan_to_num(m.amax(0), neginf=0.0)
+    logz = ref + torch.log((s * torch.exp(m - ref)).sum(0))
+    picks = part[2:].sum(1)
+    return tuple(torch.where(live, torch.cat((picks, logz[None])), 0.0))
+
+
+def _fwd_launch(ops, labels_ext, xn, dims, blank, h16=None):
+    """The forward kernel on the kernels' operands (a, c, W image) at the
+    padded width, h16 the h image when S > 1: (blank_logit, emit_logit,
+    logZ).  A grid of few tiles splits V (`_v_parts`; the forward's grid
+    has no slice dimension); its parts are merged by `merge_v_parts`."""
+    a, c, wimg = ops
+    N, T, U, Hp, V, S = dims
+    dev = a.device
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    parts = _v_parts(sms, n_tiles(N, T, U), 1, V)
+    out = torch.empty(((3,) if parts == 1 else (4, parts)) + (N, T, U),
+                      dtype=torch.float32, device=dev)
+    lib = _lib()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        code = lib.fj_forward(
+            a.data_ptr(), c.data_ptr(), wimg.data_ptr(), labels_ext.data_ptr(),
+            xn.data_ptr(), None if h16 is None else h16.data_ptr(),
+            out.data_ptr(), N, T, U, Hp, V, blank, S, parts, stream,
+        )
+    _build.check(lib, "fj_error_string", code, "fj_forward")
+    LAUNCHES["fused_joint_fwd"] += 1
+    if parts > 1:
+        return merge_v_parts(out, _live(xn, T))
+    return tuple(out)
+
+
+def _forward(a, c, w, b, labels_ext, xn, blank):
+    """The forward on CUDA operands: ((blank_logit, emit_logit, logZ), W
+    image).  Past one slice the h kernel writes the h image first."""
+    (a, c, w, b), dims, _ = _kernel_inputs(a, c, w, b, labels_ext, xn, blank)
+    N, T, U, Hp, V, S = dims
+    wimg = _w_image(w, b, V, Hp, S)
+    h16 = _hidden_image(a, c, xn, dims) if S > 1 else None
+    return _fwd_launch((a, c, wimg), labels_ext, xn, dims, blank, h16), wimg
 
 
 def joint_lattice_fwd(a, c, w, b, labels_ext, xn, yn, blank: int):
@@ -391,25 +407,7 @@ def joint_lattice_fwd(a, c, w, b, labels_ext, xn, yn, blank: int):
     """
     if a.device.type == "cpu":
         return joint_lattice_fwd_plain(a, c, w, b, labels_ext, xn, yn, blank)
-    ops, dims, _ = _kernel_inputs(a, c, w, b, labels_ext, xn, blank)
-    a, c, w, b = ops
-    N, T, U, Hp, V, S = dims
-    w = _chunked(w, V)
-    h16 = _hidden(a, c, xn, dims) if S > 1 else None
-    lib = _lib()
-    out = [torch.empty((N, T, U), dtype=torch.float32, device=a.device)
-           for _ in range(3)]
-    stream = torch.cuda.current_stream(a.device).cuda_stream
-    with torch.cuda.device(a.device):
-        code = lib.fj_forward(
-            a.data_ptr(), c.data_ptr(), w.data_ptr(), b.data_ptr(),
-            labels_ext.data_ptr(), xn.data_ptr(),
-            None if h16 is None else h16.data_ptr(),
-            *(o.data_ptr() for o in out), N, T, U, Hp, V, blank, S, stream,
-        )
-    _build.check(lib, "fj_error_string", code, "fj_forward")
-    LAUNCHES["fused_joint_fwd"] += 1
-    return tuple(out)
+    return _forward(a, c, w, b, labels_ext, xn, blank)[0]
 
 
 def _fullest(sms: int, unit: int, most: int) -> int:
@@ -432,8 +430,9 @@ def _row_groups(sms: int, V: int, tiles: int, S: int = 1):
 
 def _v_parts(sms: int, tiles: int, S: int, V: int) -> int:
     """V parts of the d_a / d_c kernel (one block per tile pair, slice and
-    part): up to about three waves of blocks, no part empty.  A grid of
-    few tiles (small N at a large V) splits V to fill the card."""
+    part) and of the forward (its grid has no slice dimension: S = 1): up
+    to about three waves of blocks, no part empty.  A grid of few tiles
+    (small N at a large V) splits V to fill the card."""
     unit = -(-tiles // 2) * S
     chunks = -(-V // _VC)
     parts = _fullest(sms, unit, min(chunks, -(-3 * sms // unit), 65535))
@@ -498,31 +497,36 @@ def _bwd_dwdb(h16, ops, labels_ext, xn, lat, dims, blank):
     return dw_part.sum(0), db_part.sum(0)
 
 
-def backward_attrs(H: int):
+def kernel_attrs(H: int):
     """{kernel: {registers, spill_bytes, static_smem, dynamic_smem, stages}}
-    of the two backward kernels at `bwd_plan(H)`, as the compiler built
-    them (registers at entry: the consumers raise theirs to 232)."""
+    of the forward and the two backward kernels at `bwd_plan(H)`, as the
+    compiler built them (registers at entry: the consumers raise theirs to
+    232)."""
     Hp, S = bwd_plan(H)
     lib = _lib()
     out = {}
-    for idx, name in enumerate(("fused_joint_bwd_dadc", "fused_joint_bwd_dwdb")):
+    for idx, name in ((2, "fused_joint_fwd"), (0, "fused_joint_bwd_dadc"),
+                      (1, "fused_joint_bwd_dwdb")):
         vals = (ctypes.c_int * 5)()
-        code = lib.fj_backward_attrs(idx, Hp // S, S, vals)
-        _build.check(lib, "fj_error_string", code, "fj_backward_attrs")
+        code = lib.fj_kernel_attrs(idx, Hp // S, S, vals)
+        _build.check(lib, "fj_error_string", code, "fj_kernel_attrs")
         out[name] = dict(zip(("registers", "spill_bytes", "static_smem",
                               "dynamic_smem", "stages"), vals))
     return out
 
 
-def _bwd_operands(a, c, w, b, labels_ext, xn, logz, db, de, blank):
+def _bwd_operands(a, c, w, b, labels_ext, xn, logz, db, de, blank,
+                  wimg=None):
     """The backward kernels' operands: (a, c, W image) at `bwd_plan`'s
-    width, the three lattices, dims (N, T, U, Hp, V, S) and H."""
-    (a, c, w, b), dims, H = _kernel_inputs(a, c, w, b, labels_ext, xn, blank,
-                                           bwd_plan)
+    width (the image laid out here unless the forward's is given), the
+    three lattices, dims (N, T, U, Hp, V, S) and H."""
+    (a, c, w, b), dims, H = _kernel_inputs(a, c, w, b, labels_ext, xn, blank)
     N, T, U, Hp, V, S = dims
     lat = tuple(_lattice_operand(x, name, (N, T, U))
                 for x, name in ((logz, "logz"), (db, "db"), (de, "de")))
-    return (a, c, _w_image(w, b, V, Hp, S)), lat, dims, H
+    if wimg is None:
+        wimg = _w_image(w, b, V, Hp, S)
+    return (a, c, wimg), lat, dims, H
 
 
 def joint_lattice_bwd(a, c, w, b, labels_ext, xn, yn, logz, db, de,
@@ -534,11 +538,17 @@ def joint_lattice_bwd(a, c, w, b, labels_ext, xn, yn, logz, db, de,
     tensor runs the two backward kernels, a CPU tensor
     `joint_lattice_bwd_plain`.
     """
+    return _lattice_bwd(a, c, w, b, labels_ext, xn, yn, logz, db, de, blank)
+
+
+def _lattice_bwd(a, c, w, b, labels_ext, xn, yn, logz, db, de, blank,
+                 wimg=None):
+    """`joint_lattice_bwd`, reading the forward's W image when given."""
     if a.device.type == "cpu":
         return joint_lattice_bwd_plain(a, c, w, b, labels_ext, xn, yn, logz,
                                        db, de, blank)
     ops, lat, dims, H = _bwd_operands(a, c, w, b, labels_ext, xn, logz, db, de,
-                                      blank)
+                                      blank, wimg)
     d_a, d_c, h16 = _bwd_dadc(ops, labels_ext, xn, lat, dims, blank)
     d_w, d_b = _bwd_dwdb(h16, ops, labels_ext, xn, lat, dims, blank)
     return (*unpad_h(d_a, d_c, d_w, H), d_b)
@@ -548,22 +558,28 @@ class _FusedJointCore(torch.autograd.Function):
     @staticmethod
     def forward(ctx, a, c, w, b, labels_ext, xn, yn, blank, fastemit_lambda,
                 impl):
-        bl, el, lz = joint_lattice_fwd(a, c, w, b, labels_ext, xn, yn, blank)
+        if a.device.type == "cpu":
+            wimg = None
+            bl, el, lz = joint_lattice_fwd_plain(a, c, w, b, labels_ext, xn,
+                                                 yn, blank)
+        else:  # the W image is laid out once and kept for the backward
+            (bl, el, lz), wimg = _forward(a, c, w, b, labels_ext, xn, blank)
         costs, g_blank, g_emit, _, _ = _forward_backward(
             bl - lz, el - lz, xn, yn, fastemit_lambda, impl
         )
         ctx.save_for_backward(a, c, w, b, labels_ext, xn, yn, lz, g_blank,
-                              g_emit)
+                              g_emit, wimg)
         ctx.blank = blank
         return costs
 
     @staticmethod
     def backward(ctx, ct):
-        a, c, w, b, labels_ext, xn, yn, lz, g_blank, g_emit = ctx.saved_tensors
+        (a, c, w, b, labels_ext, xn, yn, lz, g_blank, g_emit,
+         wimg) = ctx.saved_tensors
         ctb = ct.float()[:, None, None]
-        d_a, d_c, d_w, d_b = joint_lattice_bwd(
+        d_a, d_c, d_w, d_b = _lattice_bwd(
             a, c, w, b, labels_ext, xn, yn, lz, ctb * g_blank, ctb * g_emit,
-            ctx.blank,
+            ctx.blank, wimg,
         )
         return (d_a.to(a.dtype), d_c.to(c.dtype), d_w.to(w.dtype),
                 d_b.to(b.dtype), None, None, None, None, None, None)
