@@ -6,9 +6,13 @@
 Phases, in order; any failure exits non-zero before the last line:
   1. card and build: the card's name and power limit, then nvcc builds the
      kernels in `warp_rnnt_tpu_torch/csrc/` (one nvcc per source, together).
-  2. the lattice kernels (fused alpha+beta, beta only) against their plain
-     torch twin on the card: small ragged shapes, a T longer than one block,
-     and the main path's full-width lattice.
+  2. the lattice kernel (fused alpha+beta, beta only) against its plain
+     torch twin on the card, two calls bit-equal at every case: small ragged
+     shapes, T=600, U=1 (xn=1 in one sample) and the main path's full-width
+     lattice against the float32 twin; T=1100 and compact case B's lattice
+     (N=16, T=1473, U=299, seeded lengths) against the float64 twin.  Then
+     the ns of one dependent logaddexp (`cuda_impl.lae_ns`), which sets
+     each lattice's chain floor, (T + U - 1) of them.
   3. the gradient-write kernel against its twin: full width, and a V that is
      not a multiple of 4 in every output dtype.  The match must be exact.
   4. the main path at full width (N=32, T=150, U=21, V=5000, fp32):
@@ -18,7 +22,8 @@ Phases, in order; any failure exits non-zero before the last line:
      the 2 GB gradient are held against `impl="scan"` on the card, and the
      golden vectors of `tests/golden.py` run through the port on the card.
   5. times (CUDA events, dependency-forced chains) of each kernel, its twin,
-     and loss+grad end to end, each beside its bound.
+     and loss+grad end to end, each beside its bound (the lattice's also
+     beside its chain floor).
   6. the fused joint kernels (forward; backward d_a/d_c and d_W/d_b) against
      their plain torch versions on the card (the cases and tolerances of
      `benchmarks/fused_joint_cases.py`; d_W and d_b held per column group:
@@ -94,6 +99,13 @@ same (R, H) x (H, V); and the fused slice's step under the profiler
 left, the h image kernel, counted `fused_joint_hidden` (once before the
 forward, once before the backward past one 256-column slice).
 
+Slice 8 (the lattice sweep as a warp pipeline over (T, U)) adds, inside
+phases 2, 5 and 10: the new lattice cases and bit-equality above; the
+lattice kernel's plan, registers, spills and shared memory at the main
+path's lattice and at B's (also in the kernels line, `attrs`); the lattice
+times' bound counted from what the recurrence needs (8 operations a cell and
+direction) with the chain floor beside it, at the main path and at compact
+A and B (the kernels line's `case_A` and `case_B`).
 It prints the kernels' JSON line and the card's line, and last
 `{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}`.
 Without a CUDA device, or without the package beside it, it exits 1 and
@@ -101,7 +113,6 @@ prints no result.
 """
 
 import json
-import math
 import os
 import subprocess
 import sys
@@ -170,30 +181,61 @@ def valid_mask(torch, xn, yn, t, u):
     return (ti < xn[:, None, None]) & (ui <= yn[:, None, None])
 
 
+def seeded_lengths(torch, n, t, u, seed):
+    """Lengths in [t/2, t] and [0, u-1] from a seed, the first sample full,
+    int32 on the card."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    xn = torch.randint(t // 2, t + 1, (n,), generator=g)
+    yn = torch.randint(0, u, (n,), generator=g)
+    xn[0], yn[0] = t, u - 1
+    return xn.int().cuda(), yn.int().cuda()
+
+
+# B's lattice: compact case B's (N, T_max, U_max) at CASE_B's seed.
+LATTICE_B = (16, 1473, 299)
+
+
 def phase_lattice(torch, cuda_impl, main_lattice):
-    """Kernel vs twin on valid cells: |k - p| <= 1e-5 |p| + 1e-5.  The kernel
-    and the twin run the same scan in the same order (one chunk up to
-    T=256), so they differ only by the rounding of expf/log1pf."""
+    """Kernel vs twin on valid cells: |k - p| <= 1e-5 |p| + 1e-5.  The twin
+    runs the kernel's order of combines with the same logaddexp, so on the
+    card the two agree to the rounding of the same operations.  The ragged,
+    long_T, U=1 and full-width cases are held against the float32 twin, as
+    before; the long lattices (T=1100, B's) against the twin in float64,
+    which shows what float32 itself costs there.  Two calls must be
+    bit-equal at every case."""
     i32 = dict(dtype=torch.int32, device="cuda")
+    f32, f64 = torch.float32, torch.float64
     cases = [
-        ("ragged", *random_lattice(torch, 6, 37, 9, 1),
+        ("ragged", f32, *random_lattice(torch, 6, 37, 9, 1),
          torch.tensor([37, 20, 1, 37, 5, 30], **i32),
          torch.tensor([8, 3, 0, 8, 0, 5], **i32)),
-        ("long_T", *random_lattice(torch, 3, 600, 4, 2),
+        ("long_T", f32, *random_lattice(torch, 3, 600, 4, 2),
          torch.tensor([600, 333, 257], **i32), torch.tensor([3, 1, 2], **i32)),
-        ("full_width", *main_lattice),
+        ("U=1", f32, *random_lattice(torch, 3, 40, 1, 4),
+         torch.tensor([40, 1, 17], **i32), torch.tensor([0, 0, 0], **i32)),
+        ("T=1100", f64, *random_lattice(torch, 4, 1100, 9, 5),
+         *seeded_lengths(torch, 4, 1100, 9, 5)),
+        ("B", f64, *random_lattice(torch, *LATTICE_B, 6),
+         *seeded_lengths(torch, *LATTICE_B, 6)),
+        ("full_width", f32, *main_lattice),
     ]
     errs = {}
-    for name, blank, emit, xn, yn in cases:
+    for name, ref_dtype, blank, emit, xn, yn in cases:
         mask = valid_mask(torch, xn, yn, blank.shape[1], blank.shape[2])
         for compute_alpha in (True, False):
             ka, kb = cuda_impl.alpha_beta(blank, emit, xn, yn, compute_alpha)
-            pa, pb = cuda_impl.alpha_beta_plain(blank, emit, xn, yn, compute_alpha)
+            again = cuda_impl.alpha_beta(blank, emit, xn, yn, compute_alpha)
+            pa, pb = cuda_impl.alpha_beta_plain(blank, emit, xn, yn,
+                                                compute_alpha, dtype=ref_dtype)
             torch.cuda.synchronize()
             pairs = [(kb, pb)] + ([(ka, pa)] if compute_alpha else [])
+            if not all(torch.equal(x, y) for x, y in zip((ka, kb)[not compute_alpha:],
+                                                          again[not compute_alpha:])):
+                raise AssertionError(f"lattice {name} compute_alpha={compute_alpha}:"
+                                     " two calls differ")
             err = 0.0
             for k, p in pairs:
-                k, p = k[mask], p[mask]
+                k, p = k[mask].to(ref_dtype), p[mask]
                 if not torch.isfinite(k).all():
                     raise AssertionError(f"lattice {name}: non-finite valid cell")
                 diff = (k - p).abs()
@@ -205,10 +247,25 @@ def phase_lattice(torch, cuda_impl, main_lattice):
                 err = max(err, float(diff.max()))
             kname = "lattice_fused" if compute_alpha else "lattice_beta_only"
             print(f"lattice {kname} {name} {tuple(blank.shape)}: max abs err"
-                  f" on valid cells {err}")
+                  f" on valid cells {err} against the {ref_dtype} twin;"
+                  " two calls bit-equal")
             if name == "full_width":
                 errs[kname] = err
+            elif name == "B":
+                errs[f"{kname} B"] = err
     return errs
+
+
+def lattice_attrs(cuda_impl):
+    """The lattice kernel's plan, registers, spills and shared memory at the
+    main path's lattice and at B's."""
+    out = {}
+    for label, (t, u) in (("main", (T, U)), ("B", LATTICE_B[1:])):
+        out[label] = cuda_impl.kernel_attrs(t, u)
+        print(f"lattice kernel attrs {label} T={t} U={u}: {json.dumps(out[label])}")
+        if out[label]["spill_bytes"]:
+            print(f"WARNING: the lattice kernel spills at T={t}")
+    return out
 
 
 def phase_write(torch, fk, loc_rows):
@@ -335,13 +392,26 @@ def check_golden(torch, wt):
         print(f"golden {name}: ok")
 
 
+def chain_floor_ms(t, u, ns):
+    """The lattice's dependency chain: T + U - 1 anti-diagonals, one
+    dependent logaddexp of `ns` each."""
+    return (t + u - 1) * ns * 1e-6
+
+
+def lattice_work(n, t, u, compute_alpha):
+    """(bytes, fp32 operations) the lattice sweep needs: blank and emit read
+    once, betas (and alphas) written once, the lengths read; ~8 operations
+    (two adds, max, subtract, abs, exp, add, log) a cell and direction."""
+    cells, dirs = n * t * u, 2 if compute_alpha else 1
+    return (2 + dirs) * cells * 4 + 2 * n * 4, 8 * cells * dirs
+
+
 def phase_times(torch, wt, cuda_impl, fk, timing, inputs, main_lattice,
-                ct, rates, card):
+                ct, rates, card, lae_ns):
     log_probs, labels, xn, yn = inputs
     blank, emit, xn_l, yn_l = main_lattice
     ct0, ct1, loc_rows = ct
     R = N * T * U
-    steps = math.ceil(math.log2(T))
     first = lambda out: out[1].view(-1)[0]  # noqa: E731  one element of betas
     times = {}
 
@@ -354,14 +424,18 @@ def phase_times(torch, wt, cuda_impl, fk, timing, inputs, main_lattice,
         print(f"time {name}: ms={ms} plain_ms={plain_ms} bound_ms={b_ms}"
               f" bound_by={b_by} [{card}]")
 
-    # lattice: reads blank+emit, writes alphas and/or betas; ~8 fp32
-    # operations per cell per scan step per direction
-    kernel("lattice_fused", cuda_impl.alpha_beta, cuda_impl.alpha_beta_plain,
-           (blank, emit, xn_l, yn_l, True), first,
-           4 * R * 4 + 2 * N * 4, 2 * R * steps * 8, 20)
-    kernel("lattice_beta_only", cuda_impl.alpha_beta, cuda_impl.alpha_beta_plain,
-           (blank, emit, xn_l, yn_l, False), first,
-           3 * R * 4 + 2 * N * 4, R * steps * 8, 20)
+    # lattice: what the recurrence needs, whatever the kernel does
+    for name, alpha in (("lattice_fused", True), ("lattice_beta_only", False)):
+        kernel(name, cuda_impl.alpha_beta, cuda_impl.alpha_beta_plain,
+               (blank, emit, xn_l, yn_l, alpha), first,
+               *lattice_work(N, T, U, alpha), 20)
+        times[name]["chain_floor_ms"] = chain_floor_ms(T, U, lae_ns)
+        times[name]["device_ms"] = timing.bench_graph(
+            cuda_impl.alpha_beta, (blank, emit, xn_l, yn_l, alpha))
+        print(f"device {name} N,T,U={(N, T, U)}: {times[name]['device_ms']} ms"
+              f" (CUDA graph, L2 flushed); chain floor"
+              f" {times[name]['chain_floor_ms']} ms ({T + U - 1} dependent"
+              f" logaddexps of {lae_ns} ns) [{card}]")
     # write: reads ct0, ct1, loc_rows, writes R*V fp32; 4 operations per element
     kernel("flat_write", fk.flat_grad_write, fk.flat_grad_write_plain,
            (ct0, ct1, loc_rows, 0, V, U * V), lambda d: d.view(-1)[0],
@@ -966,22 +1040,33 @@ def time_packed_kernels(torch, pk, timing, case, rates, card, tag):
     return times
 
 
-def time_compact(torch, wt, pk, cuda_impl, timing, case, card, tag):
+def time_compact(torch, wt, pk, cuda_impl, timing, case, rates, card, tag,
+                 lae_ns):
     """Compact loss+grad and no-grad against padded loss+grad on the same
     values, each with its peak device memory (the reference's
     compact-vs-padded comparison).  Beside them: the lattice kernels at the
-    case's lattice, and compact loss+grad with the host read of the lengths
-    (`compact._static_bounds`) left out, which shows what that read costs."""
+    case's lattice with their bound and chain floor, and compact loss+grad
+    with the host read of the lengths (`compact._static_bounds`) left out,
+    which shows what that read costs."""
     from warp_rnnt_tpu_torch.functional.core import rnnt_core
 
     xs, ys, xn, yn = (case[k] for k in ("xs", "ys", "xn", "yn"))
     T, U, blank, loc = case["T"], case["U"], case["blank"], case["loc"]
     blank_lp, emit_lp = pk.packed_gather(xs, loc, xn, yn, blank, T, U)
+    lattice = {}
     for name, alpha in (("lattice_fused", True), ("lattice_beta_only", False)):
         ms = timing.bench_scalar_chain(
             cuda_impl.alpha_beta, (blank_lp, emit_lp, xn, yn, alpha), 10,
             reduce_out=lambda out: out[1].view(-1)[0])
-        print(f"time {name} {tag} N,T,U={tuple(blank_lp.shape)}: ms={ms} [{card}]")
+        dev = timing.bench_graph(cuda_impl.alpha_beta,
+                                 (blank_lp, emit_lp, xn, yn, alpha))
+        b_ms, b_by = bound_ms(*lattice_work(*blank_lp.shape, alpha), rates)
+        floor = chain_floor_ms(T, U, lae_ns)
+        lattice[name] = dict(ms=ms, device_ms=dev, bound_ms=b_ms,
+                             bound_by=b_by, chain_floor_ms=floor)
+        print(f"time {name} {tag} N,T,U={tuple(blank_lp.shape)}: ms={ms}"
+              f" device_ms={dev} bound_ms={b_ms} bound_by={b_by}"
+              f" chain_floor_ms={floor} [{card}]")
     del blank_lp, emit_lp
 
     def no_read_step(x):
@@ -1017,6 +1102,7 @@ def time_compact(torch, wt, pk, cuda_impl, timing, case, card, tag):
         ng = timing.bench_scalar_chain(
             lambda x: wt.rnnt_loss(x, ys, xn, yn, compact=True), (xs,), 10)
     out["compact_no_grad_ms"] = ng
+    out["lattice"] = lattice
     print(f"time loss no-grad compact {tag}: ms={ng} [{card}]")
     return out
 
@@ -1691,6 +1777,8 @@ def main():
                     torch.gather(log_probs, 3, idx)[..., 0].contiguous(), xn, yn)
 
     errs = phase_lattice(torch, cuda_impl, main_lattice)
+    ns = cuda_impl.lae_ns()
+    print(f"one dependent logaddexp on one thread: {ns} ns [{card}]")
     ct = (*phase_write(torch, fk, loc_rows), loc_rows)
     errs["flat_write"] = 0.0
 
@@ -1706,7 +1794,7 @@ def main():
         torch, np, wt, cuda_impl, costs_and_grads))
 
     times = phase_times(torch, wt, cuda_impl, fk, timing, inputs, main_lattice,
-                        ct, rates, card)
+                        ct, rates, card, ns)
     print(f"peak device memory: {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     del inputs, log_probs, main_lattice, ct
 
@@ -1718,6 +1806,7 @@ def main():
     errs.update(phase_fused_kernels(torch, fj, fj_cases, full_case))
     check_deterministic(torch, fj, full_case, "full width")
     attrs = kernel_attrs(fj)
+    attrs["lattice_fused"] = attrs["lattice_beta_only"] = lattice_attrs(cuda_impl)
     fj_launches, *fj_out = phase_fused_main(
         torch, wt, [cuda_impl.LAUNCHES, fk.LAUNCHES, fj.LAUNCHES], fjin, params
     )
@@ -1755,12 +1844,13 @@ def main():
                                                       f"case {label}")
         check_compact(torch, wt, pk, case, f"case {label}", *out)
         del out
-    packed_times = {}
+    packed_times, compact_times = {}, {}
     for label, case in full.items():
         packed_times[label] = time_packed_kernels(torch, pk, timing, case, rates,
                                                   card, f"case {label}")
-        time_compact(torch, wt, pk, cuda_impl, timing, case, card,
-                     f"case {label}")
+        compact_times[label] = time_compact(
+            torch, wt, pk, cuda_impl, timing, case, rates, card,
+            f"case {label}", ns)
     times.update(packed_times["A"])
     del full, case
 
@@ -1879,6 +1969,12 @@ def main():
         if name.startswith("packed"):
             entry["case_B"] = {"launches": compact_launches["B"][name],
                                **packed_times["B"][name]}
+        if name.startswith("lattice"):
+            for label in ("A", "B"):
+                entry[f"case_{label}"] = {
+                    "launches": compact_launches[label][name],
+                    **compact_times[label]["lattice"][name]}
+            entry["case_B"]["max_abs_err"] = errs[f"{name} B"]
         if name.startswith("fused") and name != "fused_joint_hidden":
             entry["V=64000"] = {
                 "launches": large_launches[name], **large_times[name],

@@ -3,8 +3,11 @@
 The same seeded numpy inputs go through the JAX function and its port:
   * `scan_impl` against `warp_rnnt_tpu.functional.scan_impl` (rtol = atol =
     1e-5; alphas/betas on valid cells, costs and grads everywhere);
-  * the plain twin of the CUDA lattice kernels against the Pallas kernels in
-    interpret mode (1e-5 on valid cells);
+  * the plain twin of the CUDA lattice kernel against the Pallas kernels in
+    interpret mode (1e-5 on valid cells), at T within and past 256 frames;
+  * the twin in float32 against the twin in float64, the kernel's launch
+    geometry (`lattice_plan`), and the twin's column solve (the kernel's
+    order) against the recurrence taken one position at a time;
   * the plain twin of the CUDA gradient write against the Pallas writer in
     interpret mode (exact).
 Kernel-against-twin tests need the card and are marked `cuda`.
@@ -86,6 +89,74 @@ def test_twin_alpha_beta_matches_pallas(compute_alpha):
         _assert_valid_close(ta.numpy(), ja, xn, yn)
     else:
         assert ta is None and ja is None
+
+
+@pytest.mark.parametrize("compute_alpha", [True, False])
+def test_twin_alpha_beta_matches_pallas_long(compute_alpha):
+    """T past 256 frames (the old kernel's chunk) and U past one warp."""
+    blank, emit, xn, yn = _lattice(10, N=3, T=300, U=34, V=5)
+    ta, tb = cuda_impl.alpha_beta(*tt(blank, emit, xn, yn), compute_alpha)
+    ja, jb = pallas_impl.alpha_beta(
+        jnp.asarray(blank), jnp.asarray(emit), jnp.asarray(xn), jnp.asarray(yn),
+        compute_alpha=compute_alpha, interpret=True,
+    )
+    _assert_valid_close(tb.numpy(), jb, xn, yn)
+    if compute_alpha:
+        _assert_valid_close(ta.numpy(), ja, xn, yn)
+
+
+@pytest.mark.parametrize("compute_alpha", [True, False])
+def test_twin_float64_matches_float32(compute_alpha):
+    blank, emit, xn, yn = _lattice(11, N=5, T=40, U=9)
+    args = tt(blank, emit, xn, yn)
+    a32, b32 = cuda_impl.alpha_beta_plain(*args, compute_alpha)
+    a64, b64 = cuda_impl.alpha_beta_plain(*args, compute_alpha,
+                                          dtype=torch.float64)
+    assert b32.dtype == torch.float32 and b64.dtype == torch.float64
+    _assert_valid_close(b32.numpy(), b64.numpy(), xn, yn)
+    if compute_alpha:
+        _assert_valid_close(a32.numpy(), a64.numpy(), xn, yn)
+    else:
+        assert a64 is None
+
+
+@pytest.mark.parametrize("T", [1, 31, 33, 150, 1024, 1100, 1473, 9000])
+def test_lattice_plan(T):
+    """Every position of every segment belongs to one lane; no warp is idle
+    in the first segment; the block fits the card's threads."""
+    plan = cuda_impl.lattice_plan(T)
+    rows = 32 * plan.frames * plan.warps
+    assert 1 <= plan.frames <= cuda_impl.MAX_FRAMES
+    assert 1 <= plan.warps <= cuda_impl.MAX_WARPS
+    assert plan.segments == -(-T // rows)
+    assert (plan.segments - 1) * rows < T <= plan.segments * rows
+    if plan.segments == 1:
+        assert (plan.warps - 1) * 32 * plan.frames < T  # each warp has a frame
+        assert plan.frames == -(-T // (32 * cuda_impl.MAX_WARPS))
+
+
+def test_lattice_plan_rejects_empty():
+    with pytest.raises(ValueError):
+        cuda_impl.lattice_plan(0)
+
+
+@pytest.mark.parametrize("T", [1, 31, 33, 150, 1100, 9000])
+def test_solve_in_kernel_order_solves_the_recurrence(T):
+    """The twin's column solve, in the kernel's order (lanes, warps,
+    segments), equals the recurrence a[j] = LSE(a[j-1] + m[j], b[j]) taken
+    one position at a time, in float64."""
+    rng = np.random.RandomState(T)
+    m = torch.tensor(rng.randn(2, T) - 1.0)
+    b = torch.tensor(rng.randn(2, T) - 3.0)
+    b[1, T // 2:] = cuda_impl.NEG  # sentinel cells inside a warp
+    want = torch.empty_like(m)
+    a = b[:, 0]
+    want[:, 0] = a
+    for j in range(1, T):
+        a = cuda_impl._lae(a + m[:, j], b[:, j])
+        want[:, j] = a
+    np.testing.assert_allclose(cuda_impl._solve(m, b).numpy(), want.numpy(),
+                               rtol=1e-12, atol=0)
 
 
 @pytest.mark.parametrize("fastemit", [0.0, 0.25])
@@ -186,7 +257,7 @@ def test_build_raises_without_nvcc(tmp_path, monkeypatch):
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape,xn,yn", [
     ((6, 37, 9), [37, 20, 1, 37, 5, 30], [8, 3, 0, 8, 0, 5]),
-    ((3, 600, 4), [600, 333, 257], [3, 1, 2]),  # T above one 256-thread chunk
+    ((3, 600, 4), [600, 333, 257], [3, 1, 2]),  # T = 600: 19 warps
 ])
 @pytest.mark.parametrize("compute_alpha", [True, False])
 def test_lattice_kernel_matches_twin(cuda_device, shape, xn, yn, compute_alpha):
@@ -201,6 +272,72 @@ def test_lattice_kernel_matches_twin(cuda_device, shape, xn, yn, compute_alpha):
     _assert_valid_close(kb.cpu().numpy(), pb.numpy(), xn, yn)
     if compute_alpha:
         _assert_valid_close(ka.cpu().numpy(), pa.numpy(), xn, yn)
+
+
+def _card_lattice(seed, N, T, U, xn=None, yn=None):
+    """A seeded lattice and lengths (random in [T/2, T] and [0, U-1], the
+    first sample full, unless given) as CPU tensors."""
+    rng = np.random.RandomState(seed)
+    lp = torch.log_softmax(torch.tensor(rng.randn(N, T, U, 3).astype(np.float32)), -1)
+    if xn is None:
+        xn = rng.randint(T // 2, T + 1, size=N)
+        yn = rng.randint(0, U, size=N)
+        xn[0], yn[0] = T, U - 1
+    return [lp[..., 0].contiguous(), lp[..., 1].contiguous(),
+            torch.tensor(xn, dtype=torch.int32), torch.tensor(yn, dtype=torch.int32)]
+
+
+# Long lattices are held against the twin in float64: past ~600 frames the
+# float32 twin's own rounding nears the tolerance.
+LONG_CASES = {
+    "T=1100": dict(N=4, T=1100, U=9),               # > 32 x 32, not a multiple of 32
+    "B": dict(N=16, T=1473, U=299),                 # compact case B's lattice
+    "U=1": dict(N=3, T=40, U=1, xn=[40, 1, 17], yn=[0, 0, 0]),
+    "segments": dict(N=2, T=9000, U=5),             # past 32 warps x 8 frames
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(LONG_CASES))
+@pytest.mark.parametrize("compute_alpha", [True, False])
+def test_lattice_kernel_matches_float64_twin(cuda_device, case, compute_alpha):
+    args = _card_lattice(12, **LONG_CASES[case])
+    pa, pb = cuda_impl.alpha_beta_plain(*args, compute_alpha, dtype=torch.float64)
+    ka, kb = cuda_impl.alpha_beta(*(a.to(cuda_device) for a in args), compute_alpha)
+    xn, yn = args[2].numpy(), args[3].numpy()
+    _assert_valid_close(kb.cpu().double().numpy(), pb.numpy(), xn, yn)
+    if compute_alpha:
+        _assert_valid_close(ka.cpu().double().numpy(), pa.numpy(), xn, yn)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["B", "full_width"])
+def test_lattice_kernel_is_deterministic(cuda_device, case):
+    """Two calls give bit-equal alphas and betas (no atomics in the
+    arithmetic)."""
+    dims = LONG_CASES["B"] if case == "B" else dict(
+        N=32, T=150, U=21, xn=[150] * 32, yn=[20] * 32)
+    args = [a.to(cuda_device) for a in _card_lattice(13, **dims)]
+    for compute_alpha in (True, False):
+        first = cuda_impl.alpha_beta(*args, compute_alpha)
+        second = cuda_impl.alpha_beta(*args, compute_alpha)
+        for x, y in zip(first, second):
+            assert (x is None and y is None) or torch.equal(x, y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,U", [(150, 21), (1473, 299), (9000, 5), (40, 1)])
+def test_lattice_kernel_attrs(cuda_device, T, U):
+    """No spills; the staged tile is a power of two of at most 8 columns,
+    no wider than U needs; the block stays within the shared-memory budget,
+    and within the default 48 KB at the main path's lattice."""
+    attrs = cuda_impl.kernel_attrs(T, U)
+    cols = attrs["tile_cols"]
+    assert attrs["spill_bytes"] == 0
+    assert cols & (cols - 1) == 0 and cols <= 8 and (cols < 2 * U or cols == 1)
+    assert attrs["dynamic_smem"] <= 200 * 1024
+    if (T, U) == (150, 21):
+        assert attrs["dynamic_smem"] <= 48 * 1024
 
 
 @pytest.mark.cuda

@@ -11,7 +11,10 @@ Each runs under `torch.profiler`, and the script prints the device time of
 each kernel summed over the window, per call, with its share of the
 window's wall time, and the device's idle share.  The wall time includes
 the profiler's own host cost, so it reads higher than the chained time of
-`chip_smoke.py`.  Needs a CUDA device.
+`chip_smoke.py`; beside it stands the step's wall time without the
+profiler (best of three windows of ITERS calls).  It reads only entry
+points that older trees have, so a copy placed in an older tree's
+`benchmarks/` times that tree.  Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -68,7 +71,8 @@ def profile(path="main"):
 
 def profile_step(step):
     """Profile ITERS calls of ``step()`` after three unprofiled ones.
-    Returns {"wall_ms", "busy_ms" (per call), "idle_share",
+    Returns {"step_ms" (wall per call without the profiler, best of three
+    windows), "wall_ms", "busy_ms" (per call), "idle_share",
     "kernels_per_call", "rows": [(device ms per call, launches per call,
     kernel name)], "device"}."""
     if not torch.cuda.is_available():
@@ -78,7 +82,14 @@ def profile_step(step):
 
     for _ in range(3):
         step()
-    torch.cuda.synchronize()
+    step_ms = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(ITERS):
+            step()
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3 / ITERS)
     with torch_profile(activities=[ProfilerActivity.CPU,
                                    ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -98,7 +109,8 @@ def profile_step(step):
             rows.append((dev_us / 1e3 / ITERS, ev.count // ITERS, ev.key))
     rows.sort(reverse=True)
     busy_ms = sum(r[0] for r in rows)
-    return {"wall_ms": wall_ms / ITERS, "busy_ms": busy_ms,
+    return {"step_ms": min(step_ms), "wall_ms": wall_ms / ITERS,
+            "busy_ms": busy_ms,
             "idle_share": 1 - busy_ms * ITERS / wall_ms,
             "kernels_per_call": sum(r[1] for r in rows), "rows": rows,
             "device": torch.cuda.get_device_name(0)}
@@ -109,7 +121,8 @@ def main(argv=None):
     parser.add_argument("--path", choices=("main", *CASES), default="main")
     args = parser.parse_args(argv)
     r = profile(args.path)
-    print(f"{r['device']} path={args.path}: {ITERS} calls, wall"
+    print(f"{r['device']} path={args.path}: {ITERS} calls, step"
+          f" {r['step_ms']:.4f} ms/call without the profiler, wall"
           f" {r['wall_ms']:.4f} ms/call, device busy {r['busy_ms']:.4f}"
           f" ms/call, idle share {r['idle_share']:.3f},"
           f" {r['kernels_per_call']} kernels/call")

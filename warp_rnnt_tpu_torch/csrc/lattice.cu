@@ -10,134 +10,448 @@
 //   alpha[t, u] = LSE(alpha[t-1, u] + blank[t-1, u], alpha[t, u-1] + emit[t, u-1])
 //   beta[t, u]  = LSE(beta[t+1, u] + blank[t, u],    beta[t, u+1] + emit[t, u])
 //
-// Each column is the first-order log-space recurrence
-// a[j] = LSE(a[j-1] + m[j], b[j]), solved by a Hillis-Steele doubling scan
-// over (m, b) pairs in shared memory (the combine of `_scan_fwd`/`_scan_bwd`).
+// Each column u is the first-order log-space recurrence
+// a[j] = LSE(a[j-1] + m[j], b[j]) along the scan position j (j = t for
+// alphas, j = T-1-t for betas), whose b[j] needs the previous column.
 //
-// What bounds it on this card: not bytes (the lattice moves ~1.6 MB at
-// N=32, T=150, U=21) and not arithmetic, but latency: each sample is a chain
-// of U columns x ceil(log2 T) dependent scan steps, each a __syncthreads.
-// Design: one block per (sample, direction) -- grid (N, 2) for the fused
-// sweep, (N, 1) for beta only -- so alpha and beta of every sample run in
-// parallel on separate SMs; the TPU's sequential grid over U becomes a loop
-// inside the block.  The column carry is read back from the block's own
-// output column (made visible by __syncthreads), so T has no limit: the
-// column is scanned in chunks of kThreads positions, each chunk seeded with
-// the previous chunk's last value.  The beta sweep runs the same forward
-// scan over a reversed index (j = T-1-t).  Wavefront schedules (one warp per
-// T chunk, as the CUDA reference does) are later work.
+// What bounds it on this card: not bytes (~0.5 us for the main path's
+// lattice) and not the card's arithmetic, but the lattice's own chain of
+// dependent logaddexps (T + U - 1 anti-diagonals, each an exp and a log) and
+// the issue rate of the one SM a sample's direction runs on (PERF.md gives
+// the times beside the chain floor and the byte bound).  The previous
+// design solved each column with a block-wide doubling scan: U x
+// ceil(T/256) x 19 block barriers a sample (4.4 ms at T=1473, U=299 on an
+// H100).
+//
+// Design: a warp pipeline over the lattice, as in the original CUDA
+// warp-rnnt, rebuilt for this card.  One block per (sample, direction):
+// grid (N, 2) for the fused sweep, (N, 1) for beta only.  The block's W
+// warps own consecutive ranges of 32*K scan positions, each lane K
+// consecutive positions (K and W from the wrapper's `lattice_plan`).  A warp
+// walks the columns in order; per column each lane folds its K cells, a
+// 5-step __shfl_up_sync scan combines the lanes' (m, b) pairs (the combine
+// of `_scan_fwd`: b = LSE(b' + m, b), m = m' + m), and the carry that warp
+// w-1 published for the same column seeds it.  The chain is thus about
+// U + W - 1 warp stages, with no block barrier inside a stage:
+//   * the previous column stays in registers (each lane's own cells);
+//   * hand-off between neighbouring warps is a ring of 8 carry slots in
+//     shared memory per warp, each with a full and an empty mbarrier
+//     (arrive releases, try_wait acquires and suspends the waiting lane in
+//     hardware); a warp runs ahead of its successor by at most 8 columns;
+//   * inputs come off the chain: each warp stages tiles of (its 32*K
+//     positions x C columns) of blank and emit in shared memory, two tiles
+//     in flight, with 4-byte cp.async.ca.  A row's C columns are contiguous
+//     in (N, T, U), so neighbouring lanes copy neighbouring columns of a row
+//     (U*4 bytes is not a multiple of 16 at U=21 or 299, so 16-byte copies,
+//     1-D bulk copies and TMA's 16-byte strides do not apply to these rows);
+//     C is chosen here, from K, W and U (`tile_log2_cols`);
+//   * outputs are staged the same way and written a tile at a time, along
+//     the rows.
+// Past 32 warps x 8 positions a lane (T > 8192) the block sweeps T in
+// segments of W*32*K positions; warp 0 of a segment reads its carries from
+// the row the previous segment wrote.
+// Numerics: the combines run in a fixed order, with no atomics, so two calls
+// give bit-equal outputs; the order and the logaddexp (precise expf and
+// log1pf) are those of the torch twin (`cuda_impl._solve`), so on the card
+// the kernel and the twin agree to rounding of the same operations.
 //
 // Launches on the caller's stream; allocates nothing; returns
 // cudaGetLastError() so the caller can raise on a refused launch.
 
 #include <cuda_runtime.h>
 
+#include <atomic>
+#include <cstdint>
+
 namespace {
 
-constexpr int kThreads = 256;
 constexpr float kNeg = -1.0e30f;
+constexpr int kMaxFrames = 8;   // positions a lane
+constexpr int kMaxWarps = 32;
+constexpr int kRing = 8;        // carry slots between neighbouring warps
+constexpr int kMaxCols = 8;     // columns a staged tile
+constexpr int kSmemBudget = 200 << 10;  // of the 227 KB a block may have
+constexpr int kMaxDevices = 64;
+constexpr unsigned kFull = 0xffffffffu;
 
 // A log-prob as the sweeps read it: values below the sentinel, -inf among
 // them, become the sentinel, so that lae never meets two -inf (|a - b| would
 // be NaN where the JAX scan's safe logaddexp gives -inf); a NaN stays NaN.
 // Finite log-probs at or above -1e30 pass unchanged.
-__device__ __forceinline__ float ld(const float* p) {
-  const float x = *p;
-  return x < kNeg ? kNeg : x;
-}
+__device__ __forceinline__ float ld(float x) { return x < kNeg ? kNeg : x; }
 
-// logaddexp on finite sentinel values; fp32, precise expf/log1pf.
+// logaddexp on finite sentinel values; fp32, precise expf/log1pf, as the
+// twin's `_lae`.
 __device__ __forceinline__ float lae(float a, float b) {
   const float mx = fmaxf(a, b);
   return mx + log1pf(expf(-fabsf(a - b)));
 }
 
-// In-place inclusive scan of one chunk: on return sb[j] holds the chunk-local
-// solution and sm[j] the running sum of m.  Positions with no left neighbour
-// at distance k combine with the identity (0, kNeg).
-__device__ __forceinline__ void chunk_scan(float* sm, float* sb, int j) {
-  float m = sm[j];
-  float b = sb[j];
-  for (int k = 1; k < kThreads; k <<= 1) {
-    const float ms = j >= k ? sm[j - k] : 0.0f;
-    const float bs = j >= k ? sb[j - k] : kNeg;
-    __syncthreads();
-    b = lae(bs + m, b);
-    m = ms + m;
-    sm[j] = m;
-    sb[j] = b;
-    __syncthreads();
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* b, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_addr(b)),
+               "r"(count) : "memory");
+}
+
+// Arrive (release): what this thread wrote before is visible to a waiter.
+__device__ __forceinline__ void mbar_arrive(uint64_t* b) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_addr(b))
+               : "memory");
+}
+
+// Wait (acquire) until the phase of parity `parity` has completed; the
+// thread is suspended in hardware between tries, so a waiting warp does not
+// flood the shared-memory pipe that the working warps' shuffles use.
+__device__ __forceinline__ void mbar_wait(uint64_t* b, int parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_addr(b)), "r"(parity)
+        : "memory");
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-lattice_kernel(const float* __restrict__ blank, const float* __restrict__ emit,
-               const int* __restrict__ xn_arr, const int* __restrict__ yn_arr,
-               float* __restrict__ alphas, float* __restrict__ betas,
-               int T, int U, int beta_only) {
-  __shared__ float sm[kThreads];
-  __shared__ float sb[kThreads];
-  __shared__ float carry;
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;"
+               :: "r"(smem_addr(dst)), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_wait_one() {
+  asm volatile("cp.async.wait_group 1;" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_wait_all() {
+  asm volatile("cp.async.wait_group 0;" ::: "memory");
+}
+
+struct Args {
+  const float* blank;
+  const float* emit;
+  const int* xn;
+  const int* yn;
+  float* alphas;
+  float* betas;
+  int T, U, beta_only;
+  int warps;      // the wrapper's `lattice_plan`
+  int log2_cols;  // `tile_log2_cols`
+};
+
+// Shared memory: full and empty barriers of each warp's carry ring
+// ([W][kRing] each), the rings' carries ([W][kRing]), then per warp two
+// buffers of two input tiles (blank then emit rows, C columns each) and one
+// output tile (`smem_bytes`).  A tile is C columns of P = 32K + 1 floats;
+// position p = lane*K + i of the warp sits at i*32 + lane, so a lane's reads
+// of its own cells hit 32 different banks.
+template <int K>
+struct Tile {
+  static constexpr int P = 32 * K + 1;
+  __device__ static int at(int c, int p) { return c * P + (p % K) * 32 + p / K; }
+};
+
+template <int K>
+__global__ void __launch_bounds__(kMaxWarps * 32)
+lattice_kernel(const Args a) {
+  extern __shared__ uint64_t smem_raw[];
+  constexpr int P = Tile<K>::P;
+  constexpr int kRows = 32 * K;
+  const int W = a.warps, lc = a.log2_cols, C = 1 << lc;
+  const int T = a.T, U = a.U;
+  const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int tile = C * P;
+  uint64_t* full = smem_raw;             // [W][kRing]: a carry is in the slot
+  uint64_t* empty = full + W * kRing;    // [W][kRing]: the slot was read
+  float* ring = reinterpret_cast<float*>(empty + W * kRing);  // [W][kRing]
+  float* tiles = ring + W * kRing + w * 5 * tile;  // [buffer 2][blank, emit][C][P]
+  float* otile = tiles + 4 * tile;
+  for (int i = threadIdx.x; i < W * kRing; i += blockDim.x) {
+    mbar_init(full + i, 1);
+    mbar_init(empty + i, 1);
+  }
+  __syncthreads();
 
   const int n = blockIdx.x;
-  const bool alpha_dir = !beta_only && blockIdx.y == 0;
-  const int j = threadIdx.x;
-  const int xn = xn_arr[n];
-  const int yn = yn_arr[n];
+  const bool alpha_dir = !a.beta_only && blockIdx.y == 0;
+  const int xn = a.xn[n];
+  const int yn = a.yn[n];
   const size_t base = (size_t)n * T * U;
-  const float* bl = blank + base;
-  const float* em = emit + base;
-  float* out = (alpha_dir ? alphas : betas) + base;
+  const float* bl = a.blank + base;
+  const float* em = a.emit + base;
+  float* out = (alpha_dir ? a.alphas : a.betas) + base;
+  const int groups = (U + C - 1) >> lc;
+  const int seg_len = W * kRows;
 
-  for (int step = 0; step < U; ++step) {
-    const int u = alpha_dir ? step : U - 1 - step;
-    for (int c0 = 0; c0 < T; c0 += kThreads) {
-      const int pos = c0 + j;  // position along the scan
-      const bool in = pos < T;
-      const int t = alpha_dir ? pos : T - 1 - pos;
-      float m = 0.0f;
-      float b = kNeg;
-      if (in) {
-        const size_t cell = (size_t)t * U + u;
-        if (alpha_dir) {
-          m = t == 0 ? 0.0f : ld(bl + cell - U);
-          if (u == 0) {
-            b = t == 0 ? 0.0f : kNeg;
-          } else if (u - 1 < yn && t < xn) {
-            b = out[cell - 1] + ld(em + cell - 1);
+  float prev[K];  // this lane's cells of the previous column
+#pragma unroll
+  for (int i = 0; i < K; ++i) prev[i] = kNeg;
+
+  // Scan position j at step s is cell (t, u) = (j, s) for alphas and
+  // (T-1-j, U-1-s) for betas; a tile row dp positions on is row_step floats
+  // on.
+  auto cell = [&](int j, int s) -> long long {
+    return alpha_dir ? (long long)j * U + s
+                     : (long long)(T - 1 - j) * U + (U - 1 - s);
+  };
+  const long long row_step = (long long)(32 >> lc) * (alpha_dir ? U : -U);
+  const int p0 = lane >> lc, dp = 32 >> lc;  // this lane's rows in a tile
+
+  for (int seg = 0; seg * seg_len < T; ++seg) {
+    const int j0 = seg * seg_len + w * kRows;  // the warp's first position
+
+    // Copy column group g (steps g*C .. g*C+C-1) of the warp's rows into
+    // buffer g&1: for step s and position j, the blank that multiplies the
+    // carry (m) and the emit that b adds.  Lane l copies column l % C of
+    // rows l / C, l / C + 32 / C, ...: neighbouring lanes take neighbouring
+    // columns of one row.
+    auto issue = [&](int g) {
+      const int c = lane & (C - 1), s = g * C + c;
+      if (s < U) {
+        float* tm = tiles + (g & 1) * 2 * tile;
+        float* te = tm + tile;
+        const float* src_m = bl + cell(j0 + p0, s) - (alpha_dir ? U : 0);
+        const float* src_e = em + cell(j0 + p0, s) - (alpha_dir ? 1 : 0);
+        const bool load_e = !alpha_dir || s > 0;
+        for (int p = p0; p < kRows && j0 + p < T;
+             p += dp, src_m += row_step, src_e += row_step) {
+          const int d = Tile<K>::at(c, p);
+          if (!alpha_dir || j0 + p > 0) cp_async4(tm + d, src_m);
+          if (load_e) cp_async4(te + d, src_e);
+        }
+      }
+      cp_commit();  // an empty group past the last keeps the count uniform
+    };
+
+    issue(0);
+    issue(1);
+    for (int g = 0; g < groups; ++g) {
+      cp_wait_one();
+      __syncwarp();
+      const float* tm = tiles + (g & 1) * 2 * tile;
+      const float* te = tm + tile;
+      const int cols = min(C, U - g * C);
+      for (int c = 0; c < cols; ++c) {
+        const int s = g * C + c;
+        const int u = alpha_dir ? s : U - 1 - s;
+        // Each lane folds its K cells: pm, pb = the inclusive (m, b) pairs.
+        float pm[K], pb[K];
+#pragma unroll
+        for (int i = 0; i < K; ++i) {
+          const int j = j0 + lane * K + i;
+          const int at = c * P + i * 32 + lane;
+          float m = 0.0f;
+          float b = kNeg;
+          if (j < T) {
+            if (alpha_dir) {
+              m = j == 0 ? 0.0f : ld(tm[at]);
+              if (u == 0) {
+                b = j == 0 ? 0.0f : kNeg;
+              } else if (u - 1 < yn && j < xn) {
+                b = prev[i] + ld(te[at]);
+              }
+            } else {
+              const int t = T - 1 - j;
+              m = ld(tm[at]);
+              if (t == xn - 1 && u == yn) {
+                b = m;
+              } else if (u < yn && t < xn && u + 1 < U) {
+                b = ld(te[at]) + prev[i];
+              }
+            }
           }
-        } else {
-          m = ld(bl + cell);
-          if (t == xn - 1 && u == yn) {
-            b = m;
-          } else if (u < yn && t < xn && u + 1 < U) {
-            b = ld(em + cell) + out[cell + 1];
+          if (i == 0) {
+            pm[0] = m;
+            pb[0] = b;
+          } else {
+            pb[i] = lae(pb[i - 1] + m, b);
+            pm[i] = pm[i - 1] + m;
+          }
+        }
+        // Inclusive scan of the lanes' pairs, then each lane's exclusive one.
+        float M = pm[K - 1], B = pb[K - 1];
+#pragma unroll
+        for (int d = 1; d < 32; d <<= 1) {
+          float ms = __shfl_up_sync(kFull, M, d);
+          float bs = __shfl_up_sync(kFull, B, d);
+          if (lane < d) {  // the identity (0, kNeg): B and M pass unchanged
+            ms = 0.0f;
+            bs = kNeg;
+          }
+          B = lae(bs + M, B);
+          M = ms + M;
+        }
+        float me = __shfl_up_sync(kFull, M, 1);
+        float be = __shfl_up_sync(kFull, B, 1);
+        if (lane == 0) {
+          me = 0.0f;
+          be = kNeg;
+        }
+        // The value at the position before the warp's first: from warp w-1
+        // through the ring, or from the row the previous segment wrote.
+        const int sg = seg * U + s;  // columns walked by this block so far
+        const int slot = sg & (kRing - 1), round = sg / kRing;
+        float v = kNeg;
+        if (lane == 0) {
+          if (w > 0) {
+            const int at = (w - 1) * kRing + slot;
+            mbar_wait(full + at, round & 1);
+            v = ring[at];
+            mbar_arrive(empty + at);
+          } else if (seg > 0) {
+            const int t = alpha_dir ? j0 - 1 : T - j0;
+            v = out[(size_t)t * U + u];
+          }
+        }
+        const float cin = __shfl_sync(kFull, v, 0);
+        if (w + 1 < W && lane == 31) {
+          const float carry = lae(cin + M, B);
+          const int at = w * kRing + slot;
+          if (round > 0) mbar_wait(empty + at, (round - 1) & 1);
+          ring[at] = carry;
+          mbar_arrive(full + at);
+        }
+        const float ain = lae(cin + me, be);
+#pragma unroll
+        for (int i = 0; i < K; ++i) {
+          prev[i] = lae(ain + pm[i], pb[i]);
+          otile[c * P + i * 32 + lane] = prev[i];
+        }
+      }
+      __syncwarp();
+      // Write the group's columns along the rows.
+      {
+        const int c = lane & (C - 1);
+        if (c < cols) {
+          float* dst = out + cell(j0 + p0, g * C + c);
+          for (int p = p0; p < kRows && j0 + p < T; p += dp, dst += row_step) {
+            *dst = otile[Tile<K>::at(c, p)];
           }
         }
       }
-      sm[j] = m;
-      sb[j] = b;
-      __syncthreads();
-      chunk_scan(sm, sb, j);
-      float a = sb[j];
-      if (c0 > 0) a = lae(carry + sm[j], a);
-      __syncthreads();  // every thread has read `carry` before it changes
-      if (in) out[(size_t)t * U + u] = a;
-      if (j == kThreads - 1) carry = a;
-      __syncthreads();  // column writes and `carry` visible to the block
+      __syncwarp();
+      issue(g + 2);
     }
+    cp_wait_all();
+    __syncthreads();  // the segment's last row is visible to the next
   }
+}
+
+// A probe of the chain's step: one thread walks n dependent logaddexps of
+// the recurrence's form, a = LSE(a + m, b).
+__global__ void lae_probe_kernel(float* out, int n) {
+  float a = out[0], m = out[1], b = out[2];
+  for (int i = 0; i < n; ++i) {
+    a = lae(a + m, b);
+    b -= 1.0e-3f;
+  }
+  out[0] = a;
+}
+
+using Kernel = void (*)(Args);
+const Kernel kKernels[kMaxFrames] = {
+    lattice_kernel<1>, lattice_kernel<2>, lattice_kernel<3>, lattice_kernel<4>,
+    lattice_kernel<5>, lattice_kernel<6>, lattice_kernel<7>, lattice_kernel<8>};
+
+// The layout that `lattice_kernel` carves: per warp a full and an empty
+// barrier (8 bytes each) and a carry for each ring slot, two buffers of two
+// input tiles and one output tile of `cols` x (32 * frames + 1) floats.
+int smem_bytes(int frames, int warps, int cols) {
+  return warps * (20 * kRing + 4 * 5 * cols * (32 * frames + 1));
+}
+
+// The widest tile, a power of two of at most kMaxCols columns and no wider
+// than U needs, that fits the budget (one column always does).
+int tile_log2_cols(int frames, int warps, int U) {
+  int lc = 0;
+  while ((1 << lc) < kMaxCols && (1 << lc) < U &&
+         smem_bytes(frames, warps, 2 << lc) <= kSmemBudget) {
+    ++lc;
+  }
+  return lc;
+}
+
+bool valid_plan(int frames, int warps) {
+  return frames >= 1 && frames <= kMaxFrames && warps >= 1 &&
+         warps <= kMaxWarps;
+}
+
+// Whether kernel K on a device may take kSmemBudget bytes: set once, the
+// first time a launch needs more than the default 48 KB.
+std::atomic<bool> g_opted_in[kMaxDevices][kMaxFrames];
+
+cudaError_t opt_in(int frames, int smem) {
+  if (smem <= (48 << 10)) return cudaSuccess;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  std::atomic<bool>* done =
+      dev < kMaxDevices ? &g_opted_in[dev][frames - 1] : nullptr;
+  if (done != nullptr && done->load(std::memory_order_acquire)) {
+    return cudaSuccess;
+  }
+  err = cudaFuncSetAttribute(kKernels[frames - 1],
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             kSmemBudget);
+  if (err == cudaSuccess && done != nullptr) {
+    done->store(true, std::memory_order_release);
+  }
+  return err;
 }
 
 }  // namespace
 
+// The sweep.  frames (K) and warps are the wrapper's `lattice_plan(T)`; the
+// tile width and the shared bytes follow from them and U.
 extern "C" int rnnt_lattice(const float* blank, const float* emit,
                             const int* xn, const int* yn, float* alphas,
                             float* betas, int N, int T, int U,
-                            int compute_alpha, void* stream) {
+                            int compute_alpha, void* stream, int frames,
+                            int warps) {
+  if (!valid_plan(frames, warps)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int lc = tile_log2_cols(frames, warps, U);
+  const int smem = smem_bytes(frames, warps, 1 << lc);
+  const cudaError_t err = opt_in(frames, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const Args a{blank, emit, xn, yn, alphas, betas, T, U,
+               compute_alpha ? 0 : 1, warps, lc};
   const dim3 grid(N, compute_alpha ? 2 : 1);
-  lattice_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      blank, emit, xn, yn, alphas, betas, T, U, compute_alpha ? 0 : 1);
+  kKernels[frames - 1]<<<grid, warps * 32, smem,
+                         static_cast<cudaStream_t>(stream)>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// What the sweep takes at (frames, warps, U): out = registers a thread,
+// local memory bytes a thread (spills), static shared memory bytes, the
+// tile's log2 columns and the dynamic shared memory bytes.
+extern "C" int rnnt_lattice_attrs(int frames, int warps, int U, int* out) {
+  if (!valid_plan(frames, warps) || U < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaFuncAttributes attr;
+  const cudaError_t err = cudaFuncGetAttributes(&attr, kKernels[frames - 1]);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int lc = tile_log2_cols(frames, warps, U);
+  out[0] = attr.numRegs;
+  out[1] = static_cast<int>(attr.localSizeBytes);
+  out[2] = static_cast<int>(attr.sharedSizeBytes);
+  out[3] = lc;
+  out[4] = smem_bytes(frames, warps, 1 << lc);
+  return 0;
+}
+
+// n dependent logaddexps on one thread; io[0..2] = a, m, b in, a out.
+extern "C" int rnnt_lae_probe(float* io, int n, void* stream) {
+  lae_probe_kernel<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>(io, n);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,12 +1,17 @@
-"""CUDA lattice kernels (`csrc/lattice.cu`) and their plain torch twin
+"""CUDA lattice kernel (`csrc/lattice.cu`) and its plain torch twin
 (counterpart of `warp_rnnt_tpu/ops/pallas_impl.py`).
 
 `alpha_beta` replaces the Pallas `_fused_kernel` (``compute_alpha=True``) and
 `_beta_only_kernel` (``compute_alpha=False``).  On a CUDA tensor it launches
-the kernel, or raises; on a CPU tensor it runs `alpha_beta_plain`, a torch
-version of the same doubling scan with the same -1e30 sentinel.  Invalid
-cells hold values near the sentinel in both; only valid cells (t < xn,
-u <= yn) are meaningful.
+the kernel, a warp pipeline over the lattice whose frames a lane and warps
+`lattice_plan` gives, or raises; on a CPU tensor it runs `alpha_beta_plain`,
+the torch twin: the same recurrence with the same -1e30 sentinel, each
+column solved in the kernel's order (`_solve`) with the kernel's
+logaddexp.  On the card the two agree to the rounding of the same
+operations; `alpha_beta_plain(..., dtype=torch.float64)` is the reference
+that holds long lattices to what float32 can give.  Invalid cells hold
+values near the sentinel in both; only valid cells (t < xn, u <= yn) are
+meaningful.
 
 What bounds the kernel and what its design does about that is noted at the
 top of `csrc/lattice.cu`.
@@ -15,6 +20,8 @@ top of `csrc/lattice.cu`.
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -31,12 +38,41 @@ def _lib():
     lib = _build.load("lattice")
     if not getattr(lib, "_typed", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.rnnt_lattice.argtypes = [p, p, p, p, p, p, i, i, i, i, p]
+        lib.rnnt_lattice.argtypes = [p, p, p, p, p, p, i, i, i, i, p, i, i]
         lib.rnnt_lattice.restype = i
+        lib.rnnt_lattice_attrs.argtypes = [i, i, i, p]
+        lib.rnnt_lattice_attrs.restype = i
+        lib.rnnt_lae_probe.argtypes = [p, i, p]
+        lib.rnnt_lae_probe.restype = i
         lib.rnnt_lattice_error_string.argtypes = [i]
         lib.rnnt_lattice_error_string.restype = ctypes.c_char_p
         lib._typed = True
     return lib
+
+
+MAX_FRAMES = 8    # scan positions a lane
+MAX_WARPS = 32
+
+
+class LatticePlan(NamedTuple):
+    """The kernel's order for a lattice of T frames: each of `warps` warps
+    owns 32 * `frames` consecutive scan positions, and `segments` sweeps of
+    warps * 32 * frames positions cover T."""
+    frames: int
+    warps: int
+    segments: int
+
+
+@functools.lru_cache(maxsize=256)
+def lattice_plan(T: int) -> LatticePlan:
+    """Frames a lane ceil(T / 1024) (at most 8), and as few warps as cover
+    T (at most 32)."""
+    if T < 1:
+        raise ValueError(f"empty lattice T={T}")
+    frames = min(MAX_FRAMES, -(-T // (32 * MAX_WARPS)))
+    warps = min(MAX_WARPS, -(-T // (32 * frames)))
+    segments = -(-T // (32 * frames * warps))
+    return LatticePlan(frames, warps, segments)
 
 
 def _check(blank_lp, emit_lp, xn, yn):
@@ -80,24 +116,50 @@ def _floor(x):
     return torch.where(x < NEG, NEG, x)
 
 
-def _scan(m, b):
-    """Inclusive solve of a[j] = LSE(a[j-1] + m[j], b[j]) along the last axis
-    (`pallas_impl._scan_fwd`; `_scan_bwd` is this on a reversed axis)."""
-    k = 1
-    while k < m.shape[-1]:
-        ms = _shift_right(m, k, 0.0)
-        bs = _shift_right(b, k, NEG)
-        b = _lae(bs + m, b)
-        m = ms + m
-        k *= 2
-    return b
+def _solve(m, b):
+    """Inclusive solve of a[j] = LSE(a[j-1] + m[j], b[j]) along the last
+    axis of (N, T), in the kernel's order for `lattice_plan(T)`: each lane
+    folds its `frames` positions, a 32-lane doubling scan combines the
+    lanes' (m, b) pairs (the combine of `pallas_impl._scan_fwd`), the carry
+    of the warp before seeds each warp, and the last value of the segment
+    before seeds each segment's first warp."""
+    N, T = m.shape
+    K, W, S = lattice_plan(T)
+    pad = S * W * 32 * K - T
+    m = torch.nn.functional.pad(m, (0, pad), value=0.0).view(N, S, W, 32, K)
+    b = torch.nn.functional.pad(b, (0, pad), value=NEG).view(N, S, W, 32, K)
+    pm, pb = [m[..., 0]], [b[..., 0]]
+    for i in range(1, K):
+        pb.append(_lae(pb[-1] + m[..., i], b[..., i]))
+        pm.append(pm[-1] + m[..., i])
+    M, B = pm[-1], pb[-1]
+    for d in (1, 2, 4, 8, 16):
+        ms, bs = _shift_right(M, d, 0.0), _shift_right(B, d, NEG)
+        B = _lae(bs + M, B)
+        M = ms + M
+    me, be = _shift_right(M, 1, 0.0), _shift_right(B, 1, NEG)
+    out = []
+    last = m.new_full((N,), NEG)
+    for s in range(S):
+        cin = [last]
+        for w in range(1, W):
+            cin.append(_lae(cin[-1] + M[:, s, w - 1, 31], B[:, s, w - 1, 31]))
+        ain = _lae(torch.stack(cin, 1)[..., None] + me[:, s], be[:, s])
+        seg = torch.stack([_lae(ain + pm[i][:, s], pb[i][:, s])
+                           for i in range(K)], -1)
+        last = seg[:, -1, -1, -1]
+        out.append(seg.reshape(N, -1))
+    return torch.cat(out, 1)[:, :T]
 
 
-def alpha_beta_plain(blank_lp, emit_lp, xn, yn, compute_alpha: bool = True):
-    """Plain torch twin of the lattice kernels: (alphas or None, betas)."""
+def alpha_beta_plain(blank_lp, emit_lp, xn, yn, compute_alpha: bool = True,
+                     dtype=torch.float32):
+    """Plain torch twin of the lattice kernel: (alphas or None, betas), in
+    `dtype` (float64 holds long lattices, where float32's own rounding nears
+    the kernel check's tolerance)."""
     _check(blank_lp, emit_lp, xn, yn)
-    blank_lp = _floor(blank_lp.float())
-    emit_lp = _floor(emit_lp.float())
+    blank_lp = _floor(blank_lp.to(dtype))
+    emit_lp = _floor(emit_lp.to(dtype))
     N, T, U = blank_lp.shape
     t_iota = torch.arange(T, device=blank_lp.device)[None, :]
     xn = xn[:, None]
@@ -115,7 +177,7 @@ def alpha_beta_plain(blank_lp, emit_lp, xn, yn, compute_alpha: bool = True):
             torch.where((u < yn) & valid_t, emit_lp[:, :, u] + carry, NEG),
         )
         carry = torch.flip(
-            _scan(torch.flip(blank_col, (1,)), torch.flip(b, (1,))), (1,)
+            _solve(torch.flip(blank_col, (1,)), torch.flip(b, (1,))), (1,)
         )
         betas[u] = carry
     betas = torch.stack(betas, dim=2)
@@ -123,7 +185,7 @@ def alpha_beta_plain(blank_lp, emit_lp, xn, yn, compute_alpha: bool = True):
         return None, betas
 
     alphas = []
-    seed = torch.where(t_iota == 0, 0.0, NEG).float().expand(N, T)
+    seed = torch.where(t_iota == 0, 0.0, NEG).to(dtype).expand(N, T)
     for u in range(U):
         if u == 0:
             b = seed
@@ -131,7 +193,7 @@ def alpha_beta_plain(blank_lp, emit_lp, xn, yn, compute_alpha: bool = True):
             b = torch.where(
                 ((u - 1) < yn) & valid_t, carry + emit_lp[:, :, u - 1], NEG
             )
-        carry = _scan(_shift_right(blank_lp[:, :, u], 1, 0.0), b)
+        carry = _solve(_shift_right(blank_lp[:, :, u], 1, 0.0), b)
         alphas.append(carry)
     return torch.stack(alphas, dim=2), betas
 
@@ -156,6 +218,7 @@ def alpha_beta(blank_lp, emit_lp, xn, yn, compute_alpha: bool = True):
         if not x.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     N, T, U = blank_lp.shape
+    plan = lattice_plan(T)
     lib = _lib()
     betas = torch.empty_like(blank_lp)
     alphas = torch.empty_like(blank_lp) if compute_alpha else None
@@ -165,10 +228,50 @@ def alpha_beta(blank_lp, emit_lp, xn, yn, compute_alpha: bool = True):
             blank_lp.data_ptr(), emit_lp.data_ptr(), xn.data_ptr(),
             yn.data_ptr(), alphas.data_ptr() if compute_alpha else None,
             betas.data_ptr(), N, T, U, int(compute_alpha), stream,
+            plan.frames, plan.warps,
         )
     _build.check(lib, "rnnt_lattice_error_string", code, "rnnt_lattice")
     LAUNCHES["lattice_fused" if compute_alpha else "lattice_beta_only"] += 1
     return alphas, betas
+
+
+def kernel_attrs(T: int, U: int):
+    """The plan at (T, U) and what the kernel takes there: registers a
+    thread, spill (local memory) bytes a thread, static shared memory bytes,
+    the staged tile's columns, dynamic shared memory bytes, threads a
+    block."""
+    plan = lattice_plan(T)
+    lib = _lib()
+    vals = (ctypes.c_int * 5)()
+    code = lib.rnnt_lattice_attrs(plan.frames, plan.warps, U, vals)
+    _build.check(lib, "rnnt_lattice_error_string", code, "rnnt_lattice_attrs")
+    return {**plan._asdict(), "registers": vals[0], "spill_bytes": vals[1],
+            "static_smem": vals[2], "tile_cols": 1 << vals[3],
+            "dynamic_smem": vals[4], "threads": 32 * plan.warps}
+
+
+def lae_ns(n_lo: int = 2_000, n_hi: int = 202_000) -> float:
+    """ns of one dependent logaddexp a = LSE(a + m, b), the lattice's chain
+    step, on one thread of the current CUDA device: a probe kernel (not a
+    kernel of any path) at two chain lengths, the difference over the extra
+    steps, best of three."""
+    io = torch.tensor([0.0, -0.5, -1.0], device="cuda")
+    lib = _lib()
+
+    def run_ms(n):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        code = lib.rnnt_lae_probe(io.data_ptr(), n,
+                                  torch.cuda.current_stream().cuda_stream)
+        end.record()
+        _build.check(lib, "rnnt_lattice_error_string", code, "rnnt_lae_probe")
+        end.synchronize()
+        return start.elapsed_time(end)
+
+    run_ms(n_lo)
+    return min((run_ms(n_hi) - run_ms(n_lo)) / (n_hi - n_lo) * 1e6
+               for _ in range(3))
 
 
 def forward_backward(blank_lp, emit_lp, xn, yn, fastemit_lambda=0.0):
