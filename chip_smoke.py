@@ -106,6 +106,20 @@ path's lattice and at B's (also in the kernels line, `attrs`); the lattice
 times' bound counted from what the recurrence needs (8 operations a cell and
 direction) with the chain floor beside it, at the main path and at compact
 A and B (the kernels line's `case_A` and `case_B`).
+Slice 9 (the packed gather as one host call to the (N, T, U, 2) lattice;
+the h image kernel from shared memory) adds: in phase 9 the gather entry's
+lattice, row labels and prefix sums and the scatter from them bit for bit
+against their plain versions, also under the NaN rule; in phase 10 each
+packed kernel's chained, device (CUDA graph) and host-us times at A and B
+beside its byte bound (`benchmarks/packed_step.py`; the gather's 32- and
+64-byte sector floors printed beside), and the compact step at A and B
+under the profiler (kernels a call, device busy ms, idle share); with the
+fused kernels' times at H=512, 640 and 1024 the h image kernel's device ms
+and host us (`benchmarks/h_image.py`; its tanhf count printed beside).
+The kernels line holds, besides `bound_ms` and the compiler's `attrs`,
+only numbers this run measured: the chain floors, sector floors, tanhf
+counts and bound shares stand on the `time` lines.  `packed_gather`'s
+launches count both kernels of its entry, the prefix scan and the gather.
 It prints the kernels' JSON line and the card's line, and last
 `{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}`.
 Without a CUDA device, or without the package beside it, it exits 1 and
@@ -125,19 +139,9 @@ SEED = 0
 # The fused joint slice: bench_joint.py's configuration, U = 20 labels + 1.
 FJ = dict(N=16, T=150, U=21, V=5000, H=256, F=256)
 
-# (HBM bytes/s, fp32 FLOP/s outside the tensor cores, dense bf16 tensor-core
-# FLOP/s), NVIDIA data sheets.
-_RATES = {"PCIe": (2.0e12, 51e12, 756e12), "NVL": (3.9e12, 60e12, 835e12),
-          "H200": (4.8e12, 67e12, 989e12)}
-_RATES_SXM = (3.35e12, 67e12, 989e12)
-BF16 = 2  # index of the bf16 tensor-core rate in a _RATES entry
-
-
-def card_rates(name):
-    for key, rates in _RATES.items():
-        if key in name:
-            return rates
-    return _RATES_SXM
+# The card's rates come from `benchmarks.timing.card_rates`: (HBM bytes/s,
+# fp32 FLOP/s, dense bf16 tensor-core FLOP/s); BF16 indexes the last.
+BF16 = 2
 
 
 def card_line():
@@ -429,12 +433,11 @@ def phase_times(torch, wt, cuda_impl, fk, timing, inputs, main_lattice,
         kernel(name, cuda_impl.alpha_beta, cuda_impl.alpha_beta_plain,
                (blank, emit, xn_l, yn_l, alpha), first,
                *lattice_work(N, T, U, alpha), 20)
-        times[name]["chain_floor_ms"] = chain_floor_ms(T, U, lae_ns)
         times[name]["device_ms"] = timing.bench_graph(
             cuda_impl.alpha_beta, (blank, emit, xn_l, yn_l, alpha))
         print(f"device {name} N,T,U={(N, T, U)}: {times[name]['device_ms']} ms"
               f" (CUDA graph, L2 flushed); chain floor"
-              f" {times[name]['chain_floor_ms']} ms ({T + U - 1} dependent"
+              f" {chain_floor_ms(T, U, lae_ns)} ms ({T + U - 1} dependent"
               f" logaddexps of {lae_ns} ns) [{card}]")
     # write: reads ct0, ct1, loc_rows, writes R*V fp32; 4 operations per element
     kernel("flat_write", fk.flat_grad_write, fk.flat_grad_write_plain,
@@ -608,7 +611,10 @@ def time_fused_kernels(torch, fj, timing, full_case, rates, card, tag=""):
     bound by bf16 tensor-core operations, on the operands of ``full_case``,
     and beside the forward one bf16 torch.matmul of the same (R, H) x (H,
     V) (`time_matmul`); past one slice (H > 256) also the h image kernel,
-    bound by its bytes at the unpadded H."""
+    chained, on the device and its host us (`h_image.times`), bound by its
+    bytes at the unpadded H, with the tanhf it evaluates printed beside."""
+    from warp_rnnt_tpu_torch.benchmarks import h_image as hi
+
     (a, c, w, b, lab, xn, yn), (db, de) = full_case
     N, T, H = a.shape
     U, V = c.shape[1], w.shape[1]
@@ -643,23 +649,28 @@ def time_fused_kernels(torch, fj, timing, full_case, rates, card, tag=""):
     ]
     # the h kernel: a, c in, h out as bf16 (counted R x H, unpadded); an
     # add and a tanh an element
-    h_bytes = (N * T * H + N * U * H) * 4 + N * 4 + R * H * 2
     if image:
-        runs.append(("fused_joint_hidden",
-                     lambda *x: fj._hidden_image(*x, dims),
+        runs.append(("fused_joint_hidden", None,
                      lambda *x: fj.hidden_image_plain(*x, dims[5]),
-                     (ops_k[0], ops_k[1], xn), h_bytes, 2 * R * H, 1))
+                     (ops_k[0], ops_k[1], xn), hi.bound_bytes(N, T, U, H),
+                     2 * R * H, 1))
     times = {}
     for name, fn, plain, fargs, nbytes, nops, rate in runs:
-        ms = timing.bench_scalar_chain(fn, fargs, 10, reduce_out=first)
+        extra = ""
+        if fn is None:  # the h image: also its host's share of a chained call
+            t = hi.times(*fargs, dims)
+            extra = f" tanhf={hi.tanhf(xn, U, dims[3])}"
+        else:
+            t = dict(ms=timing.bench_scalar_chain(fn, fargs, 10,
+                                                  reduce_out=first))
+        if name == "fused_joint_fwd":  # without the host (the V parts' merge)
+            t["device_ms"] = timing.bench_graph(fn, fargs)
         plain_ms = timing.bench_scalar_chain(plain, fargs, 2, repeats=1,
                                              reduce_out=first)
         b_ms, b_by = bound_ms(nbytes, nops, rates, rate)
-        times[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
-        if name == "fused_joint_fwd":  # without the host (the V parts' merge)
-            times[name]["device_ms"] = timing.bench_graph(fn, fargs)
-        print(f"time {name}{tag}: {json.dumps(times[name])} ({b_ms / ms:.3f} of"
-              f" the bound) [{card}]")
+        times[name] = dict(t, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+        print(f"time {name}{tag}: {json.dumps(times[name])}{extra}"
+              f" ({b_ms / t['ms']:.3f} of the bound) [{card}]")
     times["fused_joint_fwd"]["matmul_ms"] = time_matmul(torch, timing, rates,
                                                         card, R, H, V)
     return times
@@ -762,12 +773,15 @@ def launched(counters):
 
 
 def phase_packed_kernels(torch, pk, pc, full_cases):
-    """Each packed kernel against its plain version on the card, exact
-    (`packed_cases.compare`): the JAX package's edge cases (ragged, one
-    sample, yn=0, T over many rows, T < U, pad rows, blank=3, V in
-    {5, 9, 13, 33, 50}, every input dtype), then cases A and B."""
+    """Each packed kernel against its plain version on the card, bit for
+    bit (`packed_cases.compare`: the gather entry's lattice, loc and prefix
+    sums, and the scatter from them): the JAX package's edge cases (ragged,
+    one sample, yn=0, T over many rows, T < U, pad rows, blank=3, V in
+    {5, 9, 13, 33, 50}, every input dtype), the NaN rule (a short buffer,
+    labels outside [0, V)), then cases A and B."""
     cases = {name: pc.make_case(xn, yn, V, pad, blank, dt, 0, "cuda")
              for name, (xn, yn, V, pad, blank, dt) in pc.CASES.items()}
+    cases["NaN rule"] = pc.nan_case("cuda")
     cases.update(full_cases)
     errs = {"packed_gather": 0.0, "packed_scatter": 0.0}
     for name, case in cases.items():
@@ -1009,34 +1023,40 @@ def phase_large_v(torch, np, wt, fj, cases_mod, carry, counters):
 
 
 def time_packed_kernels(torch, pk, timing, case, rates, card, tag):
-    """Each packed kernel and its plain version at one full-width case,
-    beside its byte bound (the entries the function must read and write)."""
-    xs, loc, xn, yn = case["xs"], case["loc"], case["xn"], case["yn"]
+    """Each packed kernel and its plain version at one full-width case:
+    chained, device (CUDA graph) and host-us times
+    (`packed_step.movement_times`) beside its byte bound (the entries the
+    function must read and write, `packed_step.gather_bytes` for the
+    gather); the gather's sector floors (`packed_step.floors`) are printed
+    beside them."""
+    from warp_rnnt_tpu_torch.benchmarks import packed_step as ps
+
+    xs, ys, xn, yn = case["xs"], case["ys"], case["xn"], case["yn"]
     T, U, blank = case["T"], case["U"], case["blank"]
     N = xn.shape[0]
     rows, V = xs.shape
-    valid = int((xn.long() * (yn.long() + 1)).sum())
     size = xs.element_size()
     cells = N * T * U
-    meta = N * U * 4 + 2 * N * 4
-    first = lambda out: out[0].view(-1)[0]  # noqa: E731
+    meta = N * U * 4 + 2 * N * 4 + 16 * N
+    _, loc, pref = pk.packed_gather_lattice(xs, ys, xn, yn, blank, T, U)
+    fwd, bwd = ps.movement(case)
     times = {}
-    for name, fn, plain, args, nbytes, nops in (
-        ("packed_gather", pk.packed_gather, pk.packed_gather_plain,
-         (xs, loc, xn, yn, blank, T, U), 2 * valid * size + meta + 2 * cells * 4,
-         0),
-        ("packed_scatter", pk.packed_scatter, pk.packed_scatter_plain,
-         (case["ct0"], case["ct1"], loc, xn, yn, blank, rows, V, xs.dtype),
-         rows * V * size + 2 * cells * 4 + meta, rows * V * 4),
+    for name, fn, plain, args, nbytes, nops, red, extra in (
+        ("packed_gather", fwd, pk.packed_gather_lattice_plain,
+         (xs, ys, xn, yn, blank, T, U), ps.gather_bytes(case), 0,
+         lambda out: out[0].view(-1)[0], ps.floors(case, rates[0])),
+        ("packed_scatter", bwd, pk.packed_scatter_plain,
+         (case["ct"], loc, pref, xn, yn, blank, rows, V, xs.dtype),
+         rows * V * size + 2 * cells * 4 + meta, rows * V * 4,
+         lambda out: out.view(-1)[0], {}),
     ):
-        red = (lambda out: out.view(-1)[0]) if name == "packed_scatter" else first
-        ms = timing.bench_scalar_chain(fn, args, 20, reduce_out=red)
         plain_ms = timing.bench_scalar_chain(plain, args, 4, repeats=1,
                                              reduce_out=red)
         b_ms, b_by = bound_ms(nbytes, nops, rates)
-        times[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
-        print(f"time {name} {tag}: ms={ms} plain_ms={plain_ms} bound_ms={b_ms}"
-              f" bound_by={b_by} [{card}]")
+        times[name] = dict(ps.movement_times(fn, xs), plain_ms=plain_ms,
+                           bound_ms=b_ms, bound_by=b_by)
+        print(f"time {name} {tag}: {json.dumps(times[name])}"
+              f"{' ' + json.dumps(extra) if extra else ''} [{card}]")
     return times
 
 
@@ -1048,11 +1068,15 @@ def time_compact(torch, wt, pk, cuda_impl, timing, case, rates, card, tag,
     case's lattice with their bound and chain floor, and compact loss+grad
     with the host read of the lengths (`compact._static_bounds`) left out,
     which shows what that read costs."""
+    from warp_rnnt_tpu_torch.benchmarks import packed_step as ps
+    from warp_rnnt_tpu_torch.benchmarks.profile_loss import profile_step
     from warp_rnnt_tpu_torch.functional.core import rnnt_core
 
     xs, ys, xn, yn = (case[k] for k in ("xs", "ys", "xn", "yn"))
-    T, U, blank, loc = case["T"], case["U"], case["blank"], case["loc"]
-    blank_lp, emit_lp = pk.packed_gather(xs, loc, xn, yn, blank, T, U)
+    T, U, blank = case["T"], case["U"], case["blank"]
+    lat = pk.packed_gather_lattice(xs, ys, xn, yn, blank, T, U)[0]
+    blank_lp, emit_lp = lat[..., 0].contiguous(), lat[..., 1].contiguous()
+    del lat
     lattice = {}
     for name, alpha in (("lattice_fused", True), ("lattice_beta_only", False)):
         ms = timing.bench_scalar_chain(
@@ -1063,7 +1087,7 @@ def time_compact(torch, wt, pk, cuda_impl, timing, case, rates, card, tag,
         b_ms, b_by = bound_ms(*lattice_work(*blank_lp.shape, alpha), rates)
         floor = chain_floor_ms(T, U, lae_ns)
         lattice[name] = dict(ms=ms, device_ms=dev, bound_ms=b_ms,
-                             bound_by=b_by, chain_floor_ms=floor)
+                             bound_by=b_by)
         print(f"time {name} {tag} N,T,U={tuple(blank_lp.shape)}: ms={ms}"
               f" device_ms={dev} bound_ms={b_ms} bound_by={b_by}"
               f" chain_floor_ms={floor} [{card}]")
@@ -1071,18 +1095,13 @@ def time_compact(torch, wt, pk, cuda_impl, timing, case, rates, card, tag,
 
     def no_read_step(x):
         x = x.detach().requires_grad_()
-        lat = pk.packed_lattice(x, loc, xn, yn, blank, T, U)
+        lat = pk.packed_lattice(x, ys, xn, yn, blank, T, U)
         loss = rnnt_core(lat, xn, yn, 0.0, "auto").mean()
         loss.backward()
         return loss.detach(), x.grad
 
     padded, labels, _ = padded_from_packed(torch, pk, case)
-
-    def compact_step(x):
-        x = x.detach().requires_grad_()
-        loss = wt.rnnt_loss(x, ys, xn, yn, compact=True, reduction="mean")
-        loss.backward()
-        return loss.detach(), x.grad
+    compact_step = ps.loss_grad_step(case)
 
     def padded_step(x):
         x = x.detach().requires_grad_()
@@ -1098,12 +1117,16 @@ def time_compact(torch, wt, pk, cuda_impl, timing, case, rates, card, tag,
         out[name] = dict(ms=ms, peak_mem_bytes=peak)
         print(f"time loss+grad {name} {tag}: ms={ms} peak_mem_bytes={peak}"
               f" ({peak / 2**30:.3f} GiB above the inputs) [{card}]")
-    with torch.no_grad():
-        ng = timing.bench_scalar_chain(
-            lambda x: wt.rnnt_loss(x, ys, xn, yn, compact=True), (xs,), 10)
+    ng = ps.no_grad_ms(case, 10)
     out["compact_no_grad_ms"] = ng
     out["lattice"] = lattice
     print(f"time loss no-grad compact {tag}: ms={ng} [{card}]")
+    prof = profile_step(lambda: compact_step(xs))
+    out["profile"] = {k: prof[k] for k in ("kernels_per_call", "busy_ms",
+                                           "idle_share", "step_ms")}
+    print(f"profile compact {tag}: {json.dumps(out['profile'])} [{card}]")
+    for ms, count, key in prof["rows"][:8]:
+        print(f"profile compact {tag} {ms:.4f} ms/call {count} x/call {key[:70]}")
     return out
 
 
@@ -1259,11 +1282,11 @@ def time_gathers(torch, eg, gk, timing, gather_plain, n, rates, card):
             r["previous_ms"] = timing.bench_scalar_chain(gather_plain, args, 20,
                                                          reduce_out=first)
             r["previous_device_ms"] = timing.bench_graph(gather_plain, args)
-        r.update(bound_ms=b_ms, bound_by=b_by,
-                 bound_share=b_ms / r["device_ms"] if r["device_ms"] else None)
+        r.update(bound_ms=b_ms, bound_by=b_by)
         times[name] = r
-        print(f"time {name} N={n}: {json.dumps(r)} (kernel = plain ="
-              f" torch.gather, exact) [{card}]")
+        share = b_ms / r["device_ms"] if r["device_ms"] else None
+        print(f"time {name} N={n}: {json.dumps(r)} bound_share={share}"
+              f" (kernel = plain = torch.gather, exact) [{card}]")
         if r["ms"] > r["library_ms"]:
             print(f"note: {name} N={n} chained {r['ms']} ms > torch.gather"
                   f" {r['library_ms']} ms")
@@ -1761,7 +1784,7 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     kind = torch.cuda.get_device_name(0)
     card = card_line()
-    rates = card_rates(kind)
+    rates = timing.card_rates(kind)
     print(f"card: {card} (torch {torch.__version__}, CUDA {torch.version.cuda})")
 
     t0 = time.perf_counter()
@@ -1927,7 +1950,8 @@ def main():
                                         f"{fj_src}:100 and {fj_src}:294"),
                "fused_joint_bwd_dwdb": ("fused_joint.cu",
                                         f"{fj_src}:100 and {fj_src}:356"),
-               "packed_gather": ("packed.cu", f"{pk_src}:130"),
+               "packed_gather": ("packed.cu", f"{pk_src}:130 and the stack of"
+                                 f" {pk_src}:426"),
                "packed_scatter": ("packed.cu", f"{pk_src}:193"),
                "gather_columns": ("gather.cu", "scripts/exp_colgather.py:117"),
                "gather_fwd": ("gather.cu", f"{eg_src}:63"),

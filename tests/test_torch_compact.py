@@ -5,8 +5,10 @@ The same seeded numpy inputs go through the JAX functions (the Pallas
 movement kernels in interpret mode where forced, as
 `tests/test_packed_kernels.py` runs them) and the port (the plain torch
 versions of the CUDA kernels, and the plain composition):
-  * `packed_lattice` forward (atol 1e-6: values are moved, not computed)
-    and its gradient (atol 1e-5), pad rows included, every input dtype;
+  * `packed_lattice` forward (exact: values are moved, not computed) and
+    its gradient (atol 1e-5), pad rows included, every input dtype; the
+    gather's plain version (lattice, loc, prefix sums) exact against JAX's
+    `packed_lattice`, `_loc_rows` and cumulative sums, and its NaN rule;
   * ``rnnt_loss(compact=True)`` costs (rtol 1e-5) and packed gradients
     (`GRAD_TOL`) against JAX's, with JAX's movement kernels forced on and
     off; `rnnt_loss_compact_with_internals`; the golden compact batch;
@@ -56,7 +58,7 @@ def test_packed_lattice_matches_jax(name):
     case, npc = _case(name)
     T, U, blank = case["T"], case["U"], case["blank"]
     x = case["xs"].clone().requires_grad_()
-    out = pk.packed_lattice(x, case["loc"], case["xn"], case["yn"], blank, T, U)
+    out = pk.packed_lattice(x, case["ys"], case["xn"], case["yn"], blank, T, U)
     (out ** 2).sum().backward()
     assert x.grad.dtype == x.dtype and x.grad.shape == x.shape
 
@@ -65,7 +67,7 @@ def test_packed_lattice_matches_jax(name):
     jout, vjp = jax.vjp(lambda z: jpk.packed_lattice(z, *args),
                         jnp.asarray(npc["xs"]))
     (jgrad,) = vjp(2 * jout)
-    np.testing.assert_allclose(out.detach().numpy(), np.asarray(jout), atol=1e-6)
+    np.testing.assert_array_equal(out.detach().numpy(), np.asarray(jout))
     rtol = {torch.bfloat16: 8e-3, torch.float16: 1e-3}.get(x.dtype, 0.0)
     np.testing.assert_allclose(x.grad.float().numpy(), np.asarray(jgrad),
                                rtol=rtol, atol=1e-5)
@@ -74,7 +76,7 @@ def test_packed_lattice_matches_jax(name):
 
 
 def test_loc_rows_matches_jax():
-    for name in ("generic ragged", "yn=0 sample", "blank=3"):
+    for name in packed_cases.CASES:
         case, npc = _case(name)
         want = jpk._loc_rows(jnp.asarray(npc["ys"]), jnp.asarray(npc["xn"]),
                              jnp.asarray(npc["yn"]), case["U"], case["blank"])
@@ -82,6 +84,51 @@ def test_loc_rows_matches_jax():
     empty = pk.loc_rows(torch.zeros(0, dtype=torch.int32), *tt(
         np.array([2, 3], np.int32), np.array([0, 0], np.int32)), 1, 4)
     np.testing.assert_array_equal(empty.numpy(), [[4], [4]])
+
+
+@pytest.mark.parametrize("name", list(packed_cases.CASES))
+def test_gather_lattice_plain_matches_jax(name):
+    """The gather's plain version, what the CPU path and the card's
+    comparison use: its lattice equals JAX's `packed_lattice` (interpret
+    mode), its loc JAX's `_loc_rows`, its prefix sums the cumulative sums
+    of the lengths, all exactly."""
+    case, npc = _case(name)
+    T, U, blank = case["T"], case["U"], case["blank"]
+    lat, loc, pref = pk.packed_gather_lattice_plain(
+        case["xs"], case["ys"], case["xn"], case["yn"], blank, T, U)
+    assert lat.dtype == torch.float32 and lat.shape == (len(npc["xn"]), T, U, 2)
+    jargs = (jnp.asarray(npc["xn"]), jnp.asarray(npc["yn"]))
+    jloc = jpk._loc_rows(jnp.asarray(npc["ys"]), *jargs, U, blank)
+    jout = jpk.packed_lattice(jnp.asarray(npc["xs"]), jloc, *jargs, blank, T, U)
+    np.testing.assert_array_equal(lat.numpy(), np.asarray(jout))
+    np.testing.assert_array_equal(loc.numpy(), np.asarray(jloc))
+    sizes = npc["xn"].astype(np.int64) * (npc["yn"] + 1)
+    yn64 = npc["yn"].astype(np.int64)
+    np.testing.assert_array_equal(pref.numpy(), [np.cumsum(sizes) - sizes,
+                                                 np.cumsum(yn64) - yn64])
+
+
+def test_gather_lattice_nan_rule():
+    """A cell whose packed row lies past the buffer, or whose label lies
+    outside [0, V), is NaN in both channels; every other cell is its value
+    or 0 (`packed_cases.NAN_CASE`)."""
+    case = packed_cases.nan_case("cpu")
+    xs, xn, yn = case["xs"], case["xn"].numpy(), case["yn"].numpy()
+    T, U = case["T"], case["U"]
+    lat, loc, _ = pk.packed_gather_lattice_plain(
+        xs, case["ys"], case["xn"], case["yn"], 0, T, U)
+    pos, valid = (x.numpy() for x in pk.lattice_rows(case["xn"], case["yn"],
+                                                     T, U))
+    lab = np.broadcast_to(loc.numpy()[:, None, :], pos.shape)
+    bad = valid & ((pos >= xs.shape[0]) | (lab < 0) | (lab >= xs.shape[1]))
+    assert bad.sum() == 13 and (pos[valid] >= xs.shape[0]).sum() == 5
+    lat = lat.numpy()
+    assert np.isnan(lat[bad]).all() and not np.isnan(lat[~bad]).any()
+    ok = valid & ~bad
+    x = xs.numpy()
+    np.testing.assert_array_equal(lat[ok][:, 0], x[pos[ok], 0])
+    np.testing.assert_array_equal(lat[ok][:, 1], x[pos[ok], lab[ok]])
+    assert (lat[~valid] == 0).all()
 
 
 def _loss_both(name, force_kernel, monkeypatch, fastemit=0.0):
@@ -265,33 +312,102 @@ def test_compact_validation(case_name, match):
     ("loc_dtype", "loc_rows must be torch.int32"),
     ("blank", "outside"),
     ("device", "unsupported device"),
+    ("ys_dtype", "ys must be 1-D torch.int32"),
+    ("pref_shape", "pref must be"),
+    ("ct_shape", "ct must be"),
 ])
 def test_kernel_wrapper_checks_raise(case_name, match):
+    """The gather's checks (blank, ys), the scatter's (loc, pref, ct) and
+    the CUDA-only device check."""
     case, _ = _case("generic ragged")
-    loc, blank = case["loc"], case["blank"]
+    xs, ys, xn, yn = case["xs"], case["ys"], case["xn"], case["yn"]
+    blank, T, U = case["blank"], case["T"], case["U"]
+    _, loc, pref = pk.packed_gather_lattice(xs, ys, xn, yn, blank, T, U)
+    ct = case["ct"]
     if case_name == "loc_shape":
         loc = loc[:, :-1]
     elif case_name == "loc_dtype":
         loc = loc.long()
     elif case_name == "blank":
-        blank = case["xs"].shape[1]
+        blank = xs.shape[1]
+    elif case_name == "ys_dtype":
+        ys = ys.long()
+    elif case_name == "pref_shape":
+        pref = pref[:1]
+    elif case_name == "ct_shape":
+        ct = ct[..., 0]
     with pytest.raises(ValueError, match=match):
         if case_name == "device":
-            pk._kernel_ready((("xs", case["xs"]),), case["xs"].device)
-        pk.packed_gather(case["xs"], loc, case["xn"], case["yn"], blank,
-                         case["T"], case["U"])
+            pk._kernel_ready((("xs", xs),), xs.device)
+        if case_name in ("blank", "ys_dtype"):
+            pk.packed_gather_lattice(xs, ys, xn, yn, blank, T, U)
+        pk.packed_scatter(ct, loc, pref, xn, yn, blank, xs.shape[0],
+                          xs.shape[1], xs.dtype)
 
 
 # ---- on the card: kernels against their plain versions --------------------
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", list(packed_cases.CASES))
+@pytest.mark.parametrize("name", [*packed_cases.CASES, "NaN rule"])
 def test_packed_kernels_match_plain_on_card(cuda_device, name):
-    """The comparison `chip_smoke.py` makes: exact, in every dtype."""
-    xn, yn, V, pad, blank, dtype = packed_cases.CASES[name]
-    case = packed_cases.make_case(xn, yn, V, pad, blank, dtype, 0, cuda_device)
+    """The comparison `chip_smoke.py` makes: the gather's lattice, loc and
+    prefix sums and the scatter from them, bit for bit, in every dtype and
+    under the NaN rule."""
+    if name == "NaN rule":
+        case = packed_cases.nan_case(cuda_device)
+    else:
+        xn, yn, V, pad, blank, dtype = packed_cases.CASES[name]
+        case = packed_cases.make_case(xn, yn, V, pad, blank, dtype, 0,
+                                      cuda_device)
     packed_cases.compare(pk, case)
     torch.cuda.synchronize()
+
+
+def _device_kernels(fn):
+    """The names of the CUDA kernels ``fn()`` launches, by the profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [ev.name for ev in prof.events()
+            if ev.device_type == DeviceType.CUDA
+            and not ev.name.startswith(("Memcpy", "Memset"))]
+
+
+@pytest.mark.cuda
+def test_packed_gather_is_two_launches_a_call(cuda_device):
+    """The compact forward from (xs, ys, xn, yn) to the lattice is one host
+    call that launches two kernels, the prefix scan and the gather, and
+    counts both; the backward one scatter kernel.  Two calls give the same
+    bits."""
+    case = packed_cases.full_case(4, 40, 12, 50, device=cuda_device)
+    xs, ys, xn, yn = case["xs"], case["ys"], case["xn"], case["yn"]
+    T, U = case["T"], case["U"]
+    before = dict(pk.LAUNCHES)
+    names = _device_kernels(
+        lambda: pk.packed_gather_lattice(xs, ys, xn, yn, 0, T, U))
+    assert len(names) == 2, names
+    assert "prefix_kernel" in names[0] and "lattice_gather_kernel" in names[1]
+    assert pk.LAUNCHES["packed_gather"] - before["packed_gather"] == 2
+    _, loc, pref = pk.packed_gather_lattice(xs, ys, xn, yn, 0, T, U)
+    names = _device_kernels(lambda: pk.packed_scatter(
+        case["ct"], loc, pref, xn, yn, 0, xs.shape[0], xs.shape[1]))
+    assert len(names) == 1 and "packed_scatter_kernel" in names[0], names
+    before = dict(pk.LAUNCHES)
+    outs = []
+    for _ in range(2):
+        x = xs.detach().requires_grad_()
+        lat = pk.packed_lattice(x, ys, xn, yn, 0, T, U)
+        (lat * case["ct"]).sum().backward()
+        outs.append((lat.detach(), x.grad))
+    torch.cuda.synchronize()
+    assert pk.LAUNCHES["packed_gather"] - before["packed_gather"] == 4
+    assert pk.LAUNCHES["packed_scatter"] - before["packed_scatter"] == 2
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.cuda

@@ -858,3 +858,30 @@ def test_forward_is_deterministic_on_card(cuda_device, case):
     second = fj.joint_lattice_fwd(*ops, spec[6])
     for x, y in zip(first, second):
         assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H", [200, 333, 512, 640, 1024])
+@pytest.mark.parametrize("N,T,U", [(3, 17, 21), (2, 5, 70)])
+def test_hidden_image_kernel_matches_plain_on_card(cuda_device, N, T, U, H):
+    """The h image kernel at `bwd_plan(H)`'s slices (H=200: one; 333 odd,
+    padded to 384) against `hidden_image_plain` within one bf16 ulp of
+    |h| <= 1 (2^-8; the card's tanhf against torch's can flip a rounding),
+    ragged frames, U past 64 (a tile's 64 rows one frame's chunk, 65 staged
+    rows); two calls bit-equal."""
+    Hp, S = fj.bwd_plan(H)
+    rng = np.random.RandomState(H + U)
+    a = torch.tensor(rng.randn(N, T, H), dtype=torch.float32)
+    c = torch.tensor(rng.randn(N, U, H), dtype=torch.float32)
+    xn = torch.tensor(rng.randint(1, T + 1, N), dtype=torch.int32)
+    pa, pc, _ = fj.pad_h(a, c, None, Hp)
+    pa, pc = pa.to(cuda_device).contiguous(), pc.to(cuda_device).contiguous()
+    xn = xn.to(cuda_device)
+    dims = (N, T, U, Hp, 0, S)
+    first = fj._hidden_image(pa, pc, xn, dims)
+    second = fj._hidden_image(pa, pc, xn, dims)
+    want = fj.hidden_image_plain(pa, pc, xn, S)
+    torch.cuda.synchronize()
+    assert first.shape == want.shape and first.dtype == want.dtype
+    assert float((first.float() - want.float()).abs().max()) <= 2.0 ** -8
+    assert torch.equal(first, second)

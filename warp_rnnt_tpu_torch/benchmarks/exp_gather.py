@@ -47,7 +47,6 @@ from warp_rnnt_tpu_torch.ops import gather_kernels as gk
 T, U, V = 150, 21, 5000
 BLANK = 0
 SEED = 0
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 SECTOR = 32  # bytes a device-memory read moves at least
 
 
@@ -201,9 +200,10 @@ def main(argv=None):
             capture_output=True, text=True, timeout=60, check=True,
         ).stdout.strip()
         print(f"card: {card}")
+    hbm = timing.card_rates(card)[0]  # the H100 SXM's without a card
     for name in names:
         check(name, d, ref)
-        bound = bound_bytes(name, args.N) / HBM_BYTES_PER_S * 1e3
+        bound = bound_bytes(name, args.N) / hbm * 1e3
         if args.device == "cpu":
             ms = "ms not measured (cpu)"
         else:
@@ -216,7 +216,7 @@ def main(argv=None):
             device = timing.bench_graph(lambda x: fn(d), (d["xs"],), **graph)
             ms = f"{chained} ms chained, {device} ms device (graph replay)"
         print(f"{name} N={args.N}: {ms}  ({gib:.2f} GiB operand)  bound"
-              f" {bound} ms (bytes at 3.35 TB/s)  [{card or 'cpu'}]")
+              f" {bound} ms (bytes at {hbm / 1e12} TB/s)  [{card or 'cpu'}]")
 
 
 if __name__ == "__main__":

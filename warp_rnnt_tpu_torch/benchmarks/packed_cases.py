@@ -2,9 +2,11 @@
 and the one comparison, shared by `chip_smoke.py` and the `cuda`-marked
 tests.
 
-Both kernels move values and do at most one add (ct0 + ct1 where the label
-is the blank), in the same order as the plain versions, so they must agree
-exactly (`torch.equal`), in every dtype.
+Both kernels move values and do at most one add (the two channels of the
+cotangent where the label is the blank), in the same order as the plain
+versions, so they must agree exactly, in every dtype: bit for bit, NaN
+included (`NAN_CASE`: a buffer shorter than the lattice's rows and labels
+outside [0, V)).
 """
 
 from __future__ import annotations
@@ -31,8 +33,15 @@ CASES = {
 }
 
 
+# A case outside what the loss lets through, for the NaN rule: a buffer 5
+# rows short of the lattice's 35 (the last sample's last frame and the last
+# row of the frame before lie past it), and labels V and -1.
+NAN_CASE = ((4, 3, 5), (2, 0, 3), 9, -5, 0, torch.float32)
+NAN_LABELS = {0: 9, 3: -1}  # packed label index: its value
+
+
 def _finish(xs, ys, xn, yn, T, U, blank, rng, device):
-    """The rest of a case: loc_rows and random (N, T, U) cotangents."""
+    """The rest of a case: loc_rows and a random (N, T, U, 2) cotangent."""
     from warp_rnnt_tpu_torch.ops.packed_kernels import loc_rows
 
     N = len(xn)
@@ -40,25 +49,32 @@ def _finish(xs, ys, xn, yn, T, U, blank, rng, device):
     xn_t, yn_t = torch.tensor(xn, **i32), torch.tensor(yn, **i32)
     ys_t = torch.tensor(ys, **i32)
     loc = loc_rows(ys_t, xn_t, yn_t, U, blank)
-    ct0 = torch.tensor(rng.randn(N, T, U), dtype=torch.float32, device=device)
-    ct1 = torch.tensor(rng.randn(N, T, U), dtype=torch.float32, device=device)
+    ct = torch.tensor(rng.randn(N, T, U, 2), dtype=torch.float32, device=device)
     return dict(xs=xs, ys=ys_t, xn=xn_t, yn=yn_t, T=T, U=U, blank=blank,
-                loc=loc, ct0=ct0, ct1=ct1)
+                loc=loc, ct=ct)
 
 
 def make_case(xn, yn, V, pad_rows=0, blank=0, dtype=torch.float32, seed=0,
-              device="cuda"):
-    """A small packed case from numpy: xs (rows + pad_rows, V) in ``dtype``,
-    packed labels in [0, V) without the blank, lengths, T = max(xn),
-    U = max(yn) + 1, loc_rows and cotangents."""
+              device="cuda", labels=None):
+    """A small packed case from numpy: xs (rows + pad_rows, V) in ``dtype``
+    (pad_rows < 0: a buffer that many rows short), packed labels in [0, V)
+    without the blank (``labels``: {index: value} overrides), lengths,
+    T = max(xn), U = max(yn) + 1, loc_rows and a cotangent."""
     rng = np.random.RandomState(seed)
     xn, yn = np.asarray(xn), np.asarray(yn)
     rows = int((xn * (yn + 1)).sum())
     xs = torch.tensor(rng.randn(rows + pad_rows, V), device=device).to(dtype)
-    labels = rng.randint(0, V - 1, int(yn.sum()))
-    ys = np.where(labels >= blank, labels + 1, labels)
+    drawn = rng.randint(0, V - 1, int(yn.sum()))
+    ys = np.where(drawn >= blank, drawn + 1, drawn)
+    for i, value in (labels or {}).items():
+        ys[i] = value
     return _finish(xs, ys, xn, yn, int(xn.max()), int(yn.max()) + 1, blank,
                    rng, device)
+
+
+def nan_case(device="cuda", seed=0):
+    """`NAN_CASE` with `NAN_LABELS`."""
+    return make_case(*NAN_CASE, seed=seed, device=device, labels=NAN_LABELS)
 
 
 def full_case(N, T, L, V, seed=0, pad_rows=13, device="cuda"):
@@ -80,28 +96,34 @@ def full_case(N, T, L, V, seed=0, pad_rows=13, device="cuda"):
 
 def compare(pk, case):
     """Each kernel (through `pk`, `warp_rnnt_tpu_torch.ops.packed_kernels`)
-    against its plain version on the case's tensors: exact.  Returns
+    against its plain version on the case's tensors: the gather's lattice,
+    loc and pref, and the scatter from them, bit for bit.  Returns
     {kernel: max abs err}; raises AssertionError."""
-    xs, loc, xn, yn = case["xs"], case["loc"], case["xn"], case["yn"]
+    xs, ys, xn, yn = case["xs"], case["ys"], case["xn"], case["yn"]
     blank, T, U = case["blank"], case["T"], case["U"]
-    got = pk.packed_gather(xs, loc, xn, yn, blank, T, U)
-    want = pk.packed_gather_plain(xs, loc, xn, yn, blank, T, U)
+    got = pk.packed_gather_lattice(xs, ys, xn, yn, blank, T, U)
+    want = pk.packed_gather_lattice_plain(xs, ys, xn, yn, blank, T, U)
     errs = {"packed_gather": _exact("packed_gather", got, want)}
-    args = (case["ct0"], case["ct1"], loc, xn, yn, blank, xs.shape[0],
-            xs.shape[1], xs.dtype)
+    args = (case["ct"], *got[1:], xn, yn, blank, xs.shape[0], xs.shape[1],
+            xs.dtype)
     errs["packed_scatter"] = _exact("packed_scatter", (pk.packed_scatter(*args),),
                                     (pk.packed_scatter_plain(*args),))
     return errs
 
 
+def _bits(x):
+    """The tensor's bits as integers of its width (NaN equal to NaN)."""
+    return x.view({8: torch.int64, 4: torch.int32, 2: torch.int16,
+                   1: torch.uint8}[x.element_size()])
+
+
 def _exact(name, got, want):
-    err = 0.0
     for k, p in zip(got, want):
         if k.shape != p.shape or k.dtype != p.dtype:
             raise AssertionError(f"{name}: {tuple(k.shape)} {k.dtype} !="
                                  f" {tuple(p.shape)} {p.dtype}")
-        if not torch.equal(k, p):
-            err = max(err, float((k.double() - p.double()).abs().max()))
+        if not torch.equal(_bits(k), _bits(p)):
+            diff = (k.double() - p.double()).abs().nan_to_num(float("inf"))
             raise AssertionError(f"{name}: kernel != plain version, max abs"
-                                 f" err {err}")
-    return err
+                                 f" err {float(diff.max())}")
+    return 0.0

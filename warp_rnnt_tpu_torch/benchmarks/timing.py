@@ -30,6 +30,23 @@ import torch
 
 _MIN_SIGNAL_MS = 20.0
 
+# (HBM bytes/s, fp32 FLOP/s outside the tensor cores, dense bf16 tensor-core
+# FLOP/s) by a word of the card's name, NVIDIA data sheets; the H100 SXM
+# where no word matches.  Every bound the benchmarks print divides by these.
+CARD_RATES = {"PCIe": (2.0e12, 51e12, 756e12), "NVL": (3.9e12, 60e12, 835e12),
+              "H200": (4.8e12, 67e12, 989e12)}
+_RATES_SXM = (3.35e12, 67e12, 989e12)
+
+
+def card_rates(name=None):
+    """The rates tuple of the card named ``name`` (default: CUDA device 0)."""
+    if name is None:
+        name = torch.cuda.get_device_name(0)
+    for key, rates in CARD_RATES.items():
+        if key in name:
+            return rates
+    return _RATES_SXM
+
 
 def _require_cuda():
     if not torch.cuda.is_available():
@@ -155,7 +172,10 @@ def bench_host(fn, args, calls=200, repeats=5, sleep_cycles=200_000_000):
     issuing it, apart from the device's.  A device-side sleep of
     `sleep_cycles` (about 0.1 s) is enqueued first, so the calls queue
     behind it and none waits for the device; `calls` calls are timed on the
-    host clock, best of `repeats`, and the queue is drained after each."""
+    host clock, best of `repeats`, and the queue is drained after each.
+    Keep `calls` times the call's launches well under the device's launch
+    queue (about a thousand): past it the host blocks until the sleep
+    ends, and the reading is the sleep's, not the host's."""
     import time
 
     _require_cuda()

@@ -1136,18 +1136,85 @@ dwdb_kernel(const bf16* __restrict__ h16, const unsigned char* __restrict__ wimg
   }
 }
 
-// The h image of every tile and slice (S > 1), zeros for rows that are not
-// live; one block a tile.
+// The h image kernel (fj_hidden_image): the h image of every tile and slice,
+// zeros for rows that are not live; one block a (tile, slice).
+//   What bounds it on this card: the image's bytes written (64 x HS bf16 a
+//   block) and, beside them, the issue of one precise tanhf an element (the
+//   same tanhf as h4, so the image's bits do not change).
+//   Design: the block first copies its tile's bt frame rows of a and ut rows
+//   of c, the slice's HS columns, to shared memory with 16-byte cp.async
+//   (rows padded by 16 bytes, so the lanes of a quarter warp, on 8
+//   consecutive c rows, read 8 distinct bank groups), frames past xn not at
+//   all.  Then thread i owns row r = i % 64 of the tile, decoded once, and
+//   the 16-byte units k8 * 64 + r of the block's image, k8 = i / 64, i / 64 +
+//   4, ...: one warp's stores are 512 contiguous bytes, a thread's 8 stores
+//   go out one after the other without a wait, and the blocks resident on an
+//   SM (five at 48 registers) overlap one block's copies with the others'
+//   tanhf.  tanhf compiles branch-free (both of its halves computed for
+//   every element); its issue and the writes overlap only in part.
+//   Capping registers for eight resident blocks, and copying half the
+//   columns at a time (the second half's copies behind the first half's
+//   tanhf), were built and measured no faster on an H100 at 700 W, and
+//   are not kept.
+constexpr int kStagePad = 4;  // floats after each staged row
+
 __global__ void __launch_bounds__(kThreads)
 hidden_image_kernel(const float* __restrict__ a, const float* __restrict__ c,
-                    const int* __restrict__ xn_arr, bf16* __restrict__ h16, Geom g) {
+                    const int* __restrict__ xn_arr, bf16* __restrict__ h16,
+                    Geom g) {
+  extern __shared__ __align__(16) float stage[];
+  const int tile = blockIdx.x;
+  const int s = blockIdx.y;
   int n, tb, uc;
-  tile_coords(g, blockIdx.x, n, tb, uc);
+  tile_coords(g, tile, n, tb, uc);
   const int xn = xn_arr[n];
-  for (int s = 0; s < g.S; ++s) {
-    build_h_image(g, a, c, n, tb, uc, xn, s * g.HS, g.HS, nullptr,
-                  h16 + ((size_t)blockIdx.x * g.S + s) * g.HS * 64, threadIdx.x,
-                  kThreads);
+  const int ld = g.HS + kStagePad;
+  const int k0 = s * g.HS;
+  float* as = stage;               // bt rows
+  float* cs = stage + g.bt * ld;   // ut rows
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int q4 = g.HS / 4;  // 16-byte units of a staged row
+  for (int j = warp; j < g.bt + g.ut; j += kThreads / 32) {
+    const float* src;
+    float* dst;
+    if (j < g.bt) {
+      const int t = tb * g.bt + j;
+      if (t >= g.T || t >= xn) continue;
+      src = a + ((size_t)n * g.T + t) * g.H + k0;
+      dst = as + j * ld;
+    } else {
+      const int u = uc * g.ut + (j - g.bt);
+      if (u >= g.U) continue;
+      src = c + ((size_t)n * g.U + u) * g.H + k0;
+      dst = cs + (j - g.bt) * ld;
+    }
+    for (int q = lane; q < q4; q += 32) {
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                       smem_u32(dst + 4 * q)),
+                   "l"(src + 4 * q)
+                   : "memory");
+    }
+  }
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  __syncthreads();
+
+  const int r = threadIdx.x & 63;
+  int t, u;
+  const bool live = tile_row(g, r, tb, uc, t, u) && t < xn;
+  const int tt = r / g.ut;
+  const float* ar = as + tt * ld;
+  const float* cr = cs + (r - tt * g.ut) * ld;
+  uint4* dst = reinterpret_cast<uint4*>(h16 + ((size_t)tile * g.S + s) * g.HS * 64);
+#pragma unroll 4
+  for (int k8 = threadIdx.x >> 6; k8 < g.HS / 8; k8 += kThreads / 64) {
+    uint4 packed = make_uint4(0, 0, 0, 0);
+    if (live) {
+      const uint2 lo = h4(ar, cr, 8 * k8, 8 * k8);
+      const uint2 hi = h4(ar, cr, 8 * k8 + 4, 8 * k8 + 4);
+      packed = make_uint4(lo.x, lo.y, hi.x, hi.y);
+    }
+    dst[k8 * 64 + r] = packed;
   }
 }
 
@@ -1278,16 +1345,23 @@ cudaError_t launch_dwdb(const DwdbArgs& p, dim3 grid, size_t bytes,
 
 }  // namespace
 
-// h16: the h image, (tiles, S, 64 x H/S) bf16.
-extern "C" int fj_hidden_image(const float* a, const float* c, const int* xn,
-                               void* h16, int N, int T, int U, int H, int S,
-                               void* stream) {
+// The h image from one packed argument block: a[0] a (N, T, H) fp32, a[1] c
+// (N, U, H) fp32, a[2] xn, a[3] h16, the image (tiles, S, 64 x H/S) bf16,
+// a[4] N, a[5] T, a[6] U, a[7] H (padded), a[8] S, a[9] stream.
+extern "C" int fj_hidden_image(const long long* p) {
+  const int N = static_cast<int>(p[4]);
+  const int H = static_cast<int>(p[7]);
+  const int S = static_cast<int>(p[8]);
   if (bad_slices(H, S)) return static_cast<int>(cudaErrorInvalidValue);
-  const Geom g = make_geom(T, U, H, 1, S);
+  const Geom g = make_geom(static_cast<int>(p[5]), static_cast<int>(p[6]), H, 1, S);
   const long long tiles = (long long)N * g.ntb * g.nuc;
-  hidden_image_kernel<<<static_cast<unsigned int>(tiles), kThreads, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
-      a, c, xn, static_cast<bf16*>(h16), g);
+  const size_t bytes = (size_t)(g.bt + g.ut) * (g.HS + kStagePad) * sizeof(float);
+  const cudaError_t err = set_smem(hidden_image_kernel, bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  hidden_image_kernel<<<dim3(static_cast<unsigned int>(tiles), S), kThreads,
+                        bytes, reinterpret_cast<cudaStream_t>(p[9])>>>(
+      reinterpret_cast<const float*>(p[0]), reinterpret_cast<const float*>(p[1]),
+      reinterpret_cast<const int*>(p[2]), reinterpret_cast<bf16*>(p[3]), g);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -9,9 +9,11 @@ costs come back, and the gradient in the same packed layout, in the input
 dtype, zero on pad rows.
 
 Two routes, chosen by the tensors' device:
-  * CUDA: `ops.packed_kernels.packed_lattice` -- the packed gather kernel
-    into an (N, T, U, 2) lattice, the lattice sweep, and on backward the
-    packed scatter kernel.  With no gradient the beta-only sweep runs.
+  * CUDA: `ops.packed_kernels.packed_lattice` -- one host call from
+    (xs, ys, xn, yn) to the (N, T, U, 2) lattice (a prefix scan and the
+    packed gather kernel), the lattice sweep, and on backward the packed
+    scatter kernel on the cotangent as it comes and the forward's meta.
+    With no gradient the beta-only sweep runs.
   * CPU: the plain composition of the JAX module -- `compact_gather` to
     packed (rows, 2), then `compact_to_padded`, whose hand-written backward
     gathers by row coordinates and masks pad rows.
@@ -123,8 +125,8 @@ def _padded_lattice(xs, ys, xn, yn, blank, T, U):
     """The (N, T, U, 2) lattice of a packed batch, through the kernels on a
     CUDA tensor and the plain composition on a CPU tensor."""
     if xs.device.type == "cuda":
-        loc = packed_kernels.loc_rows(ys, xn, yn, U, blank)
-        return packed_kernels.packed_lattice(xs, loc, xn, yn, blank, T, U)
+        return packed_kernels.packed_lattice(xs, ys.contiguous(), xn, yn,
+                                             blank, T, U)
     gathered, _ = compact_gather(xs, ys, xn, yn, blank)
     return compact_to_padded(gathered.float(), xn, yn, T, U)
 
@@ -174,14 +176,12 @@ def rnnt_loss_compact_with_internals(
     T, max_y = _static_bounds(xs, ys, xn, yn, max_frames, max_labels)
     rows, V = xs.shape
     with torch.no_grad():
-        loc = packed_kernels.loc_rows(ys, xn, yn, max_y + 1, blank)
-        padded = torch.stack(
-            packed_kernels.packed_gather(xs, loc, xn, yn, blank, T, max_y + 1),
-            dim=-1)
+        padded, loc, pref = packed_kernels.packed_gather_lattice(
+            xs, ys.contiguous(), xn, yn, blank, T, max_y + 1)
         costs, grads_padded, _, _ = rnnt_core_with_internals(
             padded, xn, yn, fastemit_lambda, impl
         )
         grads = packed_kernels.packed_scatter(
-            grads_padded[..., 0].contiguous(), grads_padded[..., 1].contiguous(),
-            loc, xn, yn, blank, rows, V, torch.float32)
+            grads_padded.float().contiguous(), loc, pref, xn, yn, blank, rows,
+            V, torch.float32)
     return costs, grads, _row_labels(rows, ys, xn, yn, blank)

@@ -13,6 +13,10 @@ rebuilt and a stale library is never loaded.  Outputs go to
 temporary name and renamed into place, so processes that build at once do
 not see a half-written file.  A failed `nvcc` raises with its stderr; there
 is no fallback.
+
+Beside the build, the launch helpers the kernel wrappers share: the raw
+current stream, a call on a given device (`on_device`), the route by a
+tensor's device (`on_cpu`) and the check of a returned CUDA error code.
 """
 
 from __future__ import annotations
@@ -22,6 +26,8 @@ import hashlib
 import os
 import shutil
 import subprocess
+
+import torch
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -107,6 +113,32 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(_lib_path(name))
         _LIBS[name] = lib
     return lib
+
+
+# The current stream's handle and the current device, read without
+# building Python objects (absent from CPU-only builds, which never launch).
+raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+_current_device = getattr(torch._C, "_cuda_getDevice", None)
+
+
+def on_cpu(x) -> bool:
+    """True for a CPU tensor (a wrapper runs its plain version), False for a
+    CUDA tensor (it launches its kernel); any other device raises."""
+    if x.is_cuda:
+        return False
+    if x.device.type == "cpu":
+        return True
+    raise ValueError(f"unsupported device {x.device}")
+
+
+def on_device(dev: int, fn, args):
+    """``fn(args)`` with CUDA device ``dev`` current, the device context
+    entered only when another device is current (a launch entry taking one
+    packed argument block)."""
+    if dev == _current_device():
+        return fn(args)
+    with torch.cuda.device(dev):
+        return fn(args)
 
 
 def check(lib: ctypes.CDLL, err_fn: str, code: int, what: str) -> None:

@@ -50,6 +50,7 @@ does about it.
 from __future__ import annotations
 
 import ctypes
+import struct
 
 import torch
 
@@ -61,6 +62,9 @@ from warp_rnnt_tpu_torch.ops import _build
 LAUNCHES = {"fused_joint_hidden": 0, "fused_joint_fwd": 0,
             "fused_joint_bwd_dadc": 0, "fused_joint_bwd_dwdb": 0}
 
+# fj_hidden_image's argument block: a, c, xn, h16, N, T, U, H, S, stream
+_HIDDEN_ARGS = struct.Struct("<10q")
+
 _MAX_SLICE = 256  # widest H slice of the kernels (a warpgroup's registers)
 _SLICE_STEP = 64  # the slices are multiples of one wgmma N tile
 _ROWS = 64  # lattice rows per tile (one wgmma M tile)
@@ -71,7 +75,7 @@ def _lib():
     lib = _build.load("fused_joint")
     if not getattr(lib, "_typed", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.fj_hidden_image.argtypes = [p] * 4 + [i] * 5 + [p]
+        lib.fj_hidden_image.argtypes = [ctypes.c_char_p]
         lib.fj_forward.argtypes = [p] * 7 + [i] * 8 + [p]
         lib.fj_backward_dadc.argtypes = [p] * 11 + [i] * 8 + [p]
         lib.fj_backward_dwdb.argtypes = [p] * 9 + [i] * 8 + [p]
@@ -325,16 +329,20 @@ def _kernel_inputs(a, c, w, b, labels_ext, xn, blank):
 
 def _hidden_image(a, c, xn, dims):
     """The h kernel (S > 1): the h image of every tile and slice
-    (`hidden_image_plain`), zeros for rows that are not live."""
+    (`hidden_image_plain`), zeros for rows that are not live.  One ctypes
+    argument (a packed block); the device context is entered only for a
+    tensor off the current device."""
     N, T, U, Hp, _, S = dims
     lib = _lib()
     h16 = torch.empty((n_tiles(N, T, U), S, _ROWS * (Hp // S)),
                       dtype=torch.bfloat16, device=a.device)
-    stream = torch.cuda.current_stream(a.device).cuda_stream
-    with torch.cuda.device(a.device):
-        code = lib.fj_hidden_image(a.data_ptr(), c.data_ptr(), xn.data_ptr(),
-                                   h16.data_ptr(), N, T, U, Hp, S, stream)
-    _build.check(lib, "fj_error_string", code, "fj_hidden_image")
+    dev = a.get_device()
+    args = _HIDDEN_ARGS.pack(a.data_ptr(), c.data_ptr(), xn.data_ptr(),
+                             h16.data_ptr(), N, T, U, Hp, S,
+                             _build.raw_stream(dev))
+    code = _build.on_device(dev, lib.fj_hidden_image, args)
+    if code:
+        _build.check(lib, "fj_error_string", code, "fj_hidden_image")
     LAUNCHES["fused_joint_hidden"] += 1
     return h16
 

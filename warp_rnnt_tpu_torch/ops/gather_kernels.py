@@ -65,10 +65,6 @@ _PLANAR_TU, _PLANAR_UT, _LATTICE, _COLUMNS = 0, 1, 2, 3
 _ARGS = struct.Struct("<11q")
 
 _LIB: list = []  # the loaded library and its typed entry, held once
-# The current stream's handle and the current device, read without
-# building Python objects (absent from CPU-only builds, which never launch).
-_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
-_current_device = getattr(torch._C, "_cuda_getDevice", None)
 
 
 def _entry():
@@ -80,16 +76,6 @@ def _entry():
         lib.rnnt_gather_error_string.restype = ctypes.c_char_p
         _LIB[:] = [lib, lib.rnnt_gather]
     return _LIB[1]
-
-
-def _on_cpu(xs) -> bool:
-    """True for a CPU tensor (the plain version runs), False for a CUDA
-    tensor (the kernel runs); any other device raises."""
-    if xs.is_cuda:
-        return False
-    if xs.device.type == "cpu":
-        return True
-    raise ValueError(f"unsupported device {xs.device}")
 
 
 def _check(xs, ndim, idx, idx_name, K):
@@ -172,12 +158,8 @@ def _run(xs, idx, layout, blank, V, counter):
     fn = _LIB[1] if _LIB else _entry()
     args = _ARGS.pack(xs.data_ptr(), _DTYPE_CODES[xs.dtype], idx.data_ptr(),
                       out.data_ptr(), N, T, layout, k, cv, blank,
-                      _raw_stream(dev))
-    if dev == _current_device():
-        code = fn(args)
-    else:
-        with torch.cuda.device(dev):
-            code = fn(args)
+                      _build.raw_stream(dev))
+    code = _build.on_device(dev, fn, args)
     if code:
         _build.check(_LIB[0], "rnnt_gather_error_string", code, "rnnt_gather")
     LAUNCHES[counter] += 1
@@ -209,7 +191,7 @@ def gather_columns_flat(xs3, cols):
     cols[n, k] is outside [0, C).  One launch takes any K (the JAX
     function's split of K > 64 is a TPU VMEM limit, not ported).  A CUDA
     tensor launches the kernel, a CPU tensor runs the plain version."""
-    if _on_cpu(xs3):
+    if _build.on_cpu(xs3):
         return gather_columns_flat_plain(xs3, cols)
     return _run(xs3, cols, _COLUMNS, 0, 0, "gather_columns")
 
@@ -235,7 +217,7 @@ def gather_lattice(xs, labels_ext, blank: int):
     the labels are in range (where one is not, `torch.gather` on the card
     stops with a device-side assert).  One launch; a CUDA tensor launches
     the kernel, a CPU tensor runs the plain version."""
-    if _on_cpu(xs):
+    if _build.on_cpu(xs):
         return gather_lattice_plain(xs, labels_ext, blank)
     return _run(xs, labels_ext, _LATTICE, blank,
                 xs.shape[-1] if xs.dim() else -1, "gather_lattice")
@@ -253,7 +235,7 @@ def gather_fwd(xs, labels_ext, blank: int):
     channel 0 xs[..., blank], channel 1 xs[n, t, u, labels_ext[n, u]], 0
     where the label is outside [0, V).  A CUDA tensor launches the kernel,
     a CPU tensor runs the plain version."""
-    if _on_cpu(xs):
+    if _build.on_cpu(xs):
         return gather_fwd_plain(xs, labels_ext, blank)
     return _run(xs, labels_ext, _PLANAR_TU, blank,
                 xs.shape[-1] if xs.dim() else -1, "gather_fwd")
@@ -271,7 +253,7 @@ def gather_fwd_sparse(xs3, labels_ext, blank: int, V: int):
     """The channels of `gather_fwd` from the flat view xs3 (N, T, U*V),
     laid out (2, N, U, T) fp32.  A CUDA tensor launches the kernel, a CPU
     tensor runs the plain version."""
-    if _on_cpu(xs3):
+    if _build.on_cpu(xs3):
         return gather_fwd_sparse_plain(xs3, labels_ext, blank, V)
     return _run(xs3, labels_ext, _PLANAR_UT, blank, V, "gather_fwd_sparse")
 
