@@ -120,6 +120,27 @@ The kernels line holds, besides `bound_ms` and the compiler's `attrs`,
 only numbers this run measured: the chain floors, sector floors, tanhf
 counts and bound shares stand on the `time` lines.  `packed_gather`'s
 launches count both kernels of its entry, the prefix scan and the gather.
+Slice 10 (the transducer model and its train step) adds phase 14, after
+the gathers: the model at bench_train.py's width (`train_cases.FULL`:
+N=32, T=400, U=40, V=1024, 80 features, hidden 512, two conv blocks,
+"add" joint), carried from a seeded Flax-layout tree, in each loss mode
+("from_logits", "gather", "fused"): the step-0 loss and gradients with the
+launch counts set to 0 just before and read just after (exactly the mode's
+kernels: the lattice; the gather, lattice and write; the lattice, the h
+image, the fused forward and both backward kernels), all finite, "gather"
+and "fused" against "from_logits" (loss rtol 2e-3, each gradient rtol 0.1
+and atol 3e-2 of its largest); the lattice sweep of each mode's step 0,
+on the inputs it was given there, against the plain version in float64
+(alphas and betas on valid cells 1e-5 |p| + 1e-5, costs rtol 1e-5,
+gradients 5e-3 of the largest); five AdamW steps with the loss falling;
+one small step on the card against the same step on the CPU (gradients
+as above; after one AdamW step the parameters within 1e-2 lr wherever
+the two gradients share a sign above 1e-5); then
+`benchmarks/bench_train.py` (chained step ms, kernels a step, device busy
+ms, idle share, peak MB, bound ms, the top kernels by device ms).  Each
+kernel the step launches gains a `train` entry in the kernels line: its
+launches a step and its device ms a step, by mode, and its bound a step;
+the lattice's also its largest error on valid cells by mode.
 It prints the kernels' JSON line and the card's line, and last
 `{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}`.
 Without a CUDA device, or without the package beside it, it exits 1 and
@@ -127,6 +148,7 @@ prints no result.
 """
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -1755,6 +1777,130 @@ def time_route_sweep(torch, np, wt, timing, profile_step, carry, card):
     return out
 
 
+# The train step (slice 10): the transducer at bench_train.py's shape
+# (`train_cases.FULL`: N=32, T=400, U=40, V=1024, 80 features, hidden 512),
+# carried from a seeded Flax-layout tree, in each loss mode.
+TRAIN_MODES = ("from_logits", "gather", "fused")
+TRAIN_STEPS = 5
+# The kernels' symbols in the profiler's names, by `LAUNCHES` name.
+TRAIN_SYMBOLS = {"lattice_fused": "lattice_kernel",
+                 "gather_lattice": "column_gather_kernel",
+                 "flat_write": "flat_write_kernel",
+                 "fused_joint_hidden": "hidden_image_kernel",
+                 "fused_joint_fwd": "fwd_kernel",
+                 "fused_joint_bwd_dadc": "dadc_kernel",
+                 "fused_joint_bwd_dwdb": "dwdb_kernel"}
+
+
+def train_bounds(rates, R):
+    """Each train-path kernel's bound a step at `train_cases.FULL`, with R
+    valid cells, by the conventions of the kernels' own timings: the
+    lattice, the gather (a sector a gathered value) and the write (the dense
+    gradient) by bytes over every cell; the fused kernels by their bf16
+    products on the valid cells (forward one R x H x V product, each
+    backward kernel two); the h image by its bytes, twice a step."""
+    from warp_rnnt_tpu_torch.benchmarks import h_image as hi
+    from warp_rnnt_tpu_torch.benchmarks import train_cases as tc
+
+    n, t, u, v, h = (tc.FULL[k] for k in "NTUVH")
+    cells = n * t * u
+    prod = 2 * R * h * v
+    work = {"lattice_fused": (*lattice_work(n, t, u, True), 1),
+            "gather_lattice": (2 * cells * (32 + 4), 0, 1),
+            "flat_write": (cells * v * 4 + 2 * cells * 4 + n * u * 4, 0, 1),
+            "fused_joint_fwd": (0, prod, BF16),
+            "fused_joint_bwd_dadc": (0, 2 * prod, BF16),
+            "fused_joint_bwd_dwdb": (0, 2 * prod, BF16),
+            "fused_joint_hidden": (2 * hi.bound_bytes(n, t, u, h), 0, 1)}
+    return {k: bound_ms(b, o, rates, r) for k, (b, o, r) in work.items()}
+
+
+def phase_train(torch, card, rates):
+    """Step-0 loss and gradients in each mode with the counts set to 0 just
+    before and read just after (exactly the mode's kernels), "gather" and
+    "fused" against "from_logits"; the lattice sweep each mode's step 0 ran
+    against the plain version in float64 on the same inputs
+    (`train_cases.lattice_matches_plain`); TRAIN_STEPS AdamW steps a mode
+    with the loss falling; one small step on the card against the CPU a
+    mode; then `bench_train` a mode, with each kernel's device ms a step
+    under the profiler beside its bound (`train_bounds`).  Returns
+    (launches a step by mode, device ms a step by mode and kernel, (bound
+    ms, bound by) by kernel, the largest error over its allowance by check,
+    the lattice's largest error on valid cells by mode)."""
+    from warp_rnnt_tpu_torch.benchmarks import bench_train
+    from warp_rnnt_tpu_torch.benchmarks import train_cases as tc
+    from warp_rnnt_tpu_torch.models import make_train_step
+
+    model, batch = tc.carried(SEED + 41, tc.FULL)
+    out, launches, errs = {}, {}, {}
+    lattice_errs = {}
+    for mode in TRAIN_MODES:
+        with tc.recorded_lattice() as sweeps:
+            loss, grads, launches[mode] = tc.launches_per_step(model, batch,
+                                                               mode)
+        out[mode] = loss, grads
+        print(f"train step {mode} at {json.dumps(tc.FULL)}: loss"
+              f" {float(loss):.6f}, launches a step {launches[mode]}")
+        (sweep,) = sweeps
+        lattice_errs[mode] = tc.lattice_matches_plain(
+            sweep, f"train {mode} lattice")
+        print(f"train step {mode}: lattice_fused on its {tuple(sweep[0].shape)}"
+              f" lattice against the float64 plain version: max abs err on"
+              f" valid cells {lattice_errs[mode]}, costs and gradients within"
+              f" rtol {tc.COST_RTOL} and {tc.LATTICE_GRAD_TOL} of the largest")
+        del sweeps, sweep
+    for mode in TRAIN_MODES[1:]:
+        errs[mode] = tc.compare_grads(out["from_logits"], out[mode],
+                                      f"train {mode} vs from_logits")
+        print(f"train step {mode} vs from_logits: loss"
+              f" {float(out[mode][0]):.6f} / {float(out['from_logits'][0]):.6f},"
+              f" gradients at {errs[mode]:.3f} of their allowance")
+    del out, model
+    for mode in TRAIN_MODES:
+        model, batch = tc.carried(SEED + 41, tc.FULL)
+        opt = torch.optim.AdamW(model.parameters(), lr=tc.LR,
+                                weight_decay=tc.WEIGHT_DECAY)
+        step = make_train_step(model, opt, loss_mode=mode)
+        losses = [float(step(batch)) for _ in range(TRAIN_STEPS)]
+        print(f"train {mode}: {TRAIN_STEPS} AdamW steps, losses {losses}")
+        if not all(map(math.isfinite, losses)) or losses[-1] >= losses[0]:
+            raise AssertionError(f"train {mode}: the loss did not fall {losses}")
+    del model, opt, step
+    for mode in TRAIN_MODES:
+        worst, (moved, share), small = tc.card_matches_cpu(mode)
+        errs[f"{mode} card vs cpu"] = worst
+        errs[f"{mode} card vs cpu step"] = moved / tc.STEP_ATOL
+        print(f"train step {mode} at {json.dumps(tc.SMALL)}, card against"
+              f" CPU: gradients at {worst:.3f} of their allowance; after one"
+              f" AdamW step, parameters within {moved:.2e} (allowance"
+              f" {tc.STEP_ATOL:.0e}) on the {share:.3f} of entries whose"
+              f" gradients agree in sign above {tc.STEP_GRAD_MIN:.0e};"
+              f" launches {small}")
+    torch.cuda.empty_cache()
+    device_ms = {}
+    for mode in TRAIN_MODES:
+        r = bench_train.bench_train(loss_mode=mode)
+        rows = r.pop("kernels")
+        print(f"time train step {mode}: {r['step_ms']:.3f} ms chained"
+              f" ({r['utts_per_s']:.1f} utts/s), bound {r['bound_ms']:.3f} ms"
+              f" ({r['bound_by']}), {r['kernels_per_step']} kernels a step,"
+              f" busy {r['busy_ms']:.3f} ms, idle {r['idle_share']:.3f},"
+              f" peak {r['peak_mb']:.1f} MB, {r['params_m']} M params [{card}]")
+        print(f"bench_train {json.dumps(r)}")
+        for ms, count, name in rows[:bench_train.TOP]:
+            print(f"profile train {mode} {ms:.4f} ms/step {count} x/step {name}")
+        device_ms[mode] = {k: sum(ms for ms, _, name in rows
+                                  if f"::{sym}" in name)
+                           for k, sym in TRAIN_SYMBOLS.items()}
+        torch.cuda.empty_cache()
+    bounds = train_bounds(rates, r["valid_cells"])  # one batch for every mode
+    for k, (b_ms, b_by) in bounds.items():
+        print(f"time train kernel {k}: device ms a step"
+              f" {json.dumps({m: device_ms[m][k] for m in TRAIN_MODES})},"
+              f" bound {b_ms:.4f} ms ({b_by}) [{card}]")
+    return launches, device_ms, bounds, errs, lattice_errs
+
+
 def main():
     import torch
 
@@ -1938,6 +2084,11 @@ def main():
     for ms, count, key in prof["rows"]:
         print(f"profile {ms:.4f} ms/call {count} x/call {key[:80]}")
 
+    # slice 10: the transducer's train step in each loss mode
+    train_launches, train_ms, train_bound, train_errs, train_lattice = (
+        phase_train(torch, card, rates))
+    print(f"train check errors: {json.dumps(train_errs)}")
+
     fj_src = "warp_rnnt_tpu/ops/fused_joint.py"
     pk_src = "warp_rnnt_tpu/ops/packed_kernels.py"
     eg_src = "scripts/exp_pallas_gather.py"
@@ -2012,6 +2163,15 @@ def main():
             entry["H=512"] = h512_times[name]
         if name in attrs:
             entry["attrs"] = attrs[name]
+        train = {mode: train_launches[mode].get(name, 0) for mode in TRAIN_MODES}
+        if any(train.values()):
+            entry["train"] = {
+                "launches": train,
+                "device_ms": {mode: train_ms[mode][name] for mode in TRAIN_MODES},
+                "bound_ms": train_bound[name][0],
+                "bound_by": train_bound[name][1]}
+            if name == "lattice_fused":
+                entry["train"]["max_abs_err"] = train_lattice
         kernels.append(entry)
     print(f"whole run from the build: {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -251,7 +251,8 @@ def test_no_jax_imports_in_port_sources():
     for path in paths:
         for mod in _imported_modules(path):
             top = mod.split(".")[0]
-            assert top not in ("jax", "jaxlib", "flax", "warp_rnnt_tpu"), (path, mod)
+            assert top not in ("jax", "jaxlib", "flax", "optax", "orbax",
+                               "warp_rnnt_tpu"), (path, mod)
 
 
 def test_chip_smoke_fails_without_cuda_or_package(tmp_path):

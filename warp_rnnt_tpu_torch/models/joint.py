@@ -86,18 +86,37 @@ class Joint(nn.Module):
                             normalize)
 
 
+def flax_leaf(tree, path, rank):
+    """The leaf of a Flax parameter tree at ``path`` as a float32 numpy
+    array, or a ValueError naming the path when it is not an array of
+    ``rank`` dimensions (a boxed leaf, such as ``LogicallyPartitioned``,
+    reads as a 0-d object array: pass ``flax.linen.unbox(params)``)."""
+    node = tree
+    for key in path:
+        node = node[key]
+    arr = np.asarray(node)
+    if arr.dtype == object or arr.ndim != rank:
+        raise ValueError(
+            f"leaf {'/'.join(path)} must be a rank-{rank} array, got"
+            f" {type(node).__name__} of shape {arr.shape}"
+            " (unbox the tree with flax.linen.unbox)")
+    return arr.astype(np.float32)
+
+
 def carry_flax_joint(tree, mode: str = "add", device="cuda"):
     """A Flax `Joint`'s parameters -> (Joint module, fused-loss params).
 
     tree: ``{"params": {"pre": {"kernel", "bias"}, "out": {...}}}`` (or its
-    ``"params"`` entry), leaves as numpy arrays.  Returns the port's `Joint`
+    ``"params"`` entry), leaves as numpy arrays, unboxed (a leaf of the
+    wrong rank raises a ValueError naming its path).  Returns the port's `Joint`
     holding those weights (fp32, on ``device``) and the dict ``w_pre, b_pre,
     w_out, b_out`` that `rnnt_loss_fused_joint` takes, as new fp32 leaf
     tensors on ``device`` in the Flax (in, out) layout.
     """
     p = tree.get("params", tree)
-    arrays = {(layer, name): np.asarray(p[layer][name], dtype=np.float32)
-              for layer in ("pre", "out") for name in ("kernel", "bias")}
+    arrays = {(layer, name): flax_leaf(p, (layer, name), rank)
+              for layer in ("pre", "out")
+              for name, rank in (("kernel", 2), ("bias", 1))}
     in_features, hidden = arrays["pre", "kernel"].shape
     vocab_size = arrays["out", "kernel"].shape[1]
     joint = Joint(vocab_size, in_features, hidden, mode=mode, device=device)
