@@ -141,6 +141,34 @@ ms, idle share, peak MB, bound ms, the top kernels by device ms).  Each
 kernel the step launches gains a `train` entry in the kernels line: its
 launches a step and its device ms a step, by mode, and its bound a step;
 the lattice's also its largest error on valid cells by mode.
+Slice 11 (the serving path) adds phase 15, after the train step
+(`benchmarks/serving_cases.py`): `rnnt_loss_restricted` at the main
+path's shape (N=32, T=150, U=21, V=5000, fp32, label frames from
+`rnnt_alignment` on the same log-probs, bands 15 left and 5 right) with
+the counts set to 0 just before and read just after each call (loss+grad:
+the gather, the lattice and the write; no-grad: the gather and the
+beta-only sweep), against `impl="scan"` on the card (costs rtol 1e-5,
+gradients 5e-3 of the largest), a huge band equal to `rnnt_loss` bit for
+bit, two infeasible samples (bands out of order) +inf under 'none' with
+exactly zero and finite gradients and left out of 'sum' and 'mean', an
+all-infeasible batch 0; its loss+grad and no-grad ms chained beside
+`rnnt_loss`'s, with the kernels a call under the profiler; the alignment
+on the card against the CPU (frames equal, scores rtol 1e-5), its Viterbi
+scores at most minus the kernel path's costs, and its ms.  The decoders
+at bench_decode.py's width (N=32, T=400, 80 features, hidden 512,
+V=1024, beam 4, max_length 100; weights from `train_cases.flax_tree`):
+beam 1 equals greedy, beam tokens in [1, V), each beam score at most its
+tokens' Viterbi score on the model's full lattice + 1e-3; a small fp32
+model decodes to the CPU's tokens on the card; then `bench_decode`
+(greedy and beam ms, utts/s, loop iterations, kernels, busy, idle, peak).
+Streaming at bench_streaming.py's width (N=8, C=16, V=1024, hidden 512,
+160 frames, ragged lengths): chunked equals one-shot exactly (tokens,
+lengths, beam-4 scores) at C=16, C=7 (a ragged tail) and C=1 on the
+first 64 frames; then `bench_streaming` greedy and beam 4 (chunk ms,
+frames/s, ms a frame a stream, iterations, busy, idle).  The gather, the
+lattice kernels and the write gain a `serving` entry in the kernels line:
+their launches in each serving call and the restricted loss's errors
+against the scan.
 It prints the kernels' JSON line and the card's line, and last
 `{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}`.
 Without a CUDA device, or without the package beside it, it exits 1 and
@@ -1901,6 +1929,134 @@ def phase_train(torch, card, rates):
     return launches, device_ms, bounds, errs, lattice_errs
 
 
+SERVING_KERNELS = ("gather_lattice", "lattice_fused", "lattice_beta_only",
+                   "flat_write")
+
+
+def phase_serving(torch, wt, timing, card):
+    """The serving path (`benchmarks/serving_cases.py`): the restricted
+    loss and the alignment at the main path's shape, the decoders at
+    bench_decode.py's width, streaming at bench_streaming.py's; each
+    check raises on a failure.  Returns ({call: {kernel: launches}} with
+    the counts set to 0 just before each call and read just after, the
+    restricted loss's errors)."""
+    from warp_rnnt_tpu_torch.benchmarks import bench_decode as bd
+    from warp_rnnt_tpu_torch.benchmarks import bench_streaming as bs
+    from warp_rnnt_tpu_torch.benchmarks import serving_cases as sc
+    from warp_rnnt_tpu_torch.benchmarks.profile_loss import profile_step
+
+    inputs = sc.restricted_inputs(SEED + 51, **sc.RESTRICTED)
+    lp, labels, xn, yn, frames = inputs
+    shape = json.dumps(sc.RESTRICTED)
+    errs, grad_launches, no_grad_launches = sc.check_restricted(*inputs)
+    launches = {"restricted": grad_launches,
+                "restricted_no_grad": no_grad_launches}
+    print(f"serving restricted loss at {shape}, left {sc.LEFT} right"
+          f" {sc.RIGHT}: against the scan {json.dumps(errs)} (costs rtol"
+          f" {sc.COST_RTOL}, gradients {sc.GRAD_TOL} of the largest); a"
+          f" huge band equals rnnt_loss bit for bit; samples {sc.INFEASIBLE}"
+          f" infeasible: raw kernel cost {errs['infeasible_raw_cost']:.6e}"
+          f" -> +inf, gradients exactly 0 and finite, left out of sum and"
+          f" mean; launches {json.dumps(launches)}")
+    costs = wt.rnnt_loss(lp, labels, xn, yn)
+    (scores, _, a_err), launches["alignment"] = sc.launched(
+        lambda: sc.check_alignment(lp, labels, xn, yn, costs))
+    print(f"serving alignment at {shape}: frames equal the CPU's, scores"
+          f" rtol {a_err:.3e}; Viterbi score <= -cost in every sample (gap"
+          f" {float((-costs - scores).min()):.4f} to"
+          f" {float((-costs - scores).max()):.4f})")
+
+    def loss_grad(fn):
+        def step(x):
+            x = x.detach().requires_grad_()
+            loss = fn(x)
+            loss.backward()
+            return loss.detach(), x.grad
+        return step
+
+    restricted = lambda x: wt.rnnt_loss_restricted(  # noqa: E731
+        x, labels, xn, yn, frames, sc.LEFT, sc.RIGHT, reduction="mean")
+    plain = lambda x: wt.rnnt_loss(x, labels, xn, yn,  # noqa: E731
+                                   reduction="mean", gather=True)
+    times = {}
+    for name, fn in (("restricted", restricted), ("rnnt_loss", plain)):
+        times[f"{name} loss+grad"] = timing.bench_grad_chain(
+            loss_grad(fn), lp, 20)
+        with torch.no_grad():
+            times[f"{name} no-grad"] = timing.bench_scalar_chain(
+                fn, (lp,), 20)
+        prof = profile_step(lambda: loss_grad(fn)(lp))
+        times[f"{name} kernels a loss+grad"] = prof["kernels_per_call"]
+        times[f"{name} busy ms"] = prof["busy_ms"]
+    times["alignment"] = timing.bench_scalar_chain(
+        wt.rnnt_alignment, (lp, labels, xn, yn), 4,
+        reduce_out=lambda out: out[0].sum())
+    for k, v in times.items():
+        print(f"time serving {k} at {shape}: {v} [{card}]")
+    del inputs, lp, costs, scores
+    torch.cuda.empty_cache()
+
+    d = sc.DECODE
+    feats = sc.features(SEED + 62, d["N"], d["T"], d["F"])
+    xn = torch.full((d["N"],), d["T"], dtype=torch.int32, device="cuda")
+    for cd in (torch.float32, torch.bfloat16):  # bf16: the default model
+        model = sc.carried_model(d, SEED + 61, compute_dtype=cd)
+        g_len, beam_out = sc.check_decoders(model, feats, xn, d["V"],
+                                            d["beam"], d["max_length"])
+        fp32 = cd == torch.float32
+        gaps = sc.beam_score_gaps(model, feats, xn, beam_out,
+                                  sc.SCORE_ATOL if fp32 else None)
+        print(f"serving decoders at {json.dumps(d)}, {cd}: beam 1 equals"
+              f" greedy; beam tokens in [1, V); greedy lengths"
+              f" {g_len.tolist()}, beam {beam_out[1].tolist()}; beam score"
+              f" minus its tokens' Viterbi score on the full lattice"
+              f" {gaps[1]:.6f} to {gaps[0]:.6f}"
+              + (f" (at most {sc.SCORE_ATOL} + the sums' fp32 rounding:"
+                 f" {gaps[2]:.3f} of it)" if fp32 else
+                 " (not held: bf16 rounds by row count)"))
+    gap = sc.check_card_equals_cpu(SEED)
+    print(f"serving small fp32 model {json.dumps(sc.SMALL)}: card tokens equal"
+          f" the CPU's, greedy and beam; beam scores within {gap:.3e}")
+    r = bd.bench_decode(d["N"], d["T"], d["V"], d["beam"], d["F"], d["H"],
+                        d["max_length"], model=model)
+    print(f"bench_decode {json.dumps(r)}")
+    print(f"time serving greedy decode: {r['greedy_ms']} ms"
+          f" ({r['greedy_utts_per_s']} utts/s), {r['greedy_iterations']}"
+          f" iterations (host reads), {r['greedy_kernels']} kernels, busy"
+          f" {r['greedy_busy_ms']} ms, idle {r['greedy_idle_share']}; beam"
+          f" {d['beam']}: {r['beam_ms']} ms ({r['beam_utts_per_s']} utts/s),"
+          f" {r['beam_iterations']} iterations, {r['beam_kernels']} kernels,"
+          f" busy {r['beam_busy_ms']} ms, idle {r['beam_idle_share']} [{card}]")
+    del model, feats
+    torch.cuda.empty_cache()
+
+    d = sc.STREAM
+    model = sc.carried_model(d, SEED + 71)
+    feats = sc.features(SEED + 72, d["N"], d["T"], d["F"])
+    xn = sc.ragged(d["N"], d["T"])
+    ref, bits = sc.check_streaming(model, feats, xn, d["max_length"],
+                                   d["beam"], (d["C"], 7))
+    short = 64
+    bits.update(sc.check_streaming(
+        model, feats[:, :short].contiguous(), xn.clamp(max=short),
+        d["max_length"], d["beam"], (1,))[1])
+    print(f"serving streaming at {json.dumps(d)}: chunked equals one-shot"
+          f" (tokens, lengths, beam scores) at C={d['C']} and C=7 (ragged"
+          f" tail), and at C=1 on the first {short} frames; lengths"
+          f" {json.dumps(ref)}; encoder elements differing from the whole"
+          f" utterance's, by C: {json.dumps(bits)}")
+    for beam in (0, d["beam"]):
+        r = bs.bench_streaming(d["N"], d["C"], d["V"], beam, d["F"], d["H"],
+                               d["max_length"], model=model)
+        print(f"bench_streaming {json.dumps(r)}")
+        print(f"time serving stream beam={beam}: {r['chunk_ms']} ms a chunk of"
+              f" {d['C']} frames ({r['frames_per_s']} frames/s,"
+              f" {r['ms_per_frame_per_stream']} ms a frame a stream),"
+              f" {r['iterations_per_chunk']} iterations, busy {r['busy_ms']}"
+              f" ms, idle {r['idle_share']} [{card}]")
+    return launches, errs
+
+
 def main():
     import torch
 
@@ -2089,6 +2245,9 @@ def main():
         phase_train(torch, card, rates))
     print(f"train check errors: {json.dumps(train_errs)}")
 
+    # slice 11: the serving path
+    serving_launches, serving_errs = phase_serving(torch, wt, timing, card)
+
     fj_src = "warp_rnnt_tpu/ops/fused_joint.py"
     pk_src = "warp_rnnt_tpu/ops/packed_kernels.py"
     eg_src = "scripts/exp_pallas_gather.py"
@@ -2172,6 +2331,12 @@ def main():
                 "bound_by": train_bound[name][1]}
             if name == "lattice_fused":
                 entry["train"]["max_abs_err"] = train_lattice
+        if name in SERVING_KERNELS:
+            entry["serving"] = {
+                "launches": {call: n.get(name, 0)
+                             for call, n in serving_launches.items()},
+                "max_abs_err": {k: serving_errs[k] for k in (
+                    "costs_vs_scan", "no_grad_vs_scan", "grad_vs_scan_share")}}
         kernels.append(entry)
     print(f"whole run from the build: {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -2,6 +2,8 @@
 package.  Everything crosses over as numpy arrays made from a seed, so both
 packages see the same bits."""
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -53,3 +55,46 @@ def cuda_device():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (CUDA kernel; no CPU interpret mode)")
     return torch.device("cuda")
+
+
+@functools.cache
+def fp32_transducer_class():
+    """The JAX `Transducer` with its encoder and joint in fp32 (the same
+    parameter tree), a test-side subclass: no JAX file changes.  Flax is
+    imported here, not at the top, because the card has none."""
+    import jax.numpy as jnp
+    from warp_rnnt_tpu.models import transducer as jt
+    from warp_rnnt_tpu.models.joint import Joint
+
+    class Fp32Transducer(jt.Transducer):
+        def setup(self):
+            self.encoder = jt.Encoder(self.encoder_hidden,
+                                      compute_dtype=jnp.float32)
+            self.predictor = jt.Predictor(self.vocab_size,
+                                          self.predictor_hidden)
+            self.joint = Joint(self.vocab_size, self.joint_hidden,
+                               self.joint_mode, compute_dtype=jnp.float32)
+
+    return Fp32Transducer
+
+
+def carried_pair(variant, seed, feats, V, H, max_label_len=4):
+    """(JAX model, its unboxed params, the port's carried model on the CPU)
+    of one Flax tree: ``variant`` "bf16" (the default model) or "fp32"
+    (`fp32_transducer_class`, and the port's compute_dtype fp32)."""
+    import flax.linen as nn
+    import jax
+    import jax.numpy as jnp
+    from warp_rnnt_tpu.models import transducer as jt
+    from warp_rnnt_tpu_torch.models import carry_flax_transducer
+
+    cls = fp32_transducer_class() if variant == "fp32" else jt.Transducer
+    model = cls(vocab_size=V, encoder_hidden=H, predictor_hidden=H,
+                joint_hidden=H)
+    labels = jnp.zeros((feats.shape[0], max_label_len), jnp.int32)
+    params = nn.unbox(model.init(jax.random.PRNGKey(seed), jnp.asarray(feats),
+                                 labels))
+    tree = jax.tree_util.tree_map(np.asarray, params)
+    cd = torch.float32 if variant == "fp32" else torch.bfloat16
+    return model, params, carry_flax_transducer(tree, device="cpu",
+                                                compute_dtype=cd)

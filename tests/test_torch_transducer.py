@@ -43,8 +43,8 @@ import pytest
 import torch
 
 import warp_rnnt_tpu_torch.models as tm
+from _torch_port_helpers import fp32_transducer_class
 from warp_rnnt_tpu.models import transducer as jt
-from warp_rnnt_tpu.models.joint import Joint as FlaxJoint
 from warp_rnnt_tpu_torch.benchmarks import train_cases as tc
 from warp_rnnt_tpu_torch.models import (
     carry_flax_joint,
@@ -60,14 +60,7 @@ N, T, U, F, V, HE, HP, HJ = 3, 12, 5, 10, 17, 24, 24, 32
 FP32_RTOL = 1e-5
 
 
-class _Fp32Transducer(jt.Transducer):
-    """The JAX Transducer with its encoder and joint in fp32 (same tree)."""
-
-    def setup(self):
-        self.encoder = jt.Encoder(self.encoder_hidden, compute_dtype=jnp.float32)
-        self.predictor = jt.Predictor(self.vocab_size, self.predictor_hidden)
-        self.joint = FlaxJoint(self.vocab_size, self.joint_hidden,
-                               self.joint_mode, compute_dtype=jnp.float32)
+_Fp32Transducer = fp32_transducer_class()
 
 
 def _inputs(seed=0):
@@ -465,13 +458,23 @@ def test_unknown_loss_mode_raises():
 
 
 def test_models_exports():
+    import warp_rnnt_tpu as jp
     import warp_rnnt_tpu.models as jm
+    import warp_rnnt_tpu_torch as tp
+    import warp_rnnt_tpu_torch.functional as tf
 
     shared = {"Encoder", "Predictor", "Transducer", "init_model",
-              "make_train_step", "transducer_loss_fn", "Joint"}
-    assert shared <= set(jm.__all__)
+              "make_train_step", "transducer_loss_fn", "Joint",
+              "greedy_decode", "beam_decode", "stream_init", "stream_step",
+              "stream_finish"}
+    assert shared == set(jm.__all__)
     assert shared | {"ConvBlock", "carry_flax_transducer",
                      "carry_flax_joint"} <= set(tm.__all__)
+    # the package's: JAX's, less the TPU layout helper flat_arg_formats
+    assert set(jp.__all__) - {"flat_arg_formats"} == set(tp.__all__)
+    assert {"rnnt_loss_restricted", "rnnt_alignment"} <= set(tf.__all__)
+    for name in tm.__all__:
+        assert callable(getattr(tm, name))
 
 
 def test_modules_default_to_the_card():

@@ -10,11 +10,13 @@ torch code.
 """
 
 from warp_rnnt_tpu_torch.functional import (
+    rnnt_alignment,
     rnnt_core,
     rnnt_core_with_internals,
     rnnt_loss,
     rnnt_loss_from_logits,
     rnnt_loss_joint,
+    rnnt_loss_restricted,
     rnnt_loss_with_internals,
 )
 from warp_rnnt_tpu_torch.ops.fused_joint import rnnt_loss_fused_joint
@@ -22,12 +24,14 @@ from warp_rnnt_tpu_torch.ops.fused_joint import rnnt_loss_fused_joint
 __version__ = "0.1.0"
 
 __all__ = [
+    "rnnt_alignment",
     "rnnt_core",
     "rnnt_core_with_internals",
     "rnnt_loss",
     "rnnt_loss_from_logits",
     "rnnt_loss_fused_joint",
     "rnnt_loss_joint",
+    "rnnt_loss_restricted",
     "rnnt_loss_with_internals",
     "__version__",
 ]

@@ -72,14 +72,9 @@ def profile(path="main"):
 def profile_step(step):
     """Profile ITERS calls of ``step()`` after three unprofiled ones.
     Returns {"step_ms" (wall per call without the profiler, best of three
-    windows), "wall_ms", "busy_ms" (per call), "idle_share",
-    "kernels_per_call", "rows": [(device ms per call, launches per call,
-    kernel name)], "device"}."""
+    windows), and `device_profile`'s keys}."""
     if not torch.cuda.is_available():
         raise SystemExit("profile_loss needs a CUDA device")
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile as torch_profile
-
     for _ in range(3):
         step()
     step_ms = []
@@ -90,10 +85,23 @@ def profile_step(step):
             step()
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t0) * 1e3 / ITERS)
-    with torch_profile(activities=[ProfilerActivity.CPU,
-                                   ProfilerActivity.CUDA]) as prof:
+    return {"step_ms": min(step_ms), **device_profile(step, ITERS)}
+
+
+def device_profile(step, iters, cpu=True):
+    """Run ``iters`` calls of ``step()`` under `torch.profiler` (host ops
+    too unless ``cpu`` is False: a call of tens of thousands of launches
+    traces faster without them).  Returns {"wall_ms" (per call, the
+    profiler's host cost included), "busy_ms" (per call), "idle_share",
+    "kernels_per_call", "rows": [(device ms per call, launches per call,
+    kernel name)], "device"}."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+
+    activities = [ProfilerActivity.CUDA] + [ProfilerActivity.CPU] * cpu
+    with torch_profile(activities=activities) as prof:
         t0 = time.perf_counter()
-        for _ in range(ITERS):
+        for _ in range(iters):
             step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
@@ -106,12 +114,11 @@ def profile_step(step):
         if dev_us is None:
             dev_us = ev.self_cuda_time_total
         if dev_us > 0:
-            rows.append((dev_us / 1e3 / ITERS, ev.count // ITERS, ev.key))
+            rows.append((dev_us / 1e3 / iters, ev.count // iters, ev.key))
     rows.sort(reverse=True)
     busy_ms = sum(r[0] for r in rows)
-    return {"step_ms": min(step_ms), "wall_ms": wall_ms / ITERS,
-            "busy_ms": busy_ms,
-            "idle_share": 1 - busy_ms * ITERS / wall_ms,
+    return {"wall_ms": wall_ms / iters, "busy_ms": busy_ms,
+            "idle_share": 1 - busy_ms * iters / wall_ms,
             "kernels_per_call": sum(r[1] for r in rows), "rows": rows,
             "device": torch.cuda.get_device_name(0)}
 

@@ -1,0 +1,118 @@
+"""Streaming (chunked) transducer inference session (counterpart of
+`warp_rnnt_tpu/models/streaming.py`).
+
+Features arrive in chunks, the encoder runs statefully (per-conv-block
+caches, an algorithmic delay of `Encoder.lookahead` frames), and the
+greedy or beam decoder advances over the encoder frames as they become
+available.  The session state is a dict, ``{"enc", "dec"}`` for greedy or
+``{"enc", "dec_beam"}`` for beam search, of tensors on the model's device.
+
+Exactness contract: feeding the same (N, T, F) features through any
+chunking, ragged tail included, gives the one-shot `greedy_decode` (or,
+with ``beam_size`` > 0, `beam_decode`: tokens, lengths and scores)
+exactly.  The encoder masks out-of-stream frames to zero in LN-space in
+each conv block, so the chunked warm-up and flush rows act as the
+whole-utterance convolution's zero padding (`transducer.ConvBlock.stream`),
+and the decoders' loops are strictly per frame.
+
+Typical use::
+
+    state = stream_init(model, N=8, max_length=64)
+    for chunk in feature_chunks:            # (N, C, F) each
+        state = stream_step(model, state, chunk)
+    tokens, lengths, state = stream_finish(model, state)
+
+For batch-padded inputs with ragged valid lengths pass the same ``xn`` to
+every `stream_step` call and to `stream_finish`: decoding then stops per
+sample at xn, as `greedy_decode` does.  Every function runs under
+``torch.inference_mode()``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from warp_rnnt_tpu_torch.models.beam_search import (
+    beam_best,
+    beam_drain,
+    beam_state_init,
+)
+from warp_rnnt_tpu_torch.models.decoding import greedy_drain, greedy_state_init
+
+_NO_LIMIT = 2 ** 30  # "more frames are coming": the encoder's stream limit
+
+
+@torch.inference_mode()
+def stream_init(model, N: int, max_length: int, blank: int = 0,
+                beam_size: int = 0):
+    """A fresh streaming session state.
+
+    ``max_length`` bounds the emitted tokens an utterance (the token
+    buffer's width); ``blank`` must match the value passed to step and
+    finish.  ``beam_size`` > 0 makes it a beam-search session (the same
+    exactness contract against `beam_decode`; `stream_finish` then also
+    returns the best-alignment scores).
+    """
+    if beam_size:
+        return {"enc": model.encoder.stream_init(N),
+                "dec_beam": beam_state_init(model, N, beam_size, max_length,
+                                            blank)}
+    return {"enc": model.encoder.stream_init(N),
+            "dec": greedy_state_init(model, N, max_length, blank)}
+
+
+def _drain(model, state, enc_state, out, p0, frame_bound,
+           max_symbols_per_step, blank):
+    if "dec_beam" in state:
+        return {"enc": enc_state, "dec_beam": beam_drain(
+            model, state["dec_beam"], out, p0, frame_bound,
+            max_symbols_per_step=max_symbols_per_step, blank=blank)}
+    return {"enc": enc_state, "dec": greedy_drain(
+        model, state["dec"], out, p0, frame_bound,
+        max_symbols_per_step=max_symbols_per_step, blank=blank)}
+
+
+@torch.inference_mode()
+def stream_step(model, state, feats_chunk, xn=None,
+                max_symbols_per_step: int = 4, blank: int = 0):
+    """Feed a chunk of raw feature frames (N, C, F); returns the new state.
+
+    Encoder frames for stream positions [m - R, m + C - R) become
+    available (R = `Encoder.lookahead`, m = frames fed before this chunk)
+    and are decoded at once.  ``xn`` (N,) optionally caps each sample's
+    decoding at a known valid length (pass the same tensor every call); by
+    default every fed frame is decoded.
+    """
+    enc_state, out, p0 = model.encoder.stream(state["enc"], feats_chunk,
+                                              _NO_LIMIT)
+    bound = (p0 + feats_chunk.shape[1]).clamp(min=0)  # positions < bound are final
+    if xn is not None:
+        bound = torch.minimum(
+            torch.as_tensor(xn, dtype=torch.int32, device=bound.device), bound)
+    return _drain(model, state, enc_state, out, p0, bound,
+                  max_symbols_per_step, blank)
+
+
+@torch.inference_mode()
+def stream_finish(model, state, xn=None, max_symbols_per_step: int = 4,
+                  blank: int = 0):
+    """End the stream: flush the encoder's lookahead, decode the tail, and
+    return (tokens (N, max_length), lengths (N,), state); a beam session
+    returns (tokens, lengths, scores, state).
+
+    The returned state is terminal, for inspection or a checkpoint only:
+    its encoder has consumed the flush frames, so a further `stream_step`
+    or `stream_finish` on it decodes frames that are not in the stream.
+    """
+    L = state["enc"]["m"]
+    enc_state, out, p0 = model.encoder.stream_finish(state["enc"], L)
+    bound = L
+    if xn is not None:
+        bound = torch.minimum(
+            torch.as_tensor(xn, dtype=torch.int32, device=L.device), L)
+    state = _drain(model, state, enc_state, out, p0, bound,
+                   max_symbols_per_step, blank)
+    if "dec_beam" in state:
+        return (*beam_best(state["dec_beam"]), state)
+    dec = state["dec"]
+    return dec[6], dec[1], state
