@@ -169,6 +169,34 @@ frames/s, ms a frame a stream, iterations, busy, idle).  The gather, the
 lattice kernels and the write gain a `serving` entry in the kernels line:
 their launches in each serving call and the restricted loss's errors
 against the scan.
+Slice 12 (the parallel tier) adds phase 16, after the serving path
+(`benchmarks/parallel_cases.py`): the vocabulary-shard kernels (the
+gather and the write with a column offset) against their plain twins,
+exactly, on each half of a split vocabulary (V=5000 with the blank in
+either block and on the second block's first column, labels on both sides
+of the boundary; bf16), the halves summing to the whole.  Then a 1-rank
+NCCL world on cuda:0: the main path at full width through
+`rnnt_loss_sharded` and `rnnt_loss_shard_map` ("mean", backward; "none")
+bit-equal to `rnnt_loss(gather=True)` in costs and gradient, with the
+counts set to 0 just before and read just after (the gather, the lattice
+and the write); the sharded and the plain loss+grad chained in turns and
+under the profiler (kernels a call, busy, idle, the NCCL kernels' device
+ms); `bench_scaling` at 1 rank (lattices/s); `make_sharded_train_step` on
+a 1x1 ('data', 'model') mesh (the vocabulary-parallel route) at
+bench_train.py's width in each loss mode against the single-process step
+(`train_cases.compare_grads`, `compare_steps`), its chained step ms beside
+phase 14's.  Then a 2x2 gloo world of 4 processes on cuda:0 (the kernels
+on the card, the collectives through the host, whose time is not
+measured): the main path split over 'data' (16 samples) and 'model' (2500
+columns) against the single-process call (costs and mean rtol 1e-6, each
+rank's gradient block exactly), compact case A and the restricted loss
+(bands 15/5, two infeasible samples) over 'data' (mean rtol 1e-6,
+gradients 1e-6 of the largest), `dryrun_multichip(4)` (the same losses on
+every rank) and one "from_logits" train step at bench_train.py's width
+against the single-process step.  The kernels of the path gain a
+`parallel` entry: their launches in each of those calls (rank 0's in the
+2x2 world).  NCCL across several cards is not exercised: the machine has
+one.
 It prints the kernels' JSON line and the card's line, and last
 `{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}`.
 Without a CUDA device, or without the package beside it, it exits 1 and
@@ -1854,7 +1882,8 @@ def phase_train(torch, card, rates):
     under the profiler beside its bound (`train_bounds`).  Returns
     (launches a step by mode, device ms a step by mode and kernel, (bound
     ms, bound by) by kernel, the largest error over its allowance by check,
-    the lattice's largest error on valid cells by mode)."""
+    the lattice's largest error on valid cells by mode, bench_train's
+    chained step ms by mode)."""
     from warp_rnnt_tpu_torch.benchmarks import bench_train
     from warp_rnnt_tpu_torch.benchmarks import train_cases as tc
     from warp_rnnt_tpu_torch.models import make_train_step
@@ -1905,9 +1934,10 @@ def phase_train(torch, card, rates):
               f" gradients agree in sign above {tc.STEP_GRAD_MIN:.0e};"
               f" launches {small}")
     torch.cuda.empty_cache()
-    device_ms = {}
+    device_ms, step_ms = {}, {}
     for mode in TRAIN_MODES:
         r = bench_train.bench_train(loss_mode=mode)
+        step_ms[mode] = r["step_ms"]
         rows = r.pop("kernels")
         print(f"time train step {mode}: {r['step_ms']:.3f} ms chained"
               f" ({r['utts_per_s']:.1f} utts/s), bound {r['bound_ms']:.3f} ms"
@@ -1926,7 +1956,7 @@ def phase_train(torch, card, rates):
         print(f"time train kernel {k}: device ms a step"
               f" {json.dumps({m: device_ms[m][k] for m in TRAIN_MODES})},"
               f" bound {b_ms:.4f} ms ({b_by}) [{card}]")
-    return launches, device_ms, bounds, errs, lattice_errs
+    return launches, device_ms, bounds, errs, lattice_errs, step_ms
 
 
 SERVING_KERNELS = ("gather_lattice", "lattice_fused", "lattice_beta_only",
@@ -2054,6 +2084,117 @@ def phase_serving(torch, wt, timing, card):
               f" {r['ms_per_frame_per_stream']} ms a frame a stream),"
               f" {r['iterations_per_chunk']} iterations, busy {r['busy_ms']}"
               f" ms, idle {r['idle_share']} [{card}]")
+    return launches, errs
+
+
+def nccl_rows(rows):
+    """(device ms a call, launches a call) of the profiler rows whose
+    kernel names NCCL."""
+    nccl = [(ms, n) for ms, n, key in rows if "nccl" in key.lower()]
+    return sum(ms for ms, _ in nccl), sum(n for _, n in nccl)
+
+
+def phase_parallel(torch, timing, card, train_step_ms):
+    """Phase 16: the parallel tier (see the module docstring).  Returns
+    ({call: {kernel: launches}}, {kernel: max abs err of the shard
+    kernels against their twins})."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from warp_rnnt_tpu_torch import rnnt_loss
+    from warp_rnnt_tpu_torch.benchmarks import bench_scaling
+    from warp_rnnt_tpu_torch.benchmarks import parallel_cases as pc
+    from warp_rnnt_tpu_torch.benchmarks.profile_loss import profile_step
+    from warp_rnnt_tpu_torch.parallel import make_mesh, rnnt_loss_sharded
+
+    errs = {"gather_lattice": 0.0, "flat_write": 0.0}
+    for name, args in pc.SHARD_CASES.items():
+        for k, e in pc.compare_shards(pc.shard_case(*args)).items():
+            errs[k] = max(errs[k], e)
+    torch.cuda.synchronize()
+    print(f"parallel vocabulary-shard kernels against their twins, exact:"
+          f" {', '.join(pc.SHARD_CASES)}; halves sum to the whole")
+    launches = {}
+    tmp = tempfile.mkdtemp()
+    dist.init_process_group("nccl", init_method=f"file://{tmp}/rendezvous",
+                            world_size=1, rank=0)
+    try:
+        mesh = make_mesh(device="cuda:0")
+        inputs = make_inputs(torch, N, T, U, V, SEED)
+        launches["nccl_1rank_main"], main_errs = pc.check_main_1rank(
+            mesh, inputs)
+        print(f"parallel 1-rank NCCL main path at N={N} T={T} U={U} V={V}:"
+              f" costs and gradient bit-equal to rnnt_loss(gather=True);"
+              f" {json.dumps(main_errs)}; launches (sharded and shard_map,"
+              f" loss+grad and none) {launches['nccl_1rank_main']}")
+        lp, labels, xn, yn = inputs
+
+        def plain(x):
+            x = x.detach().requires_grad_()
+            rnnt_loss(x, labels, xn, yn, reduction="mean",
+                      gather=True).backward()
+            return None, x.grad
+
+        def sharded(x):
+            x = x.detach().requires_grad_()
+            rnnt_loss_sharded(mesh, x, labels, xn, yn,
+                              gather=True).backward()
+            return None, x.grad
+
+        chained = {"plain": [], "sharded": []}
+        for name in ("plain", "sharded", "sharded", "plain"):
+            fn = plain if name == "plain" else sharded
+            chained[name].append(timing.bench_grad_chain(fn, lp, 10))
+        prof = {name: profile_step(lambda f=fn: f(lp))
+                for name, fn in (("plain", plain), ("sharded", sharded))}
+        for name, p in prof.items():
+            nccl_ms, nccl_n = nccl_rows(p["rows"])
+            print(f"time parallel main path {name}: {chained[name]} ms"
+                  f" chained (in turns), {p['kernels_per_call']} kernels a"
+                  f" call, busy {p['busy_ms']:.4f} ms, idle"
+                  f" {p['idle_share']:.3f}, NCCL kernels {nccl_n} a call"
+                  f" {nccl_ms:.4f} ms [{card}]")
+        for ms, count, key in prof["sharded"]["rows"][:12]:
+            print(f"profile parallel sharded {ms:.4f} ms/call {count} x/call"
+                  f" {key[:80]}")
+        del inputs, lp, prof
+        torch.cuda.empty_cache()
+        lps = bench_scaling.lattices_per_second(mesh)
+        print(f"bench_scaling {json.dumps({'ranks': 1, 'lattices_per_s': lps})}"
+              f" [{card}]")
+
+        mesh2 = make_mesh((1, 1), ("data", "model"), device="cuda:0")
+        for mode in TRAIN_MODES:
+            worst, moved, step, local, launches[f"train_1x1_{mode}"] = (
+                pc.check_train_step(mesh2, mode))
+            ms = timing.bench_grad_chain(lambda _: (None, step(local)),
+                                         None, 10)
+            print(f"time parallel train step {mode} on a 1x1 mesh: {ms:.3f}"
+                  f" ms chained against phase 14's {train_step_ms[mode]:.3f};"
+                  f" gradients at {worst:.3f} of their allowance, parameters"
+                  f" within {moved:.2e} after one AdamW step; launches"
+                  f" {launches[f'train_1x1_{mode}']} [{card}]")
+            del step, local
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = pc.run_world(tmp)
+    for r in ranks[1:]:
+        if r["dryrun"] != ranks[0]["dryrun"]:
+            raise AssertionError("2x2 world: dry-run losses differ by rank")
+    for case, n in ranks[0]["launches"].items():
+        launches[f"gloo_2x2_{case}"] = n
+    print(f"parallel 2x2 gloo world on one card: {time.perf_counter() - t0:.1f}"
+          f" s; errors {json.dumps(ranks[0]['errs'])}; dryrun"
+          f" {json.dumps(ranks[0]['dryrun'])}; launches (rank 0)"
+          f" {json.dumps(ranks[0]['launches'])}; seconds by rank"
+          f" {[r['s'] for r in ranks]}")
+    worst = {k: max(r["errs"][k] for r in ranks) for k in ranks[0]["errs"]}
+    print(f"parallel 2x2 largest errors over the ranks: {json.dumps(worst)}")
     return launches, errs
 
 
@@ -2241,12 +2382,18 @@ def main():
         print(f"profile {ms:.4f} ms/call {count} x/call {key[:80]}")
 
     # slice 10: the transducer's train step in each loss mode
-    train_launches, train_ms, train_bound, train_errs, train_lattice = (
-        phase_train(torch, card, rates))
+    (train_launches, train_ms, train_bound, train_errs, train_lattice,
+     train_step_ms) = phase_train(torch, card, rates)
     print(f"train check errors: {json.dumps(train_errs)}")
 
     # slice 11: the serving path
     serving_launches, serving_errs = phase_serving(torch, wt, timing, card)
+
+    # slice 12: the parallel tier
+    t16 = time.perf_counter()
+    parallel_launches, parallel_errs = phase_parallel(
+        torch, timing, card, train_step_ms)
+    print(f"phase 16: {time.perf_counter() - t16:.1f} s")
 
     fj_src = "warp_rnnt_tpu/ops/fused_joint.py"
     pk_src = "warp_rnnt_tpu/ops/packed_kernels.py"
@@ -2331,6 +2478,12 @@ def main():
                 "bound_by": train_bound[name][1]}
             if name == "lattice_fused":
                 entry["train"]["max_abs_err"] = train_lattice
+        parallel = {call: n[name] for call, n in parallel_launches.items()
+                    if name in n}
+        if parallel:
+            entry["parallel"] = {"launches": parallel}
+            if name in parallel_errs:
+                entry["parallel"]["max_abs_err"] = parallel_errs[name]
         if name in SERVING_KERNELS:
             entry["serving"] = {
                 "launches": {call: n.get(name, 0)

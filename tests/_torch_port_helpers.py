@@ -3,6 +3,11 @@ package.  Everything crosses over as numpy arrays made from a seed, so both
 packages see the same bits."""
 
 import functools
+import os
+import pickle
+import subprocess
+import sys
+import time
 
 import numpy as np
 import pytest
@@ -98,3 +103,65 @@ def carried_pair(variant, seed, feats, V, H, max_label_len=4):
     cd = torch.float32 if variant == "fp32" else torch.bfloat16
     return model, params, carry_flax_transducer(tree, device="cpu",
                                                 compute_dtype=cd)
+
+
+WORKER = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                      "_torch_distributed_worker.py")
+
+
+def spawn_worlds(out_dir, inputs, worlds, timeout=120.0):
+    """Run `_torch_distributed_worker.py`'s suites, each a world of gloo
+    processes on the CPU, all at once: ``worlds`` {suite: ranks}.  The
+    ``inputs`` (numpy arrays and trees) go to ``out_dir/inputs.pkl``, each
+    world rendezvouses through a ``file://`` in ``out_dir``.  Within
+    ``timeout`` seconds every worker must exit; any still running then, and
+    every worker of a world with a failed rank, is killed.  Returns
+    {suite: [rank 0's results, ...]} or {suite: the failed ranks' output}."""
+    with open(os.path.join(out_dir, "inputs.pkl"), "wb") as f:
+        pickle.dump(inputs, f)
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    procs = {}
+    for suite, ranks in worlds.items():
+        init = f"file://{os.path.join(out_dir, suite + '.rendezvous')}"
+        procs[suite] = [subprocess.Popen(
+            [sys.executable, WORKER, suite, str(r), str(ranks), init,
+             str(out_dir)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True, env=env) for r in range(ranks)]
+    deadline = time.monotonic() + timeout
+    results = {}
+    try:
+        for suite, ps in procs.items():
+            outs = []
+            for p in ps:
+                try:
+                    outs.append(p.communicate(
+                        timeout=max(deadline - time.monotonic(), 0.1))[0])
+                except subprocess.TimeoutExpired:
+                    outs.append(f"timed out after {timeout} s")
+                if p.returncode not in (None, 0):
+                    break  # the others wait on the failed rank
+            if any(p.returncode != 0 for p in ps):  # None: timed out
+                results[suite] = "\n".join(o[-3000:] for o in outs)
+                for q in ps:
+                    if q.poll() is None:
+                        q.kill()
+                continue
+            results[suite] = []
+            for r in range(len(ps)):
+                with open(os.path.join(out_dir, f"{suite}.{r}.pkl"), "rb") as f:
+                    results[suite].append(pickle.load(f))
+    finally:
+        # never leave a worker behind
+        for ps in procs.values():
+            for p in ps:
+                if p.poll() is None:
+                    p.kill()
+                p.wait()
+    return results
+
+
+def world(results, suite):
+    """The per-rank results of one world, or a failure with its output."""
+    out = results[suite]
+    assert not isinstance(out, str), f"world {suite} failed:\n{out}"
+    return out

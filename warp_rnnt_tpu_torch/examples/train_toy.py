@@ -3,10 +3,19 @@ Transducer learns a synthetic feature -> label mapping, then greedy and
 beam decoding are evaluated and the labels force-aligned to frames.
 
     python -m warp_rnnt_tpu_torch.examples.train_toy [--steps 300]
-                                                     [--device cpu]
+        [--device cpu] [--data-parallel [--ranks 2]]
 
-Runs on the card unless ``--device cpu``.  The JAX example's
-``--data-parallel`` is left out until the port has a parallel tier.
+Runs on the card unless ``--device cpu``.  ``--data-parallel`` spawns
+``--ranks`` processes (`parallel.multihost.spawn`: gloo on the CPU, NCCL
+on the cards, rank r on ``cuda:r``), each with the whole model and its
+block of the batch (`parallel.make_mesh`, `shard_batch`), and trains with
+`parallel.train_parallel.make_sharded_train_step`, as the JAX example
+shards its batch over every device.  The sharded loss relies on the
+kernels' rule for columns outside a rank's vocabulary block (0 in the
+gather, nothing written by the dense write, the plain twins masking alike;
+`functional/gather.py`); this example's 1-D mesh has no 'model' axis, so
+every rank holds the whole vocabulary.  Rank 0 prints, and decodes the
+whole batch.
 """
 
 from __future__ import annotations
@@ -22,6 +31,12 @@ from warp_rnnt_tpu_torch.models import (
     greedy_decode,
     init_model,
     make_train_step,
+)
+from warp_rnnt_tpu_torch.parallel import make_mesh, shard_batch
+from warp_rnnt_tpu_torch.parallel.multihost import spawn
+from warp_rnnt_tpu_torch.parallel.train_parallel import (
+    make_sharded_train_step,
+    shard_model,
 )
 
 
@@ -45,26 +60,34 @@ def recovered(tokens, lengths, labels):
     return int(((lengths == U) & (tokens[:, :U] == labels).all(1)).sum())
 
 
-def main(argv=None):
-    ap = argparse.ArgumentParser()
-    ap.add_argument("--steps", type=int, default=300)
-    ap.add_argument("--batch", type=int, default=8)
-    ap.add_argument("--device", default="cuda")
-    args = ap.parse_args(argv)
-
+def train(args, device, mesh=None):
+    """Train, then decode and align on rank 0 (every rank without a
+    mesh)."""
     vocab, T, U, feat_dim = 16, 24, 4, 16
     rng = np.random.RandomState(0)
-    batch = synthetic_batch(rng, args.batch, T, U, vocab, feat_dim,
-                            args.device)
+    batch = synthetic_batch(rng, args.batch, T, U, vocab, feat_dim, device)
     model, _, _ = init_model(0, vocab_size=vocab, feat_dim=feat_dim,
-                             device=args.device, encoder_hidden=64,
+                             device=device, encoder_hidden=64,
                              predictor_hidden=64, joint_hidden=64)
-    opt = torch.optim.AdamW(model.parameters(), lr=3e-3, weight_decay=1e-4)
-    step = make_train_step(model, opt)
+    lead = mesh is None or mesh.get_rank() == 0
+    if mesh is None:
+        opt = torch.optim.AdamW(model.parameters(), lr=3e-3,
+                                weight_decay=1e-4)
+        step, local = make_train_step(model, opt), batch
+    else:
+        shard_model(model, mesh)
+        opt = torch.optim.AdamW(model.parameters(), lr=3e-3,
+                                weight_decay=1e-4)
+        step = make_sharded_train_step(model, opt, mesh)
+        local = shard_batch(mesh, batch)
+        if lead:
+            print(f"data-parallel over {mesh.size()} ranks ({device.type})")
     for i in range(args.steps):
-        loss = step(batch)
-        if i % 50 == 0 or i == args.steps - 1:
+        loss = step(local)
+        if lead and (i % 50 == 0 or i == args.steps - 1):
             print(f"step {i:4d}  loss {float(loss):.4f}")
+    if not lead:
+        return
 
     feats, labels, xn, yn = batch
     tokens, lengths = greedy_decode(model, feats, xn, max_length=U + 2)
@@ -81,6 +104,24 @@ def main(argv=None):
     _, frames = rnnt_alignment(log_probs, labels, xn, yn)
     print(f"forced alignment of sample 0: labels {labels[0].tolist()} "
           f"emitted at frames {frames[0].tolist()}")
+
+
+def _train_rank(rank, device, args):
+    train(args, device, make_mesh(device=device))
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--steps", type=int, default=300)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--data-parallel", action="store_true")
+    ap.add_argument("--ranks", type=int, default=2)
+    args = ap.parse_args(argv)
+    if args.data_parallel:
+        spawn(_train_rank, args.ranks, (args,), device=args.device)
+    else:
+        train(args, torch.device(args.device))
 
 
 if __name__ == "__main__":

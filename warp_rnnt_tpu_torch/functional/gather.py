@@ -10,12 +10,20 @@ one `torch.gather` and a stack.  The two give the same values bit for bit
 (values are moved, never rounded), with one difference outside the
 function's domain: a label outside [0, V) gives 0 in the kernel, where
 `torch.gather` raises on the CPU and stops with a device-side assert on the
-card.  There is no fallback between the two.  The backward is the dense
-compare-select write
+card.  There is no fallback between the two.
+
+The vocabulary-sharded loss (`parallel.vocab`) relies on that 0: given a
+column ``offset``, xs is the block [offset, offset + V) of a wider
+vocabulary, the blank and the labels index the whole vocabulary, and a
+blank or label outside the block gives 0, in the kernel and in its plain
+twin (`ops.gather_kernels.gather_lattice_plain`, which masks them), so the
+card and the CPU agree bit for bit and the blocks' lattices sum to the
+whole one exactly.  The backward is the dense compare-select write
 
     d_xs[n, t, u, v] = ct[..., 0] * [v == blank] + ct[..., 1] * [v == loc[n, u]]
 
-done by `ops.flat_kernels.flat_grad_write` (a CUDA kernel on the card).  When
+done by `ops.flat_kernels.flat_grad_write` (a CUDA kernel on the card), which
+with an offset writes the block and nothing for a column outside it.  When
 `loc == blank` (the last lattice row) both terms add, as a scatter-add would.
 
 The label index is frame-invariant: the loss broadcasts per-sample labels
@@ -46,13 +54,17 @@ class _GatherBlankLabel(torch.autograd.Function):
     """xs (N, T, U, V), loc_rows (N, U) int32 -> (N, T, U, 2)."""
 
     @staticmethod
-    def forward(ctx, xs, loc_rows, blank):
+    def forward(ctx, xs, loc_rows, blank, offset):
         ctx.save_for_backward(loc_rows)
         ctx.blank = blank
+        ctx.offset = offset
         ctx.shape = tuple(xs.shape)
         ctx.dtype = xs.dtype
         if xs.is_cuda:
-            return gather_kernels.gather_lattice(xs, loc_rows, blank)
+            return gather_kernels.gather_lattice(xs, loc_rows, blank, offset)
+        if offset is not None:
+            return gather_kernels.gather_lattice_plain(xs, loc_rows, blank,
+                                                       offset)
         return gather_blank_label_plain(xs, loc_rows, blank)
 
     @staticmethod
@@ -62,15 +74,17 @@ class _GatherBlankLabel(torch.autograd.Function):
         ct = ct.float()
         d = flat_kernels.flat_grad_write(
             ct[..., 0].contiguous(), ct[..., 1].contiguous(), loc_rows,
-            ctx.blank, V, U * V, out_dtype=ctx.dtype,
+            ctx.blank, V, U * V, out_dtype=ctx.dtype, offset=ctx.offset,
         )
-        return d.view(N, T, U, V), None, None
+        return d.view(N, T, U, V), None, None, None
 
 
-def gather_blank_label(xs, loc_rows, blank: int):
+def gather_blank_label(xs, loc_rows, blank: int, offset=None):
     """xs (N, T, U, V), loc_rows (N, U) int32 -> (N, T, U, 2) in xs's
-    dtype: [blank entry, loc entry] of every row."""
-    return _GatherBlankLabel.apply(xs, loc_rows, blank)
+    dtype: [blank entry, loc entry] of every row.  With a column
+    ``offset``, xs is the vocabulary block [offset, offset + V) and an
+    entry outside it is 0 (see the module docstring)."""
+    return _GatherBlankLabel.apply(xs, loc_rows, blank, offset)
 
 
 def gather_blank_label_flat(xs3, loc_rows, blank: int, V: int):

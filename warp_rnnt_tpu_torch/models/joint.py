@@ -31,13 +31,11 @@ def _dense(x, w, b, cd):
     return torch.matmul(x, w.to(cd)) + b.to(cd)
 
 
-def joint_logits(f, g, params, mode: str = "add",
-                 compute_dtype=torch.bfloat16, normalize: bool = True):
-    """The Tanh-MLP joint on ``params = dict(w_pre, b_pre, w_out, b_out)``
-    (Flax layout, kernels (in, out)): f (N, T, F), g (N, U, F') ->
-    log-probs (N, T, U, V) fp32, or raw fp32 logits when
-    ``normalize=False``.  Packed mode: 2-D rows f (STU, F), g (STU, F'),
-    one per lattice cell, give (STU, V)."""
+def joint_hidden(f, g, w_pre, b_pre, mode: str = "add",
+                 compute_dtype=torch.bfloat16):
+    """The joint's hidden layer tanh(combine(f, g) @ w_pre + b_pre) in
+    ``compute_dtype``: f (N, T, F), g (N, U, F') -> (N, T, U, H), or 2-D
+    rows (STU, F), (STU, F') -> (STU, H)."""
     if mode not in ("add", "concat"):
         raise ValueError(f"unknown joint mode: {mode!r}")
     cd = compute_dtype
@@ -52,7 +50,18 @@ def joint_logits(f, g, params, mode: str = "add",
         U = g.shape[1]
         h = torch.cat([f[:, :, None, :].expand(N, T, U, f.shape[-1]),
                        g[:, None, :, :].expand(N, T, U, g.shape[-1])], dim=-1)
-    h = torch.tanh(_dense(h, params["w_pre"], params["b_pre"], cd))
+    return torch.tanh(_dense(h, w_pre, b_pre, cd))
+
+
+def joint_logits(f, g, params, mode: str = "add",
+                 compute_dtype=torch.bfloat16, normalize: bool = True):
+    """The Tanh-MLP joint on ``params = dict(w_pre, b_pre, w_out, b_out)``
+    (Flax layout, kernels (in, out)): f (N, T, F), g (N, U, F') ->
+    log-probs (N, T, U, V) fp32, or raw fp32 logits when
+    ``normalize=False``.  Packed mode: 2-D rows f (STU, F), g (STU, F'),
+    one per lattice cell, give (STU, V)."""
+    cd = compute_dtype
+    h = joint_hidden(f, g, params["w_pre"], params["b_pre"], mode, cd)
     logits = _dense(h, params["w_out"], params["b_out"], cd).float()
     return torch.log_softmax(logits, dim=-1) if normalize else logits
 

@@ -6,10 +6,15 @@
     d[n, t, u*V + v] = ct0[n, t, u] * [v == blank] + ct1[n, t, u] * [v == loc]
 
 with the label index frame-invariant (`loc = loc_rows[n, u]`).  Where
-`loc == blank` both terms add.  A contiguous (N, T, U, V) tensor is the same
-memory as (N, T, U*V), so the 4-D backward of the gather uses this writer
-too, on a view.  On a CUDA tensor it launches the kernel, or raises; on a
-CPU tensor it runs `flat_grad_write_plain`.
+`loc == blank` both terms add.  With a column ``offset`` the output is the
+block [offset, offset + V) of a wider vocabulary whose indices the blank and
+``loc_rows`` are: a blank or label outside the block writes nothing, in the
+kernel (its compare never matches) and in the plain twin alike (the
+backward of `parallel.vocab`'s sharded gather).  A contiguous
+(N, T, U, V) tensor is the same memory as (N, T, U*V), so the 4-D backward
+of the gather uses this writer too, on a view.  On a CUDA tensor it
+launches the kernel, or raises; on a CPU tensor it runs
+`flat_grad_write_plain`.
 
 What bounds the kernel and what its design does about that is noted at the
 top of `csrc/flat_write.cu`.
@@ -43,7 +48,7 @@ def _lib():
     return lib
 
 
-def _check(ct0, ct1, loc_rows, blank, V, UV, out_dtype):
+def _check(ct0, ct1, loc_rows, blank, V, UV, out_dtype, offset=None):
     if ct0.dim() != 3 or ct1.shape != ct0.shape:
         raise ValueError(
             f"ct0 and ct1 must be (N, T, U) of one shape, got"
@@ -56,8 +61,10 @@ def _check(ct0, ct1, loc_rows, blank, V, UV, out_dtype):
         )
     if UV != U * V:
         raise ValueError(f"UV={UV} != U*V={U}*{V}")
-    if not 0 <= blank < V:
+    if offset is None and not 0 <= blank < V:
         raise ValueError(f"blank={blank} outside [0, {V})")
+    if offset is not None and not 0 <= min(blank, offset):
+        raise ValueError(f"blank={blank} and offset={offset} must be >= 0")
     if out_dtype not in _DTYPE_CODES:
         raise ValueError(f"unsupported out_dtype {out_dtype}")
     for name, x, dtype in (("ct0", ct0, torch.float32),
@@ -70,11 +77,11 @@ def _check(ct0, ct1, loc_rows, blank, V, UV, out_dtype):
 
 
 def flat_grad_write_plain(ct0, ct1, loc_rows, blank: int, V: int, UV: int,
-                          out_dtype=torch.float32):
+                          out_dtype=torch.float32, offset=None):
     """Plain torch twin: the compare-select of `gather._gather_flat_bwd`."""
-    _check(ct0, ct1, loc_rows, blank, V, UV, out_dtype)
+    _check(ct0, ct1, loc_rows, blank, V, UV, out_dtype, offset)
     N, T, U = ct0.shape
-    v_iota = torch.arange(V, device=ct0.device)
+    v_iota = torch.arange(offset or 0, (offset or 0) + V, device=ct0.device)
     d = ct0[..., None] * (v_iota == blank) + ct1[..., None] * (
         v_iota == loc_rows[:, None, :, None]
     )
@@ -82,15 +89,20 @@ def flat_grad_write_plain(ct0, ct1, loc_rows, blank: int, V: int, UV: int,
 
 
 def flat_grad_write(ct0, ct1, loc_rows, blank: int, V: int, UV: int,
-                    out_dtype=torch.float32):
+                    out_dtype=torch.float32, offset=None):
     """(N, T, U) fp32 blank/label cotangents -> (N, T, U*V) gradient.
 
-    loc_rows: (N, U) int32 frame-invariant label indices.  The output is
-    allocated here with `torch.empty`; the kernel writes every element.
+    loc_rows: (N, U) int32 frame-invariant label indices.  With a column
+    ``offset`` the output is the block [offset, offset + V) (see the
+    module docstring).  The output is allocated here with `torch.empty`;
+    the kernel writes every element.
     """
     if ct0.device.type == "cpu":
-        return flat_grad_write_plain(ct0, ct1, loc_rows, blank, V, UV, out_dtype)
-    _check(ct0, ct1, loc_rows, blank, V, UV, out_dtype)
+        return flat_grad_write_plain(ct0, ct1, loc_rows, blank, V, UV,
+                                     out_dtype, offset)
+    _check(ct0, ct1, loc_rows, blank, V, UV, out_dtype, offset)
+    if offset:
+        loc_rows, blank = (loc_rows - offset).contiguous(), blank - offset
     if ct0.device.type != "cuda":
         raise ValueError(f"unsupported device {ct0.device}")
     for name, x in (("ct0", ct0), ("ct1", ct1), ("loc_rows", loc_rows)):

@@ -21,6 +21,11 @@ gather, or its dense VJP, in other layouts.
 
 The first four are one kernel.  A column outside [0, C), or a label
 outside [0, V), gives 0, in the kernel and in the plain versions alike.
+`gather_lattice` also takes a column ``offset``: xs is then the block
+[offset, offset + V) of a wider vocabulary (a rank's block under vocabulary
+sharding), the blank and the labels are indices into the whole vocabulary,
+and a blank or label outside the block gives 0 (`parallel.vocab` sums the
+blocks' lattices across ranks).
 (The JAX streaming kernel's masked sum gives 0 for a label at -1 or past
 its padded V block, and sums the block's padding for one inside it; its
 sparse kernel reads the neighbouring row's entry.)  On a CUDA
@@ -92,22 +97,27 @@ def _check(xs, ndim, idx, idx_name, K):
         raise ValueError(f"{idx_name} is on {idx.device}, xs on {xs.device}")
 
 
-def _check_labels(xs, ndim, labels_ext, blank, V):
-    """xs (N, T, U, V) (ndim 4) or (N, T, U*V) (ndim 3), labels_ext (N, U)."""
+def _check_labels(xs, ndim, labels_ext, blank, V, offset=None):
+    """xs (N, T, U, V) (ndim 4) or (N, T, U*V) (ndim 3), labels_ext (N, U);
+    the blank in [0, V), or with a column ``offset`` at least 0 (any column
+    of the whole vocabulary)."""
     U = labels_ext.shape[-1] if labels_ext.dim() else -1
     _check(xs, ndim, labels_ext, "labels_ext", U)
     if math.prod(xs.shape[2:]) != U * V:
         raise ValueError(f"xs frame of shape {tuple(xs.shape[2:])} does not"
                          f" hold U*V = {U}*{V} values")
-    if not 0 <= blank < V:
+    if offset is None and not 0 <= blank < V:
         raise ValueError(f"blank={blank} outside [0, {V})")
+    if offset is not None and not 0 <= min(blank, offset):
+        raise ValueError(f"blank={blank} and offset={offset} must be >= 0")
 
 
-def _ready(xs, idx, layout, blank=0, V=0):
+def _ready(xs, idx, layout, blank=0, V=0, offset=None):
     """Every check of a CUDA launch of ``layout`` in one expression: xs
     (N, T, C) for the columns and the (N, U, T) layout, else (N, T, U, V),
     any float dtype, contiguous; idx (N, k) contiguous int32 on its device
-    (cols, or labels_ext with k = U, C = U*V and blank in [0, V)); the grid
+    (cols, or labels_ext with k = U, C = U*V and blank in [0, V), or any
+    blank >= 0 with a column ``offset`` >= 0); the grid
     within the kernel's 32 bits.  Only when it fails are the detailed
     checks run, for the error they raise.  Returns (K, device index), K the
     columns gathered a frame: k, or 2k for labels."""
@@ -117,13 +127,15 @@ def _ready(xs, idx, layout, blank=0, V=0):
     labels = layout != _COLUMNS
     ok = (len(shape) == ndim and len(ishape) == 2 and ishape[0] == shape[0]
           and xs.dtype in _DTYPE_CODES and idx.dtype == torch.int32
-          and (not labels or 0 <= blank < V and ishape[1] * V == (
+          and (not labels or (0 <= blank < V if offset is None
+                              else 0 <= min(blank, offset))
+               and ishape[1] * V == (
               shape[2] if ndim == 3 else shape[2] * shape[3]))
           and xs.is_contiguous() and idx.is_contiguous()
           and idx.get_device() == dev)
     if not ok:
         if labels:
-            _check_labels(xs, ndim, idx, blank, V)
+            _check_labels(xs, ndim, idx, blank, V, offset)
         else:
             _check(xs, ndim, idx, "cols", ishape[-1] if len(ishape) else -1)
         _kernel_ready((("xs", xs), ("index", idx)), xs.device)
@@ -138,12 +150,16 @@ def _ready(xs, idx, layout, blank=0, V=0):
     return K, dev
 
 
-def _run(xs, idx, layout, blank, V, counter):
+def _run(xs, idx, layout, blank, V, counter, offset=None):
     """Check, allocate and launch one layout of `rnnt_gather` on xs's
     device and current stream: (N, T, K) in xs's dtype for the columns,
     (2, N, T, U) and (2, N, U, T) fp32, the (N, T, U, 2) lattice in xs's
-    dtype.  Raises on a launch error, else counts it under ``counter``."""
-    K, dev = _ready(xs, idx, layout, blank, V)
+    dtype.  A column ``offset`` shifts the blank and the labels into the
+    block before the launch; the kernel gives 0 for those outside it.
+    Raises on a launch error, else counts it under ``counter``."""
+    K, dev = _ready(xs, idx, layout, blank, V, offset)
+    if offset:
+        idx, blank = (idx - offset).contiguous(), blank - offset
     shape = xs.shape
     N, T, k = shape[0], shape[1], idx.shape[1]
     if layout == _COLUMNS:
@@ -196,31 +212,39 @@ def gather_columns_flat(xs3, cols):
     return _run(xs3, cols, _COLUMNS, 0, 0, "gather_columns")
 
 
-def gather_lattice_plain(xs, labels_ext, blank: int):
-    """Plain torch version of `gather_lattice`."""
-    _check_labels(xs, 4, labels_ext, blank, xs.shape[-1])
+def gather_lattice_plain(xs, labels_ext, blank: int, offset=None):
+    """Plain torch version of `gather_lattice`: the blank and the labels
+    outside the block masked to 0."""
+    _check_labels(xs, 4, labels_ext, blank, xs.shape[-1], offset)
     N, T, U, V = xs.shape
+    if offset:
+        labels_ext, blank = labels_ext - offset, blank - offset
     valid = (labels_ext >= 0) & (labels_ext < V)
     idx = torch.where(valid, labels_ext, 0).long()[:, None, :, None]
     lab = torch.gather(xs, 3, idx.expand(N, T, U, 1))[..., 0]
     lab = torch.where(valid[:, None, :], lab, 0)
-    return torch.stack([xs[..., blank], lab], dim=-1)
+    blank_col = (xs[..., blank] if 0 <= blank < V
+                 else xs.new_zeros((N, T, U)))
+    return torch.stack([blank_col, lab], dim=-1)
 
 
-def gather_lattice(xs, labels_ext, blank: int):
+def gather_lattice(xs, labels_ext, blank: int, offset=None):
     """xs (N, T, U, V) any float dtype, labels_ext (N, U) int32 (the last
     column the blank, as the loss builds it) -> the (N, T, U, 2) lattice in
     xs's dtype: channel 0 xs[..., blank], channel 1
     xs[n, t, u, labels_ext[n, u]], 0 where the label is outside [0, V).
+    With a column ``offset``, xs holds the columns [offset, offset + V) of
+    a wider vocabulary, ``blank`` and ``labels_ext`` index that vocabulary,
+    and a blank or label outside the block gives 0.
     Values are moved, never rounded, so the lattice equals the main path's
     plain formulation (one `torch.gather` and a stack) bit for bit where
     the labels are in range (where one is not, `torch.gather` on the card
     stops with a device-side assert).  One launch; a CUDA tensor launches
     the kernel, a CPU tensor runs the plain version."""
     if _build.on_cpu(xs):
-        return gather_lattice_plain(xs, labels_ext, blank)
+        return gather_lattice_plain(xs, labels_ext, blank, offset)
     return _run(xs, labels_ext, _LATTICE, blank,
-                xs.shape[-1] if xs.dim() else -1, "gather_lattice")
+                xs.shape[-1] if xs.dim() else -1, "gather_lattice", offset)
 
 
 def gather_fwd_plain(xs, labels_ext, blank: int):
