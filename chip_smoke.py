@@ -174,7 +174,9 @@ Slice 12 (the parallel tier) adds phase 16, after the serving path
 gather and the write with a column offset) against their plain twins,
 exactly, on each half of a split vocabulary (V=5000 with the blank in
 either block and on the second block's first column, labels on both sides
-of the boundary; bf16), the halves summing to the whole.  Then a 1-rank
+of the boundary; bf16; a rank's shape in the 2x2 world's main path, 16
+samples and 2500 columns), the halves summing to the whole; their largest
+measured difference goes into the kernels line.  Then a 1-rank
 NCCL world on cuda:0: the main path at full width through
 `rnnt_loss_sharded` and `rnnt_loss_shard_map` ("mean", backward; "none")
 bit-equal to `rnnt_loss(gather=True)` in costs and gradient, with the
@@ -182,10 +184,12 @@ counts set to 0 just before and read just after (the gather, the lattice
 and the write); the sharded and the plain loss+grad chained in turns and
 under the profiler (kernels a call, busy, idle, the NCCL kernels' device
 ms); `bench_scaling` at 1 rank (lattices/s); `make_sharded_train_step` on
-a 1x1 ('data', 'model') mesh (the vocabulary-parallel route) at
-bench_train.py's width in each loss mode against the single-process step
-(`train_cases.compare_grads`, `compare_steps`), its chained step ms beside
-phase 14's.  Then a 2x2 gloo world of 4 processes on cuda:0 (the kernels
+a 1x1 ('data', 'model') mesh at bench_train.py's width in each loss mode
+against the single-process step (`train_cases.compare_grads`,
+`compare_steps`), its chained step ms beside phase 14's.  A model axis of
+one rank splits nothing, so the step takes the single-process loss; the
+vocabulary-parallel route is called on its own there, over NCCL, and its
+gradients held against the same step's.  Then a 2x2 gloo world of 4 processes on cuda:0 (the kernels
 on the card, the collectives through the host, whose time is not
 measured): the main path split over 'data' (16 samples) and 'model' (2500
 columns) against the single-process call (costs and mean rtol 1e-6, each
@@ -2166,16 +2170,20 @@ def phase_parallel(torch, timing, card, train_step_ms):
 
         mesh2 = make_mesh((1, 1), ("data", "model"), device="cuda:0")
         for mode in TRAIN_MODES:
-            worst, moved, step, local, launches[f"train_1x1_{mode}"] = (
-                pc.check_train_step(mesh2, mode))
-            ms = timing.bench_grad_chain(lambda _: (None, step(local)),
-                                         None, 10)
+            r = pc.check_train_step(mesh2, mode)
+            launches[f"train_1x1_{mode}"] = r["launches"]
+            launches[f"train_1x1_{mode}_vocab_route"] = r["vocab_launches"]
+            ms = timing.bench_grad_chain(
+                lambda _, r=r: (None, r["step"](r["batch"])), None, 10)
             print(f"time parallel train step {mode} on a 1x1 mesh: {ms:.3f}"
                   f" ms chained against phase 14's {train_step_ms[mode]:.3f};"
-                  f" gradients at {worst:.3f} of their allowance, parameters"
-                  f" within {moved:.2e} after one AdamW step; launches"
-                  f" {launches[f'train_1x1_{mode}']} [{card}]")
-            del step, local
+                  f" gradients at {r['grads']:.3f} of their allowance,"
+                  f" parameters within {r['moved']:.2e} after one AdamW"
+                  f" step; launches {r['launches']}; the vocabulary route"
+                  f" called on its own: gradients at {r['vocab_grads']:.3f}"
+                  f" of their allowance, launches {r['vocab_launches']}"
+                  f" [{card}]")
+            del r
             torch.cuda.empty_cache()
     finally:
         dist.destroy_process_group()

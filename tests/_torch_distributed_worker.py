@@ -1,15 +1,16 @@
-"""Worker of the port's distributed tests (spawned by
-`tests/test_torch_parallel.py` and `tests/test_torch_parallel_train.py`;
-not a pytest module).  It imports torch and the port, never JAX.
+"""Worker of the port's distributed tests (not a pytest module): `run` is
+the function that `tests/test_torch_parallel.py` and
+`tests/test_torch_parallel_train.py` start in each rank of a gloo world on
+the CPU through `warp_rnnt_tpu_torch.parallel.multihost.spawn`
+(`_torch_port_helpers.spawn_worlds`).  It imports torch and the port, never
+JAX.
 
-    python _torch_distributed_worker.py <suite> <rank> <world> <init> <dir>
-
-Reads ``<dir>/inputs.pkl`` (numpy arrays and Flax-layout trees the test
-wrote from seeds), joins a gloo process group on the CPU through the
-``file://`` rendezvous ``<init>``, runs every case of ``<suite>`` and
-writes ``<dir>/<suite>.<rank>.pkl``: {case: result}, numpy arrays and
-floats.  A case that raises records ("raised", type, message) instead; the
-tests assert which cases must.
+`run(rank, device, suite, out_dir)` reads ``out_dir/inputs.pkl`` (numpy
+arrays and Flax-layout trees the test wrote from seeds), runs every case of
+``suite`` and writes ``out_dir/<suite>.<rank>.pkl``: {case: result}, numpy
+arrays and floats.  A case that raises records ("raised", type, message)
+instead; the tests assert which cases must.  A suite that fails writes its
+traceback to ``out_dir/<suite>.<rank>.err`` and raises.
 """
 
 import os
@@ -76,7 +77,7 @@ def _raised(fn):
     return ("returned",)
 
 
-def suite_data4(rank, inp):
+def suite_data4(rank, inp, out_dir):
     """A 1-D ('data',) world of 4 ranks."""
     mesh = make_mesh(device="cpu")
     out = {}
@@ -106,6 +107,11 @@ def suite_data4(rank, inp):
     out["compact"] = {red: _loss_and_grad(xs, lambda x: rnnt_loss_sharded(
         mesh, x, ys, xn, yn, reduction=red, compact=True, impl="scan",
         max_frames=T, max_labels=L)) for red in REDUCTIONS}
+    # no bounds: each rank's own lengths are shorter than the global ones
+    out["compact_global_bounds"] = {
+        red: _loss_and_grad(xs, lambda x: rnnt_loss_sharded(
+            mesh, x, ys, xn, yn, reduction=red, compact=True, impl="scan"))
+        for red in REDUCTIONS}
 
     lp, ys, xn, yn, lf = shard_batch(mesh, _t(inp["restricted"]))
     ctx = inp["restricted_contexts"]
@@ -116,7 +122,7 @@ def suite_data4(rank, inp):
     return out
 
 
-def suite_grid(rank, inp):
+def suite_grid(rank, inp, out_dir):
     """A 2x2 ('data', 'model') world: log-probs over both axes."""
     mesh = make_mesh((2, 2), ("data", "model"), device="cpu")
     out = {}
@@ -127,9 +133,6 @@ def suite_grid(rank, inp):
         out[name] = {red: _loss_and_grad(lp, lambda x: rnnt_loss_sharded(
             mesh, x, ys, xn, yn, reduction=red, blank=blank,
             vocab_axis="model", impl="scan")) for red in REDUCTIONS}
-        out[f"{name}_shard_map"] = _np(rnnt_loss_shard_map(
-            mesh, lp, ys, xn, yn, reduction="mean", blank=blank,
-            vocab_axis="model", impl="scan"))
 
     z, ys, xn, yn = shard_batch(mesh, _t(inp["logits"]))
     z = shard_vocab(mesh, z)
@@ -148,10 +151,17 @@ def suite_grid(rank, inp):
     return out
 
 
-def suite_multihost(rank, inp, init):
+def suite_multihost(rank, inp, out_dir):
     """2 processes through `initialize` and `global_batch`, as
-    `tests/distributed_worker.py` runs JAX's."""
-    initialize(init, 2, rank, device="cpu")
+    `tests/distributed_worker.py` runs JAX's: the process group `spawn`
+    made is torn down and started again by `initialize` from the JAX
+    module's three environment variables."""
+    dist.destroy_process_group()
+    os.environ.update(
+        WARP_RNNT_NUM_PROCESSES="2", WARP_RNNT_PROCESS_ID=str(rank),
+        WARP_RNNT_COORDINATOR="file://" + os.path.join(
+            out_dir, "multihost.rendezvous"))
+    initialize(device="cpu")
     mesh = pod_mesh(device="cpu")
     lp, ys, xn, yn = _t(inp["multihost"])
     lo, hi = rank * 4, (rank + 1) * 4
@@ -163,7 +173,7 @@ def suite_multihost(rank, inp, init):
     return out
 
 
-def suite_train(rank, inp):
+def suite_train(rank, inp, out_dir):
     """A 2x2 world: one sharded train step in each loss mode from a carried
     fp32 tree, then the dry run on the JAX dry run's carried tree."""
     mesh = make_mesh((2, 2), ("data", "model"), device="cpu")
@@ -186,31 +196,19 @@ def suite_train(rank, inp):
     return out
 
 
-def main():
-    suite, rank, world, init, out_dir = sys.argv[1:6]
-    rank, world = int(rank), int(world)
+def run(rank, device, suite, out_dir):
+    """One rank of ``suite`` in a world that `multihost.spawn` started
+    (``device`` is the CPU)."""
     torch.set_num_threads(1)
     with open(os.path.join(out_dir, "inputs.pkl"), "rb") as f:
         inp = pickle.load(f)
+    path = os.path.join(out_dir, f"{suite}.{rank}")
     try:
-        if suite == "multihost":
-            out = suite_multihost(rank, inp, init)
-        else:
-            dist.init_process_group("gloo", init_method=init,
-                                    world_size=world, rank=rank)
-            out = globals()[f"suite_{suite}"](rank, inp)
+        out = globals()[f"suite_{suite}"](rank, inp, out_dir)
     except Exception:
-        traceback.print_exc()
-        sys.exit(1)
-    finally:
-        if dist.is_initialized():
-            dist.destroy_process_group()
-    path = os.path.join(out_dir, f"{suite}.{rank}.pkl")
-    with open(path + ".tmp", "wb") as f:
+        with open(path + ".err", "w") as f:
+            f.write(traceback.format_exc())
+        raise
+    with open(path + ".pkl.tmp", "wb") as f:
         pickle.dump(out, f)
-    os.replace(path + ".tmp", path)
-    print(f"WORKER_OK {suite} rank={rank}", flush=True)
-
-
-if __name__ == "__main__":
-    main()
+    os.replace(path + ".pkl.tmp", path + ".pkl")

@@ -3,11 +3,9 @@ package.  Everything crosses over as numpy arrays made from a seed, so both
 packages see the same bits."""
 
 import functools
+import glob
 import os
 import pickle
-import subprocess
-import sys
-import time
 
 import numpy as np
 import pytest
@@ -105,58 +103,34 @@ def carried_pair(variant, seed, feats, V, H, max_label_len=4):
                                                 compute_dtype=cd)
 
 
-WORKER = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                      "_torch_distributed_worker.py")
-
-
 def spawn_worlds(out_dir, inputs, worlds, timeout=120.0):
-    """Run `_torch_distributed_worker.py`'s suites, each a world of gloo
-    processes on the CPU, all at once: ``worlds`` {suite: ranks}.  The
-    ``inputs`` (numpy arrays and trees) go to ``out_dir/inputs.pkl``, each
-    world rendezvouses through a ``file://`` in ``out_dir``.  Within
-    ``timeout`` seconds every worker must exit; any still running then, and
-    every worker of a world with a failed rank, is killed.  Returns
-    {suite: [rank 0's results, ...]} or {suite: the failed ranks' output}."""
+    """Run `_torch_distributed_worker.py`'s suites one after the other,
+    each a world of gloo processes on the CPU started by
+    `parallel.multihost.spawn` (a ``file://`` rendezvous; when a rank fails,
+    or after ``timeout`` seconds, every process of the world is killed):
+    ``worlds`` {suite: ranks}.  The ``inputs`` (numpy arrays and trees) go
+    to ``out_dir/inputs.pkl``.  Returns {suite: [rank 0's results, ...]},
+    or {suite: the failure and the failed ranks' tracebacks}."""
+    import _torch_distributed_worker as worker
+    from warp_rnnt_tpu_torch.parallel.multihost import spawn
+
+    out_dir = str(out_dir)
     with open(os.path.join(out_dir, "inputs.pkl"), "wb") as f:
         pickle.dump(inputs, f)
-    env = dict(os.environ, OMP_NUM_THREADS="1")
-    procs = {}
-    for suite, ranks in worlds.items():
-        init = f"file://{os.path.join(out_dir, suite + '.rendezvous')}"
-        procs[suite] = [subprocess.Popen(
-            [sys.executable, WORKER, suite, str(r), str(ranks), init,
-             str(out_dir)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-            text=True, env=env) for r in range(ranks)]
-    deadline = time.monotonic() + timeout
     results = {}
-    try:
-        for suite, ps in procs.items():
-            outs = []
-            for p in ps:
-                try:
-                    outs.append(p.communicate(
-                        timeout=max(deadline - time.monotonic(), 0.1))[0])
-                except subprocess.TimeoutExpired:
-                    outs.append(f"timed out after {timeout} s")
-                if p.returncode not in (None, 0):
-                    break  # the others wait on the failed rank
-            if any(p.returncode != 0 for p in ps):  # None: timed out
-                results[suite] = "\n".join(o[-3000:] for o in outs)
-                for q in ps:
-                    if q.poll() is None:
-                        q.kill()
-                continue
-            results[suite] = []
-            for r in range(len(ps)):
-                with open(os.path.join(out_dir, f"{suite}.{r}.pkl"), "rb") as f:
-                    results[suite].append(pickle.load(f))
-    finally:
-        # never leave a worker behind
-        for ps in procs.values():
-            for p in ps:
-                if p.poll() is None:
-                    p.kill()
-                p.wait()
+    for suite, ranks in worlds.items():
+        try:
+            spawn(worker.run, ranks, (suite, out_dir), device="cpu",
+                  timeout=timeout)
+        except RuntimeError as e:
+            errs = sorted(glob.glob(os.path.join(out_dir, f"{suite}.*.err")))
+            results[suite] = "\n".join(
+                [str(e)] + [open(p).read() for p in errs])
+            continue
+        results[suite] = []
+        for r in range(ranks):
+            with open(os.path.join(out_dir, f"{suite}.{r}.pkl"), "rb") as f:
+                results[suite].append(pickle.load(f))
     return results
 
 

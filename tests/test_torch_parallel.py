@@ -1,11 +1,12 @@
 """Parity of the port's parallel tier (`warp_rnnt_tpu_torch/parallel/`) with
 the JAX package's, on the CPU.
 
-One module-scoped spawn runs three gloo worlds at once
-(`_torch_port_helpers.spawn_worlds`, ``file://`` rendezvous, 120 s, no
-worker left behind): a 1-D ('data',) world of 4 processes, a 2x2
-('data', 'model') world, and 2 processes through `multihost.initialize`
-and `global_batch`.  The JAX side runs here, on the 8 virtual devices of
+One module-scoped fixture runs three gloo worlds, one after the other
+(`_torch_port_helpers.spawn_worlds` over `multihost.spawn`: ``file://``
+rendezvous, 120 s a world, no worker left behind): a 1-D ('data',) world
+of 4 processes, a 2x2 ('data', 'model') world, and 2 processes through
+`multihost.initialize` (from the JAX module's environment variables) and
+`global_batch`.  The JAX side runs here, on the 8 virtual devices of
 `tests/conftest.py`, with ``impl="scan"``, on the same numpy inputs from
 seeds.  Tolerances are the JAX tests': costs rtol 1e-5 atol 1e-6,
 gradients rtol 1e-4 atol 1e-6.
@@ -19,7 +20,8 @@ gradients rtol 1e-4 atol 1e-6.
     blank 5 (in the second block only), against JAX's GSPMD call; the
     from-logits lattice (`vocab.vocab_lattice`) and the blockwise
     log_softmax against `rnnt_loss_from_logits` and `rnnt_loss`;
-  * the compact layout with ragged lengths, rows split by sample;
+  * the compact layout with ragged lengths, rows split by sample, with the
+    global lattice bounds given and left to `rnnt_loss_sharded`;
   * the restricted loss with one infeasible band on rank 1: +inf and zero
     gradients under "none", the global feasible-only mean;
   * 2 processes against the NumPy oracle (`tests/distributed_worker.py`),
@@ -213,6 +215,30 @@ def test_compact_ragged_split_by_sample_matches_jax(results, reduction):
 
 
 @pytest.mark.parametrize("reduction", REDUCTIONS)
+def test_compact_without_bounds_takes_the_global_ones(results, reduction):
+    """No max_frames/max_labels: `rnnt_loss_sharded` takes the global
+    batch's, though some rank's own samples are shorter, and matches the
+    single-process JAX call without bounds."""
+    inp, res = results
+    ranks = world(res, "data4")
+    xs, ys, xn, yn = inp["compact"]
+    own = [(xn[2 * r:2 * r + 2].max(), yn[2 * r:2 * r + 2].max())
+           for r in range(4)]
+    assert any(b != (xn.max(), yn.max()) for b in own)
+    val, grad = _jax_value_and_grad(
+        lambda z, red: jax_rnnt_loss(z, ys, xn, yn, reduction=red,
+                                     compact=True, impl="scan"),
+        xs, reduction)
+    case = [r["compact_global_bounds"][reduction] for r in ranks]
+    got = (np.concatenate([c["loss"] for c in case]) if reduction == "none"
+           else case[0]["loss"])
+    np.testing.assert_allclose(got, val, **COST)
+    valid = int((xn * (yn + 1)).sum())
+    np.testing.assert_allclose(np.concatenate([c["grad"] for c in case]),
+                               grad[:valid], **GRAD)
+
+
+@pytest.mark.parametrize("reduction", REDUCTIONS)
 def test_restricted_infeasible_band_on_one_rank_matches_jax(results, reduction):
     """Rank 1 holds the infeasible sample: "mean" divides by the global
     count of feasible samples (7), not a mean of the ranks' means."""
@@ -284,9 +310,6 @@ def test_vocab_sharded_loss_and_grad_match_jax(results, case, reduction):
             assert r[case][reduction]["loss"] == got
     np.testing.assert_allclose(got, val, **COST)
     np.testing.assert_allclose(_grid_grad(ranks, case, reduction), grad, **GRAD)
-    if reduction == "mean":
-        for r in ranks:
-            np.testing.assert_allclose(r[f"{case}_shard_map"], val, **COST)
 
 
 @pytest.mark.parametrize("normalize", [False, True], ids=["from_logits",

@@ -3,10 +3,11 @@
 with the JAX package's, on the CPU.
 
 One module-scoped spawn of a 2x2 ('data', 'model') gloo world
-(`_torch_port_helpers.spawn_worlds`, 120 s) runs `make_sharded_train_step`
-in the three loss modes from one carried Flax tree (the fp32 variant,
-`fp32_transducer_class`), each rank on its block of the batch and, under
-'model', its block of the joint's output projection; then
+(`_torch_port_helpers.spawn_worlds` over `multihost.spawn`, 120 s) runs
+`make_sharded_train_step` in the three loss modes from one carried Flax
+tree (the fp32 variant, `fp32_transducer_class`), each rank on its block
+of the batch and, under 'model', its block of the joint's output
+projection; then
 `dryrun_multichip(4)` on the tree and batch of the JAX dry run's own
 `init_model(PRNGKey(0), ...)`.  Here, on the CPU: one step of JAX's
 `make_train_step` on a (2, 2) mesh of virtual devices with the dry run's

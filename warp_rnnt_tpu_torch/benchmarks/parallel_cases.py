@@ -5,23 +5,25 @@ failure and returns what it measured.
 
   * `compare_shards`: the vocabulary-shard kernels (`gather_lattice` and
     `flat_grad_write` with a column offset) against their plain twins,
-    exactly, on each half of a vocabulary split in two; the halves'
-    lattices sum to the whole gather and their writes put together equal
-    the whole write, exactly.
+    exactly, on each half of a vocabulary split in two (also at a rank's
+    shape in the 2x2 world's main path); the halves' lattices sum to the
+    whole gather and their writes put together equal the whole write,
+    exactly.
   * `check_main_1rank`: `rnnt_loss_sharded` and `rnnt_loss_shard_map`
     ("mean", backward; "none") on a 1-rank mesh against
     `rnnt_loss(gather=True)`: costs and the gradient bit for bit.
-  * `check_train_step`: one `make_sharded_train_step` step (on a 1x1
-    ('data', 'model') mesh: the vocabulary-parallel route over NCCL)
-    against the single-process step (`train_cases.compare_grads`,
-    `compare_steps`).
+  * `check_train_step`: one `make_sharded_train_step` step against the
+    single-process step (`train_cases.compare_grads`, `compare_steps`).
+    On a mesh that does not split the vocabulary (1x1 over NCCL) the step
+    takes the single-process loss, so the vocabulary-parallel route's
+    loss and gradients are checked by a call of its own.
   * `run_world` spawns `world_main` in 4 processes that share one card
     over gloo (2x2 mesh; the kernels on the card, the collectives through
     the host): the main path at full width with the log-probs split over
     'data' (16 samples a rank) and 'model' (2500 columns) against the
     single-process call (costs and mean rtol 1e-6, each rank's gradient
-    block exactly), compact case A (every rank with the global lattice
-    bounds) and the restricted loss (bands 15/5, two infeasible samples on
+    block exactly), compact case A (the lattice bounds left to
+    `rnnt_loss_sharded`, which takes the global ones) and the restricted loss (bands 15/5, two infeasible samples on
     data rank 0) over 'data' (means rtol 1e-6, gradients 1e-6 of the
     largest), `dryrun_multichip(4)`, and one "from_logits" train step at
     `bench_train.py`'s width against the single-process step.  The
@@ -55,8 +57,10 @@ from warp_rnnt_tpu_torch.parallel import (
 from warp_rnnt_tpu_torch.parallel.loss_parallel import shard_packed
 from warp_rnnt_tpu_torch.parallel.multihost import spawn
 from warp_rnnt_tpu_torch.parallel.train_parallel import (
+    _vocab_parallel_loss,
     make_sharded_train_step,
     shard_model,
+    splits_vocab,
 )
 from warp_rnnt_tpu_torch.parallel.vocab import shard_vocab
 
@@ -72,6 +76,8 @@ SHARD_CASES = {
     "V=5000 blank 3000": (4, 150, 21, 5000, 3000, torch.float32),
     "V=5000 blank 2500": (2, 37, 21, 5000, 2500, torch.float32),
     "V=130 bf16 blank 1": (3, 13, 5, 130, 1, torch.bfloat16),
+    # a rank of the 2x2 world's main path: 16 samples, 2500 columns
+    "2x2 rank, V=5000 blank 0": (16, 150, 21, 5000, 0, torch.float32),
 }
 
 
@@ -107,9 +113,11 @@ def make_inputs(N, T, U, V, seed, device="cuda"):
 
 def shard_case(N, T, U, V, blank, dtype, seed=0, device="cuda"):
     """xs (N, T, U, V), labels_ext (N, U) on both sides of V/2 (the last
-    row the blank), fp32 cotangents (N, T, U)."""
+    row the blank), fp32 cotangents (N, T, U); the tensors drawn on
+    ``device``."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    xs = torch.randn(N, T, U, V, generator=g, device=device).to(dtype)
     rng = np.random.RandomState(seed)
-    xs = torch.tensor(rng.randn(N, T, U, V), device=device).to(dtype)
     labels = rng.randint(0, V, (N, U))
     labels[:, 0] = V // 2 - 1
     labels[:, 1] = V // 2
@@ -118,19 +126,28 @@ def shard_case(N, T, U, V, blank, dtype, seed=0, device="cuda"):
     return dict(xs=xs, blank=blank,
                 labels_ext=torch.tensor(labels, dtype=torch.int32,
                                         device=device),
-                ct_b=torch.tensor(rng.randn(N, T, U), **f32),
-                ct_l=torch.tensor(rng.randn(N, T, U), **f32))
+                ct_b=torch.randn(N, T, U, generator=g, **f32),
+                ct_l=torch.randn(N, T, U, generator=g, **f32))
 
 
 def _exact(name, got, want):
-    if not (got.shape == want.shape and torch.equal(got, want)):
-        raise AssertionError(f"{name}: kernel differs from its plain twin")
+    """max |got - want| (equal entries count 0, infinities too); raises
+    unless the tensors are equal."""
+    if got.shape != want.shape:
+        raise AssertionError(f"{name}: shape {tuple(got.shape)} against"
+                             f" {tuple(want.shape)}")
+    diff = (got.float() - want.float()).abs().masked_fill_(got == want, 0)
+    err = float(diff.max()) if diff.numel() else 0.0
+    if not torch.equal(got, want):
+        raise AssertionError(f"{name}: differs by up to {err}")
+    return err
 
 
 def compare_shards(case):
     """The shard kernels on each half of the case's vocabulary against
     their plain twins, and the halves against the whole.  Returns
-    {kernel: max abs err} (0.0: they must be exact)."""
+    {kernel: max abs err against its twin}, measured (0.0: they must be
+    exact)."""
     xs, lab, blank = case["xs"], case["labels_ext"], case["blank"]
     N, T, U, V = xs.shape
     half = V // 2
@@ -139,20 +156,24 @@ def compare_shards(case):
     whole_w = fk.flat_grad_write(case["ct_b"], case["ct_l"], lab, blank, V,
                                  U * V, dtype).view(N, T, U, V)
     total, writes = torch.zeros_like(whole), []
+    errs = {"gather_lattice": 0.0, "flat_write": 0.0}
     for off in (0, half):
         block = xs[..., off:off + half].contiguous()
         got = gk.gather_lattice(block, lab, blank, offset=off)
-        _exact(f"gather offset {off}", got,
-               gk.gather_lattice_plain(block, lab, blank, offset=off))
+        errs["gather_lattice"] = max(errs["gather_lattice"], _exact(
+            f"gather offset {off}", got,
+            gk.gather_lattice_plain(block, lab, blank, offset=off)))
         total += got
+        del block
         args = (case["ct_b"], case["ct_l"], lab, blank, half, U * half, dtype)
         w = fk.flat_grad_write(*args, offset=off)
-        _exact(f"write offset {off}", w,
-               fk.flat_grad_write_plain(*args, offset=off))
+        errs["flat_write"] = max(errs["flat_write"], _exact(
+            f"write offset {off}", w,
+            fk.flat_grad_write_plain(*args, offset=off)))
         writes.append(w.view(N, T, U, half))
     _exact("halves' lattices against the whole", total, whole)
     _exact("halves' writes against the whole", torch.cat(writes, -1), whole_w)
-    return {"gather_lattice": 0.0, "flat_write": 0.0}
+    return errs
 
 
 def _rel(got, want):
@@ -226,33 +247,52 @@ def _block_copy(model, mesh):
 def check_train_step(mesh, mode, dims=tc.FULL, seed=SEED + 41,
                      device="cuda"):
     """One `make_sharded_train_step` step over ``mesh`` (this rank's block
-    of the batch and, with a 'model' axis, of the out projection) against
-    one single-process `make_train_step` step from the same carried model:
-    loss and gradients by `train_cases.compare_grads`, the parameters after
-    the AdamW step by `compare_steps`.  Returns (the gradients' largest
-    error over their allowance, the largest parameter difference where the
-    gradients agree, the sharded step, its batch, the launches a step)."""
+    of the batch and, where the mesh splits the vocabulary, of the out
+    projection) against one single-process `make_train_step` step from the
+    same carried model: loss and gradients by `train_cases.compare_grads`,
+    the parameters after the AdamW step by `compare_steps`.  Where the mesh
+    does not split the vocabulary, the step takes the single-process loss,
+    so the vocabulary-parallel route (`_vocab_parallel_loss`) is also run
+    on its own from the same model and held against the same gradients.
+    Returns {"grads": the step's gradients' largest error over their
+    allowance, "moved": the largest parameter difference where the
+    gradients agree, "step": the sharded step, "batch": its batch,
+    "launches": the step's launches, "vocab_grads" and "vocab_launches":
+    the route's own call (None where the step took it)}."""
     model, batch = tc.carried(seed, dims, device)
     ref = copy.deepcopy(model)
     opt = torch.optim.AdamW(ref.parameters(), lr=tc.LR,
                             weight_decay=tc.WEIGHT_DECAY)
     ref_loss = make_train_step(ref, opt, loss_mode=mode)(batch)
     shard_model(model, mesh)
+    local = shard_batch(mesh, batch)
+    block = _block_copy(ref, mesh)
+    ref_grads = (ref_loss, {k: p.grad for k, p in block.named_parameters()})
+    out = {"vocab_grads": None, "vocab_launches": None}
+    if not splits_vocab(mesh):
+        route = copy.deepcopy(model)
+        reset()
+        loss = _vocab_parallel_loss(route, local, mesh, 0.0, mode)
+        loss.backward()
+        out["vocab_launches"] = launched()
+        out["vocab_grads"] = tc.compare_grads(
+            ref_grads,
+            (loss.detach(),
+             {k: p.grad for k, p in route.named_parameters()}),
+            f"vocabulary route {mode}")
+        del route, loss
     opt = torch.optim.AdamW(model.parameters(), lr=tc.LR,
                             weight_decay=tc.WEIGHT_DECAY)
     step = make_sharded_train_step(model, opt, mesh, loss_mode=mode)
-    local = shard_batch(mesh, batch)
     reset()
     loss = step(local)
-    launches = launched()
-    block = _block_copy(ref, mesh)
-    worst = tc.compare_grads(
-        (ref_loss, {k: p.grad for k, p in block.named_parameters()}),
-        (loss, {k: p.grad for k, p in model.named_parameters()}),
+    out["launches"] = launched()
+    out["grads"] = tc.compare_grads(
+        ref_grads, (loss, {k: p.grad for k, p in model.named_parameters()}),
         f"sharded train {mode}")
-    moved, _ = tc.compare_steps(block, model, f"sharded train {mode}")
+    out["moved"], _ = tc.compare_steps(block, model, f"sharded train {mode}")
     del ref, block
-    return worst, moved, step, local, launches
+    return {**out, "step": step, "batch": local}
 
 
 def world_main(rank, device, out_dir):
@@ -297,17 +337,15 @@ def world_main(rank, device, out_dir):
 
     c = full_case(**CASE_A, seed=SEED)
     xs, ys, cxn, cyn = c["xs"], c["ys"], c["xn"], c["yn"]
-    # the global lattice bounds on every rank: the sweep's plan follows T,
-    # so a rank's own bounds would round otherwise
-    bounds = dict(max_frames=c["T"], max_labels=c["U"] - 1)
+    # no lattice bounds: rnnt_loss_sharded takes the global batch's, as the
+    # single-process call does
     ref, ref_g = _loss_grad(lambda x: rnnt_loss(
-        x, ys, cxn, cyn, reduction="mean", compact=True, **bounds), xs)
+        x, ys, cxn, cyn, reduction="mean", compact=True), xs)
     xs_l, ys_l, xn_l, yn_l = shard_packed(mesh, xs, ys, cxn, cyn)
     first = int((cxn[:16 * d].long() * (cyn[:16 * d].long() + 1)).sum())
     reset()
     loss, grad = _loss_grad(lambda x: rnnt_loss_sharded(
-        mesh, x, ys_l, xn_l, yn_l, reduction="mean", compact=True, **bounds),
-        xs_l)
+        mesh, x, ys_l, xn_l, yn_l, reduction="mean", compact=True), xs_l)
     res["launches"]["compact_A"] = launched()
     want = ref_g[first:first + xs_l.shape[0]]
     res["errs"]["compact_mean_rel"] = _rel(loss, ref)
@@ -344,10 +382,11 @@ def world_main(rank, device, out_dir):
     res["launches"]["dryrun"] = launched()
     res["s"]["dryrun"] = time.perf_counter() - t0
 
-    worst, moved, *_, launches = check_train_step(mesh, "from_logits")
-    res["launches"]["train_from_logits"] = launches
-    res["errs"]["train_grads_share"] = worst
-    res["errs"]["train_step_share"] = moved / tc.STEP_ATOL
+    r = check_train_step(mesh, "from_logits")
+    res["launches"]["train_from_logits"] = r["launches"]
+    res["errs"]["train_grads_share"] = r["grads"]
+    res["errs"]["train_step_share"] = r["moved"] / tc.STEP_ATOL
+    del r
     res["s"]["train"] = time.perf_counter() - t0
     with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
         json.dump(res, f)

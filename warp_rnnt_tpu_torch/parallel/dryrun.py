@@ -161,15 +161,13 @@ def main(argv=None):
     ap.add_argument("--ranks", type=int, default=4)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--backend", default=None)
-    ap.add_argument("--timeout", type=float, default=600.0)
     args = ap.parse_args(argv)
     fn, batch = entry(rank_device(args.device, 0))
     loss = float(fn(*batch).detach())
     if not math.isfinite(loss):
         raise SystemExit(f"entry: loss {loss}")
     print(f"entry OK, loss = {loss}", flush=True)
-    spawn(_rank_main, args.ranks, (args.ranks,), args.backend,
-          args.device, args.timeout)
+    spawn(_rank_main, args.ranks, (args.ranks,), args.backend, args.device)
 
 
 if __name__ == "__main__":

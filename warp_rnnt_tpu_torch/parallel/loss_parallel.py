@@ -1,9 +1,10 @@
 """Data-parallel RNN-T loss over a mesh (counterpart of
 `warp_rnnt_tpu/parallel/loss_parallel.py`).
 
-Both routes take this rank's local shards (its samples; on a mesh with a
-'model' axis and ``vocab_axis="model"``, its block of the vocabulary too)
-and return what the single-process call on the global batch returns:
+Both routes take this rank's local shards (its samples; for
+`rnnt_loss_sharded` on a mesh with a 'model' axis and
+``vocab_axis="model"``, its block of the vocabulary too) and return what
+the single-process call on the global batch returns:
 
   * `rnnt_loss_shard_map`: the explicit route of the JAX module
     (`loss_parallel.py:55-83`): the local `rnnt_loss(reduction="none")`,
@@ -17,14 +18,18 @@ and return what the single-process call on the global batch returns:
     ragged shards, ``average_frames`` and the restricted loss's
     feasible-only mean (``label_frames``) come out as one process gives
     them.  ``compact=True`` takes each rank's packed rows (`shard_packed`
-    splits a global packed batch by sample).
+    splits a global packed batch by sample); the lattice bounds default to
+    the global ``max(xn)`` and ``max(yn)`` (one all_reduce and a host
+    read), so that every rank sweeps the lattice the single-process call
+    sweeps.
 
 The all_reduce passes the cotangent on unchanged (`mesh.reduce_sum`):
 every rank holds the same reduced loss and backpropagates it into its own
-samples, which is their exact gradient.  Nothing else communicates: each
-sample's lattice is computed where its log-probs are, by the kernels of the
-single-process path (the gather, the lattice sweep, the write; the packed
-kernels for ``compact``).  With ``vocab_axis`` the lattice comes from
+samples, which is their exact gradient.  Besides that and the compact
+bounds, nothing communicates: each sample's lattice is computed where its
+log-probs are, by the kernels of the single-process path (the gather, the
+lattice sweep, the write; the packed kernels for ``compact``).  With
+`rnnt_loss_sharded`'s ``vocab_axis`` the lattice comes from
 `parallel.vocab.vocab_lattice` (each rank gathers its block with its column
 offset, and the blocks are summed over the axis) and the loss runs on it
 with ``blank=-1``.
@@ -78,6 +83,22 @@ def _local_costs(mesh, log_probs, labels, xn, yn, vocab_axis, label_frames,
     return rnnt_loss(log_probs, labels, xn, yn, reduction="none", **kwargs)
 
 
+def _global_bounds(mesh, xn, yn, axis, kwargs):
+    """``kwargs`` with the compact lattice bounds left out set to the
+    largest ``xn`` and ``yn`` over ``axis`` (a rank may hold no sample)."""
+    missing = [k for k in ("max_frames", "max_labels")
+               if kwargs.get(k) is None]
+    if not missing:
+        return kwargs
+    dev = mesh_device(mesh)
+    top = torch.stack([torch.cat([x.reshape(-1).long().to(dev),
+                                  torch.zeros(1, dtype=torch.long, device=dev)])
+                       .max() for x in (xn, yn)])
+    _, hi = min_max(top, mesh, axis)
+    bounds = dict(zip(("max_frames", "max_labels"), hi.tolist()))
+    return {**kwargs, **{k: bounds[k] for k in missing}}
+
+
 def rnnt_loss_sharded(
     mesh,
     log_probs,
@@ -109,9 +130,14 @@ def rnnt_loss_sharded(
         ``right_context`` in kwargs), whose infeasible samples cost +inf
         under "none" and are left out of "sum" and "mean".
       **kwargs: the other options of `rnnt_loss` (``average_frames``,
-        ``blank``, ``fastemit_lambda``, ``compact``, ``impl``, ...).
+        ``blank``, ``fastemit_lambda``, ``compact``, ``impl``, ...).  With
+        ``compact=True``, ``max_frames`` and ``max_labels`` left out are the
+        global batch's (the rank's own would give other rounding).
     """
     _check_reduction(reduction)
+    if kwargs.get("compact"):
+        kwargs = _global_bounds(mesh, frames_lengths, labels_lengths, axis,
+                                kwargs)
     costs = _local_costs(mesh, log_probs, labels, frames_lengths,
                          labels_lengths, vocab_axis, label_frames, kwargs)
     if reduction in (None, "none"):
@@ -137,7 +163,6 @@ def rnnt_loss_shard_map(
     labels_lengths,
     reduction: Optional[str] = "mean",
     axis: str = "data",
-    vocab_axis: Optional[str] = None,
     **kwargs,
 ):
     """Explicit-SPMD data-parallel loss: the local per-sample costs, then
@@ -154,7 +179,7 @@ def rnnt_loss_shard_map(
         raise ValueError(f"the batch does not divide evenly over '{axis}':"
                          f" the ranks hold {lo} to {hi} samples")
     costs = _local_costs(mesh, log_probs, labels, frames_lengths,
-                         labels_lengths, vocab_axis, None, kwargs)
+                         labels_lengths, None, None, kwargs)
     if reduction in (None, "none"):
         return costs
     if reduction == "sum":

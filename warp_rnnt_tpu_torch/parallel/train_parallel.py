@@ -3,19 +3,22 @@ what the JAX package gets from ``jax.jit(make_train_step)`` on sharded
 inputs (`__graft_entry__.py:56-86`), written out for `torch.distributed`.
 
   * `shard_model(model, mesh)`: checks that every parameter is equal on
-    every rank, then, on a mesh with a 'model' axis, keeps this rank's
-    block of the vocabulary in the joint's output projection (weight rows
-    and bias), as the JAX dry run's ``param_spec`` shards it.
+    every rank, then, on a mesh whose 'model' axis has more than one rank
+    (the vocabulary route below), keeps this rank's block of the
+    vocabulary in the joint's output projection (weight rows and bias), as
+    the JAX dry run's ``param_spec`` shards it.
   * `make_sharded_train_step(model, optimizer, mesh, ...)` returns
     ``step(batch) -> loss`` as `models.make_train_step` does, for this
     rank's block of the batch.  The loss of each rank's samples:
-      - without a 'model' axis, `models.transducer_loss_fn`;
-      - with one, in "from_logits" and "gather", the joint's hidden layer
-        passes `vocab.copy_to_model` (so its gradient sums every block's
-        share) into the rank's block of the output projection, and the
-        block of logits goes through the vocabulary-parallel logsumexp and
-        gather (`vocab.vocab_lattice`; "gather" normalizes with
-        `vocab.vocab_log_softmax` first, as the unsharded mode does);
+      - without a 'model' axis, or with one of one rank (nothing to
+        split), `models.transducer_loss_fn`;
+      - on more model ranks, in "from_logits" and "gather", the joint's
+        hidden layer passes `vocab.copy_to_model` (so its gradient sums
+        every block's share) into the rank's block of the output
+        projection, and the block of logits goes through the
+        vocabulary-parallel logsumexp and gather (`vocab.vocab_lattice`;
+        "gather" normalizes with `vocab.vocab_log_softmax` first, as the
+        unsharded mode does);
       - in "fused", the fused kernels need the whole W: it is rebuilt by
         an all_reduce SUM of the zero-filled blocks (`_WholeVocab`), and
         the backward keeps this rank's block of d_W and d_b.  Every model
@@ -53,22 +56,25 @@ from warp_rnnt_tpu_torch.parallel.vocab import (
 DATA = "data"
 
 
-def _has_model_axis(mesh) -> bool:
-    return MODEL in (mesh.mesh_dim_names or ())
+def splits_vocab(mesh) -> bool:
+    """Whether ``mesh`` splits the vocabulary: a 'model' axis of more than
+    one rank, which takes the vocabulary route."""
+    return axis_size(mesh, MODEL) > 1
 
 
 def shard_model(model, mesh):
     """Check that every parameter of ``model`` is the same on every rank,
-    then, on a mesh with a 'model' axis, replace the joint's output
-    projection by this rank's block of the vocabulary (weight rows and
-    bias; a vocabulary that does not divide raises ValueError).  Returns
+    then, on a mesh that splits the vocabulary (`splits_vocab`), replace
+    the joint's output projection by this rank's block of the vocabulary
+    (weight rows and bias; a vocabulary that does not divide raises
+    ValueError).  Returns
     ``model``, changed in place; build the optimizer after this call."""
     flat = torch.cat([p.detach().reshape(-1).float()
                       for p in model.parameters()])
     lo, hi = min_max(flat)
     if not (torch.equal(lo, flat) and torch.equal(hi, flat)):
         raise ValueError("the model's parameters differ across ranks")
-    if _has_model_axis(mesh):
+    if splits_vocab(mesh):
         out = model.joint.out
         offset, width = mesh_vocab_block(mesh, out.out_features)
         with torch.no_grad():
@@ -101,7 +107,9 @@ class _WholeVocab(torch.autograd.Function):
 
 def _vocab_parallel_loss(model, batch, mesh, fastemit_lambda, loss_mode):
     """The mean loss of this rank's samples with the joint's output
-    projection sharded over 'model' (the rank's block)."""
+    projection sharded over 'model' (the rank's block; on a 'model' axis of
+    one rank, or none, the block is the whole vocabulary and the route
+    gives the single-process loss)."""
     feats, labels, xn, yn = batch
     j = model.joint
     f, g = model.encode(feats), model.predictor(labels)
@@ -133,7 +141,7 @@ def sharded_loss_fn(model, batch, mesh, fastemit_lambda=0.0,
     `shard_model` left it (the same on every model rank)."""
     if loss_mode not in LOSS_MODES:
         raise ValueError(f"unknown loss_mode: {loss_mode!r}")
-    if not _has_model_axis(mesh):
+    if not splits_vocab(mesh):
         return transducer_loss_fn(model, batch, fastemit_lambda, loss_mode)
     return _vocab_parallel_loss(model, batch, mesh, fastemit_lambda,
                                 loss_mode)
