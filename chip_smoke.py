@@ -201,6 +201,25 @@ against the single-process step.  The kernels of the path gain a
 `parallel` entry: their launches in each of those calls (rank 0's in the
 2x2 world).  NCCL across several cards is not exercised: the machine has
 one.
+Slice 13 (the benchmark tier) adds phase 17, after the parallel tier
+(`benchmarks/bench_cases.py`): `bench_loss.headline()` (bench.py's
+measurement on the port, N=32, T=150, 20 labels, V=5000); `run_table.main`
+into a temporary file, warp-rnnt's README table (T=150, 40 labels, V=28;
+T=150, 20 labels, V=5000; T=1500, 300 labels, V=50; N = 1, 16, 32, 64,
+128), one child process a row, every row's loss+grad and no-grad ms with
+its bound and peak, and no row may hold an error; the N=1 row of each
+config against `impl="scan"` on the same inputs (costs rtol 1e-5,
+gradient 5e-3 of the largest), with its gather and its write on the
+row's own log-probs and cotangents against their plain versions, bit for
+bit, and the padded T=1500, 301-row lattice at
+N=128 against the float64 twin on samples 0, 1, 64 and 127; `bench_joint`
+at its full width (N=16, T=150, 20 labels, V=5000, H=256) in its five
+modes, full and random lengths: each mode against "log_softmax+gather"
+(loss rtol 2e-3, gradients 2e-2 of the largest), launching exactly its
+route's kernels, then its step ms, peak, kernels a call, busy and idle;
+and `utils.profiling.op_breakdown` of a `trace` of three main-path calls,
+which must name the gather, lattice and write kernels.  The kernels of
+the phase gain a `bench` entry: their launches in each of those calls.
 It prints the kernels' JSON line and the card's line, and last
 `{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}`.
 Without a CUDA device, or without the package beside it, it exits 1 and
@@ -210,7 +229,6 @@ prints no result.
 import json
 import math
 import os
-import subprocess
 import sys
 import time
 
@@ -224,15 +242,6 @@ FJ = dict(N=16, T=150, U=21, V=5000, H=256, F=256)
 # The card's rates come from `benchmarks.timing.card_rates`: (HBM bytes/s,
 # fp32 FLOP/s, dense bf16 tensor-core FLOP/s); BF16 indexes the last.
 BF16 = 2
-
-
-def card_line():
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader",
-         "-i", "0"],
-        capture_output=True, text=True, timeout=60, check=True,
-    )
-    return out.stdout.strip()
 
 
 def bound_ms(nbytes, nops, rates, op_rate=1):
@@ -2206,6 +2215,94 @@ def phase_parallel(torch, timing, card, train_step_ms):
     return launches, errs
 
 
+# ---- slice 13: the benchmark tier -------------------------------------------
+
+
+def phase_benchmarks(torch, card):
+    """Phase 17: the benchmark tier (see the module docstring).  Returns
+    ({call: {kernel: launches}}, {kernel: max abs err})."""
+    import gc
+    import tempfile
+
+    from warp_rnnt_tpu_torch.benchmarks import bench_cases as bc
+    from warp_rnnt_tpu_torch.benchmarks import bench_joint as bj
+    from warp_rnnt_tpu_torch.benchmarks import bench_loss as bl
+    from warp_rnnt_tpu_torch.benchmarks import run_table as rt
+
+    t0 = time.perf_counter()
+    print(f"bench_loss headline {json.dumps(bl.headline())}")
+    # the table's children need the card's memory: hand the cache back
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_reserved() / 2**20
+    print(f"run_table: this process holds {held:.0f} MiB of the card")
+    with tempfile.TemporaryDirectory() as tmp:
+        doc = rt.main(os.path.join(tmp, "table.json"))
+    bad = [r for r in doc["rows"] if "error" in r or "loss_grad_ms" not in r]
+    if len(doc["rows"]) != len(rt.table_rows()) or bad:
+        raise AssertionError(f"run_table: failed rows {bad}")
+    print(f"run_table: {len(doc['rows'])} rows,"
+          f" {time.perf_counter() - t0:.1f} s [{card}]")
+
+    for T_, U_, V_ in rt.REFERENCE_GATHER_MS:  # where each config's time goes
+        for call, r in bl.profile_row(128, T_, U_, V_, seed=SEED).items():
+            print(f"profile table T={T_} U={U_} V={V_} N=128 {call}:"
+                  f" {r['step_ms']:.4f} ms without the profiler,"
+                  f" {r['kernels_per_call']} kernels a call, busy"
+                  f" {r['busy_ms']:.4f} ms, idle {r['idle_share']:.3f}"
+                  f" (complete {r['complete']}, {r['attempts']} session(s),"
+                  f" pad lost {r['pad_lost']}); top:"
+                  + "; ".join(f"{ms:.4f} ms x{k} {key[:60]}"
+                              for ms, k, key in r["rows"][:4]) + f" [{card}]")
+        torch.cuda.empty_cache()
+
+    launches, errs = {}, {}
+    for T_, U_, V_ in rt.REFERENCE_GATHER_MS:
+        e, n = bc.check_table_row(T_, U_, V_, N=1, seed=SEED)
+        tag = f"table T={T_} U={U_} V={V_} N=1"
+        launches[f"{tag} loss+grad"] = n["loss_grad"]
+        launches[f"{tag} no-grad"] = n["no_grad"]
+        for k in ("gather_lattice", "flat_write"):
+            errs[k] = max(errs.get(k, 0.0), e[k])
+        print(f"{tag} against the scan: {json.dumps(e)} (costs rtol"
+              f" {bc.COST_RTOL}, gradient {bc.GRAD_TOL} of the largest;"
+              f" gather_lattice and flat_write against their plain versions"
+              f" exactly); launches {json.dumps(n)}")
+    torch.cuda.empty_cache()
+    e, n = bc.check_long_lattice(seed=SEED)
+    errs.update(e)
+    launches.update({f"long lattice {k}": v for k, v in n.items()})
+    print(f"long lattice (128, 1500, 301), samples 0, 1, 64, 127 against the"
+          f" float64 twin: max abs err on valid cells {json.dumps(e)};"
+          f" launches {json.dumps(n)}")
+    torch.cuda.empty_cache()
+
+    for rand in (False, True):
+        e, n, routes = bc.check_joint_modes(**bj.DEFAULTS, rand_length=rand,
+                                            seed=SEED)
+        tag = "random lengths" if rand else "full lengths"
+        launches.update({f"joint {m} {tag}": k for m, k in n.items()})
+        print(f"bench_joint modes at {json.dumps(bj.DEFAULTS)}, {tag}, against"
+              f" log_softmax+gather (loss rtol {bc.MODE_LOSS_RTOL}, gradients"
+              f" {bc.MODE_GRAD_TOL} of the largest): {json.dumps(e)}; routes"
+              f" {json.dumps(routes)}; launches {json.dumps(n)}")
+        for mode in bj.MODES:
+            r = bj.bench_joint(mode=mode, rand_length=rand, seed=SEED,
+                               **bj.DEFAULTS)
+            print(f"bench_joint {json.dumps(r)}")
+        torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        rows = bc.trace_main_path(tmp, calls=3, seed=SEED)
+    missing = bc.missing_symbols(rows)
+    if missing:
+        raise AssertionError(f"trace of the main path lacks {missing}: {rows}")
+    for us, name in rows:
+        print(f"op_breakdown main path, 3 calls: {us:.1f} us {name[:80]}")
+    print(f"phase 17: {time.perf_counter() - t0:.1f} s")
+    return launches, errs
+
+
 def main():
     import torch
 
@@ -2230,6 +2327,7 @@ def main():
     from warp_rnnt_tpu_torch.ops import flat_kernels as fk
     from warp_rnnt_tpu_torch.ops import fused_joint as fj
     from warp_rnnt_tpu_torch.ops import gather_kernels as gk
+    from warp_rnnt_tpu_torch.utils.profiling import card_line
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2403,6 +2501,9 @@ def main():
         torch, timing, card, train_step_ms)
     print(f"phase 16: {time.perf_counter() - t16:.1f} s")
 
+    # slice 13: the benchmark tier
+    bench_launches, bench_errs = phase_benchmarks(torch, card)
+
     fj_src = "warp_rnnt_tpu/ops/fused_joint.py"
     pk_src = "warp_rnnt_tpu/ops/packed_kernels.py"
     eg_src = "scripts/exp_pallas_gather.py"
@@ -2492,6 +2593,12 @@ def main():
             entry["parallel"] = {"launches": parallel}
             if name in parallel_errs:
                 entry["parallel"]["max_abs_err"] = parallel_errs[name]
+        bench = {call: n[name] for call, n in bench_launches.items()
+                 if name in n}
+        if bench:
+            entry["bench"] = {"launches": bench}
+            if name in bench_errs:
+                entry["bench"]["max_abs_err"] = bench_errs[name]
         if name in SERVING_KERNELS:
             entry["serving"] = {
                 "launches": {call: n.get(name, 0)

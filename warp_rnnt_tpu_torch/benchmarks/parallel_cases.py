@@ -81,21 +81,15 @@ SHARD_CASES = {
 }
 
 
-def counters():
-    from warp_rnnt_tpu_torch.ops import packed_kernels
-
-    return [*tc.counters(), packed_kernels.LAUNCHES]
-
-
 def reset():
-    for c in counters():
+    for c in sc.counters():
         for k in c:
             c[k] = 0
 
 
 def launched():
     torch.cuda.synchronize()
-    return {k: v for c in counters() for k, v in c.items() if v}
+    return {k: v for c in sc.counters() for k, v in c.items() if v}
 
 
 def make_inputs(N, T, U, V, seed, device="cuda"):

@@ -15,12 +15,21 @@ the profiler's own host cost, so it reads higher than the chained time of
 profiler (best of three windows of ITERS calls).  It reads only entry
 points that older trees have, so a copy placed in an older tree's
 `benchmarks/` times that tree.  Needs a CUDA device.
+
+The profiler (kineto) loses the first kernel records of a session, the
+more the more sessions the process has run, and now and then a chunk of
+records further in (up to a call's).  So a session opens with `PAD` empty
+spin kernels, which take the first loss and are left out of the counts,
+and it is run again (up to `ATTEMPTS` times) until every kernel's count
+is a multiple of the calls profiled; `device_profile` says whether it got
+there ("complete") and how many of the pad were lost ("pad_lost").
 """
 
 from __future__ import annotations
 
 import argparse
 import time
+import warnings
 
 import torch
 
@@ -28,6 +37,9 @@ from warp_rnnt_tpu_torch import rnnt_loss
 
 ITERS = 10
 SEED = 0
+PAD = 128  # spin kernels opening a profiled session
+PAD_KERNEL = "spin_kernel"  # `torch.cuda._sleep`'s kernel, in no step
+ATTEMPTS = 3
 CASES = {"A": dict(N=32, T=150, L=20, V=5000), "B": dict(N=16, T=1500, L=300, V=50)}
 
 
@@ -88,39 +100,79 @@ def profile_step(step):
     return {"step_ms": min(step_ms), **device_profile(step, ITERS)}
 
 
-def device_profile(step, iters, cpu=True):
-    """Run ``iters`` calls of ``step()`` under `torch.profiler` (host ops
-    too unless ``cpu`` is False: a call of tens of thousands of launches
-    traces faster without them).  Returns {"wall_ms" (per call, the
-    profiler's host cost included), "busy_ms" (per call), "idle_share",
-    "kernels_per_call", "rows": [(device ms per call, launches per call,
-    kernel name)], "device"}."""
+def pad_session():
+    """Launch `PAD` empty spin kernels and wait for them: the records a
+    profiler session loses first are theirs."""
+    for _ in range(PAD):
+        torch.cuda._sleep(0)
+    torch.cuda.synchronize()
+
+
+def kernel_rows(events, iters):
+    """(rows, complete, pad count) from ``events``, (key, device events,
+    device us): rows (device ms per call, launches per call, key), longest
+    first, the pad left out; complete when some of the pad and some kernel
+    are there and every count is a multiple of ``iters``."""
+    rows, pads = [], 0
+    for key, count, dev_us in events:
+        if PAD_KERNEL in key:
+            pads += count
+        elif dev_us > 0:
+            rows.append((dev_us / 1e3 / iters, count, key))
+    complete = pads > 0 and bool(rows) and all(c % iters == 0
+                                               for _, c, _ in rows)
+    rows = [(ms, c // iters, key) for ms, c, key in rows]
+    return sorted(rows, reverse=True), complete, pads
+
+
+def _profile_once(step, iters, cpu):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as torch_profile
 
     activities = [ProfilerActivity.CUDA] + [ProfilerActivity.CPU] * cpu
     with torch_profile(activities=activities) as prof:
+        pad_session()
         t0 = time.perf_counter()
         for _ in range(iters):
             step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
 
-    rows = []
+    events = []
     for ev in prof.key_averages():
         if ev.device_type != DeviceType.CUDA:  # ops also report their kernels
             continue
         dev_us = getattr(ev, "self_device_time_total", None)
         if dev_us is None:
             dev_us = ev.self_cuda_time_total
-        if dev_us > 0:
-            rows.append((dev_us / 1e3 / iters, ev.count // iters, ev.key))
-    rows.sort(reverse=True)
+        events.append((ev.key, ev.count, dev_us))
+    rows, complete, pads = kernel_rows(events, iters)
     busy_ms = sum(r[0] for r in rows)
     return {"wall_ms": wall_ms / iters, "busy_ms": busy_ms,
             "idle_share": 1 - busy_ms * iters / wall_ms,
             "kernels_per_call": sum(r[1] for r in rows), "rows": rows,
+            "complete": complete, "pad_lost": PAD - pads,
             "device": torch.cuda.get_device_name(0)}
+
+
+def device_profile(step, iters, cpu=True):
+    """Run ``iters`` calls of ``step()`` under `torch.profiler` (host ops
+    too unless ``cpu`` is False: a call of tens of thousands of launches
+    traces faster without them), after `pad_session`, up to `ATTEMPTS`
+    times until the session is complete (see the module docstring).
+    Returns {"wall_ms" (per call, the profiler's host cost included),
+    "busy_ms" (per call), "idle_share", "kernels_per_call", "rows":
+    [(device ms per call, launches per call, kernel name)], "complete",
+    "pad_lost", "attempts", "device"}."""
+    for attempt in range(1, ATTEMPTS + 1):
+        r = _profile_once(step, iters, cpu)
+        if r["complete"]:
+            break
+    else:
+        warnings.warn(f"device_profile: a kernel's count is not a multiple of"
+                      f" {iters} calls after {ATTEMPTS} sessions; the counts"
+                      " and busy time miss records")
+    return {**r, "attempts": attempt}
 
 
 def main(argv=None):
@@ -132,7 +184,8 @@ def main(argv=None):
           f" {r['step_ms']:.4f} ms/call without the profiler, wall"
           f" {r['wall_ms']:.4f} ms/call, device busy {r['busy_ms']:.4f}"
           f" ms/call, idle share {r['idle_share']:.3f},"
-          f" {r['kernels_per_call']} kernels/call")
+          f" {r['kernels_per_call']} kernels/call, complete {r['complete']}"
+          f" after {r['attempts']} attempt(s), pad lost {r['pad_lost']}")
     for ms, count, key in r["rows"]:
         print(f"{ms:10.4f} ms/call {count:4d} x/call"
               f" {ms / r['wall_ms']:6.3f} of wall  {key[:90]}")

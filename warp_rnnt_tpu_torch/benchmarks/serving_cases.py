@@ -63,9 +63,11 @@ SMALL = dict(N=4, T=41, F=9, H=24, V=21, beam=3, max_length=30)
 
 
 def counters():
-    from warp_rnnt_tpu_torch.ops import cuda_impl, flat_kernels, gather_kernels
+    """The launch counts of every kernel wrapper."""
+    from warp_rnnt_tpu_torch.benchmarks.train_cases import counters as train
+    from warp_rnnt_tpu_torch.ops import packed_kernels
 
-    return [cuda_impl.LAUNCHES, flat_kernels.LAUNCHES, gather_kernels.LAUNCHES]
+    return [*train(), packed_kernels.LAUNCHES]
 
 
 def launched(fn):
