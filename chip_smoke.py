@@ -13,8 +13,10 @@ Phases, in order; any failure exits non-zero before the last line:
      (N=16, T=1473, U=299, seeded lengths) against the float64 twin.  Then
      the ns of one dependent logaddexp (`cuda_impl.lae_ns`), which sets
      each lattice's chain floor, (T + U - 1) of them.
-  3. the gradient-write kernel against its twin: full width, and a V that is
-     not a multiple of 4 in every output dtype.  The match must be exact.
+  3. the gradient-write kernel against its twin: full width, then the cases
+     of `benchmarks/flat_write_cases.py` (every output dtype at V = 1, 2,
+     28, 50, 127, 128, 131 and 5000, non-finite cotangents, partial last
+     blocks, a column offset).  The match must be bit for bit.
   4. the main path at full width (N=32, T=150, U=21, V=5000, fp32):
      `rnnt_loss(..., reduction="mean", gather=True)` + backward on the 4-D and
      the flat 3-D input, and the no-grad costs.  Launch counts are set to 0
@@ -220,6 +222,18 @@ route's kernels, then its step ms, peak, kernels a call, busy and idle;
 and `utils.profiling.op_breakdown` of a `trace` of three main-path calls,
 which must name the gather, lattice and write kernels.  The kernels of
 the phase gain a `bench` entry: their launches in each of those calls.
+Slice 14 (the gradient write tiled by rows for every V) adds: in phase 3
+the write's cases above, each with its tiling (the rows a block read from
+the library, `flat_kernels.kernel_block_rows`); in phase 5 the
+write's device ms at the main path (CUDA graph) and its sweep over V in
+{28, 50, 131, 1024, 5000}, fp32 and bf16, at a 2 GB output
+(`benchmarks/write_sweep.py`: chained and device ms beside the byte bound
+and one `zero_()` of the same output, the card's reachable store rate);
+after phase 13's N=144 main path the write's output past 2^31 elements
+(fp32 and bf16) against the plain version 16 samples at a time, bit for
+bit; and from phase 17's profiles the write's device ms a loss+grad at
+the table's N=128 rows.  All of these go into the `flat_write` entry of
+the kernels line (`sweep`, `past_2_31`, `bench.device_ms`).
 It prints the kernels' JSON line and the card's line, and last
 `{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}`.
 Without a CUDA device, or without the package beside it, it exits 1 and
@@ -363,8 +377,13 @@ def lattice_attrs(cuda_impl):
     return out
 
 
-def phase_write(torch, fk, loc_rows):
-    """Kernel vs twin, exact (torch.equal), including rows where loc == blank."""
+def phase_write(torch, fk, fwc, loc_rows):
+    """Kernel vs plain version, bit for bit: the main path's full width
+    (rows where loc == blank), then every case of
+    `benchmarks/flat_write_cases.py` (V 1, 2, 28, 50, 127, 128, 131 and
+    5000 in fp32, fp64, fp16 and bf16; non-finite cotangents; partial last
+    blocks; rows that are not whole 16-byte vectors; a scalar tail; a
+    column offset)."""
     g = torch.Generator(device="cuda").manual_seed(3)
     ct0 = torch.randn(N, T, U, generator=g, device="cuda")
     ct1 = torch.randn(N, T, U, generator=g, device="cuda")
@@ -375,19 +394,9 @@ def phase_write(torch, fk, loc_rows):
         raise AssertionError("flat_write full width: kernel != twin")
     print(f"flat_write full width {tuple(k.shape)} float32: exact")
     del k, p
-
-    n, t, u, v = 2, 7, 5, 131
-    c0 = torch.randn(n, t, u, generator=g, device="cuda")
-    c1 = torch.randn(n, t, u, generator=g, device="cuda")
-    loc = torch.tensor([[5, 0, 130, 7, 0], [0, 1, 2, 3, 0]], dtype=torch.int32,
-                       device="cuda")
-    for dtype in (torch.float32, torch.float64, torch.float16, torch.bfloat16):
-        k = fk.flat_grad_write(c0, c1, loc, 0, v, u * v, dtype)
-        p = fk.flat_grad_write_plain(c0, c1, loc, 0, v, u * v, dtype)
-        torch.cuda.synchronize()
-        if not torch.equal(k, p):
-            raise AssertionError(f"flat_write V={v} {dtype}: kernel != twin")
-        print(f"flat_write V={v} {dtype}: exact")
+    for name in fwc.CASES:
+        r = fwc.compare(fk, name)
+        print(f"flat_write {name}: bit for bit (NaN rows alike); {json.dumps(r)}")
     return ct0, ct1
 
 
@@ -534,6 +543,11 @@ def phase_times(torch, wt, cuda_impl, fk, timing, inputs, main_lattice,
     kernel("flat_write", fk.flat_grad_write, fk.flat_grad_write_plain,
            (ct0, ct1, loc_rows, 0, V, U * V), lambda d: d.view(-1)[0],
            R * V * 4 + 2 * R * 4 + N * U * 4, R * V * 4, 20)
+    times["flat_write"]["device_ms"] = timing.bench_graph(
+        fk.flat_grad_write, (ct0, ct1, loc_rows, 0, V, U * V), calls=8)
+    print(f"device flat_write N,T,U,V={(N, T, U, V)}:"
+          f" {times['flat_write']['device_ms']} ms (CUDA graph) [{card}]")
+    times["flat_write"]["sweep"] = write_sweep(torch, card)
 
     def loss_grad(impl):
         def step(x):
@@ -559,6 +573,25 @@ def phase_times(torch, wt, cuda_impl, fk, timing, inputs, main_lattice,
     print(f"time loss+grad (impl=scan): ms={e2e['scan']} [{card}]")
     print(f"time loss no-grad (kernels): ms={e2e['cuda_no_grad']} [{card}]")
     return times
+
+
+def write_sweep(torch, card):
+    """The write over V in {28, 50, 131, 1024, 5000}, fp32 and bf16, at a
+    2 GB output (`benchmarks/write_sweep.py`): chained and device ms beside
+    the byte bound and one `zero_()` of the output's shape and dtype."""
+    from warp_rnnt_tpu_torch.benchmarks import write_sweep as ws
+
+    torch.cuda.empty_cache()
+    out = {}
+    for r in ws.sweep():
+        print(f"time flat_write sweep V={r['V']} {r['dtype']} N={r['N']}:"
+              f" {json.dumps(r)}; bound share"
+              f" {r['bound_ms'] / r['device_ms']:.3f}, zero_ share"
+              f" {r['zero_device_ms'] / r['device_ms']:.3f} [{card}]")
+        out[f"V={r['V']} {r['dtype']}"] = {
+            k: r[k] for k in ("N", "ms", "device_ms", "bound_ms", "bound_by",
+                              "zero_ms", "zero_device_ms", "library_ms")}
+    return out
 
 
 def fj_tree(np, seed, F=FJ["F"], H=FJ["H"], V=FJ["V"]):
@@ -2244,8 +2277,18 @@ def phase_benchmarks(torch, card):
     print(f"run_table: {len(doc['rows'])} rows,"
           f" {time.perf_counter() - t0:.1f} s [{card}]")
 
+    write_ms = {}
     for T_, U_, V_ in rt.REFERENCE_GATHER_MS:  # where each config's time goes
         for call, r in bl.profile_row(128, T_, U_, V_, seed=SEED).items():
+            if call == "loss_grad":
+                ms = [ms for ms, _, key in r["rows"]
+                      if bc.MAIN_SYMBOLS["flat_write"] in key]
+                if not r["complete"] or len(ms) != 1:
+                    raise AssertionError(
+                        f"profile table T={T_} U={U_} V={V_} N=128 loss+grad:"
+                        f" complete {r['complete']}, {len(ms)} flat_write rows;"
+                        f" no device ms for the write")
+                write_ms[f"T={T_} U={U_} V={V_} N=128"] = ms[0]
             print(f"profile table T={T_} U={U_} V={V_} N=128 {call}:"
                   f" {r['step_ms']:.4f} ms without the profiler,"
                   f" {r['kernels_per_call']} kernels a call, busy"
@@ -2299,8 +2342,9 @@ def phase_benchmarks(torch, card):
         raise AssertionError(f"trace of the main path lacks {missing}: {rows}")
     for us, name in rows:
         print(f"op_breakdown main path, 3 calls: {us:.1f} us {name[:80]}")
-    print(f"phase 17: {time.perf_counter() - t0:.1f} s")
-    return launches, errs
+    print(f"phase 17: {time.perf_counter() - t0:.1f} s; flat_write device ms"
+          f" a loss+grad at the N=128 rows {json.dumps(write_ms)} [{card}]")
+    return launches, errs, write_ms
 
 
 def main():
@@ -2324,6 +2368,7 @@ def main():
     from warp_rnnt_tpu_torch.functional.postprocess import costs_and_grads
     from warp_rnnt_tpu_torch.models import carry_flax_joint
     from warp_rnnt_tpu_torch.ops import _build, cuda_impl
+    from warp_rnnt_tpu_torch.benchmarks import flat_write_cases as fwc
     from warp_rnnt_tpu_torch.ops import flat_kernels as fk
     from warp_rnnt_tpu_torch.ops import fused_joint as fj
     from warp_rnnt_tpu_torch.ops import gather_kernels as gk
@@ -2351,7 +2396,7 @@ def main():
     errs = phase_lattice(torch, cuda_impl, main_lattice)
     ns = cuda_impl.lae_ns()
     print(f"one dependent logaddexp on one thread: {ns} ns [{card}]")
-    ct = (*phase_write(torch, fk, loc_rows), loc_rows)
+    ct = (*phase_write(torch, fk, fwc, loc_rows), loc_rows)
     errs["flat_write"] = 0.0
 
     launches, loss, grad, loss3, grad3, costs_ng = phase_main(
@@ -2478,6 +2523,12 @@ def main():
         phase_big_main(torch, wt, fk, gather_blank_label_plain, timing,
                        counters, n, rates, card)
         torch.cuda.empty_cache()
+    big_writes = {}
+    for name in fwc.BIG_CASES:  # the N=144 main path's write, past 2^31
+        big_writes[name] = fwc.compare_big(fk, name)
+        print(f"flat_write {name}: bit for bit against the plain version, 16"
+              f" samples at a time; {json.dumps(big_writes[name])}")
+        torch.cuda.empty_cache()
     for name in GATHER_PATH[:4]:
         times[name] = gather_times[N][name]
     prof = profile_loss.profile("main")
@@ -2502,7 +2553,7 @@ def main():
     print(f"phase 16: {time.perf_counter() - t16:.1f} s")
 
     # slice 13: the benchmark tier
-    bench_launches, bench_errs = phase_benchmarks(torch, card)
+    bench_launches, bench_errs, bench_write_ms = phase_benchmarks(torch, card)
 
     fj_src = "warp_rnnt_tpu/ops/fused_joint.py"
     pk_src = "warp_rnnt_tpu/ops/packed_kernels.py"
@@ -2553,6 +2604,7 @@ def main():
         if name in gather_times[N]:
             entry.update({f"N={n}": gather_times[n][name] for n in GATHER_N[1:]})
         if name == "flat_write":
+            entry["past_2_31"] = big_writes
             entry["scatter_bwd"] = {
                 "launches": gather_launches[name],
                 **{f"N={n}": scatter_times[n] for n in GATHER_N}}
@@ -2599,6 +2651,8 @@ def main():
             entry["bench"] = {"launches": bench}
             if name in bench_errs:
                 entry["bench"]["max_abs_err"] = bench_errs[name]
+            if name == "flat_write":
+                entry["bench"]["device_ms"] = bench_write_ms
         if name in SERVING_KERNELS:
             entry["serving"] = {
                 "launches": {call: n.get(name, 0)

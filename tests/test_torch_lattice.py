@@ -31,6 +31,7 @@ from _torch_port_helpers import (  # noqa: F401  (cuda_device is a fixture)
 from warp_rnnt_tpu.functional import scan_impl as jax_scan
 from warp_rnnt_tpu.ops import flat_kernels as jax_flat
 from warp_rnnt_tpu.ops import pallas_impl
+from warp_rnnt_tpu_torch.benchmarks import flat_write_cases as fwc
 from warp_rnnt_tpu_torch.functional import scan_impl
 from warp_rnnt_tpu_torch.ops import _build, cuda_impl, flat_kernels
 from warp_rnnt_tpu_torch.utils.lse import logrec_combine, safe_logaddexp
@@ -341,13 +342,10 @@ def test_lattice_kernel_attrs(cuda_device, T, U):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.float64, torch.float16,
-                                   torch.bfloat16])
-@pytest.mark.parametrize("V", [128, 131])
-def test_flat_write_kernel_matches_twin(cuda_device, V, dtype):
-    args = tt(*_write_inputs(9, V=V))
-    U = args[2].shape[1]
-    want = flat_kernels.flat_grad_write_plain(*args, 0, V, U * V, dtype)
-    got = flat_kernels.flat_grad_write(*(a.to(cuda_device) for a in args),
-                                       0, V, U * V, dtype)
-    assert torch.equal(got.cpu(), want)
+@pytest.mark.parametrize("name", sorted(fwc.CASES))
+def test_flat_write_kernel_matches_twin(cuda_device, name):
+    """The kernel against its plain twin bit for bit, NaN rows alike, on
+    every case of `benchmarks/flat_write_cases.py` (V 1 to 5000, among them
+    128 and 131, in fp32, fp64, fp16 and bf16; column offsets)."""
+    r = fwc.compare(flat_kernels, name, device=cuda_device)
+    assert r["max_abs_err"] == 0.0

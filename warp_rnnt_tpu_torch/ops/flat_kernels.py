@@ -16,8 +16,15 @@ of the gather uses this writer too, on a view.  On a CUDA tensor it
 launches the kernel, or raises; on a CPU tensor it runs
 `flat_grad_write_plain`.
 
-What bounds the kernel and what its design does about that is noted at the
-top of `csrc/flat_write.cu`.
+The kernel tiles the flat (rows * V) output by rows: a block takes R
+consecutive rows (about 32 KB of output, 1 to 1024 rows, so many short
+rows share a block and a 5000-column row is a block of its own), stages
+their cotangents and labels in shared memory and stores its span as
+16-byte vectors in every output dtype, a vector's elements taking their
+own rows' coefficients where it straddles two rows.  The rule for R lives
+in the C source alone; `kernel_block_rows` reads it from the built
+library.  What bounds the kernel and what its design does about that is
+noted at the top of `csrc/flat_write.cu`.
 """
 
 from __future__ import annotations
@@ -42,10 +49,18 @@ def _lib():
         lib.rnnt_flat_grad_write.argtypes = [p, p, p, p, i, ctypes.c_longlong,
                                              i, i, i, i, p]
         lib.rnnt_flat_grad_write.restype = i
+        lib.rnnt_flat_write_block_rows.argtypes = [i, i]
+        lib.rnnt_flat_write_block_rows.restype = i
         lib.rnnt_flat_write_error_string.argtypes = [i]
         lib.rnnt_flat_write_error_string.restype = ctypes.c_char_p
         lib._typed = True
     return lib
+
+
+def kernel_block_rows(V: int, out_dtype=torch.float32) -> int:
+    """Rows a block of the kernel takes for V columns of ``out_dtype``, as
+    the C entry computes them (builds the library on first use)."""
+    return _lib().rnnt_flat_write_block_rows(V, _DTYPE_CODES[out_dtype])
 
 
 def _check(ct0, ct1, loc_rows, blank, V, UV, out_dtype, offset=None):
@@ -95,7 +110,10 @@ def flat_grad_write(ct0, ct1, loc_rows, blank: int, V: int, UV: int,
     loc_rows: (N, U) int32 frame-invariant label indices.  With a column
     ``offset`` the output is the block [offset, offset + V) (see the
     module docstring).  The output is allocated here with `torch.empty`;
-    the kernel writes every element.
+    the kernel writes every element.  The grid has ceil(rows / R) blocks
+    (R = `kernel_block_rows`), which stays under CUDA's 2**31 - 1 for any
+    output a card can hold; past it the C entry refuses the launch and
+    this raises.
     """
     if ct0.device.type == "cpu":
         return flat_grad_write_plain(ct0, ct1, loc_rows, blank, V, UV,
@@ -110,8 +128,6 @@ def flat_grad_write(ct0, ct1, loc_rows, blank: int, V: int, UV: int,
             raise ValueError(f"{name} must be contiguous")
     N, T, U = ct0.shape
     rows = N * T * U
-    if rows >= 2**31:
-        raise ValueError(f"{rows} rows exceed the kernel's grid limit of 2**31-1")
     out = torch.empty((N, T, UV), dtype=out_dtype, device=ct0.device)
     if rows == 0 or V == 0:
         return out
