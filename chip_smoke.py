@@ -234,6 +234,26 @@ after phase 13's N=144 main path the write's output past 2^31 elements
 bit; and from phase 17's profiles the write's device ms a loss+grad at
 the table's N=128 rows.  All of these go into the `flat_write` entry of
 the kernels line (`sweep`, `past_2_31`, `bench.device_ms`).
+Slice 15 (the TensorFlow front end) adds phase 18, after the benchmark
+tier (`benchmarks/bridge_cases.py`): whether TensorFlow is on the machine
+(`importlib.util.find_spec`, then its version and CUDA build from a child
+`python -c`); the bridge's torch half (`bindings/_bridge.py`, the body of
+`tf_binding.rnnt_loss(graph=False)` without TensorFlow) at the main
+path's full width (N=32, T=150, U=21, V=5000, fp32), with blank=0 and on
+the pre-gathered lattice (blank=-1), each with the counts set to 0 just
+before and read just after (exactly the gather, the lattice and the
+write; the lattice), against the plain version on the same inputs (costs
+rtol 1e-5, gradient 5e-3 of the largest) and against the direct
+`rnnt_loss` loss+grad bit for bit; its ms beside the direct loss+grad's,
+and the phase's peak device memory.  Where TensorFlow is present, it
+first turns on memory growth for every GPU, then runs
+`tf_binding.rnnt_loss(graph=False)` under a GradientTape on TF GPU tensors
+at the same shape, and `tf_binding.rnnt_loss_fused_joint` at
+bench_joint's shape (N=16, T=150, 20 labels, V=5000, H=256), each against
+the direct torch call bit for bit, with the bridge's overhead in ms and
+both allocators' peaks.  The gather, the lattice and the write gain a
+`tf` entry in the kernels line: their launches in each of those calls and
+each call's errors.
 It prints the kernels' JSON line and the card's line, and last
 `{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}`.
 Without a CUDA device, or without the package beside it, it exits 1 and
@@ -2347,6 +2367,116 @@ def phase_benchmarks(torch, card):
     return launches, errs, write_ms
 
 
+def wall_ms(torch, fn, iters=20, warmup=3):
+    """Host wall ms a call of ``fn()`` over ``iters`` calls, the device
+    synchronized before and after (the TF bridge synchronizes on every
+    crossing, so the chained timers do not apply to it)."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t) / iters * 1e3
+
+
+def tensorflow_line():
+    """Whether TensorFlow is installed (`find_spec` alone decides), and its
+    version and CUDA build from a child process where it is."""
+    import importlib.util
+    import subprocess
+
+    if importlib.util.find_spec("tensorflow") is None:
+        return False, ("tensorflow: not installed (importlib.util.find_spec"
+                       " finds none); phase 18 runs the bridge's torch half"
+                       " only")
+    out = subprocess.run(
+        [sys.executable, "-c", "import tensorflow as tf; print(tf.__version__,"
+         " tf.test.is_built_with_cuda())"],
+        capture_output=True, text=True, timeout=300, check=True)
+    return True, f"tensorflow: {out.stdout.strip().splitlines()[-1]}"
+
+
+def phase_tf_binding(torch, card):
+    """Phase 18: the TensorFlow front end (see the module docstring).
+    Returns ({call: {kernel: launches}}, {call: its errors})."""
+    from warp_rnnt_tpu_torch.benchmarks import bridge_cases as bc
+    from warp_rnnt_tpu_torch.bindings import _bridge
+
+    t0 = time.perf_counter()
+    has_tf, line = tensorflow_line()
+    print(line)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    inputs = make_inputs(torch, N, T, U, V, SEED + 18)
+    launches, errs = {}, {}
+    for blank in (0, -1):
+        e, n = bc.check_bridge(*inputs, blank=blank)
+        launches[f"bridge blank={blank}"] = n
+        errs[f"bridge blank={blank}"] = e
+        print(f"bridge torch half blank={blank} at {(N, T, U, V)}: against"
+              f" the plain version {json.dumps(e)} (costs rtol"
+              f" {bc.COST_RTOL}, gradient {bc.GRAD_TOL} of the largest;"
+              f" direct loss+grad bit for bit); launches {json.dumps(n)}")
+    xs, ys, xn, yn = inputs
+    ms = {"bridge": wall_ms(torch, lambda: _bridge.transducer_costs_and_grads(
+              xs, ys, xn, yn)),
+          "direct": wall_ms(torch, lambda: bc.direct_sum(xs, ys, xn, yn))}
+    print(f"bridge torch half ms {ms['bridge']:.4f}, direct loss+grad ms"
+          f" {ms['direct']:.4f} (host wall, 20 calls) [{card}]")
+    if has_tf:
+        tf_launches, tf_errs = tf_bridge_on_card(torch, bc, inputs, card)
+        launches.update(tf_launches)
+        errs.update(tf_errs)
+    del inputs, xs
+    print(f"phase 18: {time.perf_counter() - t0:.1f} s; torch peak"
+          f" {torch.cuda.max_memory_allocated() / 2**20:.0f} MiB [{card}]")
+    torch.cuda.empty_cache()
+    return launches, errs
+
+
+def tf_bridge_on_card(torch, bc, inputs, card):
+    """Phase 18 where TensorFlow is installed: the TF bridge on GPU tensors
+    against the direct torch calls, bit for bit, timed beside them.
+    Returns ({call: {kernel: launches}}, {call: its errors})."""
+    import tensorflow as tf
+
+    from warp_rnnt_tpu_torch.benchmarks import bench_joint as bj
+    from warp_rnnt_tpu_torch.bindings import tf_binding as tfb
+
+    for gpu in tf.config.list_physical_devices("GPU"):
+        tf.config.experimental.set_memory_growth(gpu, True)
+    launches, errs = {}, {}
+    for blank in (0, -1):
+        e, n = bc.check_tf_bridge(tf, tfb, *inputs, blank=blank)
+        launches[f"tf rnnt_loss blank={blank}"] = n
+        errs[f"tf rnnt_loss blank={blank}"] = e
+        print(f"TF bridge blank={blank}: {json.dumps(e)}; launches"
+              f" {json.dumps(n)}")
+    xs, ys, xn, yn = inputs
+    args = [tfb._to_tf(xs), *bc.tf_ints(tf, ys, xn, yn)]
+    ms_tf = wall_ms(torch, lambda: bc.tf_loss_grad(tf, tfb, *args))
+    ms_direct = wall_ms(torch, lambda: bc.direct_sum(xs, ys, xn, yn))
+    print(f"TF bridge loss+grad ms {ms_tf:.4f}, direct {ms_direct:.4f}:"
+          f" overhead {ms_tf - ms_direct:.4f} ms [{card}]")
+    d = bj.DEFAULTS
+    f, g, jys, jxn, jyn = bj.make_inputs(SEED + 18, d["N"], d["T"], d["U"],
+                                         d["H"], rand_length=True)
+    tree = bj.joint_tree(SEED + 18, d["H"], d["V"])["params"]
+    weights = [torch.tensor(tree[layer][k], device="cuda")
+               for layer in ("pre", "out") for k in ("kernel", "bias")]
+    e, n = bc.check_tf_joint(tf, tfb, f, g, weights, jys, jxn, jyn)
+    launches["tf rnnt_loss_fused_joint"] = n
+    errs["tf rnnt_loss_fused_joint"] = e
+    print(f"TF fused joint at {json.dumps(d)}: {json.dumps(e)}; launches"
+          f" {json.dumps(n)}")
+    info = tf.config.experimental.get_memory_info("GPU:0")
+    print(f"TF allocator peak {info['peak'] / 2**20:.0f} MiB, torch peak"
+          f" {torch.cuda.max_memory_allocated() / 2**20:.0f} MiB [{card}]")
+    return launches, errs
+
+
 def main():
     import torch
 
@@ -2555,6 +2685,9 @@ def main():
     # slice 13: the benchmark tier
     bench_launches, bench_errs, bench_write_ms = phase_benchmarks(torch, card)
 
+    # slice 15: the TensorFlow front end
+    tf_launches, tf_errs = phase_tf_binding(torch, card)
+
     fj_src = "warp_rnnt_tpu/ops/fused_joint.py"
     pk_src = "warp_rnnt_tpu/ops/packed_kernels.py"
     eg_src = "scripts/exp_pallas_gather.py"
@@ -2653,6 +2786,12 @@ def main():
                 entry["bench"]["max_abs_err"] = bench_errs[name]
             if name == "flat_write":
                 entry["bench"]["device_ms"] = bench_write_ms
+        tf_calls = {call: n[name] for call, n in tf_launches.items()
+                    if name in n}
+        if tf_calls:
+            entry["tf"] = {"launches": tf_calls,
+                           "max_abs_err": {call: tf_errs[call]
+                                           for call in tf_calls}}
         if name in SERVING_KERNELS:
             entry["serving"] = {
                 "launches": {call: n.get(name, 0)

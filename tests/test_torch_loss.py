@@ -235,6 +235,30 @@ def test_import_loads_no_jax():
                    timeout=120)
 
 
+def test_import_loads_no_tensorflow_and_binding_no_jax():
+    """`import warp_rnnt_tpu_torch` loads no tensorflow (torch users need
+    none), and the TF front end loads no warp_rnnt_tpu and no jax module
+    beyond those `import tensorflow, torch` loads itself (TensorFlow may
+    import jax on its own).  A subprocess each."""
+    def loads(mod, banned, before=""):
+        code = (
+            f"import sys{before}\n"
+            "pre = set(sys.modules)\n"
+            f"import {mod}\n"
+            f"bad = [m for m in set(sys.modules) - pre"
+            f" if m.split('.')[0] in {banned!r}]\n"
+            "assert not bad, bad\n"
+        )
+        subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True,
+                       timeout=300)
+
+    loads("warp_rnnt_tpu_torch", ("tensorflow",))
+    loads("warp_rnnt_tpu_torch.bindings", ("tensorflow",))
+    pytest.importorskip("tensorflow")
+    loads("warp_rnnt_tpu_torch.bindings.tf_binding",
+          ("jax", "jaxlib", "warp_rnnt_tpu"), before=", tensorflow, torch")
+
+
 def _imported_modules(path):
     tree = ast.parse(open(path).read(), filename=path)
     for node in ast.walk(tree):

@@ -2,8 +2,9 @@
 CUDA kernels for NVIDIA Hopper.
 
 A port of the JAX package `warp_rnnt_tpu`, file for file (`functional/`,
-`ops/`, `models/`, `utils/`, `benchmarks/`).  It imports neither JAX nor
-`warp_rnnt_tpu`.
+`ops/`, `models/`, `parallel/`, `utils/`, `benchmarks/`, `bindings/`).  It
+imports neither JAX nor `warp_rnnt_tpu`, and not TensorFlow: only
+`bindings.tf_binding` does.
 The loss runs where its input tensors are: on a CUDA device through the
 kernels in `csrc/` (built with nvcc on first use), on the CPU through plain
 torch code.
