@@ -254,6 +254,23 @@ the direct torch call bit for bit, with the bridge's overhead in ms and
 both allocators' peaks.  The gather, the lattice and the write gain a
 `tf` entry in the kernels line: their launches in each of those calls and
 each call's errors.
+Slice 16 (the decode loop on the card) adds, inside phase 15: the
+decoders' loops run through `utils/device_loop.py` (JAX's
+``lax.while_loop`` as rounds of masked steps, each round one CUDA graph,
+one host read of the loop's flag a round).  At bench_decode.py's width,
+fp32 and bf16, greedy and beam 4 through the graphs equal the plain loop
+(`device_loop._plain`: the same steps run eagerly on the card) bit for
+bit in tokens, lengths and scores, with the same trip count and at most
+iterations // unroll + 1 host reads; a second decode of one shape
+captures no graph, nor does one of another length that pads to the same
+width (`decoding.pad_frames`), and one with TF32 flipped captures one.  Chunked
+sessions at C=16, 7 and 1 equal the one-shot decode through the graphs and
+the plain loop's sessions bit for bit.  `bench_decode` and
+`bench_streaming` run plain and graphed, side by side (host reads, the
+graph's capture ms, pool MiB, kernels and device us a step).  The
+decoders launch none of the port's kernels, so the kernels line's
+`serving` launches hold no decode; the graph's torch kernels a step are
+on the `time` lines.
 It prints the kernels' JSON line and the card's line, and last
 `{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}`.
 Without a CUDA device, or without the package beside it, it exits 1 and
@@ -2040,6 +2057,7 @@ def phase_serving(torch, wt, timing, card):
     from warp_rnnt_tpu_torch.benchmarks import bench_streaming as bs
     from warp_rnnt_tpu_torch.benchmarks import serving_cases as sc
     from warp_rnnt_tpu_torch.benchmarks.profile_loss import profile_step
+    from warp_rnnt_tpu_torch.utils import device_loop as dl
 
     inputs = sc.restricted_inputs(SEED + 51, **sc.RESTRICTED)
     lp, labels, xn, yn, frames = inputs
@@ -2110,19 +2128,47 @@ def phase_serving(torch, wt, timing, card):
               + (f" (at most {sc.SCORE_ATOL} + the sums' fp32 rounding:"
                  f" {gaps[2]:.3f} of it)" if fp32 else
                  " (not held: bf16 rounds by row count)"))
+        loops = sc.check_graphed(model, feats, xn, d["max_length"], d["beam"])
+        print(f"serving graphed decoders at {json.dumps(d)}, {cd}, unroll"
+              f" {dl.UNROLL}: greedy and beam {d['beam']} equal the plain"
+              f" loop bit for bit (tokens, lengths, scores), the same trip"
+              f" counts, at most iterations // unroll + 1 host reads;"
+              f" {json.dumps(loops)}")
+    captures = sc.check_graph_cache(model, feats, xn, d["max_length"])
+    print(f"serving graph cache: a second greedy decode of one shape"
+          f" captured {captures[0]} graphs, one of a length padding to the"
+          f" same width {captures[1]}, one with TF32 flipped {captures[2]};"
+          f" {len(dl.entries())} graphs cached, their pools"
+          f" {dl.pool_mb():.1f} MiB")
     gap = sc.check_card_equals_cpu(SEED)
     print(f"serving small fp32 model {json.dumps(sc.SMALL)}: card tokens equal"
           f" the CPU's, greedy and beam; beam scores within {gap:.3e}")
-    r = bd.bench_decode(d["N"], d["T"], d["V"], d["beam"], d["F"], d["H"],
-                        d["max_length"], model=model)
-    print(f"bench_decode {json.dumps(r)}")
-    print(f"time serving greedy decode: {r['greedy_ms']} ms"
-          f" ({r['greedy_utts_per_s']} utts/s), {r['greedy_iterations']}"
-          f" iterations (host reads), {r['greedy_kernels']} kernels, busy"
-          f" {r['greedy_busy_ms']} ms, idle {r['greedy_idle_share']}; beam"
-          f" {d['beam']}: {r['beam_ms']} ms ({r['beam_utts_per_s']} utts/s),"
-          f" {r['beam_iterations']} iterations, {r['beam_kernels']} kernels,"
-          f" busy {r['beam_busy_ms']} ms, idle {r['beam_idle_share']} [{card}]")
+    decode = {}
+    for loop in ("plain", "graphed"):
+        r = decode[loop] = bd.bench_decode(
+            d["N"], d["T"], d["V"], d["beam"], d["F"], d["H"],
+            d["max_length"], model=model, plain=loop == "plain")
+        print(f"bench_decode {json.dumps(r)}")
+        for name in ("greedy", "beam"):
+            print(f"time serving {name} decode {loop}: {r[f'{name}_ms']} ms"
+                  f" ({r[f'{name}_utts_per_s']} utts/s),"
+                  f" {r[f'{name}_iterations']} iterations,"
+                  f" {r[f'{name}_host_reads']} host reads,"
+                  f" {r[f'{name}_kernels']} kernels, busy"
+                  f" {r[f'{name}_busy_ms']} ms, idle"
+                  f" {r[f'{name}_idle_share']}; graph (unroll {r['unroll']}):"
+                  f" capture {r[f'{name}_capture_ms']} ms, pool"
+                  f" {r[f'{name}_graph_pool_mb']} MiB,"
+                  f" {r[f'{name}_graph_kernels_per_step']} kernels and"
+                  f" {r[f'{name}_graph_step_us']} us a step, bound"
+                  f" {r[f'{name}_step_bound_us']} us a step"
+                  f" ({r[f'{name}_step_bound_by']}) [{card}]")
+    for name in ("greedy", "beam"):
+        print(f"time serving {name} decode plain vs graphed:"
+              f" {decode['plain'][f'{name}_ms']} ms vs"
+              f" {decode['graphed'][f'{name}_ms']} ms"
+              f" ({decode['plain'][f'{name}_ms'] / decode['graphed'][f'{name}_ms']:.2f}x)"
+              f" [{card}]")
     del model, feats
     torch.cuda.empty_cache()
 
@@ -2132,24 +2178,42 @@ def phase_serving(torch, wt, timing, card):
     xn = sc.ragged(d["N"], d["T"])
     ref, bits = sc.check_streaming(model, feats, xn, d["max_length"],
                                    d["beam"], (d["C"], 7))
+    loops = sc.check_graphed_streaming(model, feats, xn, d["max_length"],
+                                       d["beam"], (d["C"], 7))
     short = 64
     bits.update(sc.check_streaming(
         model, feats[:, :short].contiguous(), xn.clamp(max=short),
         d["max_length"], d["beam"], (1,))[1])
+    loops.update(sc.check_graphed_streaming(
+        model, feats[:, :short].contiguous(), xn.clamp(max=short),
+        d["max_length"], d["beam"], (1,)))
     print(f"serving streaming at {json.dumps(d)}: chunked equals one-shot"
           f" (tokens, lengths, beam scores) at C={d['C']} and C=7 (ragged"
-          f" tail), and at C=1 on the first {short} frames; lengths"
-          f" {json.dumps(ref)}; encoder elements differing from the whole"
-          f" utterance's, by C: {json.dumps(bits)}")
+          f" tail), and at C=1 on the first {short} frames, through the"
+          f" graphs; lengths {json.dumps(ref)}; encoder elements differing"
+          f" from the whole utterance's, by C: {json.dumps(bits)}; each"
+          f" session graphed equals the plain loop bit for bit:"
+          f" {json.dumps(loops)}")
     for beam in (0, d["beam"]):
-        r = bs.bench_streaming(d["N"], d["C"], d["V"], beam, d["F"], d["H"],
-                               d["max_length"], model=model)
-        print(f"bench_streaming {json.dumps(r)}")
-        print(f"time serving stream beam={beam}: {r['chunk_ms']} ms a chunk of"
-              f" {d['C']} frames ({r['frames_per_s']} frames/s,"
-              f" {r['ms_per_frame_per_stream']} ms a frame a stream),"
-              f" {r['iterations_per_chunk']} iterations, busy {r['busy_ms']}"
-              f" ms, idle {r['idle_share']} [{card}]")
+        chunk = {}
+        for loop in ("plain", "graphed"):
+            r = chunk[loop] = bs.bench_streaming(
+                d["N"], d["C"], d["V"], beam, d["F"], d["H"], d["max_length"],
+                model=model, plain=loop == "plain")
+            print(f"bench_streaming {json.dumps(r)}")
+            print(f"time serving stream beam={beam} {loop}: {r['chunk_ms']} ms"
+                  f" a chunk of {d['C']} frames ({r['frames_per_s']}"
+                  f" frames/s, {r['ms_per_frame_per_stream']} ms a frame a"
+                  f" stream), {r['iterations_per_chunk']} iterations,"
+                  f" {r['host_reads_per_chunk']} host reads, busy"
+                  f" {r['busy_ms']} ms, idle {r['idle_share']}; graph"
+                  f" (unroll {r['unroll']}): capture {r['capture_ms']} ms,"
+                  f" pool {r['graph_pool_mb']} MiB,"
+                  f" {r['graph_kernels_per_step']} kernels and"
+                  f" {r['graph_step_us']} us a step [{card}]")
+        print(f"time serving stream beam={beam} plain vs graphed:"
+              f" {chunk['plain']['chunk_ms']} ms vs"
+              f" {chunk['graphed']['chunk_ms']} ms a chunk [{card}]")
     return launches, errs
 
 

@@ -19,6 +19,10 @@ CPU: `benchmarks/bench_loss.py`, `run_table.py` and `bench_joint.py`.
     to bf16, and JAX's and torch's fp32 tanh differ in the last bit now
     and then, which flips a rounding).  On the CPU "auto" is "padded" on
     both sides.
+  * bench_decode_traffic (no JAX counterpart): its requests, drawn from a
+    seed on the CPU (batch sizes, lengths, valid lengths in range, one
+    sample a request at full length, the same draw from the same seed);
+    no run without CUDA.
 """
 
 import json
@@ -34,6 +38,7 @@ import warp_rnnt_tpu
 from warp_rnnt_tpu.benchmarks import bench_joint as jbj
 from warp_rnnt_tpu.benchmarks import bench_loss as jbl
 from warp_rnnt_tpu.benchmarks import run_table as jrt
+from warp_rnnt_tpu_torch.benchmarks import bench_decode_traffic as bdt
 from warp_rnnt_tpu_torch.benchmarks import bench_joint as bj
 from warp_rnnt_tpu_torch.benchmarks import bench_loss as bl
 from warp_rnnt_tpu_torch.benchmarks import run_table as rt
@@ -306,3 +311,26 @@ def test_bench_joint_needs_cuda():
     _no_cuda()
     with pytest.raises(SystemExit, match="CUDA device"):
         bj.bench_joint(N=2, T=6, U=3, V=12, H=16, mode="fused")
+
+
+# ---- bench_decode_traffic ---------------------------------------------------
+
+
+def test_decode_traffic_requests():
+    reqs = bdt.requests(0, bdt.REQUESTS, device="cpu")
+    again = bdt.requests(0, bdt.REQUESTS, device="cpu")
+    assert len(reqs) == bdt.REQUESTS
+    for (f, xn), (f2, xn2) in zip(reqs, again):
+        N, T, F = f.shape
+        assert N in bdt.BATCHES and bdt.T_MIN <= T <= bdt.T_MAX
+        assert F == bdt.F and f.dtype == torch.float32
+        assert xn.shape == (N,) and xn.dtype == torch.int32
+        assert int(xn[0]) == T and bool(((xn >= T // 2) & (xn <= T)).all())
+        assert torch.equal(f, f2) and torch.equal(xn, xn2)
+    assert len({tuple(f.shape[:2]) for f, _ in reqs}) > 1
+
+
+def test_decode_traffic_needs_cuda():
+    _no_cuda()
+    with pytest.raises(SystemExit, match="CUDA device"):
+        bdt.bench_traffic(0, 2)

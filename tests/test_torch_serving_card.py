@@ -14,7 +14,14 @@ The card has no flax: the models come from `train_cases.flax_tree`.
     beam (tokens, lengths, scores);
   * the decoders: beam 1 equals greedy, and on an fp32 model each beam
     score is at most its tokens' Viterbi score + 1e-3;
-  * a small fp32 model decodes to the CPU's tokens on the card.
+  * a small fp32 model decodes to the CPU's tokens on the card;
+  * the decode loop's CUDA graphs (`utils/device_loop.py`) against the
+    plain loop run eagerly on the card, bit for bit: greedy and beam, fp32
+    and bf16, and chunked sessions at C=16, 7 and 1, with the same trip
+    counts and at most iterations // unroll + 1 host reads a drain; a
+    second decode of one shape captures no new graph, nor does one of
+    another length that pads to the same width, and flipping TF32
+    captures one.
 """
 
 import pytest
@@ -95,3 +102,33 @@ def test_decoders_on_the_card(cuda_device, dtype):
 
 def test_card_tokens_equal_cpu_tokens_fp32(cuda_device):
     assert sc.check_card_equals_cpu() <= 1e-3
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_graphed_decoders_equal_plain(cuda_device, dtype):
+    d = STREAM_SMALL
+    model = sc.carried_model(d, 5, compute_dtype=dtype)
+    feats = sc.features(6, d["N"], d["T"], d["F"])
+    xn = sc.ragged(d["N"], d["T"])
+    r = sc.check_graphed(model, feats, xn, d["max_length"], d["beam"])
+    assert r["greedy"]["iterations"] >= int(xn.max())
+    assert r["beam"]["iterations"] >= int(xn.max())
+
+
+@pytest.mark.parametrize("chunks", [(16, 7), (1,)])
+def test_graphed_streaming_equals_plain(cuda_device, chunks):
+    d = STREAM_SMALL
+    model = sc.carried_model(d, 7)
+    T = 32 if chunks == (1,) else d["T"]
+    feats = sc.features(8, d["N"], T, d["F"])
+    xn = sc.ragged(d["N"], T)
+    sc.check_graphed_streaming(model, feats, xn, d["max_length"], d["beam"],
+                               chunks)
+
+
+def test_graph_cache_keys(cuda_device):
+    d = STREAM_SMALL
+    model = sc.carried_model(d, 5)
+    feats = sc.features(6, d["N"], d["T"], d["F"])
+    assert sc.check_graph_cache(model, feats, sc.ragged(d["N"], d["T"]),
+                                d["max_length"]) == (0, 0, 1)

@@ -21,11 +21,21 @@ failure and returns what it measured.
     (tokens, lengths, and beam scores) exactly.
   * `check_card_equals_cpu`: a small fp32 model decodes to the same tokens
     on the card and on the CPU.
+  * `check_graphed`: the decoders through the device loop's CUDA graphs
+    against the plain loop (`device_loop._plain`, the same masked steps run
+    eagerly on the card), bit for bit (tokens, lengths, scores), with the
+    same trip count and at most iterations // unroll + 1 host reads a
+    drain;
+    `check_graphed_streaming` the same for chunked sessions;
+    `check_graph_cache`: a second decode of one shape captures no graph,
+    nor does one of another length that pads to the same width
+    (`decoding.pad_frames`), and flipping TF32 captures one.
 """
 
 from __future__ import annotations
 
 import contextlib
+import math
 
 import torch
 
@@ -41,6 +51,8 @@ from warp_rnnt_tpu_torch.models import (
     stream_init,
     stream_step,
 )
+from warp_rnnt_tpu_torch.models.decoding import HOST_READS, LOOP_ITERATIONS
+from warp_rnnt_tpu_torch.utils import device_loop
 
 # The restricted loss and the alignment at the main path's shape (N=32,
 # T=150, U=21, V=5000, fp32, full lengths), bands 15 left and 5 right.
@@ -252,18 +264,23 @@ def viterbi_of(model, feats, xn, tokens, lengths):
 
 
 @contextlib.contextmanager
-def no_tf32():
-    """fp32 products and convolutions in fp32 on the card: cuDNN's
-    convolutions take TF32 unless told not to."""
+def tf32(on):
+    """cuBLAS's and cuDNN's TF32 flags set to ``on`` within the block."""
     flags = torch.backends.cuda.matmul, torch.backends.cudnn
     saved = [f.allow_tf32 for f in flags]
     for f in flags:
-        f.allow_tf32 = False
+        f.allow_tf32 = on
     try:
         yield
     finally:
         for f, v in zip(flags, saved):
             f.allow_tf32 = v
+
+
+def no_tf32():
+    """fp32 products and convolutions in fp32 on the card: cuDNN's
+    convolutions take TF32 unless told not to."""
+    return tf32(False)
 
 
 def check_decoders(model, feats, xn, V, beam, max_length):
@@ -373,3 +390,90 @@ def check_card_equals_cpu(seed=0, d=SMALL):
         if not all(torch.equal(a.cpu(), b) for a, b in zip(got, want)):
             raise AssertionError(f"{name}: card tokens != CPU tokens")
     return float((b_c[2].cpu() - b_h[2]).abs().max())
+
+
+def _counted(name, fn, plain=False):
+    """fn() -> (its result, its loop's trip count, host reads), with the
+    counts of decoder ``name`` set to 0 just before; ``plain`` runs the
+    loop eagerly on the card (`device_loop._plain`)."""
+    LOOP_ITERATIONS[name] = HOST_READS[name] = 0
+    with device_loop._plain() if plain else contextlib.nullcontext():
+        out = fn()
+    torch.cuda.synchronize()
+    return out, LOOP_ITERATIONS[name], HOST_READS[name]
+
+
+def _hold_graphed(tag, name, fn, drains=1):
+    """The graphed call against the plain one: bit for bit, one trip
+    count, and at most iterations // unroll + ``drains`` host reads (a
+    drain of n iterations reads max(1, ceil(n / unroll)) times, at most
+    n / unroll + 1)."""
+    want, it_plain, reads_plain = _counted(name, fn, plain=True)
+    got, it, reads = _counted(name, fn)
+    same = [torch.equal(g, w) for g, w in zip(got, want)]
+    if not all(same):
+        raise AssertionError(f"{tag}: graphed != plain, fields equal {same}")
+    if it != it_plain:
+        raise AssertionError(f"{tag}: {it} iterations graphed, {it_plain}"
+                             " plain")
+    if reads > it // device_loop.UNROLL + drains:
+        raise AssertionError(f"{tag}: {reads} host reads for {it}"
+                             f" iterations at unroll {device_loop.UNROLL}")
+    return {"iterations": it, "host_reads": reads,
+            "plain_host_reads": reads_plain}
+
+
+def check_graphed(model, feats, xn, max_length, beam):
+    """Greedy and beam ``beam`` through the graphs against the plain loop
+    (see `_hold_graphed`).  Returns {decoder: {iterations, host_reads,
+    plain_host_reads}}."""
+    return {
+        "greedy": _hold_graphed("greedy", "greedy", lambda: greedy_decode(
+            model, feats, xn, max_length)),
+        "beam": _hold_graphed(f"beam {beam}", "beam", lambda: beam_decode(
+            model, feats, xn, max_length, beam_size=beam))}
+
+
+def check_graphed_streaming(model, feats, xn, max_length, beam, chunks):
+    """Chunked sessions (chunks of each C in ``chunks``), greedy and beam
+    ``beam``, through the graphs against the plain loop, bit for bit, the
+    trip counts summed over the session.  Returns {"greedy C=..": counts}."""
+    out = {}
+    for b, name in ((0, "greedy"), (beam, "beam")):
+        for C in chunks:
+            out[f"{name} C={C}"] = _hold_graphed(
+                f"stream {name} C={C}", name,
+                lambda: stream_all(model, feats, C, xn, max_length, b),
+                drains=math.ceil(feats.shape[1] / C) + 1)
+    return out
+
+
+def check_graph_cache(model, feats, xn, max_length):
+    """A greedy decode, then another of the same shape: no new graph;
+    then one of the utterances cut to the least length that pads to the
+    same width: no new graph; then one with cuBLAS's and cuDNN's TF32
+    flags flipped: one new graph (the flags change the products' bits, so
+    they key the cache).  Returns the captures of (second decode, shorter
+    decode, flipped decode)."""
+    T = feats.shape[1]
+    short = (1 << max(T - 1, 0).bit_length()) // 2 + 1
+
+    def decode(T=T):
+        return greedy_decode(model, feats[:, :T], xn.clamp(max=T),
+                             max_length)
+
+    decode()
+    counts = [device_loop.STATS["captures"]]
+    decode()
+    counts.append(device_loop.STATS["captures"])
+    decode(short)
+    counts.append(device_loop.STATS["captures"])
+    with tf32(not torch.backends.cuda.matmul.allow_tf32):
+        decode()
+    counts.append(device_loop.STATS["captures"])
+    new = tuple(b - a for a, b in zip(counts, counts[1:]))
+    if new != (0, 0, 1):
+        raise AssertionError(f"captures: {new[0]} for the same shape,"
+                             f" {new[1]} at length {short} of {T}, {new[2]}"
+                             " after flipping TF32")
+    return new

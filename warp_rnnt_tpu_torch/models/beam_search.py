@@ -23,16 +23,19 @@ The top-k is `_top_k_small`, k argmax rounds, as in JAX: ``torch.topk``
 leaves the order among ties unspecified, while ``torch.argmax`` returns
 the first maximal index, as JAX's ties break to the lowest index.
 
-The loop is a Python ``while`` on ``bool((t < frame_bound).any())``, one
-host read an iteration, counted in `decoding.LOOP_ITERATIONS["beam"]`.
-Scores are best-alignment (Viterbi-style) log-probs.
+The loop is `utils.device_loop.while_loop` on JAX's ``cond``, through
+`decoding.run_drain` as greedy's (one CUDA graph of masked steps on the
+card; a surplus step re-sorts nothing, since the mask is the global
+``cond``), its trip count and host reads added to
+`decoding.LOOP_ITERATIONS["beam"]` and `decoding.HOST_READS["beam"]`.  Scores are best-alignment (Viterbi-style)
+log-probs.
 """
 
 from __future__ import annotations
 
 import torch
 
-from warp_rnnt_tpu_torch.models.decoding import LOOP_ITERATIONS, frame_at
+from warp_rnnt_tpu_torch.models.decoding import frame_at, run_drain
 
 NEG = -1.0e30
 _HASH_MUL = 1000003
@@ -145,18 +148,26 @@ def beam_drain(model, state, enc, p0, frame_bound,
     pointer t < frame_bound.  The body is strictly per-frame sequential, so
     pausing at any chunk boundary and resuming gives the one-shot decode
     exactly; `beam_decode` (whole utterance, p0 = 0, frame_bound = xn) and
-    the streaming session both call it."""
-    N, C, H = enc.shape
-    (t, scores, tokens, u, nexp, waiting, hcode, pred_state,
-     pred_out) = state
-    B, L = tokens.shape[1], tokens.shape[2]
-    dev = enc.device
-    l_iota = torch.arange(L, device=dev)[None, None, :]
-    i_iota = torch.arange(B, device=dev)[None, :, None]
-    j_iota = torch.arange(B, device=dev)[None, None, :]
+    the streaming session both call it.
 
-    while bool((t < frame_bound).any()):
-        LOOP_ITERATIONS["beam"] += 1
+    The loop's bound: at a frame's start every live beam is active with
+    nexp = 0; an active beam after the frame's j-th step was born of an
+    emission in it, so has nexp = j.  After max_symbols_per_step + 1 steps
+    no live beam can still be active (an emission past the cap has only a
+    NEG candidate), and the sample advances in that step.  So a sample
+    takes at most C * (max_symbols_per_step + 1) steps."""
+    N, C, H = enc.shape
+    B, L = state[2].shape[1], state[2].shape[2]
+    K = min(B, model.vocab_size - 1)  # label candidates a beam
+
+    def body(state, consts):
+        enc, frame_bound, p0 = consts
+        (t, scores, tokens, u, nexp, waiting, hcode, pred_state,
+         pred_out) = state
+        dev = enc.device
+        l_iota = torch.arange(L, device=dev)[None, None, :]
+        i_iota = torch.arange(B, device=dev)[None, :, None]
+        j_iota = torch.arange(B, device=dev)[None, None, :]
         frame_on = (t < frame_bound)[:, None]  # (N, 1)
         f_t = frame_at(enc, t, p0)  # (N, H)
         logp = model.joint_step(
@@ -174,8 +185,6 @@ def beam_drain(model, state, enc, p0, frame_bound,
         settle = torch.where(frame_on & ~waiting, scores + logp[..., blank],
                              scores)
         # columns 1..K: the top-K labels (blank masked out)
-        V = logp.shape[-1]
-        K = min(B, V - 1)
         lab_logp = logp.clone()
         lab_logp[..., blank] = NEG
         top_lp, top_ids = _top_k_small(lab_logp, K)  # (N, B, K)
@@ -231,4 +240,9 @@ def beam_drain(model, state, enc, p0, frame_bound,
         t = torch.where(advance, t + 1, t)
         waiting = waiting & ~advance[:, None]
         nexp = torch.where(advance[:, None], 0, nexp)
-    return (t, scores, tokens, u, nexp, waiting, hcode, pred_state, pred_out)
+        return (t, scores, tokens, u, nexp, waiting, hcode, pred_state,
+                pred_out)
+
+    return run_drain("beam", model, body, state, enc, p0, frame_bound,
+                     C * (max_symbols_per_step + 1),
+                     (blank, max_symbols_per_step))

@@ -6,12 +6,22 @@ of the joint; a blank advances t, a label advances the predictor and
 appends the token.  Every sample carries its own frame pointer t, and a
 per-frame emission cap (``max_symbols_per_step``) bounds the loop.
 
-JAX's ``lax.while_loop`` becomes a Python ``while`` on
-``bool((t < frame_bound).any())``: one host read of the device an
-iteration.  The condition is JAX's exactly, since an extra iteration is
-not a no-op (it rewrites ``emitted_here`` and ``last_tok``).  Each
-iteration adds one to ``LOOP_ITERATIONS[name]`` (one host read each), so a
-benchmark reads what a CUDA graph or a device-side loop would save.
+JAX's ``lax.while_loop`` becomes `utils.device_loop.while_loop` with
+JAX's ``cond`` and ``body``: on the card, rounds of masked steps replayed
+from one CUDA graph, with one host read of the loop's flag a round; on
+the CPU the same steps run eagerly.  The mask is JAX's ``cond`` itself, so
+a step past JAX's stopping point leaves the whole state bit for bit (it
+would otherwise rewrite ``emitted_here`` and ``last_tok``).  A drain adds
+JAX's trip count, read from the loop's device counter, to
+``LOOP_ITERATIONS[name]``, and its host reads to ``HOST_READS[name]``.
+
+A graph is keyed by the shapes of the loop's inputs, and the encoder
+frames are one of them, so a one-shot decode of each utterance length
+would capture a graph of its own.  `run_drain` pads the frames' axis to
+the next power of two by repeating the last frame (`pad_frames`): a
+frame is read at ``clamp(t - p0, 0, C - 1)``, so every read gives the
+frame it gave before, bit for bit, and the trip count, which reads only
+t and the bounds, is unchanged.  Lengths 257 to 512 share one graph.
 
 The port's modules hold their parameters, so the functions take the model
 and no ``params``; the decode runs under ``torch.inference_mode()`` on the
@@ -22,9 +32,55 @@ from __future__ import annotations
 
 import torch
 
-# Loop iterations (each one host read), by decoder; `bench_decode` sets
-# them to 0 before a decode and reads them after.
+from warp_rnnt_tpu_torch.utils.device_loop import while_loop
+
+# Loop iterations (JAX's trip count) and the host's reads of the loop's
+# flag, by decoder; `bench_decode` sets them to 0 before a decode and reads
+# them after.  LAST_GRAPH: the device loop's graph entry of the decoder's
+# last drain (None where it ran eagerly), for the benchmarks.
 LOOP_ITERATIONS = {"greedy": 0, "beam": 0}
+HOST_READS = {"greedy": 0, "beam": 0}
+LAST_GRAPH = {"greedy": None, "beam": None}
+
+
+def _frames_left(state, consts):
+    """JAX's ``cond`` of both decoders: some sample's t < frame_bound."""
+    return (state[0] < consts[1]).any()
+
+
+def pad_frames(enc):
+    """enc (N, C, H) -> (N, C', H), C' the least power of two >= C, the
+    last frame repeated into the new columns (one zero frame when C is
+    0, which no sample reads): `frame_at` reads the same frames from it."""
+    N, C, H = enc.shape
+    width = 1 << max(C - 1, 0).bit_length()
+    if width == C:
+        return enc
+    fill = enc[:, -1:] if C else enc.new_zeros((N, 1, H))
+    return torch.cat([enc, fill.expand(N, width - C, H)], dim=1)
+
+
+def run_drain(name, model, body, state, enc, p0, frame_bound,
+              max_iterations, static):
+    """Run decoder ``name``'s ``body`` while a sample has frames left, on
+    `while_loop`, and add its trip count and host reads to the counters.
+    The loop's inputs are (`pad_frames(enc)`, frame_bound (N,) int32, p0
+    0-d int32); its graphs are keyed by ``name``, the model (the object
+    and its parameters' addresses, dtypes and shapes: what the body closes
+    over) and the ``static`` arguments the body closes over."""
+    dev = enc.device
+    frame_bound = torch.as_tensor(frame_bound, dtype=torch.int32, device=dev)
+    consts = (pad_frames(enc), frame_bound.expand(enc.shape[0]),
+              torch.as_tensor(p0, dtype=torch.int32, device=dev))
+    params = tuple((p.data_ptr(), p.dtype, tuple(p.shape))
+                   for p in (*model.parameters(), *model.buffers()))
+    state, stats = while_loop(_frames_left, body, state, consts,
+                              max_iterations=max_iterations,
+                              key=(name, id(model), params, *static))
+    LOOP_ITERATIONS[name] += stats.iterations
+    HOST_READS[name] += stats.host_reads
+    LAST_GRAPH[name] = stats.graph
+    return state
 
 
 def frame_at(enc, t, p0):
@@ -92,14 +148,18 @@ def greedy_drain(model, dec, enc, p0, frame_bound,
     sample consumes frames while its t < frame_bound (per sample, clipped
     by the caller to what enc covers).  Used by the one-shot
     `greedy_decode` (enc = the whole utterance, p0 = 0, frame_bound = xn)
-    and by the streaming session (`models/streaming.py`)."""
+    and by the streaming session (`models/streaming.py`).
+
+    Each iteration of an active sample emits or advances t, so a sample
+    takes at most C frame steps and min(C * max_symbols_per_step,
+    max_length) emissions: the loop's bound."""
+    C = enc.shape[1]
     max_length = dec[6].shape[1]
-    l_iota = torch.arange(max_length, device=enc.device)[None, :]
-    t, u, emitted_here, last_tok, pred_state, pred_out, tokens = dec
-    # every sample advances t on each non-emitting step, so the loop ends
-    # after at most C * max_symbols_per_step + max_length iterations
-    while bool((t < frame_bound).any()):
-        LOOP_ITERATIONS["greedy"] += 1
+
+    def body(state, consts):
+        enc, frame_bound, p0 = consts
+        t, u, emitted_here, last_tok, pred_state, pred_out, tokens = state
+        l_iota = torch.arange(max_length, device=enc.device)[None, :]
         active = t < frame_bound
         logp = model.joint_step(frame_at(enc, t, p0), pred_out)  # (N, V)
         best = logp.argmax(dim=-1).to(torch.int32)
@@ -113,5 +173,8 @@ def greedy_drain(model, dec, enc, p0, frame_bound,
         u = torch.where(emit, u + 1, u)
         emitted_here = torch.where(emit, emitted_here + 1, 0)
         t = torch.where(active & ~emit, t + 1, t)
-        last_tok = best
-    return (t, u, emitted_here, last_tok, pred_state, pred_out, tokens)
+        return (t, u, emitted_here, best, pred_state, pred_out, tokens)
+
+    return run_drain("greedy", model, body, dec, enc, p0, frame_bound,
+                     C + min(C * max_symbols_per_step, max_length),
+                     (blank, max_symbols_per_step))

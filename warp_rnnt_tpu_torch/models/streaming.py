@@ -13,7 +13,11 @@ with ``beam_size`` > 0, `beam_decode`: tokens, lengths and scores)
 exactly.  The encoder masks out-of-stream frames to zero in LN-space in
 each conv block, so the chunked warm-up and flush rows act as the
 whole-utterance convolution's zero padding (`transducer.ConvBlock.stream`),
-and the decoders' loops are strictly per frame.
+and the decoders' loops are strictly per frame.  The decoders' loops
+take the chunk's frames, its position p0 and the frame bounds as the
+loop's inputs (`utils.device_loop`), so on the card one CUDA graph serves
+every chunk of one width; the ragged tail and the flush have other widths,
+and so graphs of their own.
 
 Typical use::
 
