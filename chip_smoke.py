@@ -267,10 +267,28 @@ width (`decoding.pad_frames`), and one with TF32 flipped captures one.  Chunked
 sessions at C=16, 7 and 1 equal the one-shot decode through the graphs and
 the plain loop's sessions bit for bit.  `bench_decode` and
 `bench_streaming` run plain and graphed, side by side (host reads, the
-graph's capture ms, pool MiB, kernels and device us a step).  The
-decoders launch none of the port's kernels, so the kernels line's
-`serving` launches hold no decode; the graph's torch kernels a step are
-on the `time` lines.
+graph's capture ms, pool MiB, kernels and device us a step).  The graph's
+kernels a step are on the `time` lines.
+Slice 17 (the decode step's kernels, `csrc/decode_step.cu`) adds, inside
+phase 15: at bench_decode.py's width, fp32 and bf16, a plain greedy and a
+plain beam decode (the step's plain versions, `decode_step.PLAIN`, the
+loop eager) record every 16th call of each step function; each recorded
+call goes through `decode_joint` and `decode_gru` and their plain
+versions (`benchmarks/decode_step_cases.py`: logp within its stated
+tolerance, ids equal where the plain margin exceeds twice it, the GRU's
+state within 1e-5, non-emitting rows and greedy's integer fields bit for
+bit), and whole decodes on the kernels are compared with the plain
+step's tokens (the share equal, reported); then both kernels at odd
+widths (H=200, V=29, 5 to 111 rows, add and concat); each kernel's device
+ms beside its plain version's and its bound (`bench_decode.kernel_bounds`)
+at greedy's and beam's rows; greedy and beam decodes from an empty graph
+cache with the counts set to 0 just before and read just after (the
+warm-up and capture rounds: a replay launches without Python); and in
+the graphed `bench_decode` run, a profile of a replay gates on the step
+kernels running, at most 4 launches a step, and no gemm, gru_cell,
+softmax or tanh kernel left in the step.  `decode_joint` and
+`decode_gru` join the kernels line, with launches a step from that
+profile.
 It prints the kernels' JSON line and the card's line, and last
 `{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}`.
 Without a CUDA device, or without the package beside it, it exits 1 and
@@ -2044,6 +2062,85 @@ def phase_train(torch, card, rates):
 
 SERVING_KERNELS = ("gather_lattice", "lattice_fused", "lattice_beta_only",
                    "flat_write")
+# The decode step's kernels (slice 17): the XLA while bodies they stand in
+# for, and their launches in one graphed step at most.
+STEP_SOURCE = "warp_rnnt_tpu_torch/csrc/decode_step.cu"
+STEP_REPLACES = ("warp_rnnt_tpu/models/decoding.py:119 and"
+                 " warp_rnnt_tpu/models/beam_search.py:298 (the XLA while"
+                 " body; no TPU kernel)")
+STEP_LAUNCHES = 4
+
+
+def decode_step_checks(torch, dsc, model, feats, xn, d, cd):
+    """The decode step's kernels against their plain versions on the
+    states a plain greedy and a plain beam decode visit at ``d``'s width
+    (`decode_step_cases.check_records`), and whole decodes' tokens, the
+    kernels' against the plain step's (reported).  Returns (the recorders,
+    the checks' results)."""
+    recs, outs = dsc.record_states(model, feats, xn, d["max_length"],
+                                   d["beam"])
+    r = dsc.check_records(recs)
+    agree = dsc.token_agreement(model, feats, xn, d["max_length"], d["beam"],
+                                outs)
+    print(f"decode step kernels at {json.dumps(d)}, {cd}: against the plain"
+          f" step on the states a plain decode visits (logp within"
+          f" {dsc.FP32_TOL} + {dsc.BF16_ULPS} bf16 ulps of the row's largest"
+          f" logit in bf16, ids equal where the plain margin exceeds twice"
+          f" that, the GRU's state within {dsc.GRU_TOL}, non-emitting rows"
+          f" bit for bit): {json.dumps(r)}; whole decodes on the kernels"
+          f" against the plain step (reported, not held): {json.dumps(agree)}")
+    return recs, r
+
+
+def decode_step_times(torch, bd, dsc, model, recs, d, card):
+    """Each step kernel's device ms beside its plain version's and its
+    bound, on states of the bf16 plain decodes: greedy (N rows) and beam
+    (N x beam rows); the joint's from the middle of the decode, the
+    GRU's where the most rows emit (after the <sos> step).  Returns
+    {decoder: {kernel: {ms, plain_ms, bound_ms, bound_by, rows,
+    emitting}}}."""
+    out = {}
+    for dec, gru in (("greedy", "decode_gru_greedy"), ("beam", "decode_gru")):
+        calls = recs[dec].calls
+        joint = calls["decode_joint"][len(calls["decode_joint"]) // 2]
+        step = max(calls[gru][1:] or calls[gru],
+                   key=lambda a: int(dsc.emit_mask(gru, a).sum()))
+        times = dsc.kernel_times(joint, gru, step)
+        rows = joint[3].shape[0]
+        emitting = int(dsc.emit_mask(gru, step).sum())
+        k = joint[10] if len(joint) > 10 else None
+        bounds = bd.kernel_bounds(model, d["N"], rows, k, d["max_length"],
+                                  emitting)
+        out[dec] = {}
+        for kernel, t in times.items():
+            us, by = bounds[kernel]
+            out[dec][kernel] = {**t, "bound_ms": us / 1e3, "bound_by": by,
+                                "rows": rows, "emitting": emitting}
+            print(f"time decode step {kernel} {dec} ({rows} rows,"
+                  f" {emitting} emitting): {t['ms']:.6f} ms on the device"
+                  f" (plain {t['plain_ms']:.6f}), bound {us / 1e3:.6f} ms"
+                  f" ({by}) [{card}]")
+    return out
+
+
+def hold_step_kernels(r, name, card):
+    """A graphed step launches the step's kernels, at most STEP_LAUNCHES
+    between them, and none of the library kernels they replaced
+    (`bench_decode.step_kernels`, from a graph replay's profile)."""
+    ours = r[f"{name}_graph_step_kernels"]
+    left = r[f"{name}_graph_step_replaced"]
+    total = sum(ours.values())
+    for kernel in ("decode_joint", "decode_gru"):
+        if not any(kernel in key for key in ours):
+            raise AssertionError(f"{name}: no {kernel} kernel in a graphed"
+                                 f" step: {ours}")
+    if total > STEP_LAUNCHES or left:
+        raise AssertionError(f"{name}: {total} step kernels a step"
+                             f" ({ours}), replaced kernels left: {left}")
+    print(f"profile graphed {name} step: {json.dumps(ours)} ({total} launches"
+          f" a step, at most {STEP_LAUNCHES}); no gemm, gru_cell, softmax or"
+          f" tanh kernel left [{card}]")
+    return total
 
 
 def phase_serving(torch, wt, timing, card):
@@ -2055,7 +2152,9 @@ def phase_serving(torch, wt, timing, card):
     restricted loss's errors)."""
     from warp_rnnt_tpu_torch.benchmarks import bench_decode as bd
     from warp_rnnt_tpu_torch.benchmarks import bench_streaming as bs
+    from warp_rnnt_tpu_torch.benchmarks import decode_step_cases as dsc
     from warp_rnnt_tpu_torch.benchmarks import serving_cases as sc
+    from warp_rnnt_tpu_torch.models import beam_decode, greedy_decode
     from warp_rnnt_tpu_torch.benchmarks.profile_loss import profile_step
     from warp_rnnt_tpu_torch.utils import device_loop as dl
 
@@ -2113,6 +2212,7 @@ def phase_serving(torch, wt, timing, card):
     d = sc.DECODE
     feats = sc.features(SEED + 62, d["N"], d["T"], d["F"])
     xn = torch.full((d["N"],), d["T"], dtype=torch.int32, device="cuda")
+    step_checks = {}
     for cd in (torch.float32, torch.bfloat16):  # bf16: the default model
         model = sc.carried_model(d, SEED + 61, compute_dtype=cd)
         g_len, beam_out = sc.check_decoders(model, feats, xn, d["V"],
@@ -2134,6 +2234,14 @@ def phase_serving(torch, wt, timing, card):
               f" loop bit for bit (tokens, lengths, scores), the same trip"
               f" counts, at most iterations // unroll + 1 host reads;"
               f" {json.dumps(loops)}")
+        recs, step_checks[str(cd)] = decode_step_checks(
+            torch, dsc, model, feats, xn, d, cd)
+    odd = dsc.odd_cases(SEED + 63)
+    print(f"decode step kernels at odd widths {json.dumps(dsc.ODD)}, (rows,"
+          f" samples, k) {dsc.ODD_ROWS}, add and concat, fp32 and bf16:"
+          f" {json.dumps(odd)}")
+    step_times = decode_step_times(torch, bd, dsc, model, recs, d, card)
+    del recs
     captures = sc.check_graph_cache(model, feats, xn, d["max_length"])
     print(f"serving graph cache: a second greedy decode of one shape"
           f" captured {captures[0]} graphs, one of a length padding to the"
@@ -2143,6 +2251,17 @@ def phase_serving(torch, wt, timing, card):
     gap = sc.check_card_equals_cpu(SEED)
     print(f"serving small fp32 model {json.dumps(sc.SMALL)}: card tokens equal"
           f" the CPU's, greedy and beam; beam scores within {gap:.3e}")
+    # the decoders' main path: greedy and beam decodes from an empty graph
+    # cache, the counts set to 0 just before (a graph's replays launch
+    # without Python: the counts hold the warm-up round and the capture)
+    dl.clear()
+    _, step_launches = sc.launched(lambda: (
+        greedy_decode(model, feats, xn, d["max_length"]),
+        beam_decode(model, feats, xn, d["max_length"], beam_size=d["beam"])))
+    if not all(step_launches.get(k) for k in ("decode_joint", "decode_gru")):
+        raise AssertionError(f"decoders launched {step_launches}")
+    print(f"serving decoders' main path at {json.dumps(d)}: launches"
+          f" {json.dumps(step_launches)} (warm-up and capture rounds)")
     decode = {}
     for loop in ("plain", "graphed"):
         r = decode[loop] = bd.bench_decode(
@@ -2164,6 +2283,7 @@ def phase_serving(torch, wt, timing, card):
                   f" {r[f'{name}_step_bound_us']} us a step"
                   f" ({r[f'{name}_step_bound_by']}) [{card}]")
     for name in ("greedy", "beam"):
+        hold_step_kernels(decode["graphed"], name, card)
         print(f"time serving {name} decode plain vs graphed:"
               f" {decode['plain'][f'{name}_ms']} ms vs"
               f" {decode['graphed'][f'{name}_ms']} ms"
@@ -2214,7 +2334,28 @@ def phase_serving(torch, wt, timing, card):
         print(f"time serving stream beam={beam} plain vs graphed:"
               f" {chunk['plain']['chunk_ms']} ms vs"
               f" {chunk['graphed']['chunk_ms']} ms a chunk [{card}]")
-    return launches, errs
+    step_entries = []
+    for kernel in ("decode_joint", "decode_gru"):
+        greedy, beam = step_times["greedy"][kernel], step_times["beam"][kernel]
+        errs_k = {cd: {dec: r[dec][name]["max_abs_err"] for dec in r
+                       for name in r[dec] if name.startswith(kernel)}
+                  for cd, r in step_checks.items()}
+        step_entries.append({
+            "name": kernel, "route": "cuda", "source": STEP_SOURCE,
+            "replaces": STEP_REPLACES, "launches": step_launches[kernel],
+            "max_abs_err": max(e for v in errs_k.values() for e in v.values()),
+            "ms": greedy["ms"], "plain_ms": greedy["plain_ms"],
+            "bound_ms": greedy["bound_ms"], "bound_by": greedy["bound_by"],
+            "library_ms": None,
+            "launches_a_step": {
+                name: sum(n for key, n in decode["graphed"][
+                    f"{name}_graph_step_kernels"].items() if kernel in key)
+                for name in ("greedy", "beam")},
+            "max_abs_err_by_dtype": errs_k,
+            "greedy": greedy, "beam": beam,
+            "odd_max_abs_err": max(c[k]["max_abs_err"] for c in odd.values()
+                                   for k in c if k.startswith(kernel))})
+    return launches, errs, step_entries
 
 
 def nccl_rows(rows):
@@ -2738,7 +2879,8 @@ def main():
     print(f"train check errors: {json.dumps(train_errs)}")
 
     # slice 11: the serving path
-    serving_launches, serving_errs = phase_serving(torch, wt, timing, card)
+    serving_launches, serving_errs, step_entries = phase_serving(
+        torch, wt, timing, card)
 
     # slice 12: the parallel tier
     t16 = time.perf_counter()
@@ -2863,6 +3005,7 @@ def main():
                 "max_abs_err": {k: serving_errs[k] for k in (
                     "costs_vs_scan", "no_grad_vs_scan", "grad_vs_scan_share")}}
         kernels.append(entry)
+    kernels.extend(step_entries)
     print(f"whole run from the build: {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

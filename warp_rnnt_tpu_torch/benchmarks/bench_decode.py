@@ -15,9 +15,10 @@ idle share.  The decode loop (`utils.device_loop`) runs as CUDA graphs of
 ``unroll`` masked steps: the graph's capture ms (warm-up included), its
 private pool's MiB, its kernels a step (one replay under the profiler over
 ``unroll``) and its device us a step (REPLAYS replays back to back on CUDA
-events, over REPLAYS x unroll).  ``plain`` runs the loop eagerly on the
-card instead (`device_loop._plain`, the plain version); its graph keys
-are then None.
+events, over REPLAYS x unroll), and the step's own kernels a step and any
+library kernel they replaced still in the step (`step_kernels`).
+``plain`` runs the loop eagerly on the card instead (`device_loop._plain`,
+the plain version); its graph keys are then None.
 
 Usage: python -m warp_rnnt_tpu_torch.benchmarks.bench_decode [N] [T] [V]
            [beam] [--unroll U ...] [--plain]
@@ -46,6 +47,8 @@ from warp_rnnt_tpu_torch.utils import device_loop
 PROFILED = 1  # decodes under the profiler
 TOP = 6  # kernels listed by device time a decode
 REPLAYS = 20  # graph replays timed for the device us a step
+GRAPH_KEYS = ("capture_ms", "graph_pool_mb", "graph_kernels_per_step",
+              "graph_step_us", "graph_step_kernels", "graph_step_replaced")
 
 
 def loop_mode(plain=False, unroll=None):
@@ -60,11 +63,34 @@ def loop_mode(plain=False, unroll=None):
     return stack
 
 
+# The step's kernels (`ops/decode_step.py`) by their names in a trace,
+# and the library kernels they took the place of.
+STEP_KERNELS = ("decode_joint", "decode_gru")
+REPLACED = ("gemm", "gru_cell", "softmax", "tanh")
+
+
+def step_kernels(rows, unroll):
+    """From a graph replay's profile ``rows`` [(ms, launches, name)] of
+    ``unroll`` steps: ({name: launches a step} of the step's kernels,
+    [names of kernels the step's kernels replaced that still run])."""
+    ours = {}
+    for _, n, key in rows:
+        if any(k in key for k in STEP_KERNELS):
+            name = key[:100]
+            ours[name] = ours.get(name, 0) + n / unroll
+    left = [key[:100] for _, _, key in rows
+            if not any(k in key for k in STEP_KERNELS)
+            and any(k in key.lower() for k in REPLACED)]
+    return ours, left
+
+
 def graph_numbers(name):
     """{capture_ms, graph_pool_mb, graph_kernels_per_step,
-    graph_step_us} of the graph of decoder ``name``'s last drain."""
+    graph_step_us, graph_step_kernels, graph_step_replaced} of the graph
+    of decoder ``name``'s last drain (`step_kernels`)."""
     entry = LAST_GRAPH[name]
     prof = device_profile(entry.replay, 1, cpu=False)
+    ours, left = step_kernels(prof["rows"], entry.unroll)
     entry.replay()  # the state is final: every step is masked
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -77,29 +103,68 @@ def graph_numbers(name):
             "graph_pool_mb": entry.pool_bytes / 2**20,
             "graph_kernels_per_step": prof["kernels_per_call"] / entry.unroll,
             "graph_step_us": start.elapsed_time(end) * 1e3
-            / (REPLAYS * entry.unroll)}
+            / (REPLAYS * entry.unroll),
+            "graph_step_kernels": ours, "graph_step_replaced": left}
 
 
-def step_bound(model, rows):
-    """(us, "bytes" or "operations"): the least time one decode step of
-    ``rows`` hypotheses could take on this card.  Bytes: the joint's and
-    the GRU cell's fp32 parameters read once, and the rows' embeddings.
-    Operations: two a multiply-add of each row's products, the GRU's at
-    the fp32 rate, the joint's at its compute dtype's (bf16 on the tensor
-    cores, or fp32).  The rest of the step (argmax, top-k, the masks)
-    moves a few KB."""
+def step_work(model, samples, rows, k=None, L=0, emitting=None):
+    """{kernel: (bytes, operation seconds on this card)}: what each of the
+    step's two kernels must move and compute for ``rows`` hypotheses of
+    ``samples`` samples (greedy: rows = samples, ``k`` None, a token
+    buffer of ``L``; beam: top ``k`` labels).  `decode_joint` reads the
+    samples' frames, the rows' predictor outputs and the joint's weights
+    and biases in its compute dtype once, and writes the best label or the
+    blank log-prob and top-k; two operations a multiply-add of its two
+    products, at the bf16 tensor-core rate or the fp32 rate.  `decode_gru`
+    reads the GRU's fp32 parameters, each row's embedding, state and
+    output, and writes the new state and output (greedy: also its integer
+    fields and the token buffer, read and written); two operations a
+    multiply-add of its two (rows, H') x (H', 3H') products at the fp32
+    rate, over the ``emitting`` rows (all rows when None): a row that does
+    not emit is only copied."""
     hbm, fp32, bf16 = timing.card_rates()
-    p = model.predictor
-    gru = [p.weight_ih, p.weight_hh, p.bias_ih, p.bias_hn]
-    joint = list(model.joint.parameters())
-    n_gru = sum(t.numel() for t in gru)
-    n_joint = sum(t.numel() for t in joint)
-    nbytes = 4 * (n_gru + n_joint + rows * p.hidden)
-    joint_rate = bf16 if model.joint.compute_dtype == torch.bfloat16 else fp32
-    ops_s = 2 * rows * (n_gru / fp32 + n_joint / joint_rate)
-    bytes_s = nbytes / hbm
+    j, p = model.joint, model.predictor
+    cd_bytes = torch.empty((), dtype=j.compute_dtype).element_size()
+    F_in, H = j.pre.in_features, j.pre.out_features
+    V, Hp = j.out.out_features, p.hidden
+    F = model.encoder.out_ln.normalized_shape[0]
+    n_joint = sum(t.numel() for t in j.parameters())
+    out_bytes = 4 * rows if k is None else rows * (4 + 8 * k)
+    joint_bytes = (4 * samples * (F + 1) + 4 * rows * p.hidden
+                   + cd_bytes * n_joint + out_bytes)
+    joint_rate = bf16 if j.compute_dtype == torch.bfloat16 else fp32
+    joint_ops = 2 * rows * (F_in * H + H * V) / joint_rate
+    n_gru = sum(t.numel() for t in (p.weight_ih, p.weight_hh, p.bias_ih,
+                                    p.bias_hn)) + 2 * Hp
+    gru_bytes = 4 * n_gru + 4 * rows * (5 * Hp + 1) + rows
+    if k is None:  # t, u, emitted_here, frame_bound in, three out; tokens
+        gru_bytes += 4 * rows * 7 + 8 * rows * L
+    gru_ops = 2 * (rows if emitting is None else emitting) * 6 * Hp * Hp / fp32
+    return {"decode_joint": (joint_bytes, joint_ops),
+            "decode_gru": (gru_bytes, gru_ops)}
+
+
+def _bound(nbytes, ops_s):
+    bytes_s = nbytes / timing.card_rates()[0]
     return (max(bytes_s, ops_s) * 1e6,
             "bytes" if bytes_s >= ops_s else "operations")
+
+
+def kernel_bounds(model, samples, rows, k=None, L=0, emitting=None):
+    """{kernel: (us, "bytes" or "operations")}: the least time each of
+    the step's kernels could take on this card (`step_work`)."""
+    return {name: _bound(*w) for name, w in step_work(
+        model, samples, rows, k, L, emitting).items()}
+
+
+def step_bound(model, samples, rows, k=None, L=0):
+    """(us, "bytes" or "operations"): the least time one decode step of
+    ``rows`` hypotheses could take on this card: the two kernels' bytes
+    (`step_work`) over the memory's rate, or their operations, whichever
+    is longer.  The rest of the step (beam's candidate top-k, gathers and
+    merge; the loop's masks) moves a few KB."""
+    work = step_work(model, samples, rows, k, L).values()
+    return _bound(sum(b for b, _ in work), sum(o for _, o in work))
 
 
 def decode_numbers(name, fn, feats, N, plain=False):
@@ -122,9 +187,7 @@ def decode_numbers(name, fn, feats, N, plain=False):
     ms = timing.bench_scalar_chain(fn, (feats,), 4, warmup=0, repeats=1,
                                    reduce_out=lambda out: out[1].sum())
     prof = device_profile(lambda: fn(feats), PROFILED, cpu=False)
-    graph = (dict.fromkeys(("capture_ms", "graph_pool_mb",
-                            "graph_kernels_per_step", "graph_step_us"))
-             if plain else graph_numbers(name))
+    graph = (dict.fromkeys(GRAPH_KEYS) if plain else graph_numbers(name))
     return {f"{name}_ms": ms, f"{name}_utts_per_s": N / (ms / 1e3),
             f"{name}_iterations": iterations,
             f"{name}_host_reads": reads,
@@ -174,9 +237,10 @@ def bench_decode(N=32, T=400, V=1024, beam=4, feat_dim=80, hidden=512,
     r.update({k: b[k] for k in ("beam_ms", "beam_utts_per_s")})
     r.update(g)
     r.update(b)
-    for name, rows in (("greedy", N), ("beam", N * beam)):
+    K = min(beam, V - 1)
+    for name, rows, k in (("greedy", N, None), ("beam", N * beam, K)):
         r[f"{name}_step_bound_us"], r[f"{name}_step_bound_by"] = step_bound(
-            model, rows)
+            model, N, rows, k, max_length)
     r["device"] = torch.cuda.get_device_name(0)
     return r
 

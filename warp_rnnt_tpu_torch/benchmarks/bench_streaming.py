@@ -29,7 +29,11 @@ import json
 import torch
 
 from warp_rnnt_tpu_torch.benchmarks import timing
-from warp_rnnt_tpu_torch.benchmarks.bench_decode import graph_numbers, loop_mode
+from warp_rnnt_tpu_torch.benchmarks.bench_decode import (
+    GRAPH_KEYS,
+    graph_numbers,
+    loop_mode,
+)
 from warp_rnnt_tpu_torch.benchmarks.profile_loss import device_profile
 from warp_rnnt_tpu_torch.models import init_model, stream_init, stream_step
 from warp_rnnt_tpu_torch.models.decoding import HOST_READS, LOOP_ITERATIONS
@@ -84,9 +88,8 @@ def bench_streaming(N=8, C=16, V=1024, beam=0, feat_dim=80, hidden=512,
             box[0] = stream_step(model, box[0], chunk)
 
         prof = device_profile(one, PROFILED, cpu=False)
-        graph = (dict.fromkeys(("capture_ms", "graph_pool_mb",
-                                "graph_kernels_per_step", "graph_step_us"))
-                 if plain else graph_numbers(loop))
+        graph = (dict.fromkeys(GRAPH_KEYS) if plain
+                 else graph_numbers(loop))
     return {
         "N": N, "chunk_frames": C, "V": V, "hidden": hidden, "beam": beam,
         "chunk_ms": ms,

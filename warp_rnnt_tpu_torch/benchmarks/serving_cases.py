@@ -77,9 +77,9 @@ SMALL = dict(N=4, T=41, F=9, H=24, V=21, beam=3, max_length=30)
 def counters():
     """The launch counts of every kernel wrapper."""
     from warp_rnnt_tpu_torch.benchmarks.train_cases import counters as train
-    from warp_rnnt_tpu_torch.ops import packed_kernels
+    from warp_rnnt_tpu_torch.ops import decode_step, packed_kernels
 
-    return [*train(), packed_kernels.LAUNCHES]
+    return [*train(), packed_kernels.LAUNCHES, decode_step.LAUNCHES]
 
 
 def launched(fn):

@@ -21,7 +21,12 @@ hash equals JAX's wrap-around value bit for bit.
 
 The top-k is `_top_k_small`, k argmax rounds, as in JAX: ``torch.topk``
 leaves the order among ties unspecified, while ``torch.argmax`` returns
-the first maximal index, as JAX's ties break to the lowest index.
+the first maximal index, as JAX's ties break to the lowest index.  The
+step's joint and its first top-k (each beam's blank log-prob and top
+labels) are one `ops.decode_step.decode_joint` call, and its GRU cell,
+masked by the emissions, one `decode_gru` launch, on the invariants of
+`decoding.decode_consts`; the candidates' top-k, the beams' gathers, the
+hash and the merge stay plain torch.
 
 The loop is `utils.device_loop.while_loop` on JAX's ``cond``, through
 `decoding.run_drain` as greedy's (one CUDA graph of masked steps on the
@@ -35,9 +40,16 @@ from __future__ import annotations
 
 import torch
 
-from warp_rnnt_tpu_torch.models.decoding import frame_at, run_drain
+from warp_rnnt_tpu_torch.models.decoding import (
+    decode_consts,
+    first_output,
+    gru_params,
+    run_drain,
+)
+from warp_rnnt_tpu_torch.ops import decode_step
+from warp_rnnt_tpu_torch.ops.decode_step import NEG
+from warp_rnnt_tpu_torch.ops.decode_step import top_k_small as _top_k_small
 
-NEG = -1.0e30
 _HASH_MUL = 1000003
 _HASH_MASK = 0xFFFFFFFF
 
@@ -46,27 +58,6 @@ def _hash_step(hcode, tok):
     """The rolling prefix hash after appending ``tok``: JAX's uint32
     ``h * 1000003 + tok + 1`` with wrap-around, on int64 in [0, 2^32)."""
     return (hcode * _HASH_MUL + (tok.long() + 1)) & _HASH_MASK
-
-
-def _top_k_small(x, k):
-    """Exact top-k over the trailing axis for small k, as k argmax rounds.
-
-    Selection runs on a copy whose -inf entries are clamped to the dtype's
-    finite minimum, and each picked index is masked to -inf: so the
-    indices stay distinct even when fewer than k entries are finite
-    (exhausted slices fall back to ascending first-unpicked indices).
-    Values are gathered from the original x, so -inf entries report -inf.
-    Ties go to the lowest index.
-    """
-    vals, ids = [], []
-    iota = torch.arange(x.shape[-1], device=x.device)
-    sel = x.clamp(min=torch.finfo(x.dtype).min)
-    for _ in range(k):
-        i = sel.argmax(dim=-1)
-        vals.append(x.gather(-1, i[..., None])[..., 0])
-        ids.append(i)
-        sel = torch.where(iota == i[..., None], -torch.inf, sel)
-    return torch.stack(vals, -1), torch.stack(ids, -1).to(torch.int32)
 
 
 @torch.inference_mode()
@@ -105,14 +96,15 @@ def beam_best(state):
 
 
 @torch.inference_mode()
-def beam_state_init(model, N, beam_size, max_length, blank: int = 0):
-    """A fresh beam-search state (only beam 0 live, <sos> predictor):
-    (t, scores, tokens, u, nexp, waiting, hcode, pred_state, pred_out)."""
+def beam_state_init(model, N, beam_size, max_length, blank: int = 0, *,
+                    ops=decode_step):
+    """A fresh beam-search state (only beam 0 live, <sos> predictor, its
+    first step on ``ops``): (t, scores, tokens, u, nexp, waiting, hcode,
+    pred_state, pred_out)."""
     B, L = beam_size, max_length
     flat = model.predictor_init(N * B)
     dev = flat.device
-    _, out0 = model.predictor_step(
-        flat, torch.full((N * B,), -1, dtype=torch.int32, device=dev))
+    out0 = first_output(model, N * B, ops)
     scores = torch.full((N, B), NEG, dtype=torch.float32, device=dev)
     scores[:, 0] = 0.0
 
@@ -140,7 +132,8 @@ def _gather_beams(x, parent):
 
 @torch.inference_mode()
 def beam_drain(model, state, enc, p0, frame_bound,
-               max_symbols_per_step: int = 4, blank: int = 0):
+               max_symbols_per_step: int = 4, blank: int = 0, *,
+               ops=decode_step):
     """Advance a beam-search state over the available encoder frames.
 
     As `decoding.greedy_drain`: ``enc`` (N, C, H) holds frames for stream
@@ -148,7 +141,8 @@ def beam_drain(model, state, enc, p0, frame_bound,
     pointer t < frame_bound.  The body is strictly per-frame sequential, so
     pausing at any chunk boundary and resuming gives the one-shot decode
     exactly; `beam_decode` (whole utterance, p0 = 0, frame_bound = xn) and
-    the streaming session both call it.
+    the streaming session both call it.  The step runs on ``ops``
+    (`ops.decode_step`, or `decode_step.PLAIN`).
 
     The loop's bound: at a frame's start every live beam is active with
     nexp = 0; an active beam after the frame's j-th step was born of an
@@ -156,12 +150,14 @@ def beam_drain(model, state, enc, p0, frame_bound,
     no live beam can still be active (an emission past the cap has only a
     NEG candidate), and the sample advances in that step.  So a sample
     takes at most C * (max_symbols_per_step + 1) steps."""
-    N, C, H = enc.shape
+    N, C, _ = enc.shape
     B, L = state[2].shape[1], state[2].shape[2]
     K = min(B, model.vocab_size - 1)  # label candidates a beam
+    dc = decode_consts(model)
+    gru = gru_params(model)
 
     def body(state, consts):
-        enc, frame_bound, p0 = consts
+        enc, frame_bound, p0, w_pre, b_pre, w_out, b_out, b_hh = consts
         (t, scores, tokens, u, nexp, waiting, hcode, pred_state,
          pred_out) = state
         dev = enc.device
@@ -169,11 +165,12 @@ def beam_drain(model, state, enc, p0, frame_bound,
         i_iota = torch.arange(B, device=dev)[None, :, None]
         j_iota = torch.arange(B, device=dev)[None, None, :]
         frame_on = (t < frame_bound)[:, None]  # (N, 1)
-        f_t = frame_at(enc, t, p0)  # (N, H)
-        logp = model.joint_step(
-            f_t[:, None, :].expand(N, B, H).reshape(N * B, H),
-            pred_out.reshape(N * B, -1),
-        ).reshape(N, B, -1)  # (N, B, V)
+        # each beam's blank log-prob and its top-K labels (blank masked)
+        lp_blank, top_lp, top_ids = ops.decode_joint(
+            enc, t, p0, pred_out.reshape(N * B, -1), w_pre, b_pre, w_out,
+            b_out, dc.mode, blank, K)
+        lp_blank = lp_blank.reshape(N, B)
+        top_lp, top_ids = top_lp.reshape(N, B, K), top_ids.reshape(N, B, K)
 
         # a beam may expand while its sample's frame is live, it has not
         # settled this frame, it has token budget and is under the cap
@@ -182,12 +179,8 @@ def beam_drain(model, state, enc, p0, frame_bound,
                       & (nexp < max_symbols_per_step))
 
         # column 0: blank (active beams) / self (settled or off-frame)
-        settle = torch.where(frame_on & ~waiting, scores + logp[..., blank],
-                             scores)
-        # columns 1..K: the top-K labels (blank masked out)
-        lab_logp = logp.clone()
-        lab_logp[..., blank] = NEG
-        top_lp, top_ids = _top_k_small(lab_logp, K)  # (N, B, K)
+        settle = torch.where(frame_on & ~waiting, scores + lp_blank, scores)
+        # columns 1..K: the top-K labels
         lab_scores = torch.where(expandable[..., None],
                                  scores[..., None] + top_lp, NEG)
         cand = torch.cat([settle[..., None], lab_scores], -1)
@@ -209,12 +202,11 @@ def beam_drain(model, state, enc, p0, frame_bound,
             2, (kind - 1).clamp(min=0).long()[..., None])[..., 0]  # (N, B)
         tokens = torch.where(emit[..., None] & (l_iota == u[..., None]),
                              new_tok[..., None], tokens)
-        adv_state, adv_out = model.predictor_step(
-            pred_state.reshape(N * B, -1), new_tok.reshape(-1))
-        pred_state = torch.where(emit[..., None],
-                                 adv_state.reshape(N, B, -1), pred_state)
-        pred_out = torch.where(emit[..., None], adv_out.reshape(N, B, -1),
-                               pred_out)
+        pred_state, pred_out = ops.decode_gru(
+            new_tok.reshape(-1), pred_state.reshape(N * B, -1),
+            pred_out.reshape(N * B, -1), emit.reshape(-1), *gru, b_hh)
+        pred_state = pred_state.reshape(N, B, -1)
+        pred_out = pred_out.reshape(N, B, -1)
         u = torch.where(emit, u + 1, u)
         nexp = torch.where(emit, nexp + 1, nexp)
         hcode = torch.where(emit, _hash_step(hcode, new_tok), hcode)
@@ -245,4 +237,4 @@ def beam_drain(model, state, enc, p0, frame_bound,
 
     return run_drain("beam", model, body, state, enc, p0, frame_bound,
                      C * (max_symbols_per_step + 1),
-                     (blank, max_symbols_per_step))
+                     (blank, max_symbols_per_step, ops.__name__), dc.tensors)

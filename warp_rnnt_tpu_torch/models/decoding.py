@@ -23,6 +23,17 @@ frame is read at ``clamp(t - p0, 0, C - 1)``, so every read gives the
 frame it gave before, bit for bit, and the trip count, which reads only
 t and the bounds, is unchanged.  Lengths 257 to 512 share one graph.
 
+The step's loop invariants are lifted once a drain, as XLA's loop-invariant
+code motion lifts them out of JAX's while body: `decode_consts` casts the
+joint's weights and biases to its compute dtype and builds the GRU's
+recurrent bias, and `run_drain` hands them to the loop as consts.  The
+step itself is `ops.decode_step` (a drain's ``ops``): on a CUDA tensor the
+joint and its argmax are one `decode_joint` call (three kernels) and the
+GRU cell with greedy's masked update one `decode_gru_greedy` launch; on a
+CPU tensor their plain versions, the torch code of the step as before.
+``ops=decode_step.PLAIN`` runs the plain versions on any device: the card
+checks' reference decode (`benchmarks/decode_step_cases.py`).
+
 The port's modules hold their parameters, so the functions take the model
 and no ``params``; the decode runs under ``torch.inference_mode()`` on the
 model's device.
@@ -30,8 +41,12 @@ model's device.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
+from warp_rnnt_tpu_torch.ops import decode_step
+from warp_rnnt_tpu_torch.ops.decode_step import frame_at  # noqa: F401
 from warp_rnnt_tpu_torch.utils.device_loop import while_loop
 
 # Loop iterations (JAX's trip count) and the host's reads of the loop's
@@ -60,18 +75,66 @@ def pad_frames(enc):
     return torch.cat([enc, fill.expand(N, width - C, H)], dim=1)
 
 
+class DecodeConsts(NamedTuple):
+    """The decode step's loop invariants, made once a drain by
+    `decode_consts`: ``tensors`` go to the loop as consts, the rest is the
+    step's static shape."""
+
+    # w_pre (F_in, H), b_pre (H,), w_out (H, V), b_out (V,) in the joint's
+    # compute dtype, the weights in Flax's (in, out) layout, contiguous;
+    # b_hh (3 H', ) fp32, torch's recurrent bias of the Flax GRU
+    tensors: tuple
+    hidden: int  # the joint's width H
+    vocab: int
+    mode: str  # the joint's "add" or "concat"
+    dtype: torch.dtype  # the joint's compute dtype
+
+
+def decode_consts(model):
+    """The step's loop invariants of a `Transducer` (`DecodeConsts`): the
+    casts the joint's `_dense` made and the recurrent bias the predictor
+    built each step, now made once.  The same values, so the plain step
+    on them gives the state it gave before, bit for bit."""
+    j = model.joint
+    cd = j.compute_dtype
+    tensors = (j.pre.weight.t().contiguous().to(cd), j.pre.bias.to(cd),
+               j.out.weight.t().contiguous().to(cd), j.out.bias.to(cd),
+               model.predictor.recurrent_bias())
+    return DecodeConsts(tensors, j.pre.out_features, j.out.out_features,
+                        j.mode, cd)
+
+
+def gru_params(model):
+    """The GRU's fp32 parameters the step reads in place: (embedding,
+    weight_ih, weight_hh, bias_ih)."""
+    p = model.predictor
+    return p.embed.weight, p.weight_ih, p.weight_hh, p.bias_ih
+
+
+def first_output(model, N, ops=decode_step):
+    """The predictor's output after <sos> from the zero state, for N rows:
+    the GRU cell on the zero embedding, through ``ops.decode_gru``."""
+    h0 = model.predictor_init(N)
+    sos = torch.full((N,), -1, dtype=torch.int32, device=h0.device)
+    every = torch.ones((N,), dtype=torch.bool, device=h0.device)
+    return ops.decode_gru(sos, h0, h0, every, *gru_params(model),
+                          model.predictor.recurrent_bias())[1]
+
+
 def run_drain(name, model, body, state, enc, p0, frame_bound,
-              max_iterations, static):
+              max_iterations, static, step_consts=()):
     """Run decoder ``name``'s ``body`` while a sample has frames left, on
     `while_loop`, and add its trip count and host reads to the counters.
     The loop's inputs are (`pad_frames(enc)`, frame_bound (N,) int32, p0
-    0-d int32); its graphs are keyed by ``name``, the model (the object
-    and its parameters' addresses, dtypes and shapes: what the body closes
-    over) and the ``static`` arguments the body closes over."""
+    0-d int32, *``step_consts``); its graphs are keyed by ``name``, the
+    model (the object and its parameters' addresses, dtypes and shapes:
+    what the body closes over) and the ``static`` arguments the body
+    closes over (its ``ops`` among them)."""
     dev = enc.device
     frame_bound = torch.as_tensor(frame_bound, dtype=torch.int32, device=dev)
-    consts = (pad_frames(enc), frame_bound.expand(enc.shape[0]),
-              torch.as_tensor(p0, dtype=torch.int32, device=dev))
+    consts = (pad_frames(enc), frame_bound.expand(enc.shape[0]).contiguous(),
+              torch.as_tensor(p0, dtype=torch.int32, device=dev),
+              *step_consts)
     params = tuple((p.data_ptr(), p.dtype, tuple(p.shape))
                    for p in (*model.parameters(), *model.buffers()))
     state, stats = while_loop(_frames_left, body, state, consts,
@@ -81,14 +144,6 @@ def run_drain(name, model, body, state, enc, p0, frame_bound,
     HOST_READS[name] += stats.host_reads
     LAST_GRAPH[name] = stats.graph
     return state
-
-
-def frame_at(enc, t, p0):
-    """enc (N, C, H) holding stream positions [p0, p0 + C) -> the frame at
-    each sample's position t (N,), clipped into the chunk: (N, H)."""
-    N, C, H = enc.shape
-    idx = (t - p0).clamp(0, C - 1).long()
-    return enc.gather(1, idx[:, None, None].expand(N, 1, H))[:, 0]
 
 
 @torch.inference_mode()
@@ -117,13 +172,15 @@ def greedy_decode(model, feats, xn, max_length: int,
 
 
 @torch.inference_mode()
-def greedy_state_init(model, N, max_length: int, blank: int = 0):
+def greedy_state_init(model, N, max_length: int, blank: int = 0, *,
+                      ops=decode_step):
     """Fresh greedy decode state: (t, u, emitted_here, last_tok,
-    pred_state, pred_out, tokens)."""
+    pred_state, pred_out, tokens); the predictor's first step runs on
+    ``ops`` (`first_output`)."""
     pred_state = model.predictor_init(N)
     dev = pred_state.device
     sos = torch.full((N,), -1, dtype=torch.int32, device=dev)
-    _, pred_out = model.predictor_step(pred_state, sos)
+    pred_out = first_output(model, N, ops)
 
     def zeros():
         return torch.zeros((N,), dtype=torch.int32, device=dev)
@@ -141,40 +198,36 @@ def greedy_state_init(model, N, max_length: int, blank: int = 0):
 
 @torch.inference_mode()
 def greedy_drain(model, dec, enc, p0, frame_bound,
-                 max_symbols_per_step: int = 4, blank: int = 0):
+                 max_symbols_per_step: int = 4, blank: int = 0, *,
+                 ops=decode_step):
     """Advance a greedy decode state over the available encoder frames.
 
     ``enc`` (N, C, H) holds frames for stream positions [p0, p0 + C); each
     sample consumes frames while its t < frame_bound (per sample, clipped
     by the caller to what enc covers).  Used by the one-shot
     `greedy_decode` (enc = the whole utterance, p0 = 0, frame_bound = xn)
-    and by the streaming session (`models/streaming.py`).
+    and by the streaming session (`models/streaming.py`).  The step runs
+    on ``ops`` (`ops.decode_step`, or `decode_step.PLAIN`).
 
     Each iteration of an active sample emits or advances t, so a sample
     takes at most C frame steps and min(C * max_symbols_per_step,
     max_length) emissions: the loop's bound."""
     C = enc.shape[1]
     max_length = dec[6].shape[1]
+    dc = decode_consts(model)
+    gru = gru_params(model)
 
     def body(state, consts):
-        enc, frame_bound, p0 = consts
-        t, u, emitted_here, last_tok, pred_state, pred_out, tokens = state
-        l_iota = torch.arange(max_length, device=enc.device)[None, :]
-        active = t < frame_bound
-        logp = model.joint_step(frame_at(enc, t, p0), pred_out)  # (N, V)
-        best = logp.argmax(dim=-1).to(torch.int32)
-        emit = (active & (best != blank) & (u < max_length)
-                & (emitted_here < max_symbols_per_step))
-        tokens = torch.where(emit[:, None] & (l_iota == u[:, None]),
-                             best[:, None], tokens)
-        new_state, new_out = model.predictor_step(pred_state, best)
-        pred_state = torch.where(emit[:, None], new_state, pred_state)
-        pred_out = torch.where(emit[:, None], new_out, pred_out)
-        u = torch.where(emit, u + 1, u)
-        emitted_here = torch.where(emit, emitted_here + 1, 0)
-        t = torch.where(active & ~emit, t + 1, t)
+        enc, frame_bound, p0, w_pre, b_pre, w_out, b_out, b_hh = consts
+        t, u, emitted_here, _, pred_state, pred_out, tokens = state
+        best = ops.decode_joint(enc, t, p0, pred_out, w_pre, b_pre, w_out,
+                                b_out, dc.mode, blank)  # (N,) int32
+        t, u, emitted_here, tokens, pred_state, pred_out = (
+            ops.decode_gru_greedy(best, t, u, emitted_here, frame_bound,
+                                  tokens, pred_state, pred_out, *gru, b_hh,
+                                  blank, max_symbols_per_step))
         return (t, u, emitted_here, best, pred_state, pred_out, tokens)
 
     return run_drain("greedy", model, body, dec, enc, p0, frame_bound,
                      C + min(C * max_symbols_per_step, max_length),
-                     (blank, max_symbols_per_step))
+                     (blank, max_symbols_per_step, ops.__name__), dc.tensors)

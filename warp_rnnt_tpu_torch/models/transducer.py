@@ -206,10 +206,15 @@ class Predictor(nn.Module):
         self.bias_ih = nn.Parameter(torch.zeros(3 * hidden, device=device))
         self.bias_hn = nn.Parameter(torch.zeros(hidden, device=device))
 
-    def _gru_params(self):
-        b_hh = torch.cat([self.bias_hn.new_zeros(2 * self.hidden),
+    def recurrent_bias(self):
+        """torch's b_hh of the Flax GRU, whose recurrent bias is on hn
+        only: (0, 0, bias_hn), (3H,)."""
+        return torch.cat([self.bias_hn.new_zeros(2 * self.hidden),
                           self.bias_hn])
-        return [self.weight_ih, self.weight_hh, self.bias_ih, b_hh]
+
+    def _gru_params(self):
+        return [self.weight_ih, self.weight_hh, self.bias_ih,
+                self.recurrent_bias()]
 
     def forward(self, labels):  # (N, U-1) int -> (N, U, H)
         """Row u of the output conditions on labels[:u]: the GRU runs over

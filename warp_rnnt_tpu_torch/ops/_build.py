@@ -34,7 +34,8 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
-SOURCES = ("lattice", "flat_write", "fused_joint", "packed", "gather")
+SOURCES = ("lattice", "flat_write", "fused_joint", "packed", "gather",
+           "decode_step")
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 
