@@ -289,6 +289,21 @@ kernels running, at most 4 launches a step, and no gemm, gru_cell,
 softmax or tanh kernel left in the step.  `decode_joint` and
 `decode_gru` join the kernels line, with launches a step from that
 profile.
+Slice 18 (beam's selection as one kernel, `decode_beam_select`, and the
+parents' rows read through `decode_gru`'s row map) adds, inside phase
+15: in fp32 and bf16 the recorded beam states' selections through the
+kernel and its plain version, bit for bit on every output
+(`decode_step_cases.check_select_records`), and a beam decode and a
+streaming beam session (C=16) on the kernels against the same on the
+parent's path (`decode_step_cases.PARENT`: the selection plain, the
+joint and the GRU on their kernels), bit for bit in tokens, lengths and
+scores; the kernel on hand-built adversarial states at B = 1, 4, 8
+(`select_cases`); its device ms beside its plain version's and its
+bound at beam's rows; the decoders' main path launching it; and the
+replay's profile gating beam on the joint, the selection and the GRU
+(the last two once a step), at most 5 step launches (greedy 4), and no
+gather, index_select, argmax or cat kernel left in a step.
+`decode_beam_select` joins the kernels line.
 It prints the kernels' JSON line and the card's line, and last
 `{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}`.
 Without a CUDA device, or without the package beside it, it exits 1 and
@@ -2068,18 +2083,37 @@ STEP_SOURCE = "warp_rnnt_tpu_torch/csrc/decode_step.cu"
 STEP_REPLACES = ("warp_rnnt_tpu/models/decoding.py:119 and"
                  " warp_rnnt_tpu/models/beam_search.py:298 (the XLA while"
                  " body; no TPU kernel)")
-STEP_LAUNCHES = 4
+SELECT_REPLACES = ("warp_rnnt_tpu/models/beam_search.py:207-294 (the XLA"
+                   " while body's selection, gathers, hash and merge; no TPU"
+                   " kernel)")
+# The kernels of a graphed step, and their launches a step at most.
+STEP_OF = {"greedy": ("decode_joint", "decode_gru"),
+           "beam": ("decode_joint", "decode_beam_select", "decode_gru")}
+STEP_LAUNCHES = {"greedy": 4, "beam": 5}
 
 
 def decode_step_checks(torch, dsc, model, feats, xn, d, cd):
     """The decode step's kernels against their plain versions on the
     states a plain greedy and a plain beam decode visit at ``d``'s width
-    (`decode_step_cases.check_records`), and whole decodes' tokens, the
-    kernels' against the plain step's (reported).  Returns (the recorders,
-    the checks' results)."""
+    (`decode_step_cases.check_records`, `check_select_records`: the
+    selection bit for bit), whole decodes' tokens, the kernels' against
+    the plain step's (reported), and a beam decode and a streaming beam
+    session (chunks of 16) on the kernels against the parent's path
+    (`check_parent_path`: the selection plain, the joint and the GRU on
+    their kernels), bit for bit.  Returns (the recorders, the joint's
+    and GRU's results, the selection's)."""
     recs, outs = dsc.record_states(model, feats, xn, d["max_length"],
                                    d["beam"])
     r = dsc.check_records(recs)
+    sel = dsc.check_select_records(recs)
+    parent = dsc.check_parent_path(model, feats, xn, d["max_length"],
+                                   d["beam"], 16)
+    print(f"decode_beam_select at {json.dumps(d)}, {cd}: equal to the plain"
+          f" version bit for bit on every recorded state: {json.dumps(sel)};"
+          f" a beam decode and a streaming beam session (C=16) on the"
+          f" kernels equal the parent's path (the selection plain, the"
+          f" joint and the GRU on their kernels) bit for bit in tokens,"
+          f" lengths and scores: lengths {json.dumps(parent['decode'])}")
     agree = dsc.token_agreement(model, feats, xn, d["max_length"], d["beam"],
                                 outs)
     print(f"decode step kernels at {json.dumps(d)}, {cd}: against the plain"
@@ -2089,14 +2123,16 @@ def decode_step_checks(torch, dsc, model, feats, xn, d, cd):
           f" that, the GRU's state within {dsc.GRU_TOL}, non-emitting rows"
           f" bit for bit): {json.dumps(r)}; whole decodes on the kernels"
           f" against the plain step (reported, not held): {json.dumps(agree)}")
-    return recs, r
+    return recs, r, sel
 
 
 def decode_step_times(torch, bd, dsc, model, recs, d, card):
     """Each step kernel's device ms beside its plain version's and its
     bound, on states of the bf16 plain decodes: greedy (N rows) and beam
-    (N x beam rows); the joint's from the middle of the decode, the
-    GRU's where the most rows emit (after the <sos> step).  Returns
+    (N x beam rows); the joint's and beam's selection's from the middle
+    of the decode, the GRU's where the most rows emit (after the <sos>
+    step); then that beam GRU call without a row map, with the identity
+    and with its parents' (`gru_row_map_times`, printed).  Returns
     {decoder: {kernel: {ms, plain_ms, bound_ms, bound_by, rows,
     emitting}}}."""
     out = {}
@@ -2105,7 +2141,10 @@ def decode_step_times(torch, bd, dsc, model, recs, d, card):
         joint = calls["decode_joint"][len(calls["decode_joint"]) // 2]
         step = max(calls[gru][1:] or calls[gru],
                    key=lambda a: int(dsc.emit_mask(gru, a).sum()))
-        times = dsc.kernel_times(joint, gru, step)
+        selects = calls["decode_beam_select"]
+        times = dsc.kernel_times(
+            joint, gru, step,
+            call_select=selects[len(selects) // 2] if selects else None)
         rows = joint[3].shape[0]
         emitting = int(dsc.emit_mask(gru, step).sum())
         k = joint[10] if len(joint) > 10 else None
@@ -2120,27 +2159,38 @@ def decode_step_times(torch, bd, dsc, model, recs, d, card):
                   f" {emitting} emitting): {t['ms']:.6f} ms on the device"
                   f" (plain {t['plain_ms']:.6f}), bound {us / 1e3:.6f} ms"
                   f" ({by}) [{card}]")
+    ways = dsc.gru_row_map_times(step)  # the last decoder's: beam's
+    print(f"time decode step decode_gru beam ({rows} rows, {emitting}"
+          f" emitting) by its row map, in turns (none, identity, recorded,"
+          f" recorded, identity, none): {json.dumps(ways)} ms [{card}]")
     return out
 
 
-def hold_step_kernels(r, name, card):
-    """A graphed step launches the step's kernels, at most STEP_LAUNCHES
-    between them, and none of the library kernels they replaced
-    (`bench_decode.step_kernels`, from a graph replay's profile)."""
+def hold_step_kernels(r, name, card, replaced):
+    """A graphed step launches the step's kernels (`STEP_OF`), at most
+    `STEP_LAUNCHES` between them, beam's selection and GRU once each, and
+    none of the library kernels they replaced (``replaced``, by name;
+    `bench_decode.step_kernels`, from a graph replay's profile)."""
     ours = r[f"{name}_graph_step_kernels"]
     left = r[f"{name}_graph_step_replaced"]
     total = sum(ours.values())
-    for kernel in ("decode_joint", "decode_gru"):
+    for kernel in STEP_OF[name]:
         if not any(kernel in key for key in ours):
             raise AssertionError(f"{name}: no {kernel} kernel in a graphed"
                                  f" step: {ours}")
-    if total > STEP_LAUNCHES or left:
+    once = {k: sum(n for key, n in ours.items() if k in key)
+            for k in ("decode_beam_select", "decode_gru")}
+    if name == "beam" and any(n != 1 for n in once.values()):
+        raise AssertionError(f"beam: launches a step {once}, not one each")
+    if total > STEP_LAUNCHES[name] or left:
         raise AssertionError(f"{name}: {total} step kernels a step"
                              f" ({ours}), replaced kernels left: {left}")
     print(f"profile graphed {name} step: {json.dumps(ours)} ({total} launches"
-          f" a step, at most {STEP_LAUNCHES}); no gemm, gru_cell, softmax or"
-          f" tanh kernel left [{card}]")
+          f" a step, at most {STEP_LAUNCHES[name]}); no {', '.join(replaced)}"
+          f" kernel left; {r[f'{name}_graph_kernels_per_step']} kernels and"
+          f" {r[f'{name}_graph_step_us']} us a step [{card}]")
     return total
+
 
 
 def phase_serving(torch, wt, timing, card):
@@ -2212,7 +2262,7 @@ def phase_serving(torch, wt, timing, card):
     d = sc.DECODE
     feats = sc.features(SEED + 62, d["N"], d["T"], d["F"])
     xn = torch.full((d["N"],), d["T"], dtype=torch.int32, device="cuda")
-    step_checks = {}
+    step_checks, select_checks = {}, {}
     for cd in (torch.float32, torch.bfloat16):  # bf16: the default model
         model = sc.carried_model(d, SEED + 61, compute_dtype=cd)
         g_len, beam_out = sc.check_decoders(model, feats, xn, d["V"],
@@ -2234,12 +2284,18 @@ def phase_serving(torch, wt, timing, card):
               f" loop bit for bit (tokens, lengths, scores), the same trip"
               f" counts, at most iterations // unroll + 1 host reads;"
               f" {json.dumps(loops)}")
-        recs, step_checks[str(cd)] = decode_step_checks(
-            torch, dsc, model, feats, xn, d, cd)
+        recs, step_checks[str(cd)], select_checks[str(cd)] = (
+            decode_step_checks(torch, dsc, model, feats, xn, d, cd))
     odd = dsc.odd_cases(SEED + 63)
     print(f"decode step kernels at odd widths {json.dumps(dsc.ODD)}, (rows,"
           f" samples, k) {dsc.ODD_ROWS}, add and concat, fp32 and bf16:"
           f" {json.dumps(odd)}")
+    select_odd = dsc.select_cases(SEED + 64)
+    kinds = ", ".join(dsc.SELECT_SAMPLES)
+    print(f"decode_beam_select on hand-built states ({kinds} samples;"
+          f" L={dsc.ODD['L']}, V={dsc.ODD['V']}, beams"
+          f" {dsc.SELECT_BEAMS}): equal to the plain version bit for bit;"
+          f" {json.dumps(select_odd)}")
     step_times = decode_step_times(torch, bd, dsc, model, recs, d, card)
     del recs
     captures = sc.check_graph_cache(model, feats, xn, d["max_length"])
@@ -2258,7 +2314,7 @@ def phase_serving(torch, wt, timing, card):
     _, step_launches = sc.launched(lambda: (
         greedy_decode(model, feats, xn, d["max_length"]),
         beam_decode(model, feats, xn, d["max_length"], beam_size=d["beam"])))
-    if not all(step_launches.get(k) for k in ("decode_joint", "decode_gru")):
+    if not all(step_launches.get(k) for k in STEP_OF["beam"]):
         raise AssertionError(f"decoders launched {step_launches}")
     print(f"serving decoders' main path at {json.dumps(d)}: launches"
           f" {json.dumps(step_launches)} (warm-up and capture rounds)")
@@ -2283,7 +2339,7 @@ def phase_serving(torch, wt, timing, card):
                   f" {r[f'{name}_step_bound_us']} us a step"
                   f" ({r[f'{name}_step_bound_by']}) [{card}]")
     for name in ("greedy", "beam"):
-        hold_step_kernels(decode["graphed"], name, card)
+        hold_step_kernels(decode["graphed"], name, card, bd.REPLACED)
         print(f"time serving {name} decode plain vs graphed:"
               f" {decode['plain'][f'{name}_ms']} ms vs"
               f" {decode['graphed'][f'{name}_ms']} ms"
@@ -2355,6 +2411,24 @@ def phase_serving(torch, wt, timing, card):
             "greedy": greedy, "beam": beam,
             "odd_max_abs_err": max(c[k]["max_abs_err"] for c in odd.values()
                                    for k in c if k.startswith(kernel))})
+    beam = step_times["beam"]["decode_beam_select"]
+    errs_k = {cd: {dec: r[dec]["max_abs_err"] for dec in r}
+              for cd, r in select_checks.items()}
+    step_entries.append({
+        "name": "decode_beam_select", "route": "cuda", "source": STEP_SOURCE,
+        "replaces": SELECT_REPLACES,
+        "launches": step_launches["decode_beam_select"],
+        "max_abs_err": max(e for v in errs_k.values() for e in v.values()),
+        "ms": beam["ms"], "plain_ms": beam["plain_ms"],
+        "bound_ms": beam["bound_ms"], "bound_by": beam["bound_by"],
+        "library_ms": None,
+        "launches_a_step": {"beam": sum(
+            n for key, n in
+            decode["graphed"]["beam_graph_step_kernels"].items()
+            if "decode_beam_select" in key)},
+        "max_abs_err_by_dtype": errs_k, "beam": beam,
+        "adversarial_max_abs_err": max(
+            r["max_abs_err"] for r in select_odd.values())})
     return launches, errs, step_entries
 
 

@@ -64,23 +64,37 @@ def loop_mode(plain=False, unroll=None):
 
 
 # The step's kernels (`ops/decode_step.py`) by their names in a trace,
-# and the library kernels they took the place of.
-STEP_KERNELS = ("decode_joint", "decode_gru")
-REPLACED = ("gemm", "gru_cell", "softmax", "tanh")
+# and the library kernels they took the place of (lower case): the
+# joint's and the GRU's, then beam's selection's (torch's gathers and
+# index_select, argmax rounds, and the cats and stacks of the candidates
+# and the top-k).
+STEP_KERNELS = ("decode_joint", "decode_gru", "decode_beam_select")
+REPLACED = ("gemm", "gru_cell", "softmax", "tanh", "gather", "indexselect",
+            "argmax", "catarray")
+# Launches of replaced kernels that a round makes outside its steps:
+# `device_loop._status` stacks the loop's flag and count once a round.
+ROUND_TAIL = {"catarray": 1}
 
 
 def step_kernels(rows, unroll):
     """From a graph replay's profile ``rows`` [(ms, launches, name)] of
-    ``unroll`` steps: ({name: launches a step} of the step's kernels,
-    [names of kernels the step's kernels replaced that still run])."""
-    ours = {}
+    ``unroll`` steps (one round): ({name: launches a step} of the step's
+    kernels, [names of kernels the step's kernels replaced that still
+    run, past the round's own `ROUND_TAIL`])."""
+    ours, left = {}, []
+    tail = dict(ROUND_TAIL)
     for _, n, key in rows:
         if any(k in key for k in STEP_KERNELS):
             name = key[:100]
             ours[name] = ours.get(name, 0) + n / unroll
-    left = [key[:100] for _, _, key in rows
-            if not any(k in key for k in STEP_KERNELS)
-            and any(k in key.lower() for k in REPLACED)]
+            continue
+        hit = next((k for k in REPLACED if k in key.lower()), None)
+        if hit is None:
+            continue
+        spare = min(n, tail.get(hit, 0))
+        tail[hit] = tail.get(hit, 0) - spare
+        if n > spare:
+            left.append(key[:100])
     return ours, left
 
 
@@ -109,19 +123,26 @@ def graph_numbers(name):
 
 def step_work(model, samples, rows, k=None, L=0, emitting=None):
     """{kernel: (bytes, operation seconds on this card)}: what each of the
-    step's two kernels must move and compute for ``rows`` hypotheses of
+    step's kernels must move and compute for ``rows`` hypotheses of
     ``samples`` samples (greedy: rows = samples, ``k`` None, a token
-    buffer of ``L``; beam: top ``k`` labels).  `decode_joint` reads the
+    buffer of ``L``; beam: top ``k`` labels, a token buffer of ``L`` a
+    beam).  `decode_joint` reads the
     samples' frames, the rows' predictor outputs and the joint's weights
     and biases in its compute dtype once, and writes the best label or the
     blank log-prob and top-k; two operations a multiply-add of its two
     products, at the bf16 tensor-core rate or the fp32 rate.  `decode_gru`
     reads the GRU's fp32 parameters, each row's embedding, state and
     output, and writes the new state and output (greedy: also its integer
-    fields and the token buffer, read and written); two operations a
-    multiply-add of its two (rows, H') x (H', 3H') products at the fp32
-    rate, over the ``emitting`` rows (all rows when None): a row that does
-    not emit is only copied."""
+    fields and the token buffer, read and written; beam: the row map);
+    two operations a multiply-add of its two (rows, H') x (H', 3H')
+    products at the fp32 rate, over the ``emitting`` rows (all rows when
+    None): a row that does not emit is only copied.  Beam's
+    `decode_beam_select` reads the state (t, frame bounds; each beam's
+    score, u, nexp, waiting, hash and token row) and the joint's blank
+    log-prob and top-k once, and writes the new state and each row's
+    emit, token and parent; its operations, at the fp32 rate: two adds a
+    candidate, a comparison a candidate in each of the B argmax rounds,
+    and three comparisons a pair of beams in the merge."""
     hbm, fp32, bf16 = timing.card_rates()
     j, p = model.joint, model.predictor
     cd_bytes = torch.empty((), dtype=j.compute_dtype).element_size()
@@ -140,8 +161,21 @@ def step_work(model, samples, rows, k=None, L=0, emitting=None):
     if k is None:  # t, u, emitted_here, frame_bound in, three out; tokens
         gru_bytes += 4 * rows * 7 + 8 * rows * L
     gru_ops = 2 * (rows if emitting is None else emitting) * 6 * Hp * Hp / fp32
-    return {"decode_joint": (joint_bytes, joint_ops),
+    work = {"decode_joint": (joint_bytes, joint_ops),
             "decode_gru": (gru_bytes, gru_ops)}
+    if k is not None:
+        gru_bytes += 4 * rows  # the row map
+        B = rows // samples
+        # in: t, frame bound; score, u, nexp, waiting, hash, token row;
+        # lp_blank, top-k values and ids.  Out: t; the same beam fields;
+        # emit, token and parent
+        select_in = 8 * samples + rows * (25 + 4 * L + 8 * k)
+        select_out = 4 * samples + rows * (30 + 4 * L)
+        cands = rows * (k + 1)
+        select_ops = (2 * cands + B * cands + 3 * B * rows) / fp32
+        work.update(decode_gru=(gru_bytes, gru_ops),
+                    decode_beam_select=(select_in + select_out, select_ops))
+    return work
 
 
 def _bound(nbytes, ops_s):
@@ -159,10 +193,9 @@ def kernel_bounds(model, samples, rows, k=None, L=0, emitting=None):
 
 def step_bound(model, samples, rows, k=None, L=0):
     """(us, "bytes" or "operations"): the least time one decode step of
-    ``rows`` hypotheses could take on this card: the two kernels' bytes
+    ``rows`` hypotheses could take on this card: the step kernels' bytes
     (`step_work`) over the memory's rate, or their operations, whichever
-    is longer.  The rest of the step (beam's candidate top-k, gathers and
-    merge; the loop's masks) moves a few KB."""
+    is longer.  The rest of the step (the loop's masks) moves a few KB."""
     work = step_work(model, samples, rows, k, L).values()
     return _bound(sum(b for b, _ in work), sum(o for _, o in work))
 

@@ -18,18 +18,33 @@ raises AssertionError on a failure and returns what it measured.
     log-prob within it.  `decode_gru`: the new state within `GRU_TOL`
     (fp32 sums in another order), non-emitting rows unchanged bit for
     bit, greedy's integer fields and token buffer equal.
-  * `check_records`: every recorded call; `odd_cases`: seeded arguments
-    at odd widths (H=200, V=29, 5, 37 and 111 rows, the concat joint)
-    for both kernels in both dtypes.
+  * `check_select`: one `decode_beam_select` call through the kernel and
+    through its plain version: every output equal bit for bit.
+  * `check_records`: every recorded joint and GRU call; `odd_cases`:
+    seeded arguments at odd widths (H=200, V=29, 5, 37 and 111 rows, the
+    concat joint) for both kernels in both dtypes.
+    `check_select_records`: every recorded `decode_beam_select` call;
+    `select_cases`: hand-built adversarial states (`select_state`: tied
+    candidates, duplicate prefixes that merge, beams at the emission cap
+    and at u = L, samples past their frame bound, all-NEG samples, fewer
+    live candidates than beams) at B = 1, 4, 8 and `ODD`'s L and V.
+  * `PARENT`: the step as it ran before `decode_beam_select`: the joint
+    and the GRU on their kernels, the selection plain and the GRU's rows
+    gathered by torch; `check_parent_path` holds a beam decode and a
+    streaming beam session on the kernels equal to it, bit for bit.
   * `token_agreement`: whole decodes, plain against the kernels: the share
     of samples whose tokens are equal and the first position at which the
     others differ (reported, not gated: a step's logp moves by up to
     `logp_tol`, which can flip a near tie).
   * `kernel_times`: each kernel's device ms (`timing.bench_graph`) beside
-    its plain version's on a recorded call.
+    its plain version's on a recorded call; `gru_row_map_times`: a
+    recorded beam `decode_gru` call without a row map, with the identity
+    and with its parents' map, in turns.
 """
 
 from __future__ import annotations
+
+import types
 
 import torch
 
@@ -66,7 +81,7 @@ class Recorder:
     def __init__(self, every=EVERY):
         self.every = every
         self.count = {"decode_joint": 0, "decode_gru": 0,
-                      "decode_gru_greedy": 0}
+                      "decode_gru_greedy": 0, "decode_beam_select": 0}
         self.calls = {name: [] for name in self.count}
 
     def _keep(self, name, args):
@@ -78,9 +93,17 @@ class Recorder:
         self._keep("decode_joint", args)
         return ds.decode_joint_plain(*args)
 
-    def decode_gru(self, *args):
-        self._keep("decode_gru", args)
-        return ds.decode_gru_plain(*args)
+    def decode_gru(self, *args, src=None):
+        self._keep("decode_gru", args if src is None else (*args, src))
+        return ds.decode_gru_plain(*args, src=src)
+
+    def decode_beam_select(self, *args):
+        # kept contiguous, as the kernels' joint gives them (the plain
+        # joint's lp_blank is a column of its log-probs)
+        self._keep("decode_beam_select", tuple(
+            a.contiguous() if isinstance(a, torch.Tensor) else a
+            for a in args))
+        return ds.decode_beam_select_plain(*args)
 
     def decode_gru_greedy(self, *args):
         self._keep("decode_gru_greedy", args)
@@ -216,6 +239,8 @@ def check_gru(name, args):
     for field, g, w in fields:
         if not torch.equal(g, w):
             raise AssertionError(f"{name}: {field} differs")
+    if name == "decode_gru" and len(args) > 9:  # the rows each row reads
+        h, out = h[args[9].long()], out[args[9].long()]
     h_new, out_new = got
     if not (torch.equal(h_new[~emit], h[~emit])
             and torch.equal(out_new[~emit], out[~emit])):
@@ -229,14 +254,41 @@ def check_gru(name, args):
             "emitting": int(emit.sum())}
 
 
+SELECT_FIELDS = ("t", "scores", "tokens", "u", "nexp", "waiting", "hcode",
+                 "emit", "new_tok", "src")
+
+
+def _bits(x):
+    """A tensor's bits, so that equal NaNs compare equal."""
+    return x.view(torch.int32) if x.dtype == torch.float32 else x
+
+
+@torch.inference_mode()
+def check_select(args):
+    """One `decode_beam_select` call (args as the beam body passes them)
+    through the kernel and the plain version: every output bit for bit.
+    Returns {max_abs_err (0.0), samples, beams, emitting, advanced}."""
+    got = ds.decode_beam_select(*args)
+    want = ds.decode_beam_select_plain(*args)
+    _sync(args[2])
+    for field, g, w in zip(SELECT_FIELDS, got, want):
+        if g.dtype != w.dtype or not torch.equal(_bits(g), _bits(w)):
+            raise AssertionError(f"decode_beam_select: {field} differs from"
+                                 " the plain version")
+    return {"max_abs_err": 0.0, "samples": int(args[0].numel()),
+            "beams": int(want[1].numel()), "emitting": int(want[7].sum()),
+            "advanced": int((want[0] != args[0]).sum())}
+
+
 def check_records(recs):
-    """Every recorded call of ``recs`` ({decoder: Recorder}).  Returns
+    """Every recorded joint and GRU call of ``recs`` ({decoder:
+    Recorder}; the selection's: `check_select_records`).  Returns
     {decoder: {function: {calls, max_abs_err, err_share or emitting}}}."""
     out = {}
     for dec, rec in recs.items():
         out[dec] = {}
         for name, calls in rec.calls.items():
-            if not calls:
+            if not calls or name == "decode_beam_select":
                 continue
             rs = [check_joint(a) if name == "decode_joint"
                   else check_gru(name, a) for a in calls]
@@ -312,6 +364,180 @@ def odd_cases(seed=0, device="cuda"):
     return out
 
 
+def check_select_records(recs):
+    """Every recorded `decode_beam_select` call of ``recs`` ({decoder:
+    Recorder}).  Returns {decoder: {calls, max_abs_err, emitting,
+    advanced}} for the decoders that made such calls."""
+    out = {}
+    for dec, rec in recs.items():
+        rs = [check_select(a) for a in rec.calls["decode_beam_select"]]
+        if rs:
+            out[dec] = {"calls": len(rs), "max_abs_err": 0.0,
+                        "emitting": sum(r["emitting"] for r in rs),
+                        "advanced": sum(r["advanced"] for r in rs)}
+    return out
+
+
+# The adversarial states' samples (`select_state`), one kind each.
+SELECT_SAMPLES = ("random", "tied", "dup_blank", "dup_emit", "capped",
+                  "past_bound", "all_neg", "first_step", "few_live")
+SELECT_MAX_SYMBOLS = 2
+SELECT_BEAMS = (1, 4, 8)
+
+
+def select_state(seed, B, device="cuda"):
+    """`decode_beam_select`'s arguments for a hand-built state at `ODD`'s
+    L and V, B beams, K = min(B, V - 1), one sample of each kind of
+    `SELECT_SAMPLES`: random; every candidate tied; every beam of one
+    hash, length and token row, so that their blanks (or their
+    emissions) merge; beams at the emission cap and at u = L; the frame
+    pointer at its bound; every beam at NEG; only beam 0 live (a fresh
+    state); settled beams with -inf log-probs, so fewer candidates live
+    than beams.  In the two duplicate samples the B picks are each
+    beam's blank, or each beam's first label (one token): the merge
+    keeps one of them.  Scores and log-probs are multiples of 1/8, so sums tie
+    exactly."""
+    L, V = ODD["L"], ODD["V"]
+    K = min(B, V - 1)
+    N = len(SELECT_SAMPLES)
+    g = torch.Generator().manual_seed(seed)
+
+    def eighths(lo, hi, *shape):
+        return torch.randint(8 * lo, 8 * hi + 1, shape, generator=g) / 8.0
+
+    def ints(lo, hi, *shape):
+        return torch.randint(lo, hi, shape, generator=g, dtype=torch.int32)
+
+    t = ints(0, 6, N)
+    fb = t + ints(1, 4, N)
+    scores = -eighths(0, 20, N, B)
+    tokens = ints(0, V, N, B, L)
+    u = ints(0, L + 1, N, B)
+    nexp = ints(0, SELECT_MAX_SYMBOLS + 1, N, B)
+    waiting = torch.randint(0, 2, (N, B), generator=g).bool()
+    hcode = torch.randint(0, 2 ** 32, (N, B), generator=g)
+    lp_blank = -eighths(0, 6, N, B)
+    top_lp = (-eighths(0, 8, N, B, K)).sort(-1, descending=True).values
+    top_ids = torch.stack([torch.randperm(V, generator=g)[:K].int()
+                           for _ in range(N * B)]).reshape(N, B, K)
+    kind = dict(zip(SELECT_SAMPLES, range(N)))
+    n = kind["tied"]
+    scores[n], lp_blank[n], top_lp[n] = -2.0, -1.0, -1.0
+    waiting[n] = False
+    # one prefix in every beam, scores within 2: each beam's blank (or,
+    # in dup_emit, its first label, the same token everywhere) beats
+    # every other candidate, so the B picks are one hypothesis
+    for name, blank_lp, first_lp in (("dup_blank", 0.0, -4.0),
+                                     ("dup_emit", -6.0, 0.0)):
+        n = kind[name]
+        hcode[n], u[n], nexp[n], waiting[n] = 12345, 3, 0, False
+        tokens[n], top_ids[n] = tokens[n, :1].clone(), top_ids[n, :1].clone()
+        scores[n] = -eighths(0, 2, B)
+        lp_blank[n] = blank_lp
+        top_lp[n] -= 4.0
+        top_lp[n, :, 0] = first_lp
+    n = kind["capped"]
+    nexp[n, ::2], u[n, 1::2], waiting[n] = SELECT_MAX_SYMBOLS, L, False
+    n = kind["past_bound"]
+    fb[n] = t[n]
+    n = kind["all_neg"]
+    scores[n] = ds.NEG
+    n = kind["first_step"]
+    scores[n], scores[n, 0] = ds.NEG, 0.0
+    u[n], nexp[n], waiting[n], hcode[n] = 0, 0, False, 0
+    n = kind["few_live"]
+    waiting[n, 0], waiting[n, 1:] = False, True
+    u[n, B // 2:] = L
+    lp_blank[n, 0] = -torch.inf
+    top_lp[n, 0, K // 2:] = -torch.inf
+    args = (t, scores, tokens, u, nexp, waiting, hcode,
+            lp_blank.reshape(N * B), top_lp.reshape(N * B, K),
+            top_ids.reshape(N * B, K), fb)
+    return tuple(x.to(device) for x in args) + (SELECT_MAX_SYMBOLS,)
+
+
+def select_cases(seed=0, device="cuda"):
+    """`check_select` on `select_state` at each B of `SELECT_BEAMS`.
+    Returns {"B=..": result}."""
+    return {f"B={B}": check_select(select_state(seed + B, B, device))
+            for B in SELECT_BEAMS}
+
+
+def _parent_gru(token, h, out, emit, *params, src=None):
+    """`decode_gru` after torch's gathers of the parents' rows."""
+    if src is not None:
+        h, out = h.index_select(0, src.long()), out.index_select(0, src.long())
+    return ds.decode_gru(token, h, out, emit, *params)
+
+
+# The beam step before `decode_beam_select`: its joint and GRU on the
+# kernels, its selection, gathers, hash and merge in plain torch.
+PARENT = types.SimpleNamespace(
+    __name__="parent", decode_joint=ds.decode_joint, decode_gru=_parent_gru,
+    decode_gru_greedy=ds.decode_gru_greedy,
+    decode_beam_select=ds.decode_beam_select_plain)
+
+
+def _beam_session(model, feats, xn, max_length, beam, C, ops):
+    """A streaming beam session (chunks of C) driven here on the drains'
+    ``ops``, as `streaming.stream_step` and `stream_finish` drive it on
+    the kernels: (tokens, lengths, scores)."""
+    from warp_rnnt_tpu_torch.models.streaming import _NO_LIMIT
+
+    enc = model.encoder
+    enc_st = enc.stream_init(feats.shape[0])
+    dec = beam_search.beam_state_init(model, feats.shape[0], beam,
+                                      max_length, ops=ops)
+    xn = torch.as_tensor(xn, dtype=torch.int32, device=feats.device)
+    for i in range(0, feats.shape[1], C):
+        chunk = feats[:, i:i + C]
+        enc_st, out, p0 = enc.stream(enc_st, chunk, _NO_LIMIT)
+        bound = torch.minimum(xn, (p0 + chunk.shape[1]).clamp(min=0))
+        dec = beam_search.beam_drain(model, dec, out, p0, bound, ops=ops)
+    L = enc_st["m"]
+    enc_st, out, p0 = enc.stream_finish(enc_st, L)
+    dec = beam_search.beam_drain(model, dec, out, p0, torch.minimum(xn, L),
+                                 ops=ops)
+    return beam_search.beam_best(dec)
+
+
+@torch.inference_mode()
+def beam_outputs(model, feats, xn, max_length, beam, C, ops=None):
+    """A whole beam decode and a streaming beam session (chunks of C) on
+    ``ops`` (None: the public entry points, on the kernels): ((tokens,
+    lengths, scores), (tokens, lengths, scores))."""
+    from warp_rnnt_tpu_torch.models import streaming
+
+    if ops is not None:
+        enc = model.encode(feats)
+        st = beam_search.beam_state_init(model, enc.shape[0], beam,
+                                         max_length, ops=ops)
+        return (beam_search.beam_best(beam_search.beam_drain(
+            model, st, enc, 0, xn, ops=ops)),
+            _beam_session(model, feats, xn, max_length, beam, C, ops))
+    decode = beam_search.beam_decode(model, feats, xn, max_length,
+                                     beam_size=beam)
+    st = streaming.stream_init(model, feats.shape[0], max_length,
+                               beam_size=beam)
+    for i in range(0, feats.shape[1], C):
+        st = streaming.stream_step(model, st, feats[:, i:i + C], xn=xn)
+    return decode, streaming.stream_finish(model, st, xn=xn)[:3]
+
+
+def check_parent_path(model, feats, xn, max_length, beam, C):
+    """A beam decode and a streaming beam session on the kernels against
+    the same on `PARENT`, bit for bit in tokens, lengths and scores.
+    Returns {"decode": lengths, "session": lengths}."""
+    got = beam_outputs(model, feats, xn, max_length, beam, C)
+    want = beam_outputs(model, feats, xn, max_length, beam, C, PARENT)
+    for what, g, w in zip(("decode", "session"), got, want):
+        same = [torch.equal(_bits(a), _bits(b)) for a, b in zip(g, w)]
+        if not all(same):
+            raise AssertionError(f"beam {what} on the kernels != on the"
+                                 f" parent's path: fields equal {same}")
+    return {"decode": got[0][1].tolist(), "session": got[1][1].tolist()}
+
+
 def token_agreement(model, feats, xn, max_length, beam, plain_outs):
     """Whole decodes on the kernels (graphed) against ``plain_outs``
     (`record_states`' plain decodes): {decoder: {"equal_share", "first":
@@ -335,16 +561,37 @@ def token_agreement(model, feats, xn, max_length, beam, plain_outs):
 
 
 @torch.inference_mode()
-def kernel_times(call_joint, name, call_gru, calls=16):
+def kernel_times(call_joint, name, call_gru, calls=16, call_select=None):
     """Device ms (CUDA graph, L2 flushed) of one recorded `decode_joint`
-    call and one ``name`` GRU call, each beside its plain version's:
-    {kernel: {"ms", "plain_ms"}}."""
+    call, one ``name`` GRU call and, when given, one `decode_beam_select`
+    call, each beside its plain version's: {kernel: {"ms", "plain_ms"}}."""
     out = {}
-    for kernel, fn, plain, args in (
-            ("decode_joint", ds.decode_joint, ds.decode_joint_plain,
-             call_joint),
-            ("decode_gru", getattr(ds, name), getattr(ds, f"{name}_plain"),
-             call_gru)):
+    kernels = [("decode_joint", ds.decode_joint, ds.decode_joint_plain,
+                call_joint),
+               ("decode_gru", getattr(ds, name), getattr(ds, f"{name}_plain"),
+                call_gru)]
+    if call_select is not None:
+        kernels.append(("decode_beam_select", ds.decode_beam_select,
+                        ds.decode_beam_select_plain, call_select))
+    for kernel, fn, plain, args in kernels:
         out[kernel] = {"ms": timing.bench_graph(fn, args, calls),
                        "plain_ms": timing.bench_graph(plain, args, calls)}
+    return out
+
+
+@torch.inference_mode()
+def gru_row_map_times(call, calls=16):
+    """Device ms (CUDA graph, L2 flushed) of one recorded beam
+    `decode_gru` call on its own inputs three ways: without a row map
+    (``none``), with the identity map (``identity``) and with the
+    recorded parents' map (``recorded``); each timed twice, in the order
+    none, identity, recorded, recorded, identity, none: {way: [ms,
+    ms]}."""
+    args, src = call[:9], call[9]
+    ident = torch.arange(src.numel(), dtype=torch.int32, device=src.device)
+    ways = (("none", args), ("identity", (*args, ident)),
+            ("recorded", (*args, src)))
+    out = {way: [] for way, _ in ways}
+    for way, a in (*ways, *ways[::-1]):
+        out[way].append(timing.bench_graph(ds.decode_gru, a, calls))
     return out

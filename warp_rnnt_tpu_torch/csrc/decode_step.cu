@@ -32,6 +32,25 @@
 // its state and output through unchanged, bit for bit.  With the greedy
 // fields it also computes the mask and folds the rest of greedy's masked
 // update into its epilogue (t, u, emitted_here and the token buffer).
+// With a row map (beam), row r reads its state and output from row
+// src[r] (the beam's parent), in place of a gather before the launch.
+//
+// decode_beam_select, one launch, beam search's step between the joint
+// and the GRU (warp_rnnt_tpu/models/beam_search.py:207-294, XLA in the
+// JAX package; the port's decode_beam_select_plain): one block a sample
+// builds its B (K + 1) candidates in shared memory (the blank or self
+// score, then the top-K labels' scores, masked to -1e30 where a beam may
+// not expand), takes B exact argmax rounds over them (a warp-shuffle and
+// block reduction each, the keys clamped to -FLT_MAX and NaN the
+// largest, ties to the lowest index, a picked key set to -inf: torch's
+// argmax on `top_k_small`'s clamped copy), then writes the new state out
+// of place: each new beam's parent and kind, its token row copied from
+// the parent's with the new token at the parent's u, u, nexp and the
+// uint32 prefix hash (stored in int64), the B x B merge of duplicates,
+// the frame advance, and for the GRU its emit, token and parent row.  The
+// adds are the plain version's fp32 adds, the rest comparisons and
+// integers, so it equals the plain version bit for bit.  It moves ~0.1 MB
+// at bench width (the token rows in and out): latency-bound, a few us.
 //
 // What bounds a step at bench_decode's width (N=32, hidden 512, V=1024,
 // beam 4): bytes at greedy (the GRU's 6 MB of fp32 weights and the joint's
@@ -333,11 +352,13 @@ decode_joint_dense_kernel(const Dense d) {
   }
 }
 
-// (key, index) pairs in the top-K's total order: larger key first, then
-// the lower index.
-__device__ __forceinline__ void take_better(float& key, int& idx, float k2,
-                                            int i2) {
-  if (k2 > key || (k2 == key && i2 < idx)) {
+// (key, index) pairs in torch's argmax order, which the top-K's follow:
+// a NaN above every number (the first NaN wins), then the larger key,
+// then the lower index.
+__device__ __forceinline__ void take_first_max(float& key, int& idx, float k2,
+                                               int i2) {
+  const bool n2 = isnan(k2), n1 = isnan(key);
+  if (n2 != n1 ? n2 : (n2 ? i2 < idx : (k2 > key || (k2 == key && i2 < idx)))) {
     key = k2;
     idx = i2;
   }
@@ -372,7 +393,7 @@ __device__ void block_best(float& key, int& idx, float* redf, int* redi) {
   for (int off = 16; off; off >>= 1) {
     const float k2 = __shfl_xor_sync(~0u, key, off);
     const int i2 = __shfl_xor_sync(~0u, idx, off);
-    take_better(key, idx, k2, i2);
+    take_first_max(key, idx, k2, i2);
   }
   if (lane == 0) {
     redf[warp] = key;
@@ -381,7 +402,7 @@ __device__ void block_best(float& key, int& idx, float* redf, int* redi) {
   __syncthreads();
   key = redf[0];
   idx = redi[0];
-  for (int w = 1; w < kRowThreads / 32; ++w) take_better(key, idx, redf[w], redi[w]);
+  for (int w = 1; w < kRowThreads / 32; ++w) take_first_max(key, idx, redf[w], redi[w]);
   __syncthreads();
 }
 
@@ -415,7 +436,7 @@ decode_joint_rows_kernel(const Rows d) {
   if (d.best) {
     float key = -INFINITY;
     int idx = INT_MAX;
-    for (int v = tid; v < d.V; v += kRowThreads) take_better(key, idx, (x[v] - m) - ls, v);
+    for (int v = tid; v < d.V; v += kRowThreads) take_first_max(key, idx, (x[v] - m) - ls, v);
     block_best(key, idx, redf, redi);
     if (tid == 0) d.best[blockIdx.x] = idx;
     return;
@@ -429,7 +450,7 @@ decode_joint_rows_kernel(const Rows d) {
       for (int q = 0; q < j; ++q) taken |= picked[q] == v;
       if (taken) continue;
       const float k2 = v == d.blank ? kNeg : fmaxf((x[v] - m) - ls, -FLT_MAX);
-      take_better(key, idx, k2, v);
+      take_first_max(key, idx, k2, v);
     }
     block_best(key, idx, redf, redi);
     if (tid == 0) {
@@ -452,6 +473,7 @@ struct Gru {
   const float* b_ih;             // (3H,)
   const float* b_hh;             // (3H,)
   const unsigned char* emit;     // (rows,) bool; null with the greedy fields
+  const int* src;                // (rows,) row read for each row, or null
   float* h_out;
   float* out_out;
   // greedy's masked update (all null otherwise)
@@ -464,6 +486,11 @@ __device__ __forceinline__ bool greedy_emit(const Gru& d, int row, bool& active)
   active = d.t[row] < d.fb[row];
   return active && d.token[row] != d.blank && d.u[row] < d.L &&
          d.eh[row] < d.max_symbols;
+}
+
+// The row of h and out that row `row` (< rows) reads.
+__device__ __forceinline__ int src_row(const Gru& d, int row) {
+  return d.src ? d.src[row] : row;
 }
 
 // block (x, y): hidden units x * 4 + warp, rows y * 32 + lane.  Over K in
@@ -517,10 +544,13 @@ __global__ void __launch_bounds__(kThreads) decode_gru_kernel(const Gru d) {
   const bool emit = live && (d.t_out ? greedy_emit(d, row, active)
                                      : d.emit[row] != 0);
   const long long o = static_cast<long long>(row) * H + j;
+  // where row reads: its parent's row under a row map
+  const long long oi =
+      row < d.rows ? static_cast<long long>(src_row(d, row)) * H + j : o;
   if (!__syncthreads_or(emit)) {
     if (live) {
-      d.h_out[o] = d.h[o];
-      d.out_out[o] = d.out_in[o];
+      d.h_out[o] = d.h[oi];
+      d.out_out[o] = d.out_in[oi];
     }
     return;
   }
@@ -534,7 +564,8 @@ __global__ void __launch_bounds__(kThreads) decode_gru_kernel(const Gru d) {
       const int r = e / (kChunk / 4), k = (e % (kChunk / 4)) * 4;
       const int rr = r0 + r;
       const int valid = rr < d.rows ? kn - k : 0;
-      const long long at = static_cast<long long>(rr) * H + k0 + k;
+      const long long at =
+          static_cast<long long>(valid > 0 ? src_row(d, rr) : rr) * H + k0 + k;
       ha[i] = load4(d.h + at, valid, vec);
       const int tok = valid > 0 ? d.token[rr] : -1;
       ea[i] = tok >= 0 && tok < d.vocab
@@ -592,8 +623,8 @@ __global__ void __launch_bounds__(kThreads) decode_gru_kernel(const Gru d) {
   }
   if (!live) return;
   if (!emit) {
-    d.h_out[o] = d.h[o];
-    d.out_out[o] = d.out_in[o];
+    d.h_out[o] = d.h[oi];
+    d.out_out[o] = d.out_in[oi];
     return;
   }
   const float ir = gi[0] + d.b_ih[j], iz = gi[1] + d.b_ih[H + j];
@@ -603,9 +634,147 @@ __global__ void __launch_bounds__(kThreads) decode_gru_kernel(const Gru d) {
   const float r = 1.f / (1.f + expf(-(hr + ir)));
   const float z = 1.f / (1.f + expf(-(hz + iz)));
   const float n = tanhf(in + hn * r);
-  const float hy = (d.h[o] - n) * z + n;
+  const float hy = (d.h[oi] - n) * z + n;
   d.h_out[o] = hy;
   d.out_out[o] = hy;
+}
+
+struct Select {
+  // the state (N samples, B beams, L tokens a beam) and the joint's output
+  const int* t;                  // (N,)
+  const float* scores;           // (N, B)
+  const int* tokens;             // (N, B, L)
+  const int* u;                  // (N, B)
+  const int* nexp;               // (N, B)
+  const unsigned char* waiting;  // (N, B) bool
+  const long long* hcode;        // (N, B), in [0, 2^32)
+  const float* lp_blank;         // (N B,)
+  const float* top_lp;           // (N B, K)
+  const int* top_ids;            // (N B, K)
+  const int* fb;                 // (N,) frame bounds
+  // the new state, then the GRU's emit, token and parent row (N B,)
+  int* t_out;
+  float* scores_out;
+  int* tokens_out;
+  int* u_out;
+  int* nexp_out;
+  unsigned char* waiting_out;
+  long long* hcode_out;
+  unsigned char* emit;
+  int* new_tok;
+  int* src;
+  int B, K, L, max_symbols;
+};
+
+constexpr int kMaxCand = kMaxK * (kMaxK + 1);  // B (K + 1) candidates, at most
+constexpr unsigned kHashMul = 1000003u;
+
+// One block (kRowThreads) a sample: see the head of this file.
+__global__ void __launch_bounds__(kRowThreads)
+decode_beam_select_kernel(const Select d) {
+  __shared__ float vals[kMaxCand];  // the candidates' scores
+  __shared__ float keys[kMaxCand];  // clamped; -inf once picked
+  __shared__ float redf[kRowThreads / 32];
+  __shared__ int redi[kRowThreads / 32];
+  __shared__ int pick[kMaxK];
+  __shared__ int parent_of[kMaxK], u_at[kMaxK], u_new[kMaxK], nexp_new[kMaxK];
+  __shared__ int tok_of[kMaxK];
+  __shared__ unsigned char emits[kMaxK], waits[kMaxK];
+  __shared__ long long hash_new[kMaxK];
+  const int tid = threadIdx.x, n = blockIdx.x;
+  const int B = d.B, K = d.K, K1 = d.K + 1, L = d.L, nc = B * K1;
+  const long long nb = static_cast<long long>(n) * B;
+  const float half_neg = 0.5f * kNeg;  // a live beam scores above it
+  const int t = d.t[n];
+  const bool frame_on = t < d.fb[n];
+  for (int c = tid; c < nc; c += kRowThreads) {
+    const int b = c / K1, q = c - b * K1;
+    const long long r = nb + b;
+    const float s = d.scores[r];
+    const bool wait = d.waiting[r] != 0;
+    float v;
+    if (q == 0) {  // blank (an active beam) or self (settled, off-frame)
+      v = frame_on && !wait ? s + d.lp_blank[r] : s;
+    } else {  // a label, where the beam may expand
+      const bool expandable = frame_on && s > half_neg && !wait &&
+                              d.u[r] < L && d.nexp[r] < d.max_symbols;
+      v = expandable ? s + d.top_lp[r * K + q - 1] : kNeg;
+    }
+    vals[c] = v;
+    keys[c] = isnan(v) ? v : fmaxf(v, -FLT_MAX);
+  }
+  __syncthreads();
+  for (int j = 0; j < B; ++j) {
+    float key = -INFINITY;
+    int idx = INT_MAX;
+    for (int c = tid; c < nc; c += kRowThreads) take_first_max(key, idx, keys[c], c);
+    block_best(key, idx, redf, redi);
+    if (tid == 0) {
+      pick[j] = idx;
+      keys[idx] = -INFINITY;
+    }
+    __syncthreads();
+  }
+  if (tid < B) {  // new beam tid: its parent's fields, then its emission
+    const int c = pick[tid], parent = c / K1, kind = c - parent * K1;
+    const long long pr = nb + parent;
+    const bool emit = kind > 0;
+    const int tok = d.top_ids[pr * K + max(kind - 1, 0)];
+    const int u = d.u[pr], nexp = d.nexp[pr];
+    const long long h = d.hcode[pr];
+    parent_of[tid] = parent;
+    u_at[tid] = u;
+    u_new[tid] = emit ? u + 1 : u;
+    nexp_new[tid] = emit ? nexp + 1 : nexp;
+    tok_of[tid] = tok;
+    emits[tid] = emit;
+    waits[tid] = frame_on && !emit;
+    hash_new[tid] = emit ? static_cast<long long>(
+                               static_cast<unsigned>(h) * kHashMul +
+                               static_cast<unsigned>(tok + 1))
+                         : h;
+  }
+  __syncthreads();
+  // the merge: a beam dies where another of the same hash, length and
+  // settledness beats it (higher score; ties: the lower index)
+  float score = 0.f;
+  bool active = false;
+  if (tid < B) {
+    const float sj = vals[pick[tid]];
+    bool killed = false;
+    for (int i = 0; i < B; ++i) {
+      const float si = vals[pick[i]];
+      const bool same = hash_new[i] == hash_new[tid] && u_new[i] == u_new[tid] &&
+                        waits[i] == waits[tid];
+      const bool beats = si > sj || (si == sj && i < tid);
+      killed |= i != tid && same && beats;
+    }
+    score = killed ? kNeg : sj;
+    active = !waits[tid] && score > half_neg;
+  }
+  // a sample whose live beams have all settled advances its frame
+  const bool advance = frame_on && !__syncthreads_or(active);
+  if (tid < B) {
+    const long long r = nb + tid;
+    d.scores_out[r] = score;
+    d.u_out[r] = u_new[tid];
+    d.nexp_out[r] = advance ? 0 : nexp_new[tid];
+    d.waiting_out[r] = waits[tid] && !advance;
+    d.hcode_out[r] = hash_new[tid];
+    d.emit[r] = emits[tid];
+    d.new_tok[r] = tok_of[tid];
+    d.src[r] = static_cast<int>(nb + parent_of[tid]);
+  }
+  if (tid == 0) d.t_out[n] = advance ? t + 1 : t;
+  // the token rows: the parent's, the new token at the parent's u
+  const long long base = nb * L;
+  for (int e = tid; e < B * L; e += kRowThreads) {
+    const int b = e / L, l = e - b * L;
+    d.tokens_out[base + e] =
+        emits[b] && l == u_at[b]
+            ? tok_of[b]
+            : d.tokens[(nb + parent_of[b]) * L + l];
+  }
 }
 
 template <typename T>
@@ -682,7 +851,8 @@ extern "C" int decode_joint(const long long* a) {
 // decode_gru's argument block (int64 each): token, emb, h, out_in, w_ih,
 // w_hh, b_ih, b_hh, emit (or 0), h_out, out_out, then greedy's t, u,
 // emitted_here, frame_bound, tokens, t_out, u_out, eh_out, tokens_out (all
-// 0 without), vocab, rows, H, L, blank, max_symbols, stream.  One launch.
+// 0 without), vocab, rows, H, L, blank, max_symbols, stream, src (or 0).
+// One launch.
 extern "C" int decode_gru(const long long* a) {
   Gru d{};
   d.token = ptr<const int*>(a[0]);
@@ -712,8 +882,50 @@ extern "C" int decode_gru(const long long* a) {
   d.blank = static_cast<int>(a[24]);
   d.max_symbols = static_cast<int>(a[25]);
   const cudaStream_t s = ptr<cudaStream_t>(a[26]);
+  d.src = ptr<const int*>(a[27]);
   const dim3 grid((d.H + kUnits - 1) / kUnits, (d.rows + kRowTile - 1) / kRowTile);
   decode_gru_kernel<<<grid, kThreads, 0, s>>>(d);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// decode_beam_select's argument block (int64 each): t, scores, tokens, u,
+// nexp, waiting, hcode, lp_blank, top_lp, top_ids, frame_bound, then t_out,
+// scores_out, tokens_out, u_out, nexp_out, waiting_out, hcode_out, emit,
+// new_tok, src, then N, B, K, L, max_symbols, stream.  B and K at most
+// kMaxK.  One launch.
+extern "C" int decode_beam_select(const long long* a) {
+  Select d{};
+  d.t = ptr<const int*>(a[0]);
+  d.scores = ptr<const float*>(a[1]);
+  d.tokens = ptr<const int*>(a[2]);
+  d.u = ptr<const int*>(a[3]);
+  d.nexp = ptr<const int*>(a[4]);
+  d.waiting = ptr<const unsigned char*>(a[5]);
+  d.hcode = ptr<const long long*>(a[6]);
+  d.lp_blank = ptr<const float*>(a[7]);
+  d.top_lp = ptr<const float*>(a[8]);
+  d.top_ids = ptr<const int*>(a[9]);
+  d.fb = ptr<const int*>(a[10]);
+  d.t_out = ptr<int*>(a[11]);
+  d.scores_out = ptr<float*>(a[12]);
+  d.tokens_out = ptr<int*>(a[13]);
+  d.u_out = ptr<int*>(a[14]);
+  d.nexp_out = ptr<int*>(a[15]);
+  d.waiting_out = ptr<unsigned char*>(a[16]);
+  d.hcode_out = ptr<long long*>(a[17]);
+  d.emit = ptr<unsigned char*>(a[18]);
+  d.new_tok = ptr<int*>(a[19]);
+  d.src = ptr<int*>(a[20]);
+  const int N = static_cast<int>(a[21]);
+  d.B = static_cast<int>(a[22]);
+  d.K = static_cast<int>(a[23]);
+  d.L = static_cast<int>(a[24]);
+  d.max_symbols = static_cast<int>(a[25]);
+  const cudaStream_t s = ptr<cudaStream_t>(a[26]);
+  if (d.B < 1 || d.B > kMaxK || d.K < 1 || d.K > kMaxK) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  decode_beam_select_kernel<<<N, kRowThreads, 0, s>>>(d);
   return static_cast<int>(cudaGetLastError());
 }
 

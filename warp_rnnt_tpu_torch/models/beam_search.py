@@ -22,11 +22,15 @@ hash equals JAX's wrap-around value bit for bit.
 The top-k is `_top_k_small`, k argmax rounds, as in JAX: ``torch.topk``
 leaves the order among ties unspecified, while ``torch.argmax`` returns
 the first maximal index, as JAX's ties break to the lowest index.  The
-step's joint and its first top-k (each beam's blank log-prob and top
-labels) are one `ops.decode_step.decode_joint` call, and its GRU cell,
-masked by the emissions, one `decode_gru` launch, on the invariants of
-`decoding.decode_consts`; the candidates' top-k, the beams' gathers, the
-hash and the merge stay plain torch.
+step is three calls of `ops.decode_step` (one launch each but the
+joint's three) on the invariants of `decoding.decode_consts`:
+`decode_joint`, each beam's blank log-prob and top labels;
+`decode_beam_select`, the candidates' top-k, the beams' gathers, the
+token write, the hash, the merge and the frame advance, which also gives
+each new beam's emit mask, token and parent row; and `decode_gru`, the
+GRU cell masked by the emissions, reading each beam's predictor state
+and output from its parent's row (``src``).  `decode_beam_select_plain`
+holds the step's torch code as it ran before that kernel.
 
 The loop is `utils.device_loop.while_loop` on JAX's ``cond``, through
 `decoding.run_drain` as greedy's (one CUDA graph of masked steps on the
@@ -47,17 +51,15 @@ from warp_rnnt_tpu_torch.models.decoding import (
     run_drain,
 )
 from warp_rnnt_tpu_torch.ops import decode_step
-from warp_rnnt_tpu_torch.ops.decode_step import NEG
-from warp_rnnt_tpu_torch.ops.decode_step import top_k_small as _top_k_small
-
-_HASH_MUL = 1000003
-_HASH_MASK = 0xFFFFFFFF
-
-
-def _hash_step(hcode, tok):
-    """The rolling prefix hash after appending ``tok``: JAX's uint32
-    ``h * 1000003 + tok + 1`` with wrap-around, on int64 in [0, 2^32)."""
-    return (hcode * _HASH_MUL + (tok.long() + 1)) & _HASH_MASK
+# the step's helpers, kept once in ops.decode_step and read here under
+# their earlier names
+from warp_rnnt_tpu_torch.ops.decode_step import (  # noqa: F401
+    _HASH_MUL,
+    NEG,
+    gather_beams as _gather_beams,
+    hash_step as _hash_step,
+    top_k_small as _top_k_small,
+)
 
 
 @torch.inference_mode()
@@ -124,12 +126,6 @@ def beam_state_init(model, N, beam_size, max_length, blank: int = 0, *,
     )
 
 
-def _gather_beams(x, parent):
-    """x (N, B, ...) -> x[n, parent[n, b], ...]."""
-    idx = parent.long().reshape(parent.shape + (1,) * (x.dim() - 2))
-    return x.gather(1, idx.expand(parent.shape + x.shape[2:]))
-
-
 @torch.inference_mode()
 def beam_drain(model, state, enc, p0, frame_bound,
                max_symbols_per_step: int = 4, blank: int = 0, *,
@@ -160,80 +156,22 @@ def beam_drain(model, state, enc, p0, frame_bound,
         enc, frame_bound, p0, w_pre, b_pre, w_out, b_out, b_hh = consts
         (t, scores, tokens, u, nexp, waiting, hcode, pred_state,
          pred_out) = state
-        dev = enc.device
-        l_iota = torch.arange(L, device=dev)[None, None, :]
-        i_iota = torch.arange(B, device=dev)[None, :, None]
-        j_iota = torch.arange(B, device=dev)[None, None, :]
-        frame_on = (t < frame_bound)[:, None]  # (N, 1)
         # each beam's blank log-prob and its top-K labels (blank masked)
         lp_blank, top_lp, top_ids = ops.decode_joint(
             enc, t, p0, pred_out.reshape(N * B, -1), w_pre, b_pre, w_out,
             b_out, dc.mode, blank, K)
-        lp_blank = lp_blank.reshape(N, B)
-        top_lp, top_ids = top_lp.reshape(N, B, K), top_ids.reshape(N, B, K)
-
-        # a beam may expand while its sample's frame is live, it has not
-        # settled this frame, it has token budget and is under the cap
-        alive = scores > 0.5 * NEG
-        expandable = (frame_on & alive & ~waiting & (u < L)
-                      & (nexp < max_symbols_per_step))
-
-        # column 0: blank (active beams) / self (settled or off-frame)
-        settle = torch.where(frame_on & ~waiting, scores + lp_blank, scores)
-        # columns 1..K: the top-K labels
-        lab_scores = torch.where(expandable[..., None],
-                                 scores[..., None] + top_lp, NEG)
-        cand = torch.cat([settle[..., None], lab_scores], -1)
-
-        new_scores, sel = _top_k_small(cand.reshape(N, B * (K + 1)), B)
-        parent = sel // (K + 1)  # (N, B)
-        kind = sel % (K + 1)  # 0 = blank/self
-
-        tokens = _gather_beams(tokens, parent)
-        u = _gather_beams(u, parent)
-        nexp = _gather_beams(nexp, parent)
-        hcode = _gather_beams(hcode, parent)
-        pred_state = _gather_beams(pred_state, parent)
-        pred_out = _gather_beams(pred_out, parent)
-        scores = new_scores
-        emit = kind > 0
-
-        new_tok = _gather_beams(top_ids, parent).gather(
-            2, (kind - 1).clamp(min=0).long()[..., None])[..., 0]  # (N, B)
-        tokens = torch.where(emit[..., None] & (l_iota == u[..., None]),
-                             new_tok[..., None], tokens)
+        # the candidates' top-k, the beams' gathers, the token write, the
+        # hash, the merge and the frame advance
+        (t, scores, tokens, u, nexp, waiting, hcode, emit, new_tok,
+         src) = ops.decode_beam_select(
+            t, scores, tokens, u, nexp, waiting, hcode, lp_blank, top_lp,
+            top_ids, frame_bound, max_symbols_per_step)
+        # the predictor on the emitted tokens, reading each beam's parent
         pred_state, pred_out = ops.decode_gru(
-            new_tok.reshape(-1), pred_state.reshape(N * B, -1),
-            pred_out.reshape(N * B, -1), emit.reshape(-1), *gru, b_hh)
-        pred_state = pred_state.reshape(N, B, -1)
-        pred_out = pred_out.reshape(N, B, -1)
-        u = torch.where(emit, u + 1, u)
-        nexp = torch.where(emit, nexp + 1, nexp)
-        hcode = torch.where(emit, _hash_step(hcode, new_tok), hcode)
-        # blank/self settles the beam for this frame; emits stay active
-        waiting = frame_on & ~emit
-
-        # merge duplicate hypotheses: the same hash (the same prefix, but
-        # for a 32-bit collision), length and within-frame state are one
-        # hypothesis; the better-scored copy survives (ties: lower index)
-        same = ((hcode[:, :, None] == hcode[:, None, :])
-                & (u[:, :, None] == u[:, None, :])
-                & (waiting[:, :, None] == waiting[:, None, :]))
-        s_i = scores[:, :, None]
-        s_j = scores[:, None, :]
-        beats = (s_i > s_j) | ((s_i == s_j) & (i_iota < j_iota))
-        killed = (same & beats & (i_iota != j_iota)).any(dim=1)
-        scores = torch.where(killed, NEG, scores)
-
-        # a sample whose live beams are all settled is done with this
-        # frame: advance its pointer and re-arm every beam
-        active = ~waiting & (scores > 0.5 * NEG)
-        advance = (t < frame_bound) & ~active.any(dim=1)
-        t = torch.where(advance, t + 1, t)
-        waiting = waiting & ~advance[:, None]
-        nexp = torch.where(advance[:, None], 0, nexp)
-        return (t, scores, tokens, u, nexp, waiting, hcode, pred_state,
-                pred_out)
+            new_tok, pred_state.reshape(N * B, -1),
+            pred_out.reshape(N * B, -1), emit, *gru, b_hh, src=src)
+        return (t, scores, tokens, u, nexp, waiting, hcode,
+                pred_state.reshape(N, B, -1), pred_out.reshape(N, B, -1))
 
     return run_drain("beam", model, body, state, enc, p0, frame_bound,
                      C * (max_symbols_per_step + 1),

@@ -4,7 +4,8 @@ greedy or beam-search loop, over every hypothesis of the batch.
 
 No TPU kernel stands behind them: in the JAX package the step is the body
 of ``lax.while_loop`` (`warp_rnnt_tpu/models/decoding.py:119`,
-`warp_rnnt_tpu/models/beam_search.py:298`), which XLA fuses, its loop
+`warp_rnnt_tpu/models/beam_search.py:298`; beam's selection, gathers,
+hash and merge :207-294), which XLA fuses, its loop
 invariants hoisted.  The port lifts those invariants itself
 (`models.decoding.decode_consts`, once a drain) and hands them to these
 functions: the joint's weights and biases in its compute dtype, the
@@ -19,10 +20,20 @@ bias (0, 0, bias_hn).
     (rows,) int32) or beam's blank log-prob and top ``k`` labels (the
     blank at `NEG`, as `top_k_small` selects them): (lp_blank (rows,),
     top_lp (rows, k), top_ids (rows, k) int32).  Three launches.
-  * `decode_gru(token, h, out, emit, embed, w_ih, w_hh, b_ih, b_hh)`:
-    torch's GRU cell on each row's token embedding (a token < 0 is the
-    zero <sos> embedding), written where ``emit`` holds; a row that does
-    not emit keeps ``h`` and ``out`` bit for bit.  One launch.
+  * `decode_beam_select(t, scores, tokens, u, nexp, waiting, hcode,
+    lp_blank, top_lp, top_ids, frame_bound, max_symbols)`: the rest of
+    the beam-search step around the joint and the GRU: the candidates'
+    top-k over B (K + 1) a sample, the beams' gathers, the token write,
+    the prefix hash, the merge of duplicates and the frame advance; the
+    new state and, for the GRU, each new beam's emit, token and source
+    row.  One launch, exact (the same fp32 adds, the rest comparisons
+    and integers).
+  * `decode_gru(token, h, out, emit, embed, w_ih, w_hh, b_ih, b_hh,
+    src=None)`: torch's GRU cell on each row's token embedding (a token
+    < 0 is the zero <sos> embedding), written where ``emit`` holds; a row
+    that does not emit keeps its input rows bit for bit.  With ``src``,
+    row r reads ``h[src[r]]`` and ``out[src[r]]`` (beam's parents).  One
+    launch.
   * `decode_gru_greedy(best, t, u, emitted_here, frame_bound, tokens, h,
     out, embed, w_ih, w_hh, b_ih, b_hh, blank, max_symbols)`: the same
     launch with greedy's masked update folded in: the emit mask from the
@@ -56,27 +67,31 @@ from warp_rnnt_tpu_torch.ops import _build
 # Kernels launched, counted where they are launched and nowhere else
 # (decode_joint launches three a call; a CUDA graph's replays launch
 # without Python, so a graphed loop counts its warm-up and capture only).
-LAUNCHES = {"decode_joint": 0, "decode_gru": 0}
+LAUNCHES = {"decode_joint": 0, "decode_gru": 0, "decode_beam_select": 0}
 
 NEG = -1.0e30  # the blank's score among the beam's label candidates
-MAX_K = 64  # top-k labels a row (csrc/decode_step.cu kMaxK)
+MAX_K = 64  # top-k labels a row, and beams a sample (csrc kMaxK)
+_HASH_MUL = 1000003
+_HASH_MASK = 0xFFFFFFFF
 
-# The argument blocks of decode_joint and decode_gru (csrc/decode_step.cu
-# lists their entries).
+# The argument blocks of decode_joint, decode_gru and decode_beam_select
+# (csrc/decode_step.cu lists their entries).
 _JOINT_ARGS = struct.Struct("<27q")
-_GRU_ARGS = struct.Struct("<27q")
-_LIB: list = []  # the loaded library and its two typed entries
+_GRU_ARGS = struct.Struct("<28q")
+_SELECT_ARGS = struct.Struct("<27q")
+_LIB: list = []  # the loaded library and its three typed entries
 
 
 def _entries():
     if not _LIB:
         lib = _build.load("decode_step")
-        for fn in (lib.decode_joint, lib.decode_gru):
+        entries = (lib.decode_joint, lib.decode_gru, lib.decode_beam_select)
+        for fn in entries:
             fn.argtypes = [ctypes.c_char_p]
             fn.restype = ctypes.c_int
         lib.decode_step_error_string.argtypes = [ctypes.c_int]
         lib.decode_step_error_string.restype = ctypes.c_char_p
-        _LIB[:] = [lib, lib.decode_joint, lib.decode_gru]
+        _LIB[:] = [lib, *entries]
     return _LIB
 
 
@@ -251,9 +266,13 @@ def decode_joint(enc, t, p0, pred_out, w_pre, b_pre, w_out, b_out,
     return out
 
 
-def decode_gru_plain(token, h, out, emit, embed, w_ih, w_hh, b_ih, b_hh):
-    """Plain torch version of `decode_gru`: `Predictor.step`'s embedding
-    and ``torch.gru_cell``, then the decoders' ``torch.where`` on emit."""
+def decode_gru_plain(token, h, out, emit, embed, w_ih, w_hh, b_ih, b_hh,
+                     src=None):
+    """Plain torch version of `decode_gru`: the rows of ``src`` gathered
+    (when given), `Predictor.step`'s embedding and ``torch.gru_cell``,
+    then the decoders' ``torch.where`` on emit."""
+    if src is not None:
+        h, out = h.index_select(0, src.long()), out.index_select(0, src.long())
     token = token.long()
     emb = F.embedding(token.clamp(min=0), embed)
     emb = torch.where(token[:, None] < 0, emb.new_zeros(()), emb)
@@ -306,16 +325,19 @@ def _gru_check(token, h, out, embed, w_ih, w_hh, b_ih, b_hh):
 
 
 def _launch_gru(token, h, out, emit, embed, w_ih, w_hh, b_ih, b_hh,
-                greedy=None, L=0, blank=0, max_symbols=0):
+                greedy=None, L=0, blank=0, max_symbols=0, src=None):
     """One decode_gru launch; ``greedy`` = (t, u, emitted_here,
-    frame_bound, tokens) folds greedy's update in.  Returns (h', out')
-    and, with ``greedy``, (t', u', emitted_here', tokens')."""
+    frame_bound, tokens) folds greedy's update in; ``src`` maps each row
+    to the row of h and out it reads.  Returns (h', out') and, with
+    ``greedy``, (t', u', emitted_here', tokens')."""
     rows, H = h.shape
     dev = h.device
     named = [("token", token), ("h", h), ("out", out), ("embed", embed),
              ("w_ih", w_ih), ("w_hh", w_hh), ("b_ih", b_ih), ("b_hh", b_hh)]
     if emit is not None:
         named.append(("emit", emit))
+    if src is not None:
+        named.append(("src", src))
     if greedy is not None:
         named += list(zip(("t", "u", "emitted_here", "frame_bound", "tokens"),
                           greedy))
@@ -335,7 +357,8 @@ def _launch_gru(token, h, out, emit, embed, w_ih, w_hh, b_ih, b_hh,
             w_ih.data_ptr(), w_hh.data_ptr(), b_ih.data_ptr(),
             b_hh.data_ptr(), 0 if emit is None else emit.data_ptr(),
             h_out.data_ptr(), out_out.data_ptr(), *ints, embed.shape[0],
-            rows, H, L, blank, max_symbols, _build.raw_stream(index))
+            rows, H, L, blank, max_symbols, _build.raw_stream(index),
+            0 if src is None else src.data_ptr())
         code = _build.on_device(index, lib[2], args)
         if code:
             _build.check(lib[0], "decode_step_error_string", code,
@@ -344,21 +367,26 @@ def _launch_gru(token, h, out, emit, embed, w_ih, w_hh, b_ih, b_hh,
     return h_out, out_out, fields
 
 
-def decode_gru(token, h, out, emit, embed, w_ih, w_hh, b_ih, b_hh):
+def decode_gru(token, h, out, emit, embed, w_ih, w_hh, b_ih, b_hh,
+               src=None):
     """h (rows, H), out (rows, H), token (rows,) int32, emit (rows,) bool,
     the GRU's fp32 parameters (embed (vocab, H); w_ih, w_hh (3H, H), gates
-    r, z, n; b_ih, b_hh (3H,)) -> (h', out'): the GRU cell where emit
-    holds, the inputs elsewhere.  A CUDA tensor launches the kernel, a CPU
-    tensor runs the plain version."""
+    r, z, n; b_ih, b_hh (3H,)), optionally src (rows,) int32 in [0, rows)
+    -> (h', out'): row r's inputs are ``h[src[r]]`` and ``out[src[r]]``
+    (row r without ``src``), the GRU cell where emit holds, those inputs
+    elsewhere.  A CUDA tensor launches the kernel, a CPU tensor runs the
+    plain version."""
     if _build.on_cpu(h):
         return decode_gru_plain(token, h, out, emit, embed, w_ih, w_hh, b_ih,
-                                b_hh)
+                                b_hh, src)
     rows, _ = _gru_check(token, h, out, embed, w_ih, w_hh, b_ih, b_hh)
-    if tuple(emit.shape) != (rows,) or emit.dtype != torch.bool:
-        _fail(f"emit must be ({rows},) bool, got {tuple(emit.shape)}"
-              f" {emit.dtype}")
+    for name, x, dtype in (("emit", emit, torch.bool),
+                           ("src", src, torch.int32)):
+        if x is not None and (tuple(x.shape) != (rows,) or x.dtype != dtype):
+            _fail(f"{name} must be ({rows},) {dtype}, got {tuple(x.shape)}"
+                  f" {x.dtype}")
     return _launch_gru(token, h, out, emit, embed, w_ih, w_hh, b_ih,
-                       b_hh)[:2]
+                       b_hh, src=src)[:2]
 
 
 def decode_gru_greedy(best, t, u, emitted_here, frame_bound, tokens, h, out,
@@ -390,8 +418,168 @@ def decode_gru_greedy(best, t, u, emitted_here, frame_bound, tokens, h, out,
     return t, u, emitted_here, tokens, h_new, out_new
 
 
+def hash_step(hcode, tok):
+    """The rolling prefix hash after appending ``tok``: JAX's uint32
+    ``h * 1000003 + tok + 1`` with wrap-around, on int64 in [0, 2^32)
+    (the product stays below 2^53)."""
+    return (hcode * _HASH_MUL + (tok.long() + 1)) & _HASH_MASK
+
+
+def gather_beams(x, parent):
+    """x (N, B, ...) -> x[n, parent[n, b], ...]."""
+    idx = parent.long().reshape(parent.shape + (1,) * (x.dim() - 2))
+    return x.gather(1, idx.expand(parent.shape + x.shape[2:]))
+
+
+def decode_beam_select_plain(t, scores, tokens, u, nexp, waiting, hcode,
+                             lp_blank, top_lp, top_ids, frame_bound,
+                             max_symbols):
+    """Plain torch version of `decode_beam_select`: the beam-search
+    step's torch code between the joint and the GRU, and after the GRU,
+    as `models.beam_search.beam_drain` ran it."""
+    N, B, L = tokens.shape
+    K = top_lp.shape[1]
+    dev = tokens.device
+    lp_blank = lp_blank.reshape(N, B)
+    top_lp, top_ids = top_lp.reshape(N, B, K), top_ids.reshape(N, B, K)
+    l_iota = torch.arange(L, device=dev)[None, None, :]
+    i_iota = torch.arange(B, device=dev)[None, :, None]
+    j_iota = torch.arange(B, device=dev)[None, None, :]
+    frame_on = (t < frame_bound)[:, None]  # (N, 1)
+
+    # a beam may expand while its sample's frame is live, it has not
+    # settled this frame, it has token budget and is under the cap
+    alive = scores > 0.5 * NEG
+    expandable = (frame_on & alive & ~waiting & (u < L)
+                  & (nexp < max_symbols))
+
+    # column 0: blank (active beams) / self (settled or off-frame)
+    settle = torch.where(frame_on & ~waiting, scores + lp_blank, scores)
+    # columns 1..K: the top-K labels
+    lab_scores = torch.where(expandable[..., None],
+                             scores[..., None] + top_lp, NEG)
+    cand = torch.cat([settle[..., None], lab_scores], -1)
+
+    new_scores, sel = top_k_small(cand.reshape(N, B * (K + 1)), B)
+    parent = sel // (K + 1)  # (N, B)
+    kind = sel % (K + 1)  # 0 = blank/self
+
+    tokens = gather_beams(tokens, parent)
+    u = gather_beams(u, parent)
+    nexp = gather_beams(nexp, parent)
+    hcode = gather_beams(hcode, parent)
+    scores = new_scores
+    emit = kind > 0
+
+    new_tok = gather_beams(top_ids, parent).gather(
+        2, (kind - 1).clamp(min=0).long()[..., None])[..., 0]  # (N, B)
+    tokens = torch.where(emit[..., None] & (l_iota == u[..., None]),
+                         new_tok[..., None], tokens)
+    u = torch.where(emit, u + 1, u)
+    nexp = torch.where(emit, nexp + 1, nexp)
+    hcode = torch.where(emit, hash_step(hcode, new_tok), hcode)
+    # blank/self settles the beam for this frame; emits stay active
+    waiting = frame_on & ~emit
+
+    # merge duplicate hypotheses: the same hash (the same prefix, but
+    # for a 32-bit collision), length and within-frame state are one
+    # hypothesis; the better-scored copy survives (ties: lower index)
+    same = ((hcode[:, :, None] == hcode[:, None, :])
+            & (u[:, :, None] == u[:, None, :])
+            & (waiting[:, :, None] == waiting[:, None, :]))
+    s_i = scores[:, :, None]
+    s_j = scores[:, None, :]
+    beats = (s_i > s_j) | ((s_i == s_j) & (i_iota < j_iota))
+    killed = (same & beats & (i_iota != j_iota)).any(dim=1)
+    scores = torch.where(killed, NEG, scores)
+
+    # a sample whose live beams are all settled is done with this
+    # frame: advance its pointer and re-arm every beam
+    active = ~waiting & (scores > 0.5 * NEG)
+    advance = (t < frame_bound) & ~active.any(dim=1)
+    t = torch.where(advance, t + 1, t)
+    waiting = waiting & ~advance[:, None]
+    nexp = torch.where(advance[:, None], 0, nexp)
+    src = (torch.arange(N, dtype=torch.int32, device=dev)[:, None] * B
+           + parent)
+    return (t, scores, tokens, u, nexp, waiting, hcode, emit.reshape(-1),
+            new_tok.reshape(-1), src.reshape(-1))
+
+
+def _select_check(t, scores, tokens, u, nexp, waiting, hcode, lp_blank,
+                  top_lp, top_ids, frame_bound):
+    """Check decode_beam_select's arguments; returns (N, B, L, K)."""
+    if tokens.dim() != 3 or tokens.dtype != torch.int32:
+        _fail(f"tokens must be (N, B, L) int32, got {tuple(tokens.shape)}"
+              f" {tokens.dtype}")
+    N, B, L = tokens.shape
+    if not 1 <= B <= MAX_K:
+        _fail(f"beam width {B} outside [1, {MAX_K}]")
+    if top_lp.dim() != 2 or top_lp.shape[0] != N * B:
+        _fail(f"top_lp must be ({N * B}, K), got {tuple(top_lp.shape)}")
+    K = top_lp.shape[1]
+    if not 1 <= K <= MAX_K:
+        _fail(f"K={K} outside [1, {MAX_K}]")
+    for name, x, shape, dtype in (
+            ("t", t, (N,), torch.int32), ("scores", scores, (N, B),
+                                          torch.float32),
+            ("u", u, (N, B), torch.int32), ("nexp", nexp, (N, B), torch.int32),
+            ("waiting", waiting, (N, B), torch.bool),
+            ("hcode", hcode, (N, B), torch.int64),
+            ("lp_blank", lp_blank, (N * B,), torch.float32),
+            ("top_lp", top_lp, (N * B, K), torch.float32),
+            ("top_ids", top_ids, (N * B, K), torch.int32),
+            ("frame_bound", frame_bound, (N,), torch.int32)):
+        if tuple(x.shape) != shape or x.dtype != dtype:
+            _fail(f"{name} must be {shape} {dtype}, got {tuple(x.shape)}"
+                  f" {x.dtype}")
+    return N, B, L, K
+
+
+def decode_beam_select(t, scores, tokens, u, nexp, waiting, hcode, lp_blank,
+                       top_lp, top_ids, frame_bound, max_symbols):
+    """The beam-search step between the joint and the GRU: the state's t
+    (N,) int32, scores (N, B) fp32, tokens (N, B, L) int32, u and nexp
+    (N, B) int32, waiting (N, B) bool, hcode (N, B) int64;
+    `decode_joint`'s beam outputs lp_blank (N B,), top_lp (N B, K) fp32,
+    top_ids (N B, K) int32; frame_bound (N,) int32; the emission cap ->
+    (t', scores', tokens', u', nexp', waiting', hcode', emit (N B,) bool,
+    new_tok (N B,) int32, src (N B,) int32: row n B + b's parent row),
+    as `decode_beam_select_plain`, bit for bit.  B and K at most
+    `MAX_K`.  A CUDA tensor launches the kernel, a CPU tensor runs the
+    plain version."""
+    if _build.on_cpu(tokens):
+        return decode_beam_select_plain(t, scores, tokens, u, nexp, waiting,
+                                        hcode, lp_blank, top_lp, top_ids,
+                                        frame_bound, max_symbols)
+    ins = (t, scores, tokens, u, nexp, waiting, hcode, lp_blank, top_lp,
+           top_ids, frame_bound)
+    N, B, L, K = _select_check(*ins)
+    dev = tokens.device
+    _ready(zip(("t", "scores", "tokens", "u", "nexp", "waiting", "hcode",
+                "lp_blank", "top_lp", "top_ids", "frame_bound"), ins), dev)
+    outs = tuple(torch.empty_like(x) for x in ins[:7])
+    rows = N * B
+    outs += (torch.empty((rows,), dtype=torch.bool, device=dev),
+             torch.empty((rows,), dtype=torch.int32, device=dev),
+             torch.empty((rows,), dtype=torch.int32, device=dev))
+    if N:
+        lib = _LIB if _LIB else _entries()
+        index = dev.index
+        args = _SELECT_ARGS.pack(
+            *(x.data_ptr() for x in ins), *(x.data_ptr() for x in outs), N,
+            B, K, L, max_symbols, _build.raw_stream(index))
+        code = _build.on_device(index, lib[3], args)
+        if code:
+            _build.check(lib[0], "decode_step_error_string", code,
+                         "decode_beam_select")
+        LAUNCHES["decode_beam_select"] += 1
+    return outs
+
+
 # The plain versions under the wrappers' names: a decoder's ``ops`` for a
 # plain decode on any device (the card checks' reference).
 PLAIN = types.SimpleNamespace(
     __name__="plain", decode_joint=decode_joint_plain,
-    decode_gru=decode_gru_plain, decode_gru_greedy=decode_gru_greedy_plain)
+    decode_gru=decode_gru_plain, decode_gru_greedy=decode_gru_greedy_plain,
+    decode_beam_select=decode_beam_select_plain)
