@@ -304,6 +304,19 @@ replay's profile gating beam on the joint, the selection and the GRU
 (the last two once a step), at most 5 step launches (greedy 4), and no
 gather, index_select, argmax or cat kernel left in a step.
 `decode_beam_select` joins the kernels line.
+Slice 19 (the dense and GRU kernels redesigned: K split over a
+thread-block cluster, each block's share staged at once, programmatic
+dependent launch) adds, inside phase 15: each step kernel timed with L2
+warm and flushed, in turns with the first kernels
+(`csrc/decode_step_baseline.cu`, `decode_step_cases.BASELINE`), beside a
+bf16 `F.linear` a dense layer and a `torch.gru_cell` (yardsticks the
+port never calls); the kernels at a wide model's widths (hidden 1024,
+V=5000, 16 and 64 rows) and at widths whose K shares take a ring of
+stages, against the plain versions under the same tolerances; two calls
+of each kernel bit for bit; a captured step's programmatic edges; and
+one `time` line a decoder with the graphed step's us on the first
+kernels and on these, in turns.  The kernels line gives each step
+kernel's clusters and ptxas's registers, shared memory and spills.
 It prints the kernels' JSON line and the card's line, and last
 `{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}`.
 Without a CUDA device, or without the package beside it, it exits 1 and
@@ -2150,19 +2163,117 @@ def decode_step_times(torch, bd, dsc, model, recs, d, card):
         k = joint[10] if len(joint) > 10 else None
         bounds = bd.kernel_bounds(model, d["N"], rows, k, d["max_length"],
                                   emitting)
-        out[dec] = {}
+        out[dec] = {"yardsticks": times.pop("yardsticks")}
         for kernel, t in times.items():
             us, by = bounds[kernel]
             out[dec][kernel] = {**t, "bound_ms": us / 1e3, "bound_by": by,
                                 "rows": rows, "emitting": emitting}
+            turns = (f"; the first kernels (`decode_step_baseline.cu`) in"
+                     f" turns, baseline / this / this / baseline: flushed"
+                     f" {t['baseline_ms'][0]:.6f} / {t['turns_ms'][0]:.6f} /"
+                     f" {t['turns_ms'][1]:.6f} / {t['baseline_ms'][1]:.6f},"
+                     f" warm {t['baseline_warm_ms'][0]:.6f} /"
+                     f" {t['turns_warm_ms'][0]:.6f} /"
+                     f" {t['turns_warm_ms'][1]:.6f} /"
+                     f" {t['baseline_warm_ms'][1]:.6f}"
+                     if "turns_ms" in t else "")
             print(f"time decode step {kernel} {dec} ({rows} rows,"
-                  f" {emitting} emitting): {t['ms']:.6f} ms on the device"
-                  f" (plain {t['plain_ms']:.6f}), bound {us / 1e3:.6f} ms"
-                  f" ({by}) [{card}]")
+                  f" {emitting} emitting): {t['ms']:.6f} ms on the device,"
+                  f" L2 flushed; {t['warm_ms']:.6f} with L2 warm (plain"
+                  f" {t['plain_ms']:.6f}), bound {us / 1e3:.6f} ms ({by})"
+                  f"{turns} [{card}]")
+        print(f"time decode step yardsticks {dec} ({rows} rows; one PyTorch"
+              f" call a layer, never called by the port; flushed / warm"
+              f" ms): {json.dumps(out[dec]['yardsticks'])} [{card}]")
     ways = dsc.gru_row_map_times(step)  # the last decoder's: beam's
     print(f"time decode step decode_gru beam ({rows} rows, {emitting}"
           f" emitting) by its row map, in turns (none, identity, recorded,"
           f" recorded, identity, none): {json.dumps(ways)} ms [{card}]")
+    return out
+
+
+def decode_redesign_checks(torch, dsc, recs, seed):
+    """The dense and GRU kernels at a wide model's widths and at widths
+    that take a ring (`decode_step_cases.wide_cases`, the tolerances as
+    at bench width), two calls of each bit for bit (`check_deterministic`,
+    WIDE and RING), and a captured greedy step's programmatic edges
+    (`pdl_edges`: at least one where the library was built with them).
+    Returns {"wide", "ring": max_abs_err by kernel, "plans",
+    "deterministic_calls", "pdl": (programmatic, edges)}."""
+    from warp_rnnt_tpu_torch.ops import decode_step as ds
+
+    wide = dsc.wide_cases(seed)
+    errs = {}
+    for name in ("wide", "ring"):
+        cases = {k: v for k, v in wide[name].items() if k != "plans"}
+        errs[name] = {kernel: max((c[kernel]["max_abs_err"]
+                                   for c in cases.values() if kernel in c),
+                                  default=0.0)
+                      for kernel in ("decode_joint", "decode_gru",
+                                     "decode_gru_greedy")}
+        print(f"decode step kernels at {name} widths"
+              f" {json.dumps(dsc.WIDE if name == 'wide' else dsc.RING)},"
+              f" (rows, samples, k)"
+              f" {dsc.WIDE_ROWS if name == 'wide' else dsc.RING_ROWS}, add"
+              f" and concat, fp32 and bf16, against the plain versions"
+              f" (the same tolerances): {json.dumps(cases)}; plans"
+              f" {json.dumps(wide[name]['plans'])}")
+    calls = (dsc.check_deterministic(seed)
+             + dsc.check_deterministic(seed, dims=dsc.RING,
+                                       rows_list=dsc.RING_ROWS))
+    g = recs["greedy"].calls
+    programmatic, edges = dsc.pdl_edges(g["decode_joint"][len(g["decode_joint"]) // 2],
+                                        g["decode_gru_greedy"][-1])
+    if ds.pdl_built() and programmatic < 1:
+        raise AssertionError(f"a captured step has no programmatic edge"
+                             f" ({edges} edges)")
+    print(f"decode step kernels: {calls} calls twice on the same arguments"
+          f" (wide and ring widths), equal bit for bit; a captured greedy"
+          f" step (decode_joint, decode_gru_greedy): {programmatic}"
+          f" programmatic edges of {edges} (built with programmatic"
+          f" dependent launch: {ds.pdl_built()})")
+    return {**errs, "deterministic_calls": calls, "pdl": (programmatic, edges),
+            "plans": {k: wide[k]["plans"] for k in ("wide", "ring")}}
+
+
+def decode_step_in_turns(dsc, model, feats, xn, d, card):
+    """The graphed greedy and beam step's device us and each step kernel's
+    us in it (a replay's profile) on the first kernels and on these, in
+    turns (`decode_step_cases.step_times`); one `time` line each."""
+    out = dsc.step_times(model, feats, xn, d["max_length"], d["beam"])
+    for name, r in out.items():
+        ours = [x["step_us"] for x in r["kernels"]]
+        base = [x["step_us"] for x in r["baseline"]]
+        ms = [r[w][i]["drain_ms"] for w, i in (("baseline", 0), ("kernels", 0),
+                                                  ("kernels", 1), ("baseline", 1))]
+        print(f"time decode step graphed {name} (unroll 16) in turns,"
+              f" first kernels / these / these / first kernels:"
+              f" {base[0]:.3f} / {ours[0]:.3f} / {ours[1]:.3f} /"
+              f" {base[1]:.3f} us a step, a drain of the encoder's frames"
+              f" {ms[0]:.3f} / {ms[1]:.3f} / {ms[2]:.3f} / {ms[3]:.3f} ms;"
+              f" kernels' us a step under the"
+              f" profiler: these {json.dumps(r['kernels'][0]['kernel_us'])},"
+              f" first {json.dumps(r['baseline'][0]['kernel_us'])} [{card}]")
+    return out
+
+
+def ptxas_of(report, kernel):
+    """{readable name: ptxas's registers, shared bytes, spills} of the
+    entry functions of ``report`` (`_build.ptxas_report`) named for
+    ``kernel``."""
+    import re
+
+    out = {}
+    for name, r in report.items():
+        m = re.search(r"\d(decode_\w+?_kernel)(?:I(13__nv_bfloat16|f)Lb([01])E)?",
+                      name)
+        if m is None or not m.group(1).startswith(kernel):
+            continue
+        label = m.group(1)
+        if m.group(2):
+            label += (f"<{'bf16' if m.group(2) != 'f' else 'fp32'},"
+                      f" {'true' if m.group(3) == '1' else 'false'}>")
+        out[label] = r
     return out
 
 
@@ -2206,6 +2317,8 @@ def phase_serving(torch, wt, timing, card):
     from warp_rnnt_tpu_torch.benchmarks import serving_cases as sc
     from warp_rnnt_tpu_torch.models import beam_decode, greedy_decode
     from warp_rnnt_tpu_torch.benchmarks.profile_loss import profile_step
+    from warp_rnnt_tpu_torch.ops import _build
+    from warp_rnnt_tpu_torch.ops import decode_step as ds
     from warp_rnnt_tpu_torch.utils import device_loop as dl
 
     inputs = sc.restricted_inputs(SEED + 51, **sc.RESTRICTED)
@@ -2297,6 +2410,8 @@ def phase_serving(torch, wt, timing, card):
           f" {dsc.SELECT_BEAMS}): equal to the plain version bit for bit;"
           f" {json.dumps(select_odd)}")
     step_times = decode_step_times(torch, bd, dsc, model, recs, d, card)
+    redesign = decode_redesign_checks(torch, dsc, recs, SEED + 65)
+    in_turns = decode_step_in_turns(dsc, model, feats, xn, d, card)
     del recs
     captures = sc.check_graph_cache(model, feats, xn, d["max_length"])
     print(f"serving graph cache: a second greedy decode of one shape"
@@ -2391,6 +2506,21 @@ def phase_serving(torch, wt, timing, card):
               f" {chunk['plain']['chunk_ms']} ms vs"
               f" {chunk['graphed']['chunk_ms']} ms a chunk [{card}]")
     step_entries = []
+    ptxas = _build.ptxas_report("decode_step")
+    # each launch's cluster (blocks that split K) at greedy's and beam's
+    # rows (`decode_step.dense_plan`, `gru_plan`)
+    sd = sc.DECODE
+    step_plans = {
+        "decode_joint": {
+            dec: {"hidden": ds.dense_plan(rows, sd["H"], sd["H"], 2, True)[
+                      "cluster"],
+                  "logits": ds.dense_plan(rows, sd["H"], sd["V"], 2, False)[
+                      "cluster"]}
+            for dec, rows in (("greedy", sd["N"]),
+                              ("beam", sd["N"] * sd["beam"]))},
+        "decode_gru": {dec: ds.gru_plan(rows, sd["H"])["cluster"]
+                       for dec, rows in (("greedy", sd["N"]),
+                                         ("beam", sd["N"] * sd["beam"]))}}
     for kernel in ("decode_joint", "decode_gru"):
         greedy, beam = step_times["greedy"][kernel], step_times["beam"][kernel]
         errs_k = {cd: {dec: r[dec][name]["max_abs_err"] for dec in r
@@ -2410,7 +2540,21 @@ def phase_serving(torch, wt, timing, card):
             "max_abs_err_by_dtype": errs_k,
             "greedy": greedy, "beam": beam,
             "odd_max_abs_err": max(c[k]["max_abs_err"] for c in odd.values()
-                                   for k in c if k.startswith(kernel))})
+                                   for k in c if k.startswith(kernel)),
+            "wide_max_abs_err": max(e for k, e in redesign["wide"].items()
+                                    if k.startswith(kernel)),
+            "ring_max_abs_err": max(e for k, e in redesign["ring"].items()
+                                    if k.startswith(kernel)),
+            "warm_ms": greedy["warm_ms"],
+            "baseline_ms": greedy["baseline_ms"],
+            "baseline_warm_ms": greedy["baseline_warm_ms"],
+            "in_step_us": {
+                name: {who: [sum(u for key, u in x["kernel_us"].items()
+                                 if kernel in key) for x in runs]
+                       for who, runs in in_turns[name].items()}
+                for name in ("greedy", "beam")},
+            "cluster": step_plans[kernel],
+            "ptxas": ptxas_of(ptxas, kernel)})
     beam = step_times["beam"]["decode_beam_select"]
     errs_k = {cd: {dec: r[dec]["max_abs_err"] for dec in r}
               for cd, r in select_checks.items()}
@@ -2428,7 +2572,9 @@ def phase_serving(torch, wt, timing, card):
             if "decode_beam_select" in key)},
         "max_abs_err_by_dtype": errs_k, "beam": beam,
         "adversarial_max_abs_err": max(
-            r["max_abs_err"] for r in select_odd.values())})
+            r["max_abs_err"] for r in select_odd.values()),
+        "warm_ms": beam["warm_ms"], "cluster": None,
+        "ptxas": ptxas_of(ptxas, "decode_beam_select")})
     return launches, errs, step_entries
 
 
@@ -2791,9 +2937,9 @@ def main():
     print(f"card: {card} (torch {torch.__version__}, CUDA {torch.version.cuda})")
 
     t0 = time.perf_counter()
-    _build.build_all()
+    _build.build_all((*_build.SOURCES, *_build.YARDSTICKS))
     print(f"build: {time.perf_counter() - t0:.1f} s (nvcc, {len(_build.SOURCES)}"
-          " sources in parallel)")
+          f" sources and {len(_build.YARDSTICKS)} yardstick in parallel)")
 
     inputs = make_inputs(torch, N, T, U, V, SEED)
     log_probs, labels, xn, yn = inputs

@@ -11,7 +11,14 @@ checks of `warp_rnnt_tpu_torch/benchmarks/decode_step_cases.py`, which
     beam decode visits; a beam decode and a streaming beam session on the
     kernels equal to the parent's path (the selection plain);
   * the decoders launching the kernels (beam's selection: with the
-    adversarial states).
+    adversarial states);
+  * each kernel at a wide model's widths (hidden 1024, V=5000, 16 and 64
+    rows) and at widths whose K shares take a ring of stages, against
+    the plain versions under the same tolerances; two calls of each
+    kernel bit for bit (the clusters' sums in a fixed order);
+  * the step captured in a CUDA graph with programmatic edges between
+    its launches, and greedy and beam decodes through the graphs equal
+    to the eager loop bit for bit.
 This file imports no JAX (the card's machine runs it).
 """
 
@@ -82,3 +89,35 @@ def test_decoders_launch_the_kernels(cuda_device):
         _, launches = sc.launched(fn)
         assert launches.get("decode_joint", 0) > 0, name
         assert launches.get("decode_gru", 0) > 0, name
+
+
+def test_wide_and_ring_widths_kernels_match_plain(cuda_device):
+    out = dsc.wide_cases()
+    for name, rows_list in (("wide", dsc.WIDE_ROWS), ("ring", dsc.RING_ROWS)):
+        cases = {k: v for k, v in out[name].items() if k != "plans"}
+        assert len(cases) == 2 * 2 * len(rows_list)
+    ring = out["ring"]["plans"]
+    assert all(p["hidden"]["stages"] > 1 and p["gru"]["stages"] > 1
+               for p in ring.values())
+
+
+def test_kernels_deterministic(cuda_device):
+    runs = sum(2 if k is not None else 3 for _, _, k in dsc.WIDE_ROWS)
+    assert dsc.check_deterministic() == 2 * 2 * runs
+    assert dsc.check_deterministic(dims=dsc.RING, rows_list=dsc.RING_ROWS) > 0
+
+
+@pytest.mark.parametrize("cd", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_graphed_step_has_programmatic_edges_and_equals_eager(cuda_device,
+                                                              cd):
+    joint, _, greedy = dsc.odd_args(3, 32, 32, None, cd)
+    programmatic, edges = dsc.pdl_edges(joint, greedy)
+    assert programmatic >= 1 and edges >= programmatic
+    d = dict(N=4, T=96, F=20, H=64, V=64, beam=4, max_length=40)
+    model = sc.carried_model(d, 9, "cuda", cd)
+    feats = sc.features(10, d["N"], d["T"], d["F"])
+    xn = sc.ragged(d["N"], d["T"])
+    with sc.no_tf32():
+        loops = sc.check_graphed(model, feats, xn, d["max_length"], d["beam"])
+    assert set(loops) == {"greedy", "beam"}

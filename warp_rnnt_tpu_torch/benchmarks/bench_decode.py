@@ -48,7 +48,8 @@ PROFILED = 1  # decodes under the profiler
 TOP = 6  # kernels listed by device time a decode
 REPLAYS = 20  # graph replays timed for the device us a step
 GRAPH_KEYS = ("capture_ms", "graph_pool_mb", "graph_kernels_per_step",
-              "graph_step_us", "graph_step_kernels", "graph_step_replaced")
+              "graph_step_us", "graph_step_kernels", "graph_step_kernel_us",
+              "graph_step_replaced")
 
 
 def loop_mode(plain=False, unroll=None):
@@ -76,17 +77,20 @@ REPLACED = ("gemm", "gru_cell", "softmax", "tanh", "gather", "indexselect",
 ROUND_TAIL = {"catarray": 1}
 
 
-def step_kernels(rows, unroll):
+def step_kernels(rows, unroll, us=None):
     """From a graph replay's profile ``rows`` [(ms, launches, name)] of
     ``unroll`` steps (one round): ({name: launches a step} of the step's
     kernels, [names of kernels the step's kernels replaced that still
-    run, past the round's own `ROUND_TAIL`])."""
+    run, past the round's own `ROUND_TAIL`]); ``us``, a dict, receives
+    each step kernel's device us a step."""
     ours, left = {}, []
     tail = dict(ROUND_TAIL)
-    for _, n, key in rows:
+    for ms, n, key in rows:
         if any(k in key for k in STEP_KERNELS):
             name = key[:100]
             ours[name] = ours.get(name, 0) + n / unroll
+            if us is not None:
+                us[name] = us.get(name, 0.0) + ms * 1e3 / unroll
             continue
         hit = next((k for k in REPLACED if k in key.lower()), None)
         if hit is None:
@@ -100,11 +104,13 @@ def step_kernels(rows, unroll):
 
 def graph_numbers(name):
     """{capture_ms, graph_pool_mb, graph_kernels_per_step,
-    graph_step_us, graph_step_kernels, graph_step_replaced} of the graph
-    of decoder ``name``'s last drain (`step_kernels`)."""
+    graph_step_us, graph_step_kernels, graph_step_kernel_us,
+    graph_step_replaced} of the graph of decoder ``name``'s last drain
+    (`step_kernels`; the kernels' us under the profiler)."""
     entry = LAST_GRAPH[name]
     prof = device_profile(entry.replay, 1, cpu=False)
-    ours, left = step_kernels(prof["rows"], entry.unroll)
+    us = {}
+    ours, left = step_kernels(prof["rows"], entry.unroll, us)
     entry.replay()  # the state is final: every step is masked
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -118,7 +124,8 @@ def graph_numbers(name):
             "graph_kernels_per_step": prof["kernels_per_call"] / entry.unroll,
             "graph_step_us": start.elapsed_time(end) * 1e3
             / (REPLAYS * entry.unroll),
-            "graph_step_kernels": ours, "graph_step_replaced": left}
+            "graph_step_kernels": ours, "graph_step_kernel_us": us,
+            "graph_step_replaced": left}
 
 
 def step_work(model, samples, rows, k=None, L=0, emitting=None):

@@ -22,7 +22,12 @@ raises AssertionError on a failure and returns what it measured.
     through its plain version: every output equal bit for bit.
   * `check_records`: every recorded joint and GRU call; `odd_cases`:
     seeded arguments at odd widths (H=200, V=29, 5, 37 and 111 rows, the
-    concat joint) for both kernels in both dtypes.
+    concat joint) for both kernels in both dtypes; `wide_cases`: the same
+    at a wide model's widths (`WIDE`: hidden 1024, V=5000, 16 and 64
+    rows) and at widths whose K shares take a ring of stages (`RING`).
+    `check_deterministic`: two calls of each kernel, bit for bit (the
+    clusters add their partial sums in a fixed order).  `pdl_edges`: the
+    programmatic edges of a captured step's graph.
     `check_select_records`: every recorded `decode_beam_select` call;
     `select_cases`: hand-built adversarial states (`select_state`: tied
     candidates, duplicate prefixes that merge, beams at the emission cap
@@ -36,10 +41,16 @@ raises AssertionError on a failure and returns what it measured.
     of samples whose tokens are equal and the first position at which the
     others differ (reported, not gated: a step's logp moves by up to
     `logp_tol`, which can flip a near tie).
-  * `kernel_times`: each kernel's device ms (`timing.bench_graph`) beside
-    its plain version's on a recorded call; `gru_row_map_times`: a
-    recorded beam `decode_gru` call without a row map, with the identity
-    and with its parents' map, in turns.
+  * `kernel_times`: each kernel's device ms (`timing.bench_graph`) with
+    L2 warm (as the decode loop finds its weights) and flushed, in turns
+    with `BASELINE`'s (the step's first kernels, `csrc/
+    decode_step_baseline.cu`), beside its plain version's and the
+    yardsticks the port never calls (a bf16 `F.linear` per dense layer, a
+    `torch.gru_cell` on embedded rows); `gru_row_map_times`: a recorded
+    beam `decode_gru` call without a row map, with the identity and with
+    its parents' map, in turns.  `step_times`: the graphed greedy and beam
+    step's device us and each kernel's us in the step (a replay's
+    profile), on `BASELINE` and on the kernels, in turns.
 """
 
 from __future__ import annotations
@@ -47,6 +58,7 @@ from __future__ import annotations
 import types
 
 import torch
+from torch.nn import functional as F
 
 from warp_rnnt_tpu_torch.benchmarks import timing
 from warp_rnnt_tpu_torch.models import beam_search, decoding
@@ -60,6 +72,13 @@ EVERY = 16  # record every 16th call: ~32 steps of a 500-step decode
 # The odd widths: (rows, samples, k) at H=200, V=29, F=F'=200.
 ODD = dict(H=200, V=29, Hp=200, C=7, L=11)
 ODD_ROWS = ((5, 5, None), (37, 37, None), (15, 5, 3), (111, 37, 3))
+# A wide model (hidden 1024, V=5000) at 16 and 64 rows; and widths whose K
+# shares do not fit in shared memory (the joint's K = 8192 add, 16384
+# concat; the GRU's Hg = 2048), so the dense and GRU kernels run a ring.
+WIDE = dict(H=1024, V=5000, Hp=1024, C=7, L=11)
+WIDE_ROWS = ((16, 16, None), (64, 64, None), (64, 16, 4))
+RING = dict(H=64, V=40, Hp=8192, Hg=2048, C=3, L=5)
+RING_ROWS = ((16, 16, None), (64, 16, 4))
 
 
 def logp_tol(logits, dtype):
@@ -305,10 +324,14 @@ def check_records(recs):
     return out
 
 
-def odd_args(seed, rows, samples, k, dtype, mode="add", device="cuda"):
-    """Seeded arguments of both kernels at `ODD`'s widths: (joint args,
-    gru args, greedy gru args or None)."""
-    H, V, Hp, C, L = (ODD[x] for x in ("H", "V", "Hp", "C", "L"))
+def odd_args(seed, rows, samples, k, dtype, mode="add", device="cuda",
+             dims=ODD):
+    """Seeded arguments of both kernels at ``dims``' widths (the joint's
+    hidden H, vocabulary V, input width Hp, frames C, token buffer L; the
+    GRU's width Hg, Hp where absent): (joint args, gru args, greedy gru
+    args or None)."""
+    H, V, Hp, C, L = (dims[x] for x in ("H", "V", "Hp", "C", "L"))
+    Hg = dims.get("Hg", Hp)
     g = torch.Generator().manual_seed(seed)
 
     def normal(*shape, scale=1.0):
@@ -329,32 +352,34 @@ def odd_args(seed, rows, samples, k, dtype, mode="add", device="cuda"):
              normal(V, scale=0.1).to(dtype), mode, 2)
     if k is not None:
         joint = joint + (k,)
-    params = (normal(V, Hp, scale=Hp ** -0.5),
-              normal(3 * Hp, Hp, scale=Hp ** -0.5),
-              normal(3 * Hp, Hp, scale=Hp ** -0.5), normal(3 * Hp, scale=0.1),
-              torch.cat([torch.zeros(2 * Hp, device=device),
-                         normal(Hp, scale=0.1)]))
+    params = (normal(V, Hg, scale=Hg ** -0.5),
+              normal(3 * Hg, Hg, scale=Hg ** -0.5),
+              normal(3 * Hg, Hg, scale=Hg ** -0.5), normal(3 * Hg, scale=0.1),
+              torch.cat([torch.zeros(2 * Hg, device=device),
+                         normal(Hg, scale=0.1)]))
+    state = pred_out if Hg == Hp else normal(rows, Hg, scale=0.5)
     token = ints(-1, V, rows)  # -1: <sos>
     emit = ints(0, 2, rows).bool()
-    gru = (token, pred_out, normal(rows, Hp), emit, *params)
+    gru = (token, state, normal(rows, Hg), emit, *params)
     greedy = None
     if k is None:
         fb = ints(0, C + 6, rows)
         greedy = (ints(0, V, rows), t, ints(0, L + 1, rows), ints(0, 5, rows),
-                  fb, ints(0, V, rows, L), pred_out, normal(rows, Hp),
+                  fb, ints(0, V, rows, L), state, normal(rows, Hg),
                   *params, 2, 4)
     return joint, gru, greedy
 
 
-def odd_cases(seed=0, device="cuda"):
-    """Both kernels at `ODD`'s widths, each of `ODD_ROWS`, in bf16 and
-    fp32, add and concat.  Returns {case: {kernel: result}}."""
+def odd_cases(seed=0, device="cuda", dims=ODD, rows_list=ODD_ROWS):
+    """Both kernels at ``dims``' widths (default `ODD`'s), each of
+    ``rows_list`` (rows, samples, k), in bf16 and fp32, add and concat.
+    Returns {case: {kernel: result}}."""
     out = {}
     for dtype in (torch.float32, torch.bfloat16):
         for mode in ("add", "concat"):
-            for i, (rows, samples, k) in enumerate(ODD_ROWS):
+            for i, (rows, samples, k) in enumerate(rows_list):
                 joint, gru, greedy = odd_args(seed + i, rows, samples, k,
-                                              dtype, mode, device)
+                                              dtype, mode, device, dims)
                 case = f"{str(dtype)[6:]} {mode} rows={rows} k={k}"
                 out[case] = {"decode_joint": check_joint(joint),
                              "decode_gru": check_gru("decode_gru", gru)}
@@ -362,6 +387,92 @@ def odd_cases(seed=0, device="cuda"):
                     out[case]["decode_gru_greedy"] = check_gru(
                         "decode_gru_greedy", greedy)
     return out
+
+
+def wide_cases(seed=0, device="cuda"):
+    """`odd_cases` at `WIDE`'s widths and rows, then at `RING`'s, each
+    under the same tolerances: {"wide" | "ring": {case: {kernel:
+    result}}}, with each case's launch plans ({kernel: plan}) under
+    "plans"."""
+    out = {}
+    for name, dims, rows_list in (("wide", WIDE, WIDE_ROWS),
+                                  ("ring", RING, RING_ROWS)):
+        out[name] = odd_cases(seed, device, dims, rows_list)
+        out[name]["plans"] = {
+            f"rows={rows}": plans(rows, dims) for rows, _, _ in rows_list}
+    return out
+
+
+def plans(rows, dims, mode="add", elem=2):
+    """The launch plans at ``rows`` rows of ``dims``' widths:
+    {"hidden", "logits", "gru"}."""
+    K = dims["Hp"] * (2 if mode == "concat" else 1)
+    return {"hidden": ds.dense_plan(rows, K, dims["H"], elem, True,
+                                    mode == "concat"),
+            "logits": ds.dense_plan(rows, dims["H"], dims["V"], elem, False),
+            "gru": ds.gru_plan(rows, dims.get("Hg", dims["Hp"]))}
+
+
+def _outputs(x):
+    """A call's output tensors, flattened."""
+    if isinstance(x, torch.Tensor):
+        return [x]
+    return [t for part in x for t in _outputs(part)]
+
+
+@torch.inference_mode()
+def check_deterministic(seed=0, device="cuda", dims=WIDE,
+                        rows_list=WIDE_ROWS):
+    """Each kernel called twice on the same arguments at ``dims``' widths
+    (default `WIDE`), bf16 and fp32, add and concat: every output (and the
+    joint's log-probs) equal bit for bit.  Returns the calls compared."""
+    calls = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        for mode in ("add", "concat"):
+            for i, (rows, samples, k) in enumerate(rows_list):
+                joint, gru, greedy = odd_args(seed + i, rows, samples, k,
+                                              dtype, mode, device, dims)
+                runs = [("decode_joint", lambda lp: ds.decode_joint(
+                            *joint[:10], k, lp)),
+                        ("decode_gru", lambda lp: ds.decode_gru(*gru))]
+                if greedy is not None:
+                    runs.append(("decode_gru_greedy",
+                                 lambda lp: ds.decode_gru_greedy(*greedy)))
+                for name, fn in runs:
+                    got = []
+                    for _ in range(2):
+                        lp = torch.empty((rows, dims["V"]), device=device)
+                        got.append([*_outputs(fn(lp)), lp] if name ==
+                                   "decode_joint" else _outputs(fn(lp)))
+                    _sync(got[0][0])
+                    if not all(torch.equal(_bits(a), _bits(b))
+                               for a, b in zip(*got)):
+                        raise AssertionError(f"{name} {mode} {dtype} rows="
+                                             f"{rows}: two calls differ")
+                    calls += 1
+    return calls
+
+
+def pdl_edges(args_joint, args_gru, name="decode_gru_greedy"):
+    """A CUDA graph captured (`torch.cuda.graph`) around one `decode_joint`
+    and one ``name`` call: (programmatic edges, edges) of the captured
+    graph (`csrc/decode_step.cu` `decode_graph_edges`)."""
+    import ctypes
+
+    g = torch.cuda.CUDAGraph(keep_graph=True)
+    ds.decode_joint(*args_joint)  # built and warm, outside the capture
+    getattr(ds, name)(*args_gru)
+    torch.cuda.synchronize()
+    with torch.cuda.graph(g):
+        ds.decode_joint(*args_joint)
+        getattr(ds, name)(*args_gru)
+    lib, _ = ds._LIBS.get("decode_step") or ds._entries()
+    out = (ctypes.c_longlong * 2)()
+    code = lib.decode_graph_edges(ctypes.c_longlong(int(g.raw_cuda_graph())),
+                                  out)
+    if code:
+        raise RuntimeError(f"decode_graph_edges: CUDA error {code}")
+    return int(out[0]), int(out[1])
 
 
 def check_select_records(recs):
@@ -560,22 +671,129 @@ def token_agreement(model, feats, xn, max_length, beam, plain_outs):
     return out
 
 
+BASELINE_SOURCE = "decode_step_baseline"
+
+
+def _on_baseline(fn):
+    """``fn`` launching the kernels of `csrc/decode_step_baseline.cu`."""
+    def run(*args, **kwargs):
+        with ds.using(BASELINE_SOURCE):
+            return fn(*args, **kwargs)
+    return run
+
+
+# The step's first dense and GRU kernels (`csrc/decode_step_baseline.cu`)
+# behind the same wrappers, and the selection's kernel: the yardstick the
+# redesign is timed against in turns.
+BASELINE = types.SimpleNamespace(
+    __name__="baseline", decode_joint=_on_baseline(ds.decode_joint),
+    decode_gru=_on_baseline(ds.decode_gru),
+    decode_gru_greedy=_on_baseline(ds.decode_gru_greedy),
+    decode_beam_select=ds.decode_beam_select)
+
+
+def yardsticks(call_joint, call_gru, name):
+    """What one PyTorch call per layer computes at the step's shapes, never
+    called by the port: {"linear_hidden", "linear_logits": a bf16 (or the
+    joint's dtype) `F.linear` of the rows' inputs by the layer's weight,
+    "gru_cell": `torch.gru_cell` on the rows' embedded tokens}, each
+    (fn, args)."""
+    pred_out, w_pre, w_out = call_joint[3], call_joint[4], call_joint[6]
+    rows, K = pred_out.shape[0], w_pre.shape[0]
+    x = pred_out.new_zeros((rows, K), dtype=w_pre.dtype)
+    x[:, :pred_out.shape[1]] = pred_out
+    hid = x.new_zeros((rows, w_pre.shape[1]))
+    if name == "decode_gru":
+        token, h, _, _, embed, w_ih, w_hh, b_ih, b_hh = call_gru[:9]
+    else:
+        token, h, embed, w_ih, w_hh, b_ih, b_hh = (
+            call_gru[0], call_gru[6], *call_gru[8:13])
+    emb = F.embedding(token.long().clamp(min=0), embed)
+    return {"linear_hidden": (F.linear, (x, w_pre.t())),
+            "linear_logits": (F.linear, (hid, w_out.t())),
+            "gru_cell": (torch.gru_cell, (emb, h, w_ih, w_hh, b_ih, b_hh))}
+
+
 @torch.inference_mode()
 def kernel_times(call_joint, name, call_gru, calls=16, call_select=None):
-    """Device ms (CUDA graph, L2 flushed) of one recorded `decode_joint`
-    call, one ``name`` GRU call and, when given, one `decode_beam_select`
-    call, each beside its plain version's: {kernel: {"ms", "plain_ms"}}."""
+    """Device ms (CUDA graph, `timing.bench_graph`) of one recorded
+    `decode_joint` call, one ``name`` GRU call and, when given, one
+    `decode_beam_select` call: each with L2 warm (``warm``, as the decode
+    loop finds its weights) and flushed (``ms``), the joint's and the
+    GRU's in turns with `BASELINE`'s (baseline, kernel, kernel,
+    baseline), beside the plain version's (flushed), and the
+    `yardsticks` (warm, flushed): {kernel: {"ms", "warm_ms", "plain_ms",
+    "baseline_ms", "baseline_warm_ms": [two each], "turns_ms",
+    "turns_warm_ms": [two each]}, "yardsticks": {name: {"ms",
+    "warm_ms"}}}."""
     out = {}
-    kernels = [("decode_joint", ds.decode_joint, ds.decode_joint_plain,
-                call_joint),
-               ("decode_gru", getattr(ds, name), getattr(ds, f"{name}_plain"),
-                call_gru)]
+    kernels = [("decode_joint", ds.decode_joint, BASELINE.decode_joint,
+                ds.decode_joint_plain, call_joint),
+               ("decode_gru", getattr(ds, name), getattr(BASELINE, name),
+                getattr(ds, f"{name}_plain"), call_gru)]
     if call_select is not None:
-        kernels.append(("decode_beam_select", ds.decode_beam_select,
+        kernels.append(("decode_beam_select", ds.decode_beam_select, None,
                         ds.decode_beam_select_plain, call_select))
-    for kernel, fn, plain, args in kernels:
-        out[kernel] = {"ms": timing.bench_graph(fn, args, calls),
-                       "plain_ms": timing.bench_graph(plain, args, calls)}
+    for kernel, fn, base, plain, args in kernels:
+        r = {"plain_ms": timing.bench_graph(plain, args, calls)}
+        for key, flush in (("ms", 96 << 20), ("warm_ms", 0)):
+            if base is None:
+                r[key] = timing.bench_graph(fn, args, calls, flush)
+                continue
+            t = {"baseline": [], "kernel": []}
+            for who in ("baseline", "kernel", "kernel", "baseline"):
+                t[who].append(timing.bench_graph(
+                    base if who == "baseline" else fn, args, calls, flush))
+            r[key] = min(t["kernel"])
+            r[f"turns_{key}"] = t["kernel"]
+            r[f"baseline_{key}"] = t["baseline"]
+        out[kernel] = r
+    out["yardsticks"] = {
+        y: {"ms": timing.bench_graph(fn, args, calls),
+            "warm_ms": timing.bench_graph(fn, args, calls, 0)}
+        for y, (fn, args) in yardsticks(call_joint, call_gru, name).items()}
+    return out
+
+
+@torch.inference_mode()
+def step_times(model, feats, xn, max_length, beam):
+    """The graphed greedy and beam ``beam`` decodes' device us a step and
+    each step kernel's us a step (`bench_decode.graph_numbers`, one
+    replay's profile), and a whole drain's ms on the encoder's frames
+    (its graphs captured by a drain before it; CUDA events, the host's
+    reads of the loop's flag included), on `BASELINE` and on the kernels,
+    in turns (baseline, kernels, kernels, baseline): {decoder:
+    {"baseline" | "kernels": [{"step_us", "kernel_us": {name: us},
+    "drain_ms"}, ...]}}."""
+    from warp_rnnt_tpu_torch.benchmarks import bench_decode as bd
+
+    enc = model.encode(feats)
+    N = enc.shape[0]
+    out = {"greedy": {"baseline": [], "kernels": []},
+           "beam": {"baseline": [], "kernels": []}}
+
+    def drains(ops):
+        dec = decoding.greedy_state_init(model, N, max_length, ops=ops)
+        st = beam_search.beam_state_init(model, N, beam, max_length, ops=ops)
+        return {"greedy": lambda: decoding.greedy_drain(model, dec, enc, 0,
+                                                        xn, ops=ops),
+                "beam": lambda: beam_search.beam_drain(model, st, enc, 0, xn,
+                                                       ops=ops)}
+
+    for who, ops in (("baseline", BASELINE), ("kernels", ds),
+                     ("kernels", ds), ("baseline", BASELINE)):
+        for name, drain in drains(ops).items():
+            drain()  # captures the drain's graphs
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            drain()
+            end.record()
+            end.synchronize()
+            r = bd.graph_numbers(name)
+            out[name][who].append({"step_us": r["graph_step_us"],
+                                   "kernel_us": r["graph_step_kernel_us"],
+                                   "drain_ms": start.elapsed_time(end)})
     return out
 
 
@@ -595,3 +813,4 @@ def gru_row_map_times(call, calls=16):
     for way, a in (*ways, *ways[::-1]):
         out[way].append(timing.bench_graph(ds.decode_gru, a, calls))
     return out
+

@@ -4,11 +4,13 @@ Each `csrc/<name>.cu` is compiled by `nvcc` into its own shared library with a
 plain C interface and loaded with `ctypes`:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-         -Xcompiler -fPIC -o build/<name>-<hash>.so csrc/<name>.cu
+         -Xcompiler -fPIC -Xptxas -v -o build/<name>-<hash>.so csrc/<name>.cu
 
 No PyTorch headers are included, so a source compiles in seconds.  The file
 name carries a hash of the source and the flags, so an edited source is
-rebuilt and a stale library is never loaded.  Outputs go to
+rebuilt and a stale library is never loaded.  ptxas's report of each
+kernel's registers, shared memory and spills is kept beside the library
+(`<name>-<hash>.ptxas.txt`, read by `ptxas_report`).  Outputs go to
 `warp_rnnt_tpu_torch/build/` (git-ignored).  Libraries are written under a
 temporary name and renamed into place, so processes that build at once do
 not see a half-written file.  A failed `nvcc` raises with its stderr; there
@@ -33,9 +35,12 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC"]
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 SOURCES = ("lattice", "flat_write", "fused_joint", "packed", "gather",
            "decode_step")
+# Built on demand beside SOURCES, never loaded by the package itself: the
+# decode step's first kernels, the yardstick its benchmarks time in turns.
+YARDSTICKS = ("decode_step_baseline",)
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 
@@ -87,7 +92,46 @@ def _finish(name: str, job) -> None:
             f"nvcc failed on csrc/{name}.cu (exit {proc.returncode}):\n"
             f"{stdout}{stderr}"
         )
+    with open(_report_path(out), "w") as f:
+        f.write(stderr)
     os.replace(tmp, out)
+
+
+def _report_path(lib_path: str) -> str:
+    return lib_path[:-len(".so")] + ".ptxas.txt"
+
+
+def ptxas_report(name: str) -> dict:
+    """{kernel: {"registers", "smem_bytes", "spill_stores", "spill_loads",
+    "stack_bytes"}} from ptxas's report of the current build of
+    `csrc/<name>.cu` (built if missing); kernel names as ptxas prints
+    them (mangled), each entry function of the library."""
+    import re
+
+    build_all((name,))
+    with open(_report_path(_lib_path(name))) as f:
+        text = f.read()
+    out, fn = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            fn = m.group(1)
+            out[fn] = {}
+            continue
+        if fn is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores,"
+                      r" (\d+) bytes spill loads", line)
+        if m:
+            out[fn].update(stack_bytes=int(m.group(1)),
+                           spill_stores=int(m.group(2)),
+                           spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers(?:, used \d+ barriers)?"
+                      r"(?:, (\d+) bytes smem)?", line)
+        if m:
+            out[fn].update(registers=int(m.group(1)),
+                           smem_bytes=int(m.group(2) or 0))
+    return out
 
 
 def build_all(names=SOURCES) -> None:

@@ -40,6 +40,13 @@ bias (0, 0, bias_hn).
     frame pointers, budgets and ``best``, and the new t, u, emitted_here
     and token buffer.
 
+The launch plan of the dense and GRU kernels (`dense_plan`, `gru_plan`:
+the blocks a thread-block cluster that split K, each block's K share,
+the chunk and stages of its shared-memory ring, its dynamic shared
+bytes, the GRU's rows a block and K groups) is computed here from the
+shapes and passed in the argument blocks; the kernels refuse a plan
+whose shared bytes they compute otherwise.
+
 A CPU tensor runs the plain version beside each wrapper (the step's torch
 code as the decoders ran it before these kernels, on the lifted
 invariants); a CUDA tensor launches the kernels, and a failed build or
@@ -55,7 +62,9 @@ decode (`benchmarks/decode_step_cases.py`).
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import functools
 import struct
 import types
 
@@ -75,24 +84,195 @@ _HASH_MUL = 1000003
 _HASH_MASK = 0xFFFFFFFF
 
 # The argument blocks of decode_joint, decode_gru and decode_beam_select
-# (csrc/decode_step.cu lists their entries).
-_JOINT_ARGS = struct.Struct("<27q")
-_GRU_ARGS = struct.Struct("<28q")
+# (csrc/decode_step.cu lists their entries): the joint's and the GRU's
+# fields, then their plans.
+_JOINT_ARGS = struct.Struct("<37q")
+_GRU_ARGS = struct.Struct("<35q")
 _SELECT_ARGS = struct.Struct("<27q")
-_LIB: list = []  # the loaded library and its three typed entries
+
+# The launch plans' limits (csrc/decode_step.cu): shared memory a block
+# can use on Hopper, less what the kernels declare statically; blocks a
+# cluster (the portable most); stages of a ring.
+SMEM_MAX = 232448
+STATIC_SMEM = 2048
+CLUSTER_MAX = 8
+RING_STAGES = 3
+THREADS = 128  # a dense or GRU block
+ROW_TILE, COL_TILE = 32, 16  # a dense block's rows and columns
+GRU_UNITS = 32  # hidden units a GRU block
+K_STEP = 16  # K shares and chunks are multiples of it (mma.sync's K)
+DENSE_BLOCKS = 256  # a dense launch's blocks, at most (two an SM)
+GRU_BLOCKS = 132  # a GRU launch's blocks, at most (one an SM)
+GRU_SMEM = 112 * 1024  # a GRU block's dynamic shared bytes, at most (two an SM)
+GRU_BOX = 32  # k a box of the GRU's weights; its shares and chunks are multiples
+GRU_STAGES = 2  # a GRU ring's stages
+
+# The library the wrappers launch (`csrc/<name>.cu`; `using` switches it)
+# and each loaded library's typed entries.
+_SOURCE = ["decode_step"]
+_LIBS: dict = {}
 
 
 def _entries():
-    if not _LIB:
-        lib = _build.load("decode_step")
-        entries = (lib.decode_joint, lib.decode_gru, lib.decode_beam_select)
-        for fn in entries:
+    name = _SOURCE[0]
+    lib = _build.load(name)
+    entries = {}
+    for entry in ("decode_joint", "decode_gru", "decode_beam_select"):
+        fn = getattr(lib, entry, None)
+        if fn is not None:
             fn.argtypes = [ctypes.c_char_p]
             fn.restype = ctypes.c_int
-        lib.decode_step_error_string.argtypes = [ctypes.c_int]
-        lib.decode_step_error_string.restype = ctypes.c_char_p
-        _LIB[:] = [lib, *entries]
-    return _LIB
+        entries[entry] = fn
+    lib.decode_step_error_string.argtypes = [ctypes.c_int]
+    lib.decode_step_error_string.restype = ctypes.c_char_p
+    _LIBS[name] = (lib, entries)
+    return _LIBS[name]
+
+
+@contextlib.contextmanager
+def using(source):
+    """Launch the kernels of ``csrc/<source>.cu`` inside the block (whose
+    entries read the same argument blocks): the benchmarks' way to time
+    another build of the step in turns with this one."""
+    old = _SOURCE[0]
+    _SOURCE[0] = source
+    try:
+        yield
+    finally:
+        _SOURCE[0] = old
+
+
+def pdl_built():
+    """True where `csrc/decode_step.cu` was built with programmatic
+    dependent launch (its launches may start before the one before them
+    ends, in a CUDA graph too)."""
+    return bool(_build.load("decode_step").decode_step_pdl())
+
+
+def _launch(entry, args, index, what):
+    """Call ``entry`` of the current library on the packed ``args`` with
+    CUDA device ``index`` current; raise on a CUDA error."""
+    lib, entries = _LIBS.get(_SOURCE[0]) or _entries()
+    code = _build.on_device(index, entries[entry], args)
+    if code:
+        _build.check(lib, "decode_step_error_string", code, what)
+
+
+def _ceil(a, b):
+    return -(-a // b)
+
+
+def _cluster(tiles, blocks):
+    """The largest power of two, at most `CLUSTER_MAX`, whose multiple of
+    ``tiles`` is at most ``blocks`` (1 where none is)."""
+    cluster = CLUSTER_MAX
+    while cluster > 1 and cluster * tiles > blocks:
+        cluster //= 2
+    return cluster
+
+
+def _k_split(K, cluster, step=K_STEP):
+    """(cluster, K share): ``cluster`` (a power of two, at most
+    `CLUSTER_MAX`) halved until every rank's share of K, a multiple of
+    ``step``, holds some of K."""
+    while True:
+        share = _ceil(_ceil(K, cluster), step) * step
+        if cluster == 1 or (cluster - 1) * share < K:
+            return cluster, share
+        cluster //= 2
+
+
+def _ring(share, smem_of, budget=SMEM_MAX - STATIC_SMEM, step=K_STEP,
+          stages=RING_STAGES):
+    """(chunk, stages): the whole share at once where ``smem_of(chunk,
+    stages)`` fits in ``budget`` (default: `SMEM_MAX` less `STATIC_SMEM`),
+    else a ring of at most ``stages`` balanced chunks (multiples of
+    ``step``), the largest that fit."""
+    if smem_of(share, 1) <= budget:
+        return share, 1
+    chunk = step
+    while smem_of(chunk + step, stages) <= budget:
+        chunk += step
+    if smem_of(chunk, stages) > budget:
+        raise ValueError(f"no ring of {stages} stages fits a K share of"
+                         f" {share}")
+    n = _ceil(share, chunk)
+    return _ceil(_ceil(share, n), step) * step, min(stages, n)
+
+
+def dense_smem(elem, first, concat, chunk, stages):
+    """Dynamic shared bytes of a dense block (csrc `dense_smem`): the
+    weight stages; the hidden layer's fp32 input stages (one array concat,
+    two add) and its T tile, else the T input stages; the fp32 partial
+    sums; the warps' sums; 128 bytes to align the first to 128."""
+    vec = 16 // elem
+    raw = 4 * stages * (1 if concat else 2) * ROW_TILE * (chunk + 4) if first else 0
+    a = (1 if first else stages) * ROW_TILE * (chunk + vec) * elem
+    w = stages * chunk * COL_TILE * elem
+    return raw + a + w + 4 * ROW_TILE * COL_TILE * (1 + THREADS // 32) + 128
+
+
+@functools.lru_cache(maxsize=256)
+def dense_plan(rows, K, cols, elem, first, concat=False):
+    """The launch plan of one dense layer of `decode_joint` (``first``: the
+    hidden layer on fp32 inputs, ``concat`` or add; else the logits) for
+    ``rows`` x K inputs, ``cols`` outputs, weights of ``elem`` bytes:
+    {cluster, k_share, chunk, stages, smem, grid, threads}.  Blocks of
+    `ROW_TILE` x `COL_TILE`; K split over the largest cluster (at most
+    `CLUSTER_MAX`) that keeps the launch within `DENSE_BLOCKS` blocks, so
+    that all of them run at once; the whole share at once where it
+    fits."""
+    tiles = _ceil(cols, COL_TILE) * _ceil(rows, ROW_TILE)
+    cluster = _cluster(tiles, DENSE_BLOCKS)
+    cluster, share = _k_split(K, cluster)
+    chunk, stages = _ring(share, lambda c, s: dense_smem(elem, first, concat,
+                                                          c, s))
+    return {"cluster": cluster, "k_share": share, "chunk": chunk,
+            "stages": stages,
+            "smem": dense_smem(elem, first, concat, chunk, stages),
+            "grid": (cluster * _ceil(cols, COL_TILE), _ceil(rows, ROW_TILE)),
+            "threads": THREADS}
+
+
+def gru_smem(row_tile, chunk, stages, k_groups):
+    """Dynamic shared bytes of a GRU block (csrc `gru_smem`): its stages
+    of 6 x `GRU_UNITS` weight rows and its rows' states and embeddings, or
+    the K groups' partial sums and then the cluster's partial sums of the
+    elements the block owns, which take their place, whichever is more;
+    1024 bytes to align the first to 1024."""
+    stage = 4 * (6 * GRU_UNITS + 2 * row_tile) * chunk
+    sums = 16 * (k_groups + 1) * row_tile * GRU_UNITS
+    return max(stages * stage, sums) + 1024
+
+
+@functools.lru_cache(maxsize=256)
+def gru_plan(rows, H):
+    """The launch plan of `decode_gru` for ``rows`` rows of hidden width H:
+    {row_tile, k_groups, cluster, k_share, chunk, stages, smem, grid,
+    threads}.  Blocks of 16, 32 or 64 rows x `GRU_UNITS` units, each
+    thread 4 rows x 4 units, the rest of its `THREADS` splitting the chunk
+    into K groups; K split over the largest cluster that keeps the launch
+    within `GRU_BLOCKS` blocks (one an SM), shares and chunks multiples
+    of the weights' boxes (`GRU_BOX`); the whole share at once where it
+    fits in `GRU_SMEM` (two blocks an SM, so that a launch's clusters all
+    run at once), else a ring of `GRU_STAGES`."""
+    row_tile = 16 if rows <= 16 else 32 if rows <= 32 else 64
+    k_groups = THREADS // ((row_tile // 4) * (GRU_UNITS // 4))
+    tiles = _ceil(H, GRU_UNITS) * _ceil(rows, row_tile)
+    cluster, share = _k_split(H, _cluster(tiles, GRU_BLOCKS), GRU_BOX)
+    chunk, stages = _ring(share, lambda c, s: gru_smem(row_tile, c, s,
+                                                        k_groups),
+                          GRU_SMEM, GRU_BOX, GRU_STAGES)
+    return {"row_tile": row_tile, "k_groups": k_groups, "cluster": cluster,
+            "k_share": share, "chunk": chunk, "stages": stages,
+            "smem": gru_smem(row_tile, chunk, stages, k_groups),
+            "grid": (cluster * _ceil(H, GRU_UNITS), _ceil(rows, row_tile)),
+            "threads": THREADS}
+
+
+def _plan_fields(plan):
+    return (plan["cluster"], plan["k_share"], plan["chunk"], plan["stages"],
+            plan["smem"])
 
 
 def frame_at(enc, t, p0):
@@ -234,8 +414,13 @@ def decode_joint(enc, t, p0, pred_out, w_pre, b_pre, w_out, b_out,
     if logp_out is not None:
         named.append(("logp_out", logp_out))
     _ready(named, dev)
-    if -(-rows // 32) > 65535:
+    if _ceil(rows, ROW_TILE) > 65535:
         _fail(f"{rows} rows exceed the kernels' grid")
+    elem = w_pre.element_size()
+    concat = mode == "concat"
+    plans = (dense_plan(rows, Fe + Fg if concat else Fe, H, elem, True,
+                        concat),
+             dense_plan(rows, H, V, elem, False))
     hid = torch.empty((rows, H), dtype=w_pre.dtype, device=dev)
     logits = torch.empty((rows, V), dtype=torch.float32, device=dev)
     if k is None:
@@ -249,7 +434,6 @@ def decode_joint(enc, t, p0, pred_out, w_pre, b_pre, w_out, b_out,
         beam = tuple(x.data_ptr() for x in out)
     if rows == 0:
         return out
-    lib = _LIB if _LIB else _entries()
     index = dev.index
     args = _JOINT_ARGS.pack(
         enc.data_ptr(), t.data_ptr(), p0.data_ptr(), pred_out.data_ptr(),
@@ -257,11 +441,10 @@ def decode_joint(enc, t, p0, pred_out, w_pre, b_pre, w_out, b_out,
         b_out.data_ptr(), hid.data_ptr(), logits.data_ptr(),
         0 if logp_out is None else logp_out.data_ptr(),
         0 if best is None else best.data_ptr(), *beam, N, C, Fe, Fg, rows,
-        H, V, int(mode == "concat"), int(w_pre.dtype == torch.bfloat16),
-        blank, k or 0, _build.raw_stream(index))
-    code = _build.on_device(index, lib[1], args)
-    if code:
-        _build.check(lib[0], "decode_step_error_string", code, "decode_joint")
+        H, V, int(concat), int(w_pre.dtype == torch.bfloat16),
+        blank, k or 0, _build.raw_stream(index),
+        *_plan_fields(plans[0]), *_plan_fields(plans[1]))
+    _launch("decode_joint", args, index, "decode_joint")
     LAUNCHES["decode_joint"] += 3
     return out
 
@@ -319,7 +502,7 @@ def _gru_check(token, h, out, embed, w_ih, w_hh, b_ih, b_hh):
     if tuple(token.shape) != (rows,) or token.dtype != torch.int32:
         _fail(f"token must be ({rows},) int32, got {tuple(token.shape)}"
               f" {token.dtype}")
-    if -(-rows // 32) > 65535:
+    if gru_plan(max(rows, 1), H)["grid"][1] > 65535:
         _fail(f"{rows} rows exceed the kernel's grid")
     return rows, H
 
@@ -350,19 +533,17 @@ def _launch_gru(token, h, out, emit, embed, w_ih, w_hh, b_ih, b_hh,
         ints = (*(x.data_ptr() for x in greedy),
                 *(x.data_ptr() for x in fields))
     if rows:
-        lib = _LIB if _LIB else _entries()
         index = dev.index
+        plan = gru_plan(rows, H)
         args = _GRU_ARGS.pack(
             token.data_ptr(), embed.data_ptr(), h.data_ptr(), out.data_ptr(),
             w_ih.data_ptr(), w_hh.data_ptr(), b_ih.data_ptr(),
             b_hh.data_ptr(), 0 if emit is None else emit.data_ptr(),
             h_out.data_ptr(), out_out.data_ptr(), *ints, embed.shape[0],
             rows, H, L, blank, max_symbols, _build.raw_stream(index),
-            0 if src is None else src.data_ptr())
-        code = _build.on_device(index, lib[2], args)
-        if code:
-            _build.check(lib[0], "decode_step_error_string", code,
-                         "decode_gru")
+            0 if src is None else src.data_ptr(), *_plan_fields(plan),
+            plan["row_tile"], plan["k_groups"])
+        _launch("decode_gru", args, index, "decode_gru")
         LAUNCHES["decode_gru"] += 1
     return h_out, out_out, fields
 
@@ -564,15 +745,11 @@ def decode_beam_select(t, scores, tokens, u, nexp, waiting, hcode, lp_blank,
              torch.empty((rows,), dtype=torch.int32, device=dev),
              torch.empty((rows,), dtype=torch.int32, device=dev))
     if N:
-        lib = _LIB if _LIB else _entries()
         index = dev.index
         args = _SELECT_ARGS.pack(
             *(x.data_ptr() for x in ins), *(x.data_ptr() for x in outs), N,
             B, K, L, max_symbols, _build.raw_stream(index))
-        code = _build.on_device(index, lib[3], args)
-        if code:
-            _build.check(lib[0], "decode_step_error_string", code,
-                         "decode_beam_select")
+        _launch("decode_beam_select", args, index, "decode_beam_select")
         LAUNCHES["decode_beam_select"] += 1
     return outs
 
