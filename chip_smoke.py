@@ -317,6 +317,23 @@ of each kernel bit for bit; a captured step's programmatic edges; and
 one `time` line a decoder with the graphed step's us on the first
 kernels and on these, in turns.  The kernels line gives each step
 kernel's clusters and ptxas's registers, shared memory and spills.
+Slice 20 (the post-sweep epilogue as one kernel; the lattice and the
+dense write reading the interleaved lattice and cotangent) adds, after
+phase 3: `epilogue_kernel` against `epilogue_plain` bit for bit
+(`benchmarks/epilogue_cases.py`: the main path's lattice, an edge case
+with xn = 0, yn >= U, a tripped canary, -inf and NaN log-probs and
+FastEmit 0.3, and compact B's lattice; fp32 and bf16 outputs, the edge
+case also fp16 and fp64; strides 1 and 2), the lattice at stride 2
+against stride 1 and `flat_write` from the interleaved cotangent against
+two planes, bit for bit; after phase 4 the public fp32 and bf16 main path
+against the same call with the plain epilogue in the kernel's place, bit
+for bit; in phase 5 the epilogue's chained, plain and device ms beside its
+byte bound at the main path and at T=1500, N=128; in phase 13 the
+headline's profile gated on the gather, the lattice, the epilogue and the
+write once a call and at most 8 other kernels.  `lattice_epilogue` runs
+once a grad call on every loss path (main, fused, compact, joint layouts,
+train, serving, parallel, bench, tf) and joins the kernels line with
+ptxas's registers and spills.
 It prints the kernels' JSON line and the card's line, and last
 `{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}`.
 Without a CUDA device, or without the package beside it, it exits 1 and
@@ -483,6 +500,65 @@ def phase_write(torch, fk, fwc, loc_rows):
     return ct0, ct1
 
 
+def epilogue_bytes(n, t, u, out_size):
+    """The bytes the epilogue must move: alpha, beta, blank and emit read
+    once (16 B a cell), two gradients written (2 * out_size a cell), the
+    lengths read and the costs and mask written."""
+    return n * t * u * (16 + 2 * out_size) + n * (4 + 4 + 4 + 1)
+
+
+def phase_epilogue(torch, ec, cuda_impl, fk):
+    """The epilogue kernel against `epilogue_plain` on the card, bit for
+    bit (`benchmarks/epilogue_cases.py`): the main path's lattice, the edge
+    case (xn = 0, yn >= U, a tripped canary, -inf and NaN log-probs,
+    FastEmit 0.3) and compact B's lattice, each in fp32 and bf16 outputs
+    (the edge case also fp16 and fp64) at strides 1 and 2.  Then the
+    lattice at stride 2 against stride 1 and `flat_write` from the
+    interleaved cotangent against two planes, bit for bit."""
+    for name in ec.CASES:
+        r = ec.compare(cuda_impl, name)
+        print(f"epilogue {name} {ec.CASES[name]}: kernel equals the plain"
+              f" version bit for bit; {json.dumps(r)}")
+    for name in ("edges", "main"):
+        ec.lattice_strides(cuda_impl, name)
+        print(f"lattice {name}: the interleaved lattice at stride 2 equals"
+              " two planes bit for bit, fused and beta only")
+    for name in ("V=50 fp32", "V=5000 bf16", "V=131 fp16", "V=1 fp64"):
+        r = ec.write_strides(fk, name)
+        print(f"flat_write {name}: the interleaved cotangent at stride 2"
+              f" equals two planes bit for bit; {json.dumps(r)}")
+    return 0.0
+
+
+def check_plain_epilogue(torch, wt, cuda_impl, inputs):
+    """The public main path's loss and gradient, fp32 and bf16, against the
+    same call with `epilogue_plain` in the kernel's place (the torch code
+    the parent ran, written to the same outputs), bit for bit."""
+    log_probs, labels, xn, yn = inputs
+    kernel = cuda_impl.epilogue
+    for dtype in (torch.float32, torch.bfloat16):
+        x0 = log_probs.to(dtype)
+        out = []
+        for fn in (kernel, cuda_impl.epilogue_plain):
+            cuda_impl.epilogue = fn
+            try:
+                x = x0.detach().requires_grad_()
+                loss = wt.rnnt_loss(x, labels, xn, yn, reduction="mean",
+                                    gather=True)
+                loss.backward()
+            finally:
+                cuda_impl.epilogue = kernel
+            out.append((loss.detach(), x.grad))
+        (lk, gk), (lp, gp) = out
+        if not (torch.equal(lk, lp) and torch.equal(gk, gp)):
+            raise AssertionError(f"main path {dtype}: the epilogue kernel's"
+                                 " loss or gradient differs from the plain"
+                                 " epilogue's")
+        print(f"main path {dtype} with the epilogue kernel against the plain"
+              f" epilogue: loss {float(lk)} equal, gradient equal bit for bit")
+        del out, gk, gp, x0
+
+
 def reset(counters):
     """Set every launch count to 0."""
     for c in counters:
@@ -490,9 +566,10 @@ def reset(counters):
             c[key] = 0
 
 
-# The main path's kernels: the forward gather, both sweeps, the write.
+# The main path's kernels: the forward gather, both sweeps, the epilogue
+# after the fused sweep, the write.
 MAIN_PATH = ("gather_lattice", "lattice_fused", "lattice_beta_only",
-             "flat_write")
+             "lattice_epilogue", "flat_write")
 
 
 def phase_main(torch, wt, counters, inputs):
@@ -518,6 +595,8 @@ def phase_main(torch, wt, counters, inputs):
                              f" are {MAIN_PATH}")
     if launches["gather_lattice"] != 3:
         raise AssertionError("main path: not one gather launch a call")
+    if launches["lattice_epilogue"] != 2:
+        raise AssertionError("main path: not one epilogue launch a grad call")
     return launches, loss, lp.grad, loss3, lp3.grad, costs_ng
 
 
@@ -622,6 +701,8 @@ def phase_times(torch, wt, cuda_impl, fk, timing, inputs, main_lattice,
               f" (CUDA graph, L2 flushed); chain floor"
               f" {chain_floor_ms(T, U, lae_ns)} ms ({T + U - 1} dependent"
               f" logaddexps of {lae_ns} ns) [{card}]")
+    times["lattice_epilogue"] = time_epilogue(torch, cuda_impl, timing,
+                                              main_lattice, rates, card)
     # write: reads ct0, ct1, loc_rows, writes R*V fp32; 4 operations per element
     kernel("flat_write", fk.flat_grad_write, fk.flat_grad_write_plain,
            (ct0, ct1, loc_rows, 0, V, U * V), lambda d: d.view(-1)[0],
@@ -656,6 +737,55 @@ def phase_times(torch, wt, cuda_impl, fk, timing, inputs, main_lattice,
     print(f"time loss+grad (impl=scan): ms={e2e['scan']} [{card}]")
     print(f"time loss no-grad (kernels): ms={e2e['cuda_no_grad']} [{card}]")
     return times
+
+
+# The epilogue's timed lattices beside the main path's: the README table's
+# long-lattice row (T=1500, 300 labels) at N=128.
+EPILOGUE_TIMED = {"T=1500 N=128": (128, 1500, 301)}
+
+
+def time_epilogue(torch, cuda_impl, timing, main_lattice, rates, card):
+    """The epilogue as the main path runs it (the interleaved fp32 lattice
+    in, the interleaved fp32 gradient out) at the main path's lattice and
+    at `EPILOGUE_TIMED`: chained ms beside the plain version's, device ms
+    (CUDA graph, L2 flushed) and the byte bound (`epilogue_bytes`)."""
+    def run(fn):
+        def call(lat, alphas, betas, xn, yn, g):
+            return fn(lat[..., 0], lat[..., 1], alphas, betas, xn, yn, 0.0,
+                      g[..., 0], g[..., 1])
+        return call
+
+    first = lambda out: out[0][0]  # noqa: E731  one cost
+    out = {}
+    blank, emit, xn, yn = main_lattice
+    shapes = {"main": (blank, emit, xn, yn)}
+    for label, (n, t, u) in EPILOGUE_TIMED.items():
+        b, e = random_lattice(torch, n, t, u, SEED + 7)
+        shapes[label] = (b, e, *seeded_lengths(torch, n, t, u, SEED + 7))
+    for label, (b, e, xn_l, yn_l) in shapes.items():
+        lat = torch.stack([b, e], dim=-1)
+        alphas, betas = cuda_impl.alpha_beta(lat[..., 0], lat[..., 1], xn_l,
+                                             yn_l)
+        g = torch.empty_like(lat)
+        args = (lat, alphas, betas, xn_l, yn_l, g)
+        n, t, u = b.shape
+        iters = 20 if label == "main" else 5
+        r = dict(
+            ms=timing.bench_scalar_chain(run(cuda_impl.epilogue), args, iters,
+                                         reduce_out=first),
+            plain_ms=timing.bench_scalar_chain(run(cuda_impl.epilogue_plain),
+                                               args, max(2, iters // 4),
+                                               reduce_out=first),
+            device_ms=timing.bench_graph(run(cuda_impl.epilogue), args,
+                                         calls=32 if label == "main" else 4))
+        r["bound_ms"], r["bound_by"] = bound_ms(epilogue_bytes(n, t, u, 4), 0,
+                                                rates)
+        print(f"time lattice_epilogue {label} N,T,U={(n, t, u)}: {json.dumps(r)}"
+              f" [{card}]")
+        out[label] = r
+        del lat, alphas, betas, g, args
+    main = out.pop("main")
+    return {**main, **out}
 
 
 def write_sweep(torch, card):
@@ -745,7 +875,7 @@ def fj_full_case(torch, fj, fjin, params):
 
 
 FJ_PATH = ("fused_joint_fwd", "fused_joint_bwd_dadc", "fused_joint_bwd_dwdb",
-           "lattice_fused", "lattice_beta_only")
+           "lattice_fused", "lattice_beta_only", "lattice_epilogue")
 
 
 def phase_fused_main(torch, wt, counters, fjin, params):
@@ -970,8 +1100,9 @@ LARGE_V = {"V=64000": dict(N=2, T=150, U=21, V=64000, H=256, F=256),
            "V=50257": dict(N=1, T=150, U=21, V=50257, H=256, F=256)}
 
 COMPACT_PATH = ("packed_gather", "packed_scatter", "lattice_fused",
-                "lattice_beta_only")
-JOINT_PATHS = {"padded": ("lattice_fused", "lattice_beta_only"),
+                "lattice_beta_only", "lattice_epilogue")
+JOINT_PATHS = {"padded": ("lattice_fused", "lattice_beta_only",
+                          "lattice_epilogue"),
                "compact": COMPACT_PATH, "fused": FJ_PATH}
 
 
@@ -1962,6 +2093,45 @@ def time_route_sweep(torch, np, wt, timing, profile_step, carry, card):
     return out
 
 
+# The main path's kernels in a profile of one loss+grad, by symbol, and the
+# most other kernels a call may hold (PERF.md names each): the labels' fill
+# and cat, the mean, the backward's seed, the mean's backward and the
+# cotangent multiply, with two to spare.
+MAIN_PROFILE_SYMBOLS = ("column_gather_kernel", "lattice_kernel",
+                        "epilogue_kernel", "flat_write_kernel")
+MAIN_PROFILE_OTHERS = 8
+
+
+def hold_main_profile(prof):
+    """The headline loss+grad's profile: every `MAIN_PROFILE_SYMBOLS`
+    kernel once a call, at most `MAIN_PROFILE_OTHERS` others."""
+    names = [key for _, _, key in prof["rows"]]
+    counts = {sym: sum(c for _, c, key in prof["rows"] if sym in key)
+              for sym in MAIN_PROFILE_SYMBOLS}
+    others = prof["kernels_per_call"] - sum(counts.values())
+    print(f"profile main path: {json.dumps(counts)} and {others} other"
+          f" kernels a call (at most {MAIN_PROFILE_OTHERS})")
+    if not prof["complete"] or any(c != 1 for c in counts.values()) or (
+            others > MAIN_PROFILE_OTHERS):
+        raise AssertionError(f"main path profile: {counts}, {others} others,"
+                             f" complete {prof['complete']}: {names}")
+
+
+def epilogue_attrs(build):
+    """ptxas's registers, shared bytes and spills of each output dtype's
+    epilogue kernel (`_build.ptxas_report`)."""
+    out = {}
+    kinds = {"IfE": "fp32", "IdE": "fp64", "__half": "fp16",
+             "bfloat16": "bf16"}
+    for fn, r in build.ptxas_report("lattice").items():
+        if "epilogue_kernel" in fn:
+            out[next(v for k, v in kinds.items() if k in fn)] = r
+    print(f"epilogue kernel attrs (ptxas): {json.dumps(out)}")
+    if any(r.get("spill_stores") or r.get("spill_loads") for r in out.values()):
+        print("WARNING: the epilogue kernel spills")
+    return out
+
+
 # The train step (slice 10): the transducer at bench_train.py's shape
 # (`train_cases.FULL`: N=32, T=400, U=40, V=1024, 80 features, hidden 512),
 # carried from a seeded Flax-layout tree, in each loss mode.
@@ -1969,6 +2139,7 @@ TRAIN_MODES = ("from_logits", "gather", "fused")
 TRAIN_STEPS = 5
 # The kernels' symbols in the profiler's names, by `LAUNCHES` name.
 TRAIN_SYMBOLS = {"lattice_fused": "lattice_kernel",
+                 "lattice_epilogue": "epilogue_kernel",
                  "gather_lattice": "column_gather_kernel",
                  "flat_write": "flat_write_kernel",
                  "fused_joint_hidden": "hidden_image_kernel",
@@ -1991,6 +2162,7 @@ def train_bounds(rates, R):
     cells = n * t * u
     prod = 2 * R * h * v
     work = {"lattice_fused": (*lattice_work(n, t, u, True), 1),
+            "lattice_epilogue": (epilogue_bytes(n, t, u, 4), 0, 1),
             "gather_lattice": (2 * cells * (32 + 4), 0, 1),
             "flat_write": (cells * v * 4 + 2 * cells * 4 + n * u * 4, 0, 1),
             "fused_joint_fwd": (0, prod, BF16),
@@ -2089,7 +2261,7 @@ def phase_train(torch, card, rates):
 
 
 SERVING_KERNELS = ("gather_lattice", "lattice_fused", "lattice_beta_only",
-                   "flat_write")
+                   "lattice_epilogue", "flat_write")
 # The decode step's kernels (slice 17): the XLA while bodies they stand in
 # for, and their launches in one graphed step at most.
 STEP_SOURCE = "warp_rnnt_tpu_torch/csrc/decode_step.cu"
@@ -2923,6 +3095,7 @@ def main():
     from warp_rnnt_tpu_torch.functional.postprocess import costs_and_grads
     from warp_rnnt_tpu_torch.models import carry_flax_joint
     from warp_rnnt_tpu_torch.ops import _build, cuda_impl
+    from warp_rnnt_tpu_torch.benchmarks import epilogue_cases as ec
     from warp_rnnt_tpu_torch.benchmarks import flat_write_cases as fwc
     from warp_rnnt_tpu_torch.ops import flat_kernels as fk
     from warp_rnnt_tpu_torch.ops import fused_joint as fj
@@ -2953,6 +3126,7 @@ def main():
     print(f"one dependent logaddexp on one thread: {ns} ns [{card}]")
     ct = (*phase_write(torch, fk, fwc, loc_rows), loc_rows)
     errs["flat_write"] = 0.0
+    errs["lattice_epilogue"] = phase_epilogue(torch, ec, cuda_impl, fk)
 
     launches, loss, grad, loss3, grad3, costs_ng = phase_main(
         torch, wt, [cuda_impl.LAUNCHES, fk.LAUNCHES, gk.LAUNCHES], inputs
@@ -2961,6 +3135,7 @@ def main():
     check_previous_formulation(torch, wt, fk, gather_blank_label_plain, inputs,
                                loss.detach(), grad, "N=32")
     del loss, grad, loss3, grad3
+    check_plain_epilogue(torch, wt, cuda_impl, inputs)
     check_golden(torch, wt)
     errs["lattice_fused"] = max(errs["lattice_fused"], phase_neg_inf(
         torch, np, wt, cuda_impl, costs_and_grads))
@@ -2979,6 +3154,7 @@ def main():
     check_deterministic(torch, fj, full_case, "full width")
     attrs = kernel_attrs(fj)
     attrs["lattice_fused"] = attrs["lattice_beta_only"] = lattice_attrs(cuda_impl)
+    attrs["lattice_epilogue"] = epilogue_attrs(_build)
     fj_launches, *fj_out = phase_fused_main(
         torch, wt, [cuda_impl.LAUNCHES, fk.LAUNCHES, fj.LAUNCHES], fjin, params
     )
@@ -3088,10 +3264,12 @@ def main():
         times[name] = gather_times[N][name]
     prof = profile_loss.profile("main")
     print(f"profile main path N={N}: {prof['kernels_per_call']} kernels a call"
-          f" (PR 4: 76), idle share {prof['idle_share']} (PR 4: 0.806), device"
-          f" busy {prof['busy_ms']} ms, wall {prof['wall_ms']} ms [{card}]")
+          f" (the parent tree: 74), idle share {prof['idle_share']}, device"
+          f" busy {prof['busy_ms']} ms, wall {prof['wall_ms']} ms, complete"
+          f" {prof['complete']} [{card}]")
     for ms, count, key in prof["rows"]:
         print(f"profile {ms:.4f} ms/call {count} x/call {key[:80]}")
+    hold_main_profile(prof)
 
     # slice 10: the transducer's train step in each loss mode
     (train_launches, train_ms, train_bound, train_errs, train_lattice,
@@ -3119,6 +3297,10 @@ def main():
     eg_src = "scripts/exp_pallas_gather.py"
     sources = {"lattice_fused": ("lattice.cu", "warp_rnnt_tpu/ops/pallas_impl.py:134"),
                "lattice_beta_only": ("lattice.cu", "warp_rnnt_tpu/ops/pallas_impl.py:124"),
+               "lattice_epilogue": ("lattice.cu",
+                                    "warp_rnnt_tpu/functional/postprocess.py:52"
+                                    " (costs_and_grads in the XLA fusion of"
+                                    " JAX's jit; no TPU kernel)"),
                "flat_write": ("flat_write.cu", "warp_rnnt_tpu/ops/flat_kernels.py:69"
                               f" and {eg_src}:196"),
                "fused_joint_fwd": ("fused_joint.cu", f"{fj_src}:60 and {fj_src}:245"),
@@ -3142,9 +3324,10 @@ def main():
     errs["fused_joint_hidden"] = max(e.get("fused_joint_hidden", 0.0)
                                      for e in wide_errs.values())
     times["fused_joint_hidden"] = wide_times[1024]["fused_joint_hidden"]
-    path_launches = {**launches, **fj_launches, **compact_launches["A"],
+    path_launches = {**fj_launches, **compact_launches["A"],
                      **{k: gather_launches[k] for k in GATHER_PATH[:3]},
-                     "fused_joint_hidden": wide_launches["fused_joint_hidden"]}
+                     "fused_joint_hidden": wide_launches["fused_joint_hidden"],
+                     **launches}
 
     def base_entry(name, src, replaces):
         return {"name": name, "route": "cuda",
@@ -3170,7 +3353,7 @@ def main():
         if name.startswith("packed"):
             entry["case_B"] = {"launches": compact_launches["B"][name],
                                **packed_times["B"][name]}
-        if name.startswith("lattice"):
+        if name in ("lattice_fused", "lattice_beta_only"):
             for label in ("A", "B"):
                 entry[f"case_{label}"] = {
                     "launches": compact_launches[label][name],

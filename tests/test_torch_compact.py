@@ -250,7 +250,7 @@ def test_no_grad_route_runs_beta_only(monkeypatch):
     def _boom(*a, **k):
         raise AssertionError("alpha+grads sweep ran")
 
-    monkeypatch.setattr(core, "_forward_backward", _boom)
+    monkeypatch.setattr(core, "_forward_backward_gathered", _boom)
     with torch.no_grad():
         c = wt.rnnt_loss(xs, *args, compact=True)
     np.testing.assert_allclose(c.numpy(), with_grad.numpy(), rtol=1e-6)

@@ -148,7 +148,7 @@ def test_no_grad_route_runs_beta_only(monkeypatch):
     def _boom(*a, **k):
         raise AssertionError("alpha+grads sweep ran")
 
-    monkeypatch.setattr(core, "_forward_backward", _boom)
+    monkeypatch.setattr(core, "_forward_backward_gathered", _boom)
     case = golden.FORWARD_BATCH
     x = torch.tensor(case["xs"], dtype=torch.float32, requires_grad=True)
     args = tt(case["ys"], case["xn"], case["yn"])

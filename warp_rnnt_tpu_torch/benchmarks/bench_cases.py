@@ -41,18 +41,22 @@ from warp_rnnt_tpu_torch.ops import cuda_impl, flat_kernels, gather_kernels
 # The kernels each bench_joint route launches in a loss+grad call (at
 # H <= 256: one slice, no h image kernel).
 ROUTE_KERNELS = {
-    "log_softmax+gather": ("gather_lattice", "lattice_fused", "flat_write"),
-    "from_logits": ("lattice_fused",),
-    "padded": ("lattice_fused",),
-    "compact": ("packed_gather", "packed_scatter", "lattice_fused"),
+    "log_softmax+gather": ("gather_lattice", "lattice_fused",
+                           "lattice_epilogue", "flat_write"),
+    "from_logits": ("lattice_fused", "lattice_epilogue"),
+    "padded": ("lattice_fused", "lattice_epilogue"),
+    "compact": ("packed_gather", "packed_scatter", "lattice_fused",
+                "lattice_epilogue"),
     "fused": ("fused_joint_fwd", "fused_joint_bwd_dadc", "fused_joint_bwd_dwdb",
-              "lattice_fused"),
+              "lattice_fused", "lattice_epilogue"),
 }
-TABLE_KERNELS = {"loss_grad": ("gather_lattice", "lattice_fused", "flat_write"),
+TABLE_KERNELS = {"loss_grad": ("gather_lattice", "lattice_fused",
+                               "lattice_epilogue", "flat_write"),
                  "no_grad": ("gather_lattice", "lattice_beta_only")}
 # The kernels' symbols in the profiler's names, by `LAUNCHES` name.
 MAIN_SYMBOLS = {"gather_lattice": "column_gather_kernel",
                 "lattice_fused": "lattice_kernel",
+                "lattice_epilogue": "epilogue_kernel",
                 "flat_write": "flat_write_kernel"}
 COST_RTOL, GRAD_TOL = 1e-5, 5e-3
 MODE_LOSS_RTOL, MODE_GRAD_TOL = 2e-3, 2e-2

@@ -39,8 +39,9 @@ from warp_rnnt_tpu_torch.ops.flat_kernels import flat_grad_write_plain
 
 # The kernels the bridge's torch half launches: with a blank index (0 keys
 # every blank >= 0), and pre-gathered (-1).
-BRIDGE_KERNELS = {0: ("gather_lattice", "lattice_fused", "flat_write"),
-                  -1: ("lattice_fused",)}
+BRIDGE_KERNELS = {0: ("gather_lattice", "lattice_fused", "lattice_epilogue",
+                      "flat_write"),
+                  -1: ("lattice_fused", "lattice_epilogue")}
 COST_RTOL, GRAD_TOL = 1e-5, 5e-3
 
 

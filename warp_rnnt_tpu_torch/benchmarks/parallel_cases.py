@@ -67,7 +67,8 @@ from warp_rnnt_tpu_torch.parallel.vocab import shard_vocab
 MAIN = dict(N=32, T=150, U=21, V=5000)
 CASE_A = dict(N=32, T=150, L=20, V=5000)
 SEED = 0
-MAIN_PATH = ("gather_lattice", "lattice_fused", "flat_write")
+MAIN_PATH = ("gather_lattice", "lattice_fused", "lattice_epilogue",
+             "flat_write")
 # The vocabulary-shard cases: (N, T, U, V, blank, dtype), V split in two.
 # Labels fall on both sides of V/2; the blank lies in the first block, in
 # the second, and on its first column.

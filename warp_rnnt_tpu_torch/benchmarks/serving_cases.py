@@ -61,7 +61,8 @@ LEFT, RIGHT = 15, 5
 COST_RTOL, GRAD_TOL = 1e-5, 5e-3
 INFEASIBLE = (0, 1)  # samples whose bands are put out of order
 # The kernels a restricted loss+grad (and a no-grad call) launches.
-RESTRICTED_PATH = ("gather_lattice", "lattice_fused", "flat_write")
+RESTRICTED_PATH = ("gather_lattice", "lattice_fused", "lattice_epilogue",
+                   "flat_write")
 RESTRICTED_NO_GRAD_PATH = ("gather_lattice", "lattice_beta_only")
 
 # bench_decode.py's width and bench_streaming.py's.

@@ -50,9 +50,11 @@ LATTICE_TOL, COST_RTOL, LATTICE_GRAD_TOL = 1e-5, 1e-5, 5e-3
 # Kernels a train step launches, by loss mode.  "fused" launches the h
 # image kernel only past one 256-column slice of the joint's width.
 PATHS = {
-    "from_logits": ("lattice_fused",),
-    "gather": ("gather_lattice", "lattice_fused", "flat_write"),
-    "fused": ("lattice_fused", "fused_joint_fwd", "fused_joint_bwd_dadc",
+    "from_logits": ("lattice_fused", "lattice_epilogue"),
+    "gather": ("gather_lattice", "lattice_fused", "lattice_epilogue",
+               "flat_write"),
+    "fused": ("lattice_fused", "lattice_epilogue", "fused_joint_fwd",
+              "fused_joint_bwd_dadc",
               "fused_joint_bwd_dwdb", "fused_joint_hidden"),
 }
 
@@ -195,8 +197,8 @@ def recorded_lattice():
 
     calls, kernel = [], cuda_impl.forward_backward
 
-    def record(blank, emit, xn, yn, fastemit_lambda=0.0):
-        out = kernel(blank, emit, xn, yn, fastemit_lambda)
+    def record(blank, emit, xn, yn, fastemit_lambda=0.0, grads=None):
+        out = kernel(blank, emit, xn, yn, fastemit_lambda, grads)
         calls.append((blank.detach().float(), emit.detach().float(), xn, yn,
                       fastemit_lambda, tuple(x.detach() for x in out)))
         return out

@@ -25,7 +25,10 @@
 // output, at least 1 and at most kMaxRows rows, rounded up so that
 // R * V * sizeof(out) is a multiple of 16), so a 50-column row costs no
 // block of its own and a 5000-column row is one block, as before.  The
-// block stages its rows' ct0, ct1 and label in shared memory (12 B a row),
+// block stages its rows' ct0, ct1 and label in shared memory (12 B a row;
+// the cotangents are read at an element stride: 1 for two planes, 2 for the
+// channels of the interleaved (N, T, U, 2) cotangent, a row's two then one
+// 8-byte load),
 // then stores its span as 16-byte vectors indexed in the span, not in the
 // row: 4 fp32, 8 fp16/bf16 or 2 fp64 elements a store, neighbouring threads
 // on neighbouring vectors.  A vector may straddle rows (V need not be a
@@ -92,6 +95,7 @@ __device__ __forceinline__ float term(float c0, float c1, int v, int blank,
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 flat_write_kernel(const float* __restrict__ ct0, const float* __restrict__ ct1,
+                  long long ct_stride, bool ct_pair,
                   const int* __restrict__ loc_rows, T* __restrict__ out,
                   long long rows, int frames, int U, int V, int blank, int R) {
   using Bits = typename Out<T>::Bits;
@@ -111,8 +115,14 @@ flat_write_kernel(const float* __restrict__ ct0, const float* __restrict__ ct1,
   const unsigned rem0 = static_cast<unsigned>(r0 - n0 * fu);
   for (int i = threadIdx.x; i < nr; i += kThreads) {
     const unsigned rem = rem0 + i;
-    s0[i] = ct0[r0 + i];
-    s1[i] = ct1[r0 + i];
+    if (ct_pair) {
+      const float2 c = reinterpret_cast<const float2*>(ct0)[r0 + i];
+      s0[i] = c.x;
+      s1[i] = c.y;
+    } else {
+      s0[i] = ct0[(r0 + i) * ct_stride];
+      s1[i] = ct1[(r0 + i) * ct_stride];
+    }
     sl[i] = loc_rows[(n0 + rem / fu) * U + rem % U];
   }
   __syncthreads();
@@ -191,14 +201,17 @@ int block_rows(int V, int size) {
 }
 
 template <typename T>
-cudaError_t launch(const float* ct0, const float* ct1, const int* loc_rows,
-                   void* out, long long rows, int frames, int U, int V,
-                   int blank, int R, cudaStream_t s) {
+cudaError_t launch(const float* ct0, const float* ct1, int ct_stride,
+                   const int* loc_rows, void* out, long long rows, int frames,
+                   int U, int V, int blank, int R, cudaStream_t s) {
   const long long grid = (rows + R - 1) / R;
   if (grid > 0x7fffffffLL) return cudaErrorInvalidValue;
   const size_t smem = static_cast<size_t>(R) * 12;
+  const bool pair = ct_stride == 2 && ct1 == ct0 + 1 &&
+                    reinterpret_cast<uintptr_t>(ct0) % 8 == 0;
   flat_write_kernel<T><<<static_cast<unsigned>(grid), kThreads, smem, s>>>(
-      ct0, ct1, loc_rows, static_cast<T*>(out), rows, frames, U, V, blank, R);
+      ct0, ct1, ct_stride, pair, loc_rows, static_cast<T*>(out), rows, frames,
+      U, V, blank, R);
   return cudaGetLastError();
 }
 
@@ -213,13 +226,15 @@ extern "C" int rnnt_flat_write_block_rows(int V, int out_dtype) {
 }
 
 // out_dtype: 0 float32, 1 float64, 2 float16, 3 bfloat16.  out must start on
-// 16 bytes (torch's allocations do).
+// 16 bytes (torch's allocations do).  ct0 and ct1 are read at an element
+// stride of ct_stride floats.
 extern "C" int rnnt_flat_grad_write(const float* ct0, const float* ct1,
-                                    const int* loc_rows, void* out,
-                                    int out_dtype, long long rows, int frames,
-                                    int U, int V, int blank, void* stream) {
+                                    int ct_stride, const int* loc_rows,
+                                    void* out, int out_dtype, long long rows,
+                                    int frames, int U, int V, int blank,
+                                    void* stream) {
   const int R = rnnt_flat_write_block_rows(V, out_dtype);
-  if (R < 0 || rows < 1 || frames < 1 || U < 1 ||
+  if (R < 0 || rows < 1 || frames < 1 || U < 1 || ct_stride < 1 ||
       static_cast<long long>(frames) * U > 0x7fffffffLL ||
       static_cast<long long>(R) * V > 0x7fffffffLL) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -230,17 +245,20 @@ extern "C" int rnnt_flat_grad_write(const float* ct0, const float* ct1,
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (out_dtype) {
     case 0:
-      return static_cast<int>(launch<float>(ct0, ct1, loc_rows, out, rows,
-                                            frames, U, V, blank, R, s));
+      return static_cast<int>(launch<float>(ct0, ct1, ct_stride, loc_rows,
+                                            out, rows, frames, U, V, blank, R,
+                                            s));
     case 1:
-      return static_cast<int>(launch<double>(ct0, ct1, loc_rows, out, rows,
-                                             frames, U, V, blank, R, s));
+      return static_cast<int>(launch<double>(ct0, ct1, ct_stride, loc_rows,
+                                             out, rows, frames, U, V, blank, R,
+                                             s));
     case 2:
-      return static_cast<int>(launch<__half>(ct0, ct1, loc_rows, out, rows,
-                                             frames, U, V, blank, R, s));
+      return static_cast<int>(launch<__half>(ct0, ct1, ct_stride, loc_rows,
+                                             out, rows, frames, U, V, blank, R,
+                                             s));
     default:
       return static_cast<int>(launch<__nv_bfloat16>(
-          ct0, ct1, loc_rows, out, rows, frames, U, V, blank, R, s));
+          ct0, ct1, ct_stride, loc_rows, out, rows, frames, U, V, blank, R, s));
   }
 }
 

@@ -44,6 +44,9 @@
 //     in (N, T, U), so neighbouring lanes copy neighbouring columns of a row
 //     (U*4 bytes is not a multiple of 16 at U=21 or 299, so 16-byte copies,
 //     1-D bulk copies and TMA's 16-byte strides do not apply to these rows);
+//     the inputs are read at an element stride: 1 for blank and emit planes,
+//     2 for the channels of the interleaved (N, T, U, 2) lattice that the
+//     gather writes, read in place;
 //     C is chosen here, from K, W and U (`tile_log2_cols`);
 //   * outputs are staged the same way and written a tile at a time, along
 //     the rows.
@@ -55,9 +58,14 @@
 // log1pf) are those of the torch twin (`cuda_impl._solve`), so on the card
 // the kernel and the twin agree to rounding of the same operations.
 //
+// The same library holds the epilogue after the sweep (`epilogue_kernel`,
+// below): the costs, the canary and both gradients in one launch.
+//
 // Launches on the caller's stream; allocates nothing; returns
 // cudaGetLastError() so the caller can raise on a refused launch.
 
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 #include <atomic>
@@ -137,6 +145,7 @@ __device__ __forceinline__ void cp_wait_all() {
 struct Args {
   const float* blank;
   const float* emit;
+  long long stride;  // elements between a lattice's neighbouring cells
   const int* xn;
   const int* yn;
   float* alphas;
@@ -184,8 +193,9 @@ lattice_kernel(const Args a) {
   const int xn = a.xn[n];
   const int yn = a.yn[n];
   const size_t base = (size_t)n * T * U;
-  const float* bl = a.blank + base;
-  const float* em = a.emit + base;
+  const long long st = a.stride;
+  const float* bl = a.blank + base * st;
+  const float* em = a.emit + base * st;
   float* out = (alpha_dir ? a.alphas : a.betas) + base;
   const int groups = (U + C - 1) >> lc;
   const int seg_len = W * kRows;
@@ -217,11 +227,12 @@ lattice_kernel(const Args a) {
       if (s < U) {
         float* tm = tiles + (g & 1) * 2 * tile;
         float* te = tm + tile;
-        const float* src_m = bl + cell(j0 + p0, s) - (alpha_dir ? U : 0);
-        const float* src_e = em + cell(j0 + p0, s) - (alpha_dir ? 1 : 0);
+        const float* src_m = bl + (cell(j0 + p0, s) - (alpha_dir ? U : 0)) * st;
+        const float* src_e = em + (cell(j0 + p0, s) - (alpha_dir ? 1 : 0)) * st;
+        const long long in_step = row_step * st;
         const bool load_e = !alpha_dir || s > 0;
         for (int p = p0; p < kRows && j0 + p < T;
-             p += dp, src_m += row_step, src_e += row_step) {
+             p += dp, src_m += in_step, src_e += in_step) {
           const int d = Tile<K>::at(c, p);
           if (!alpha_dir || j0 + p > 0) cp_async4(tm + d, src_m);
           if (load_e) cp_async4(te + d, src_e);
@@ -406,23 +417,181 @@ cudaError_t opt_in(int frames, int smem) {
   return err;
 }
 
+// ---- The epilogue after the sweep -----------------------------------------
+//
+// Everything `functional/postprocess.costs_and_grads` computes from the
+// alphas and betas, in one launch (in JAX, XLA fuses that code and the
+// gradients' stack and cast around the Pallas sweep):
+//
+//   ll_f = alpha[t_last, u_last] + blank[t_last, u_last], ll_b = beta[0, 0]
+//     (t_last = xn - 1, wrapped once if negative, then clamped; u_last = yn
+//     clamped: JAX's indexing);
+//   bad  = |ll_f - ll_b| / |max(ll_f, ll_b)| > 0.001 (NaN compares false);
+//   cost = bad ? -(ll_f + ll_b) * 0.5 : -ll_b;
+//   g_blank = valid_b ? -exp(alpha + blank + (terminal ? 0 : beta[t+1]) - ll_b) : 0
+//   g_emit  = valid_e ? -(1 + lambda) * exp(alpha + emit + beta[u+1] - ll_b) : 0
+//   both times keep = bad ? 0 : 1, then rounded once to the output dtype.
+//
+// Each value is computed with the plain version's operations in its order
+// (the 0 added at the terminal cell, precise expf, the keep multiply, not a
+// select, round-to-nearest-even), so the two agree bit for bit.  What bounds
+// it: bytes (alpha, beta, blank, emit read, two gradients written: ~24 B a
+// cell in fp32).  Design: one 1-D grid; a sample's T*U cells are tiled by
+// blocks of kEpiThreads x kEpiCells cells, thread 0 of each block reads the
+// sample's lengths and log-likelihoods once, and neighbouring threads take
+// neighbouring cells.  Inputs and outputs take an element stride (1:
+// planes; 2: the channels of an interleaved (N, T, U, 2) tensor, moved two
+// at a time where the two channels are neighbours).
+
+constexpr int kEpiThreads = 256;
+constexpr int kEpiCells = 4;  // cells a thread
+
+// An output element from the fp32 value, rounded once.
+template <typename O>
+__device__ __forceinline__ O to_out(float x);
+template <>
+__device__ __forceinline__ float to_out<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ double to_out<double>(float x) {
+  return static_cast<double>(x);
+}
+template <>
+__device__ __forceinline__ __half to_out<__half>(float x) {
+  return __float2half_rn(x);
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 to_out<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
+}
+
+template <typename O>
+struct alignas(2 * sizeof(O)) Pair {
+  O x, y;
+};
+
+struct EpiArgs {
+  const float* blank;
+  const float* emit;
+  long long in_stride;
+  const float* alphas;
+  const float* betas;
+  const int* xn;
+  const int* yn;
+  float* costs;
+  bool* bad;
+  void* g_blank;
+  void* g_emit;
+  long long out_stride;
+  int T, U;
+  int tiles;        // blocks a sample
+  float emit_coef;  // -(1 + lambda), rounded to fp32 as torch rounds it
+  bool in_pair;     // emit is blank's neighbour, read as one 8-byte pair
+  bool out_pair;    // g_emit is g_blank's neighbour, written as one pair
+};
+
+template <typename O>
+__global__ void __launch_bounds__(kEpiThreads)
+epilogue_kernel(const EpiArgs a) {
+  __shared__ float s_ll, s_keep;
+  __shared__ int s_xn, s_yn;
+  const int n = blockIdx.x / a.tiles, tile = blockIdx.x % a.tiles;
+  const int T = a.T, U = a.U;
+  const long long cells = static_cast<long long>(T) * U;
+  const long long base = n * cells;
+  if (threadIdx.x == 0) {
+    const int xn = a.xn[n], yn = a.yn[n];
+    int tl = xn - 1;
+    if (tl < 0) tl += T;
+    tl = min(max(tl, 0), T - 1);
+    const int ul = min(max(yn, 0), U - 1);
+    const long long at = base + static_cast<long long>(tl) * U + ul;
+    const float ll_b = a.betas[base];
+    const float ll_f = a.alphas[at] + a.blank[at * a.in_stride];
+    // torch.maximum: NaN if either is NaN
+    const float mx = (ll_f != ll_f || ll_b != ll_b) ? __int_as_float(0x7fc00000)
+                                                   : fmaxf(ll_f, ll_b);
+    const float ratio = fabsf(ll_f - ll_b) / fabsf(mx);
+    const bool bad = ratio > 0.001f;
+    if (tile == 0) {
+      a.costs[n] = bad ? -(ll_f + ll_b) * 0.5f : -ll_b;
+      a.bad[n] = bad;
+    }
+    s_ll = ll_b;
+    s_keep = bad ? 0.0f : 1.0f;
+    s_xn = xn;
+    s_yn = yn;
+  }
+  __syncthreads();
+  const float ll = s_ll, keep = s_keep;
+  const int xn = s_xn, yn = s_yn;
+  const float inf = __int_as_float(0xff800000);  // -inf past the lattice
+  O* gb = static_cast<O*>(a.g_blank);
+  O* ge = static_cast<O*>(a.g_emit);
+  const long long c0 = static_cast<long long>(tile) * kEpiThreads * kEpiCells;
+#pragma unroll
+  for (int k = 0; k < kEpiCells; ++k) {
+    const long long c = c0 + k * kEpiThreads + threadIdx.x;
+    if (c >= cells) break;
+    const int t = static_cast<int>(c / U), u = static_cast<int>(c - static_cast<long long>(t) * U);
+    const long long i = base + c;
+    float bl, em;
+    if (a.in_pair) {
+      const float2 v = reinterpret_cast<const float2*>(a.blank)[i];
+      bl = v.x;
+      em = v.y;
+    } else {
+      bl = a.blank[i * a.in_stride];
+      em = a.emit[i * a.in_stride];
+    }
+    const float al = a.alphas[i];
+    const float bt1 = t + 1 < T ? a.betas[i + U] : inf;
+    const float bu1 = u + 1 < U ? a.betas[i + 1] : inf;
+    const bool terminal = t == xn - 1 && u == yn;
+    const float occ_b = ((al + bl) + (terminal ? 0.0f : bt1)) - ll;
+    const float occ_e = ((al + em) + bu1) - ll;
+    float g0 = t < xn && u <= yn ? -expf(occ_b) : 0.0f;
+    float g1 = t < xn && u < yn ? a.emit_coef * expf(occ_e) : 0.0f;
+    g0 = g0 * keep;
+    g1 = g1 * keep;
+    if (a.out_pair) {
+      reinterpret_cast<Pair<O>*>(gb)[i] = Pair<O>{to_out<O>(g0), to_out<O>(g1)};
+    } else {
+      gb[i * a.out_stride] = to_out<O>(g0);
+      ge[i * a.out_stride] = to_out<O>(g1);
+    }
+  }
+}
+
+using EpiKernel = void (*)(EpiArgs);
+// by output dtype: 0 float32, 1 float64, 2 float16, 3 bfloat16
+const EpiKernel kEpiKernels[4] = {epilogue_kernel<float>, epilogue_kernel<double>,
+                                  epilogue_kernel<__half>,
+                                  epilogue_kernel<__nv_bfloat16>};
+const int kOutSize[4] = {4, 8, 2, 2};
+
+bool aligned(const void* p, int bytes) {
+  return reinterpret_cast<uintptr_t>(p) % bytes == 0;
+}
+
 }  // namespace
 
 // The sweep.  frames (K) and warps are the wrapper's `lattice_plan(T)`; the
-// tile width and the shared bytes follow from them and U.
+// tile width and the shared bytes follow from them and U.  blank and emit
+// are read at an element stride of `stride` floats (alphas and betas are
+// written contiguous).
 extern "C" int rnnt_lattice(const float* blank, const float* emit,
-                            const int* xn, const int* yn, float* alphas,
-                            float* betas, int N, int T, int U,
+                            int stride, const int* xn, const int* yn,
+                            float* alphas, float* betas, int N, int T, int U,
                             int compute_alpha, void* stream, int frames,
                             int warps) {
-  if (!valid_plan(frames, warps)) {
+  if (!valid_plan(frames, warps) || stride < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int lc = tile_log2_cols(frames, warps, U);
   const int smem = smem_bytes(frames, warps, 1 << lc);
   const cudaError_t err = opt_in(frames, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const Args a{blank, emit, xn, yn, alphas, betas, T, U,
+  const Args a{blank, emit, stride, xn, yn, alphas, betas, T, U,
                compute_alpha ? 0 : 1, warps, lc};
   const dim3 grid(N, compute_alpha ? 2 : 1);
   kKernels[frames - 1]<<<grid, warps * 32, smem,
@@ -452,6 +621,37 @@ extern "C" int rnnt_lattice_attrs(int frames, int warps, int U, int* out) {
 // n dependent logaddexps on one thread; io[0..2] = a, m, b in, a out.
 extern "C" int rnnt_lae_probe(float* io, int n, void* stream) {
   lae_probe_kernel<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>(io, n);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The epilogue: costs (N,) fp32 and the canary's mask (N,) bool, and the
+// blank and emit gradients of the (N, T, U) lattice written at an element
+// stride of `out_stride` in `out_dtype` (0 float32, 1 float64, 2 float16,
+// 3 bfloat16); blank and emit are read at `in_stride` floats, alphas and
+// betas contiguous.  emit_coef is -(1 + fastemit_lambda) in fp32.
+extern "C" int rnnt_lattice_epilogue(
+    const float* blank, const float* emit, int in_stride, const float* alphas,
+    const float* betas, const int* xn, const int* yn, float* costs, bool* bad,
+    void* g_blank, void* g_emit, int out_stride, int out_dtype, int N, int T,
+    int U, float emit_coef, void* stream) {
+  if (N < 1 || T < 1 || U < 1 || in_stride < 1 || out_stride < 1 ||
+      out_dtype < 0 || out_dtype > 3) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const long long cells = static_cast<long long>(T) * U;
+  const long long tiles = (cells + kEpiThreads * kEpiCells - 1) /
+                          (kEpiThreads * kEpiCells);
+  if (tiles * N > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  const int size = kOutSize[out_dtype];
+  EpiArgs a{blank, emit, in_stride, alphas, betas, xn, yn, costs, bad,
+            g_blank, g_emit, out_stride, T, U, static_cast<int>(tiles),
+            emit_coef, false, false};
+  a.in_pair = in_stride == 2 && emit == blank + 1 && aligned(blank, 8);
+  a.out_pair = out_stride == 2 &&
+               static_cast<char*>(g_emit) == static_cast<char*>(g_blank) + size &&
+               aligned(g_blank, 2 * size);
+  kEpiKernels[out_dtype]<<<static_cast<unsigned>(tiles * N), kEpiThreads, 0,
+                           static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 

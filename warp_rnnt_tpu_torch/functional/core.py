@@ -7,9 +7,11 @@
     grad), ONE backward sweep computes the costs -- the beta-only kernel on
     the card.  The route is chosen before `Function.apply`, because a
     Function's forward always runs.
-  * otherwise `_RNNTCore.forward` runs both sweeps and saves the gradients
-    w.r.t. the gathered log-probs, cast to the input dtype; `backward` is one
-    elementwise multiply by the per-sample cotangent.
+  * otherwise `_RNNTCore.forward` runs both sweeps and the epilogue, which
+    gives the (N, T, U, 2) gradient w.r.t. the gathered log-probs in the
+    input dtype (on the card the epilogue kernel writes it interleaved, with
+    no stack and no cast); `backward` is one elementwise multiply by the
+    per-sample cotangent.
 
 Backends (``impl``):
   * "cuda": the CUDA lattice kernels (`ops.cuda_impl`); on a CPU tensor that
@@ -43,6 +45,15 @@ def _forward_backward(blank_lp, emit_lp, xn, yn, fastemit_lambda, impl):
     )
 
 
+def _forward_backward_gathered(xs_gathered, xn, yn, fastemit_lambda, impl,
+                              dtype=None):
+    """(costs, grads (N, T, U, 2) in ``dtype`` (default the lattice's),
+    alphas, betas) of the gathered lattice."""
+    return _backend(impl, xs_gathered.device).forward_backward_gathered(
+        xs_gathered, xn, yn, fastemit_lambda, dtype
+    )
+
+
 def _costs_only(blank_lp, emit_lp, xn, yn, impl):
     return _backend(impl, blank_lp.device).costs_only(blank_lp, emit_lp, xn, yn)
 
@@ -50,11 +61,9 @@ def _costs_only(blank_lp, emit_lp, xn, yn, impl):
 class _RNNTCore(torch.autograd.Function):
     @staticmethod
     def forward(ctx, xs_gathered, xn, yn, fastemit_lambda, impl):
-        costs, g_blank, g_emit, _, _ = _forward_backward(
-            xs_gathered[..., 0], xs_gathered[..., 1], xn, yn,
-            fastemit_lambda, impl,
+        costs, grads, _, _ = _forward_backward_gathered(
+            xs_gathered, xn, yn, fastemit_lambda, impl
         )
-        grads = torch.stack([g_blank, g_emit], dim=-1).to(xs_gathered.dtype)
         ctx.save_for_backward(grads)
         return costs
 
@@ -74,7 +83,8 @@ def rnnt_core(xs_gathered, xn, yn, fastemit_lambda=0.0, impl="auto"):
       impl: backend selector, see the module docstring.
     """
     if not (torch.is_grad_enabled() and xs_gathered.requires_grad):
-        return _costs_only(xs_gathered[..., 0], xs_gathered[..., 1], xn, yn, impl)
+        lat = xs_gathered.float()  # one cast, whole; fp32 as it is
+        return _costs_only(lat[..., 0], lat[..., 1], xn, yn, impl)
     return _RNNTCore.apply(xs_gathered, xn, yn, fastemit_lambda, impl)
 
 
@@ -82,8 +92,6 @@ def rnnt_core_with_internals(xs_gathered, xn, yn, fastemit_lambda=0.0, impl="aut
     """Non-differentiable debug/conformance entry: returns
     (costs, grads (N,T,U,2), alphas, betas)."""
     with torch.no_grad():
-        costs, g_blank, g_emit, alphas, betas = _forward_backward(
-            xs_gathered[..., 0], xs_gathered[..., 1], xn, yn,
-            fastemit_lambda, impl,
-        )
-    return costs, torch.stack([g_blank, g_emit], dim=-1), alphas, betas
+        return _forward_backward_gathered(xs_gathered, xn, yn,
+                                          fastemit_lambda, impl,
+                                          dtype=torch.float32)

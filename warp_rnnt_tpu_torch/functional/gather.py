@@ -22,7 +22,8 @@ whole one exactly.  The backward is the dense compare-select write
 
     d_xs[n, t, u, v] = ct[..., 0] * [v == blank] + ct[..., 1] * [v == loc[n, u]]
 
-done by `ops.flat_kernels.flat_grad_write` (a CUDA kernel on the card), which
+done by `ops.flat_kernels.flat_grad_write` (a CUDA kernel on the card that
+reads the two channels of the fp32 cotangent in place), which
 with an offset writes the block and nothing for a column outside it.  When
 `loc == blank` (the last lattice row) both terms add, as a scatter-add would.
 
@@ -71,10 +72,10 @@ class _GatherBlankLabel(torch.autograd.Function):
     def backward(ctx, ct):
         (loc_rows,) = ctx.saved_tensors
         N, T, U, V = ctx.shape
-        ct = ct.float()
+        ct = ct.float().contiguous()  # the write reads its two channels
         d = flat_kernels.flat_grad_write(
-            ct[..., 0].contiguous(), ct[..., 1].contiguous(), loc_rows,
-            ctx.blank, V, U * V, out_dtype=ctx.dtype, offset=ctx.offset,
+            ct[..., 0], ct[..., 1], loc_rows, ctx.blank, V, U * V,
+            out_dtype=ctx.dtype, offset=ctx.offset,
         )
         return d.view(N, T, U, V), None, None, None
 

@@ -216,7 +216,7 @@ def rnnt_loss_with_internals(
         if blank != -1:
             N, T, U, V = log_probs.shape
             grads = flat_kernels.flat_grad_write(
-                grads_g[..., 0].contiguous(), grads_g[..., 1].contiguous(),
+                grads_g[..., 0], grads_g[..., 1],
                 _labels_ext(labels, blank), blank, V, U * V,
                 out_dtype=grads_g.dtype,
             ).view(N, T, U, V)

@@ -2,8 +2,10 @@
 `warp_rnnt_tpu/functional/postprocess.py`).
 
 Both backends (the plain scan and the CUDA lattice kernels) produce alphas
-and betas; the gradient formulas and the forward/backward consistency check
-are shared elementwise torch code.
+and betas.  This elementwise torch code is the plain version of the
+epilogue after the sweep: the scan runs it, and on the card
+`ops.cuda_impl.epilogue` runs the same operations in one kernel
+(`epilogue_plain` is this code written to the kernel's outputs).
 
 Semantics:
   * blank grad  -exp(alpha + blank_lp + beta[t+1,u] - ll), beta dropped at the
@@ -55,10 +57,35 @@ def mismatch_mask(blank_lp, alphas, betas, xn, yn):
     return ratio > 0.001
 
 
+def warn_mismatch(bad, blank_lp, alphas, betas, xn, yn):
+    """With ``WARP_RNNT_DEBUG=1``, warn when the canary's mask ``bad`` has
+    tripped (one host sync), naming the samples' log-likelihoods."""
+    if _canary_debug_enabled() and bool(bad.any()):
+        ll_f, ll_b = loglik_forward_backward(blank_lp, alphas, betas, xn, yn)
+        warnings.warn(
+            "warp_rnnt_tpu_torch WARNING: forward/backward mismatch - grads"
+            " zeroed and cost averaged for flagged samples."
+            f" mask={bad.tolist()} ll_forward={ll_f.tolist()}"
+            f" ll_backward={ll_b.tolist()}",
+            RuntimeWarning,
+            stacklevel=3,
+        )
+
+
 def costs_and_grads(blank_lp, emit_lp, alphas, betas, xn, yn, fastemit_lambda):
     """All inputs (N, T, U) fp32 (alphas/betas may hold a large negative
     sentinel instead of -inf at invalid cells).  Returns
     (costs (N,), grad_blank (N,T,U), grad_emit (N,T,U))."""
+    costs, grad_blank, grad_emit, bad = costs_grads_mask(
+        blank_lp, emit_lp, alphas, betas, xn, yn, fastemit_lambda)
+    warn_mismatch(bad, blank_lp, alphas, betas, xn, yn)
+    return costs, grad_blank, grad_emit
+
+
+def costs_grads_mask(blank_lp, emit_lp, alphas, betas, xn, yn,
+                     fastemit_lambda):
+    """`costs_and_grads` without the warning: (costs, grad_blank,
+    grad_emit, the canary's mask)."""
     N, T, U = blank_lp.shape
     device = blank_lp.device
 
@@ -66,16 +93,6 @@ def costs_and_grads(blank_lp, emit_lp, alphas, betas, xn, yn, fastemit_lambda):
     ratio = (ll_f - ll_b).abs() / torch.maximum(ll_f, ll_b).abs()
     bad = ratio > 0.001
     costs = torch.where(bad, -(ll_f + ll_b) * 0.5, -ll_b)
-
-    if _canary_debug_enabled() and bool(bad.any()):
-        warnings.warn(
-            "warp_rnnt_tpu_torch WARNING: forward/backward mismatch - grads"
-            " zeroed and cost averaged for flagged samples."
-            f" mask={bad.tolist()} ll_forward={ll_f.tolist()}"
-            f" ll_backward={ll_b.tolist()}",
-            RuntimeWarning,
-            stacklevel=2,
-        )
 
     t_iota = torch.arange(T, device=device)[None, :, None]
     u_iota = torch.arange(U, device=device)[None, None, :]
@@ -104,4 +121,4 @@ def costs_and_grads(blank_lp, emit_lp, alphas, betas, xn, yn, fastemit_lambda):
     )
 
     keep = torch.where(bad, 0.0, 1.0)[:, None, None]
-    return costs, grad_blank * keep, grad_emit * keep
+    return costs, grad_blank * keep, grad_emit * keep, bad

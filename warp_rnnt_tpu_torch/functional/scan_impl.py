@@ -119,6 +119,17 @@ def forward_backward(blank_lp, emit_lp, xn, yn, fastemit_lambda=0.0):
     return costs, grad_blank, grad_emit, alphas, betas
 
 
+def forward_backward_gathered(xs_gathered, xn, yn, fastemit_lambda=0.0,
+                              dtype=None):
+    """`forward_backward` on the gathered (N, T, U, 2) lattice: (costs,
+    grads (N, T, U, 2) in ``dtype`` (default the lattice's), alphas,
+    betas)."""
+    costs, grad_blank, grad_emit, alphas, betas = forward_backward(
+        xs_gathered[..., 0], xs_gathered[..., 1], xn, yn, fastemit_lambda)
+    grads = torch.stack([grad_blank, grad_emit], dim=-1)
+    return costs, grads.to(dtype or xs_gathered.dtype), alphas, betas
+
+
 def costs_only(blank_lp, emit_lp, xn, yn):
     """Inference path: one backward sweep, no gradients."""
     betas = compute_betas(blank_lp.float(), emit_lp.float(), xn, yn)

@@ -18,7 +18,8 @@ is no fallback.
 
 Beside the build, the launch helpers the kernel wrappers share: the raw
 current stream, a call on a given device (`on_device`), the route by a
-tensor's device (`on_cpu`) and the check of a returned CUDA error code.
+tensor's device (`on_cpu`), the element stride of a lattice plane
+(`elem_stride`) and the check of a returned CUDA error code.
 """
 
 from __future__ import annotations
@@ -184,6 +185,24 @@ def on_device(dev: int, fn, args):
         return fn(args)
     with torch.cuda.device(dev):
         return fn(args)
+
+
+def elem_stride(x, name=None):
+    """The element stride s of an (N, T, U) tensor that holds every s-th
+    element of one contiguous run: 1 for a contiguous plane, 2 for one
+    channel of a contiguous (N, T, U, 2) tensor (``lat[..., 0]``), which a
+    kernel then reads or writes in place.  Any other layout raises, naming
+    the tensor ``name``, or gives None where no name is given."""
+    for s in (1, 2) if x.dim() == 3 else ():
+        want = (s * x.shape[1] * x.shape[2], s * x.shape[2], s)
+        if all(n == 1 or st == w
+               for n, st, w in zip(x.shape, x.stride(), want)):
+            return s
+    if name is None:
+        return None
+    raise ValueError(f"{name} must be contiguous or one channel of a"
+                     f" contiguous (N, T, U, 2) tensor, got strides"
+                     f" {x.stride()} at shape {tuple(x.shape)}")
 
 
 def check(lib: ctypes.CDLL, err_fn: str, code: int, what: str) -> None:

@@ -14,7 +14,10 @@ backward of `parallel.vocab`'s sharded gather).  A contiguous
 (N, T, U, V) tensor is the same memory as (N, T, U*V), so the 4-D backward
 of the gather uses this writer too, on a view.  On a CUDA tensor it
 launches the kernel, or raises; on a CPU tensor it runs
-`flat_grad_write_plain`.
+`flat_grad_write_plain`.  The cotangents may be two (N, T, U) planes or the
+two channels of one contiguous (N, T, U, 2) fp32 cotangent (``ct[..., 0]``,
+``ct[..., 1]``), which the kernel reads in place, a row's two as one 8-byte
+load (`_build.elem_stride`).
 
 The kernel tiles the flat (rows * V) output by rows: a block takes R
 consecutive rows (about 32 KB of output, 1 to 1024 rows, so many short
@@ -46,8 +49,8 @@ def _lib():
     lib = _build.load("flat_write")
     if not getattr(lib, "_typed", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.rnnt_flat_grad_write.argtypes = [p, p, p, p, i, ctypes.c_longlong,
-                                             i, i, i, i, p]
+        lib.rnnt_flat_grad_write.argtypes = [p, p, i, p, p, i,
+                                             ctypes.c_longlong, i, i, i, i, p]
         lib.rnnt_flat_grad_write.restype = i
         lib.rnnt_flat_write_block_rows.argtypes = [i, i]
         lib.rnnt_flat_write_block_rows.restype = i
@@ -123,9 +126,11 @@ def flat_grad_write(ct0, ct1, loc_rows, blank: int, V: int, UV: int,
         loc_rows, blank = (loc_rows - offset).contiguous(), blank - offset
     if ct0.device.type != "cuda":
         raise ValueError(f"unsupported device {ct0.device}")
-    for name, x in (("ct0", ct0), ("ct1", ct1), ("loc_rows", loc_rows)):
-        if not x.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+    if not loc_rows.is_contiguous():
+        raise ValueError("loc_rows must be contiguous")
+    stride = _build.elem_stride(ct0, "ct0")
+    if _build.elem_stride(ct1, "ct1") != stride:
+        raise ValueError("ct0 and ct1 must have one element stride")
     N, T, U = ct0.shape
     rows = N * T * U
     out = torch.empty((N, T, UV), dtype=out_dtype, device=ct0.device)
@@ -135,8 +140,9 @@ def flat_grad_write(ct0, ct1, loc_rows, blank: int, V: int, UV: int,
     stream = torch.cuda.current_stream(ct0.device).cuda_stream
     with torch.cuda.device(ct0.device):
         code = lib.rnnt_flat_grad_write(
-            ct0.data_ptr(), ct1.data_ptr(), loc_rows.data_ptr(), out.data_ptr(),
-            _DTYPE_CODES[out_dtype], rows, T, U, V, blank, stream,
+            ct0.data_ptr(), ct1.data_ptr(), stride, loc_rows.data_ptr(),
+            out.data_ptr(), _DTYPE_CODES[out_dtype], rows, T, U, V, blank,
+            stream,
         )
     _build.check(lib, "rnnt_flat_write_error_string", code, "rnnt_flat_grad_write")
     LAUNCHES["flat_write"] += 1
