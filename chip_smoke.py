@@ -334,6 +334,23 @@ write once a call and at most 8 other kernels.  `lattice_epilogue` runs
 once a grad call on every loss path (main, fused, compact, joint layouts,
 train, serving, parallel, bench, tf) and joins the kernels line with
 ptxas's registers and spills.
+Slice 21 (the loss+grad compiled once a shape, `utils.compiled_step`:
+one CUDA graph, the log-probs donated to the gradient) adds, after phase
+5, `phase_compiled_main` (`benchmarks/compiled_cases.py`): at the
+headline (N=32, T=150, 20 labels, V=5000) in fp32, bf16 and the flat
+layout, each with reduction "none", "sum" and "mean", average_frames and
+FastEmit 0.3, and at the README table's six rows (T=150, 40 labels, V=28;
+T=150, 20 labels, V=5000; T=1500, 300 labels, V=50; N=1 and 128), the
+compiled loss+grad and no-grad costs equal the same function called
+eagerly bit for bit, on the capture's log-probs and again after new ones
+are copied into the static buffers; the gradient comes back in the
+log-probs' buffer; a donated chain of 50 calls copies no argument and
+does not grow the allocated memory; a headline replay launches the eager
+call's 10 kernels (profiled side by side); with ``WARP_RNNT_DEBUG=1`` a
+compiled call whose canary trips warns after each replay.  Each row
+prints its chained ms eager and compiled, the capture ms and the graph's
+pool MiB.  The compiled timers count launches at capture only, so every
+gate on launch counts (here and in phase 17's checks) runs eager calls.
 It prints the kernels' JSON line and the card's line, and last
 `{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}`.
 Without a CUDA device, or without the package beside it, it exits 1 and
@@ -3074,6 +3091,55 @@ def tf_bridge_on_card(torch, bc, inputs, card):
     return launches, errs
 
 
+# The compiled loss+grad's rows: bench.py's headline (L = 20 labels) and the
+# README table's configurations at N = 1 and 128.
+COMPILED_TABLE = ((150, 40, 28), (150, 20, 5000), (1500, 300, 50))
+HEADLINE_KERNELS = 10  # an eager headline loss+grad's launches (phase 13)
+
+
+def phase_compiled_main(torch, card):
+    """The main path compiled (`utils.compiled_step`, see the module
+    docstring): `benchmarks/compiled_cases.py` at the headline (fp32 in
+    every variant with a replay's profile, bf16, the flat layout) and the
+    six table rows.  Returns {row: check_row's numbers}."""
+    from warp_rnnt_tpu_torch.benchmarks import compiled_cases as cc
+    from warp_rnnt_tpu_torch.benchmarks import run_table as rt
+    from warp_rnnt_tpu_torch.utils import compiled_step as cs
+
+    t0 = time.perf_counter()
+    rows = [("headline", dict(N=N, T=T, L=U - 1, V=V, variants=tuple(
+        cc.VARIANTS), profile=True)),
+            ("headline bf16", dict(N=N, T=T, L=U - 1, V=V,
+                                   dtype=torch.bfloat16,
+                                   variants=tuple(cc.VARIANTS))),
+            ("headline flat", dict(N=N, T=T, L=U - 1, V=V, flat=True,
+                                   variants=tuple(cc.VARIANTS)))]
+    rows += [(f"table T={T_} L={L_} V={V_} N={n}", dict(N=n, T=T_, L=L_, V=V_))
+             for T_, L_, V_ in COMPILED_TABLE for n in (1, 128)]
+    out = {}
+    for name, kw in rows:
+        r = cc.check_row(iters=rt.iters_for(kw["T"], kw["L"]), seed=SEED, **kw)
+        kernels = r.pop("kernels", None)
+        if kernels is not None:
+            n = sum(kernels["compiled"].values())
+            if n != HEADLINE_KERNELS:
+                raise AssertionError(f"compiled headline: a replay launches {n}"
+                                     f" kernels, not {HEADLINE_KERNELS}:"
+                                     f" {kernels['compiled']}")
+            r["kernels_a_replay"] = n
+        out[name] = r
+        print(f"compiled {name}: equal to eager bit for bit (loss, gradient,"
+              f" costs; {', '.join(kw.get('variants', ('mean',)))}) on the"
+              f" capture's log-probs and on new ones; {json.dumps(r)} [{card}]")
+        torch.cuda.empty_cache()
+    n = cc.check_canary()
+    print(f"compiled canary: WARP_RNNT_DEBUG=1, {n} warnings in 2 tripped"
+          f" calls; none without it; cache {len(cs.entries())} entries,"
+          f" {cs.STATS}")
+    print(f"phase compiled main: {time.perf_counter() - t0:.1f} s [{card}]")
+    return out
+
+
 def main():
     import torch
 
@@ -3144,6 +3210,8 @@ def main():
                         ct, rates, card, ns)
     print(f"peak device memory: {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     del inputs, log_probs, main_lattice, ct
+    torch.cuda.empty_cache()
+    phase_compiled_main(torch, card)
 
     # the fused joint slice: rnnt_loss_fused_joint at N=16 T=150 U=21 V=5000
     # H=F=256, weights carried from a Flax-layout tree made from the seed

@@ -21,8 +21,9 @@ AssertionError on a failure.
     phase 11), each launching exactly its route's kernels;
   * `trace_main_path`: `utils.profiling.trace` of main-path loss+grad
     calls and its `op_breakdown`.
-Every call is run with the launch counts set to 0 just before and read
-just after (`serving_cases.launched`).
+Every call is eager (``compiled=False``: a compiled step counts its
+launches at its capture, none at a replay) and is run with the launch
+counts set to 0 just before and read just after (`serving_cases.launched`).
 """
 
 from __future__ import annotations
@@ -101,14 +102,17 @@ def check_table_row(T, U, V, N=1, seed=0):
     "gather_lattice", "flat_write": their max abs err; {"loss_grad",
     "no_grad"}: the launches of each call)."""
     xs, ys, xn, yn = bl.make_batch(seed, N, T, U, V)
-    (loss, grad), l_grad = launched(lambda: bl.loss_grad_step(ys, xn, yn)(xs))
-    costs, l_costs = launched(lambda: bl.costs_fn(ys, xn, yn)(xs))
+    (loss, grad), l_grad = launched(
+        lambda: bl.loss_grad_step(ys, xn, yn, compiled=False)(xs))
+    costs, l_costs = launched(
+        lambda: bl.costs_fn(ys, xn, yn, compiled=False)(xs))
     _expect(f"table row {(T, U, V, N)} loss+grad", l_grad,
             TABLE_KERNELS["loss_grad"])
     _expect(f"table row {(T, U, V, N)} no-grad", l_costs,
             TABLE_KERNELS["no_grad"])
-    loss_s, grad_s = bl.loss_grad_step(ys, xn, yn, impl="scan")(xs)
-    costs_s = bl.costs_fn(ys, xn, yn, impl="scan")(xs)
+    loss_s, grad_s = bl.loss_grad_step(ys, xn, yn, impl="scan",
+                                       compiled=False)(xs)
+    costs_s = bl.costs_fn(ys, xn, yn, impl="scan", compiled=False)(xs)
     for name, x in (("loss", loss), ("grad", grad), ("costs", costs)):
         if not torch.isfinite(x).all():
             raise AssertionError(f"table row {(T, U, V, N)}: {name} not finite")
@@ -203,7 +207,7 @@ def trace_main_path(path, N=32, T=150, U=20, V=5000, calls=3, seed=0):
     from warp_rnnt_tpu_torch.utils.profiling import op_breakdown, trace
 
     xs, ys, xn, yn = bl.make_batch(seed, N, T, U, V)
-    step = bl.loss_grad_step(ys, xn, yn)
+    step = bl.loss_grad_step(ys, xn, yn, compiled=False)
     step(xs)
     torch.cuda.synchronize()
     with trace(path):

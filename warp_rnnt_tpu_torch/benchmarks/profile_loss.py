@@ -1,6 +1,7 @@
 """Where the time of one loss+grad call goes, on a CUDA device.
 
     python -m warp_rnnt_tpu_torch.benchmarks.profile_loss [--path main|A|B]
+        [--compiled]
 
 ``main`` (the default) runs `rnnt_loss(log_probs (32, 150, 21, 5000), ...,
 reduction="mean", gather=True)` + backward; ``A`` and ``B`` run the compact
@@ -14,7 +15,11 @@ the profiler's own host cost, so it reads higher than the chained time of
 `chip_smoke.py`; beside it stands the step's wall time without the
 profiler (best of three windows of ITERS calls).  It reads only entry
 points that older trees have, so a copy placed in an older tree's
-`benchmarks/` times that tree.  Needs a CUDA device.
+`benchmarks/` times that tree.  With ``--compiled`` (``compiled=True``;
+the main path only, and only in a tree with `utils.compiled_step`) each
+call is a replay of the loss+grad captured once, its log-probs donated,
+each gradient the next call's input, as `bench_loss`'s compiled chain
+runs: the kernels a replay and their busy ms.  Needs a CUDA device.
 
 The profiler (kineto) loses the first kernel records of a session, the
 more the more sessions the process has run, and now and then a chunk of
@@ -43,7 +48,7 @@ ATTEMPTS = 3
 CASES = {"A": dict(N=32, T=150, L=20, V=5000), "B": dict(N=16, T=1500, L=300, V=50)}
 
 
-def _main_step():
+def _main_inputs():
     N, T, U, V = 32, 150, 21, 5000
     g = torch.Generator(device="cuda").manual_seed(SEED)
     log_probs = torch.log_softmax(
@@ -53,6 +58,11 @@ def _main_step():
                            dtype=torch.int32)
     xn = torch.full((N,), T, dtype=torch.int32, device="cuda")
     yn = torch.full((N,), U - 1, dtype=torch.int32, device="cuda")
+    return log_probs, labels, xn, yn
+
+
+def _main_step():
+    log_probs, labels, xn, yn = _main_inputs()
 
     def step():
         x = log_probs.detach().requires_grad_()
@@ -60,6 +70,31 @@ def _main_step():
         return x.grad
 
     return step
+
+
+def _compiled_main_step():
+    """(call, release): the main path's loss+grad as one compiled step,
+    log-probs donated, a call replaying it on the previous call's
+    gradient; release drops its graph."""
+    from warp_rnnt_tpu_torch.utils.compiled_step import compiled_step
+
+    log_probs, labels, xn, yn = _main_inputs()
+
+    def loss_vg(x):
+        x = x.detach().requires_grad_()
+        loss = rnnt_loss(x, labels, xn, yn, reduction="mean", gather=True)
+        return loss.detach(), torch.autograd.grad(loss, x)[0]
+
+    compiled = compiled_step(
+        loss_vg, key=("profile_loss.main", labels.data_ptr(), xn.data_ptr(),
+                      yn.data_ptr()), donate_argnums=(0,))
+    state = {"x": log_probs}
+
+    def step():
+        state["x"] = compiled(state["x"])[1]
+        return state["x"]
+
+    return step, compiled.release
 
 
 def _compact_step(case):
@@ -76,8 +111,17 @@ def _compact_step(case):
     return step
 
 
-def profile(path="main"):
-    """Profile ITERS calls of one path's loss+grad step (`profile_step`)."""
+def profile(path="main", compiled=False):
+    """Profile ITERS calls of one path's loss+grad step (`profile_step`);
+    ``compiled``: the main path's replays."""
+    if compiled:
+        if path != "main":
+            raise ValueError("only the main path is profiled compiled")
+        step, release = _compiled_main_step()
+        try:
+            return profile_step(step)
+        finally:
+            release()
     return profile_step(_main_step() if path == "main" else _compact_step(path))
 
 
@@ -178,9 +222,11 @@ def device_profile(step, iters, cpu=True):
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--path", choices=("main", *CASES), default="main")
+    parser.add_argument("--compiled", action="store_true")
     args = parser.parse_args(argv)
-    r = profile(args.path)
-    print(f"{r['device']} path={args.path}: {ITERS} calls, step"
+    r = profile(args.path, args.compiled)
+    print(f"{r['device']} path={args.path}"
+          f"{' compiled' * args.compiled}: {ITERS} calls, step"
           f" {r['step_ms']:.4f} ms/call without the profiler, wall"
           f" {r['wall_ms']:.4f} ms/call, device busy {r['busy_ms']:.4f}"
           f" ms/call, idle share {r['idle_share']:.3f},"

@@ -8,11 +8,13 @@ ms a batch, on an RTX 2070 Super), copied from the JAX module; None where
 its README has no number.  Every (config, N) row runs `run_one` in a child
 process of its own, one after the other, so that one row's allocator
 state and peak memory stay out of the next.  A child prints
-``RESULT {"loss_grad_ms", "fwd_ms", "peak_mb", "bound_ms",
-"fwd_bound_ms"[, "layout"]}``: `bench_loss.run_loss_bench`'s loss+grad
-and no-grad ms, the most device memory the row allocated, and the least
-time the card could take, the bytes the call must move over the memory
-rate (`timing.card_rates`): the blank and label log-prob of every
+``RESULT {"loss_grad_ms", "fwd_ms", "peak_mb", "eager_loss_grad_ms",
+"eager_fwd_ms", "eager_peak_mb", "bound_ms", "fwd_bound_ms"[,
+"layout"]}``: `bench_loss.run_loss_bench`'s loss+grad and no-grad ms
+compiled (as the JAX module times its jitted, donated calls) and, beside
+them, eager; the most device memory each pair of readings allocated; and
+the least time the card could take, the bytes the call must move over the
+memory rate (`timing.card_rates`): the blank and label log-prob of every
 lattice cell read, and with the gradient the dense gradient written once.
 
 `main` writes ``{"device", "power_limit", "torch", "rows"}`` to its
@@ -69,14 +71,23 @@ def run_one(N, T, U, V, iters, flat=False):
     import torch
 
     from warp_rnnt_tpu_torch.benchmarks import timing
-    from warp_rnnt_tpu_torch.benchmarks.bench_loss import run_loss_bench
+    from warp_rnnt_tpu_torch.benchmarks.bench_loss import (
+        _require_cuda,
+        run_loss_bench,
+    )
 
+    _require_cuda()
     torch.backends.cuda.matmul.allow_tf32 = False
-    out = {"loss_grad_ms": run_loss_bench(N, T, U, V, iters, grad=True,
-                                          flat=flat)}
-    torch.cuda.empty_cache()
-    out["fwd_ms"] = run_loss_bench(N, T, U, V, iters, grad=False, flat=flat)
-    out["peak_mb"] = torch.cuda.max_memory_allocated() / 2**20
+    out = {}
+    for prefix, compiled in (("", True), ("eager_", False)):
+        torch.cuda.reset_peak_memory_stats()
+        out[prefix + "loss_grad_ms"] = run_loss_bench(
+            N, T, U, V, iters, grad=True, flat=flat, compiled=compiled)
+        torch.cuda.empty_cache()
+        out[prefix + "fwd_ms"] = run_loss_bench(
+            N, T, U, V, iters, grad=False, flat=flat, compiled=compiled)
+        out[prefix + "peak_mb"] = torch.cuda.max_memory_allocated() / 2**20
+        torch.cuda.empty_cache()
     out["bound_ms"], out["fwd_bound_ms"] = row_bounds_ms(
         N, T, U, V, timing.card_rates())
     if flat:

@@ -16,6 +16,14 @@ Two rules make a per-call device time trustworthy:
     is reported, which cancels the fixed cost of starting and stopping a
     timed window (the first launch's host latency, the event records).
 
+Compiled steps (`utils.compiled_step`, the port's ``jax.jit``) chain as
+JAX's jitted ones do: `bench_grad_chain` takes a donated step as it is
+(its gradient comes back in the input's static buffer, so the next call
+copies nothing), and `bench_scalar_chain` with a ``key`` compiles ``fn``
+and the reduction into one step whose accumulator is donated
+(`make_scalar_chain`) and, after the warm-up, passes that step its own
+static arguments, so no call copies its inputs either.
+
 Times come from `torch.cuda.Event`s recorded on the current stream around
 the chain, read after `synchronize()`.  A call whose device work is shorter
 than its host launch path reads the host in a chain; `bench_graph` times
@@ -27,6 +35,8 @@ There is no CPU route: without a CUDA device these functions raise.
 from __future__ import annotations
 
 import torch
+
+from warp_rnnt_tpu_torch.utils.compiled_step import compiled_step
 
 _MIN_SIGNAL_MS = 20.0
 
@@ -86,8 +96,9 @@ def _two_point(run, iters, repeats):
 
 
 def bench_grad_chain(step, x0, iters, warmup=3, repeats=2):
-    """step: x -> (aux, x_like), e.g. loss and gradient.  Each iteration's
-    x_like is the next iteration's x.  Returns the marginal ms/call."""
+    """step: x -> (aux, x_like), e.g. loss and gradient, eager or a
+    compiled step with x donated.  Each iteration's x_like is the next
+    iteration's x.  Returns the marginal ms/call."""
     _require_cuda()
     state = {"x": x0}
     for _ in range(warmup):
@@ -108,17 +119,50 @@ def _sum_outputs(out):
     return sum(leaf.float().sum() for leaf in leaves if leaf is not None)
 
 
-def bench_scalar_chain(fn, args, iters, warmup=3, repeats=2, reduce_out=None):
+def make_scalar_chain(fn, key, reduce_out=None):
+    """JAX's `make_scalar_chain` on the port: a compiled step (acc, *args)
+    -> (acc + reduce_out(fn(*args)),) with the accumulator donated, cached
+    under ``key``, which must name ``fn`` and ``reduce_out`` (see
+    `utils.compiled_step`)."""
+    reduce_out = reduce_out or _sum_outputs
+    return compiled_step(lambda acc, *args: (acc + reduce_out(fn(*args)),),
+                         key=("timing.make_scalar_chain", key),
+                         donate_argnums=(0,))
+
+
+def bench_scalar_chain(fn, args, iters, warmup=3, repeats=2, reduce_out=None,
+                       key=None):
     """Marginal ms/call of `fn(*args)`, each call's output folded into a
     scalar accumulator that the next iteration carries.
 
     The default reduction sums every output tensor, which adds one read of
     the outputs to the time; pass a cheaper `reduce_out` (say, one element)
-    for a kernel whose outputs are large."""
+    for a kernel whose outputs are large.  With a ``key`` the call and the
+    reduction run as one compiled step (`make_scalar_chain`), fed its own
+    static arguments after the warm-up; its graphs are dropped before this
+    returns.  Without one they run eagerly."""
     _require_cuda()
-    reduce_out = reduce_out or _sum_outputs
     device = next(a for a in args if isinstance(a, torch.Tensor)).device
     state = {"acc": torch.zeros((), dtype=torch.float32, device=device)}
+    if key is not None:
+        step = make_scalar_chain(fn, key, reduce_out)
+        try:
+            for _ in range(max(warmup, 1)):  # the first call captures
+                state["acc"] = step(state["acc"], *args)[0]
+            args = step.entry.args[1:]
+            torch.cuda.synchronize()
+
+            def run(k):
+                acc = state["acc"]
+                for _ in range(k):
+                    acc = step(acc, *args)[0]
+                state["acc"] = acc
+
+            return _two_point(run, iters, repeats)
+        finally:
+            step.release()
+
+    reduce_out = reduce_out or _sum_outputs
     for _ in range(warmup):
         state["acc"] = state["acc"] + reduce_out(fn(*args))
     torch.cuda.synchronize()

@@ -27,6 +27,15 @@ reads the two channels of the fp32 cotangent in place), which
 with an offset writes the block and nothing for a column outside it.  When
 `loc == blank` (the last lattice row) both terms add, as a scatter-add would.
 
+Donation (`utils.compiled_step`): where a compiled step donates the
+log-probs this gather reads (the argument's whole buffer, or the 4-D view
+of a flat one), the backward writes the gradient into that buffer and
+returns a view of it, as ``jax.jit(..., donate_argnums=0)`` lets XLA do;
+nothing reads xs after the forward (only ``loc_rows`` is saved).  Only a
+compiled step's warm-up and capture mark a buffer, and a mark is taken
+once: an eager call allocates its gradient as before, with the same
+kernels.
+
 The label index is frame-invariant: the loss broadcasts per-sample labels
 over t, so the gather takes `loc_rows` (N, U) instead of an (N, T, U) index.
 
@@ -40,6 +49,7 @@ from __future__ import annotations
 import torch
 
 from warp_rnnt_tpu_torch.ops import flat_kernels, gather_kernels
+from warp_rnnt_tpu_torch.utils import compiled_step
 
 
 def gather_blank_label_plain(xs, loc_rows, blank: int):
@@ -61,6 +71,8 @@ class _GatherBlankLabel(torch.autograd.Function):
         ctx.offset = offset
         ctx.shape = tuple(xs.shape)
         ctx.dtype = xs.dtype
+        # the gradient's buffer: xs's own where a compiled step donates it
+        ctx.out = xs.detach() if compiled_step.take_donated(xs) else None
         if xs.is_cuda:
             return gather_kernels.gather_lattice(xs, loc_rows, blank, offset)
         if offset is not None:
@@ -73,9 +85,10 @@ class _GatherBlankLabel(torch.autograd.Function):
         (loc_rows,) = ctx.saved_tensors
         N, T, U, V = ctx.shape
         ct = ct.float().contiguous()  # the write reads its two channels
+        out = None if ctx.out is None else ctx.out.view(N, T, U * V)
         d = flat_kernels.flat_grad_write(
             ct[..., 0], ct[..., 1], loc_rows, ctx.blank, V, U * V,
-            out_dtype=ctx.dtype, offset=ctx.offset,
+            out_dtype=ctx.dtype, offset=ctx.offset, out=out,
         )
         return d.view(N, T, U, V), None, None, None
 

@@ -24,6 +24,7 @@ import warnings
 
 import torch
 
+from warp_rnnt_tpu_torch.utils import compiled_step
 from warp_rnnt_tpu_torch.utils.lse import NEG_INF
 
 
@@ -57,19 +58,39 @@ def mismatch_mask(blank_lp, alphas, betas, xn, yn):
     return ratio > 0.001
 
 
+def _warn(bad, ll_f, ll_b, stacklevel):
+    warnings.warn(
+        "warp_rnnt_tpu_torch WARNING: forward/backward mismatch - grads"
+        " zeroed and cost averaged for flagged samples."
+        f" mask={bad.tolist()} ll_forward={ll_f.tolist()}"
+        f" ll_backward={ll_b.tolist()}",
+        RuntimeWarning,
+        stacklevel=stacklevel + 1,
+    )
+
+
+def _warn_after_replay(bad, ll_f, ll_b):
+    if _canary_debug_enabled() and bool(bad.any()):
+        _warn(bad, ll_f, ll_b, stacklevel=5)  # the compiled step's caller
+
+
 def warn_mismatch(bad, blank_lp, alphas, betas, xn, yn):
     """With ``WARP_RNNT_DEBUG=1``, warn when the canary's mask ``bad`` has
-    tripped (one host sync), naming the samples' log-likelihoods."""
-    if _canary_debug_enabled() and bool(bad.any()):
+    tripped (one host sync), naming the samples' log-likelihoods.
+
+    While a compiled step traces its call (`utils.compiled_step`), which a
+    host read would break, the log-likelihoods are computed on the device
+    and the read and warning run after each replay of the graph: a
+    compiled call that trips the canary warns as an eager call does."""
+    if not _canary_debug_enabled():
+        return
+    if compiled_step.tracing():
         ll_f, ll_b = loglik_forward_backward(blank_lp, alphas, betas, xn, yn)
-        warnings.warn(
-            "warp_rnnt_tpu_torch WARNING: forward/backward mismatch - grads"
-            " zeroed and cost averaged for flagged samples."
-            f" mask={bad.tolist()} ll_forward={ll_f.tolist()}"
-            f" ll_backward={ll_b.tolist()}",
-            RuntimeWarning,
-            stacklevel=3,
-        )
+        compiled_step.after_replay(lambda: _warn_after_replay(bad, ll_f, ll_b))
+        return
+    if bool(bad.any()):
+        ll_f, ll_b = loglik_forward_backward(blank_lp, alphas, betas, xn, yn)
+        _warn(bad, ll_f, ll_b, stacklevel=3)
 
 
 def costs_and_grads(blank_lp, emit_lp, alphas, betas, xn, yn, fastemit_lambda):

@@ -66,7 +66,8 @@ def kernel_block_rows(V: int, out_dtype=torch.float32) -> int:
     return _lib().rnnt_flat_write_block_rows(V, _DTYPE_CODES[out_dtype])
 
 
-def _check(ct0, ct1, loc_rows, blank, V, UV, out_dtype, offset=None):
+def _check(ct0, ct1, loc_rows, blank, V, UV, out_dtype, offset=None,
+           out=None):
     if ct0.dim() != 3 or ct1.shape != ct0.shape:
         raise ValueError(
             f"ct0 and ct1 must be (N, T, U) of one shape, got"
@@ -92,36 +93,48 @@ def _check(ct0, ct1, loc_rows, blank, V, UV, out_dtype, offset=None):
             raise ValueError(f"{name} must be {dtype}, got {x.dtype}")
         if x.device != ct0.device:
             raise ValueError(f"{name} is on {x.device}, ct0 on {ct0.device}")
+    if out is not None and (tuple(out.shape) != (N, T, UV)
+                            or out.dtype != out_dtype
+                            or out.device != ct0.device
+                            or not out.is_contiguous()):
+        raise ValueError(
+            f"out must be a contiguous ({N}, {T}, {UV}) {out_dtype} tensor on"
+            f" {ct0.device}, got {tuple(out.shape)} {out.dtype} on"
+            f" {out.device}{'' if out.is_contiguous() else ', strided'}")
 
 
 def flat_grad_write_plain(ct0, ct1, loc_rows, blank: int, V: int, UV: int,
-                          out_dtype=torch.float32, offset=None):
-    """Plain torch twin: the compare-select of `gather._gather_flat_bwd`."""
-    _check(ct0, ct1, loc_rows, blank, V, UV, out_dtype, offset)
+                          out_dtype=torch.float32, offset=None, out=None):
+    """Plain torch twin: the compare-select of `gather._gather_flat_bwd`,
+    copied into ``out`` where one is given."""
+    _check(ct0, ct1, loc_rows, blank, V, UV, out_dtype, offset, out)
     N, T, U = ct0.shape
     v_iota = torch.arange(offset or 0, (offset or 0) + V, device=ct0.device)
     d = ct0[..., None] * (v_iota == blank) + ct1[..., None] * (
         v_iota == loc_rows[:, None, :, None]
     )
-    return d.reshape(N, T, UV).to(out_dtype)
+    d = d.reshape(N, T, UV).to(out_dtype)
+    return d if out is None else out.copy_(d)
 
 
 def flat_grad_write(ct0, ct1, loc_rows, blank: int, V: int, UV: int,
-                    out_dtype=torch.float32, offset=None):
+                    out_dtype=torch.float32, offset=None, out=None):
     """(N, T, U) fp32 blank/label cotangents -> (N, T, U*V) gradient.
 
     loc_rows: (N, U) int32 frame-invariant label indices.  With a column
     ``offset`` the output is the block [offset, offset + V) (see the
-    module docstring).  The output is allocated here with `torch.empty`;
-    the kernel writes every element.  The grid has ceil(rows / R) blocks
-    (R = `kernel_block_rows`), which stays under CUDA's 2**31 - 1 for any
-    output a card can hold; past it the C entry refuses the launch and
-    this raises.
+    module docstring).  The output is ``out`` where one is given (a
+    contiguous (N, T, U*V) tensor of ``out_dtype`` on ct0's device: a
+    compiled step's donated log-probs, `functional.gather`), else allocated
+    here with `torch.empty`; the kernel writes every element.  The grid
+    has ceil(rows / R) blocks (R = `kernel_block_rows`), which stays under
+    CUDA's 2**31 - 1 for any output a card can hold; past it the C entry
+    refuses the launch and this raises.
     """
     if ct0.device.type == "cpu":
         return flat_grad_write_plain(ct0, ct1, loc_rows, blank, V, UV,
-                                     out_dtype, offset)
-    _check(ct0, ct1, loc_rows, blank, V, UV, out_dtype, offset)
+                                     out_dtype, offset, out)
+    _check(ct0, ct1, loc_rows, blank, V, UV, out_dtype, offset, out)
     if offset:
         loc_rows, blank = (loc_rows - offset).contiguous(), blank - offset
     if ct0.device.type != "cuda":
@@ -133,7 +146,8 @@ def flat_grad_write(ct0, ct1, loc_rows, blank: int, V: int, UV: int,
         raise ValueError("ct0 and ct1 must have one element stride")
     N, T, U = ct0.shape
     rows = N * T * U
-    out = torch.empty((N, T, UV), dtype=out_dtype, device=ct0.device)
+    if out is None:
+        out = torch.empty((N, T, UV), dtype=out_dtype, device=ct0.device)
     if rows == 0 or V == 0:
         return out
     lib = _lib()
