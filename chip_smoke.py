@@ -351,6 +351,22 @@ compiled call whose canary trips warns after each replay.  Each row
 prints its chained ms eager and compiled, the capture ms and the graph's
 pool MiB.  The compiled timers count launches at capture only, so every
 gate on launch counts (here and in phase 17's checks) runs eager calls.
+Slice 22 (the streaming chunk's encoder step and `bench_joint`'s step
+compiled the same way) adds, after phase 15, `phase_compiled_serving`
+(`benchmarks/compiled_serving_cases.py`): at bench_streaming's width (N=8,
+C=16, V=1024, hidden 512, T=150: a ragged tail of 6), greedy and beam 4,
+with ragged ``xn`` and without, every chunk's whole session state and the
+finish equal the same session run eagerly (`compiled_step._plain`) bit for
+bit, one encoder replay a chunk; chunked equals one-shot; two interleaved
+sessions of one shape each equal their one-shot decode; a steady chunk's
+kernels, busy ms and the port's launches (D1-D3) under the profiler, and
+the encoder graphs' capture ms and pool MiB.  At bench_joint's shape
+(N=16, T=150, U=20, V=5000, H=256), full and random lengths, the compiled
+step equals the eager one bit for bit in log_softmax+gather, from_logits,
+fused and auto, on the capture's inputs and on new ones, with a replay's
+kernels beside an eager call's (the port's launches in the kernels line,
+``compiled_joint_step``) and the kernels whose replay is slowest against
+eager; the compact mode's capture raises on its host read.
 It prints the kernels' JSON line and the card's line, and last
 `{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}`.
 Without a CUDA device, or without the package beside it, it exits 1 and
@@ -3095,6 +3111,7 @@ def tf_bridge_on_card(torch, bc, inputs, card):
 # README table's configurations at N = 1 and 128.
 COMPILED_TABLE = ((150, 40, 28), (150, 20, 5000), (1500, 300, 50))
 HEADLINE_KERNELS = 10  # an eager headline loss+grad's launches (phase 13)
+JOINT_STEP = dict(N=16, T=150, U=20, V=5000, H=256)  # bench_joint's defaults
 
 
 def phase_compiled_main(torch, card):
@@ -3138,6 +3155,130 @@ def phase_compiled_main(torch, card):
           f" {cs.STATS}")
     print(f"phase compiled main: {time.perf_counter() - t0:.1f} s [{card}]")
     return out
+
+
+# the port's kernels by a word of their names in a trace
+OUR_KERNELS = (("hidden_image_kernel", "fused_joint_hidden"),
+               ("dadc_kernel", "fused_joint_bwd_dadc"),
+               ("dwdb_kernel", "fused_joint_bwd_dwdb"),
+               ("fwd_kernel", "fused_joint_fwd"),
+               ("epilogue_kernel", "lattice_epilogue"),
+               ("lattice_kernel", "lattice_fused"),
+               ("flat_write_kernel", "flat_write"),
+               ("column_gather_kernel", "gather_lattice"),
+               ("decode_joint", "decode_joint"), ("decode_gru", "decode_gru"),
+               ("decode_beam_select", "decode_beam_select"))
+
+
+def ours(kernels):
+    """{port kernel: launches a call} of a profile's {kernel: launches}."""
+    out = {}
+    for key, n in kernels.items():
+        for word, name in OUR_KERNELS:
+            if word in key:
+                out[name] = out.get(name, 0) + n
+                break
+    return out
+
+
+def phase_compiled_serving(torch, card):
+    """The streaming chunk and the joint step compiled
+    (`benchmarks/compiled_serving_cases.py`): at bench_streaming's width,
+    greedy and beam, compiled chunks equal to eager ones, chunked equal to
+    one-shot with a ragged tail, two interleaved sessions each equal to
+    its one-shot decode; at bench_joint's shape, full and random lengths,
+    the compiled step equal to eager in the four modes that compile, and
+    compact refused.  Returns {"stream": {decoder: port kernels a
+    compiled chunk}, "joint": {mode: port kernels a replay}}."""
+    from warp_rnnt_tpu_torch.benchmarks import compiled_serving_cases as csc
+    from warp_rnnt_tpu_torch.benchmarks import serving_cases as sc
+    from warp_rnnt_tpu_torch.benchmarks.profile_loss import device_profile
+    from warp_rnnt_tpu_torch.models import stream_init, stream_step, streaming
+    from warp_rnnt_tpu_torch.utils import compiled_step as cs
+
+    t0 = time.perf_counter()
+    d = sc.STREAM
+    T = 150  # chunks of 16 leave a ragged tail of 6
+    model = sc.carried_model(d, SEED + 81)
+    feats = sc.features(SEED + 82, d["N"], T, d["F"])
+    other = sc.features(SEED + 83, d["N"], T, d["F"])
+    xn = sc.ragged(d["N"], T)
+    for beam in (0, d["beam"]):
+        for x in (xn, None):
+            r = csc.check_stream_compiled(model, feats, x, d["max_length"],
+                                          beam, d["C"])
+            print(f"compiled stream beam={beam} C={d['C']} T={T}"
+                  f"{' ragged xn' if x is not None else ''}: every chunk's"
+                  f" state and the finish equal eager bit for bit;"
+                  f" {json.dumps(r)}")
+    ref, bits = sc.check_streaming(model, feats, xn, d["max_length"],
+                                   d["beam"], (d["C"],))
+    print(f"compiled stream: chunked (C={d['C']}, tail 6, finish) equals"
+          f" one-shot, greedy and beam {d['beam']}; lengths {json.dumps(ref)};"
+          f" encoder elements differing {json.dumps(bits)}")
+    for beam in (0, d["beam"]):
+        lengths = csc.check_interleaved(model, (feats, other),
+                                        (xn, xn.flip(0)), d["max_length"],
+                                        beam, d["C"])
+        print(f"compiled stream beam={beam}: two interleaved sessions of"
+              f" (N, C) = ({d['N']}, {d['C']}) each equal their one-shot"
+              f" decode; lengths {json.dumps(lengths)}")
+    stream = {}
+    for beam, name in ((0, "greedy"), (d["beam"], "beam")):
+        box = [stream_init(model, d["N"], d["max_length"], beam_size=beam)]
+        chunk = feats[:, :d["C"]].contiguous()
+        for _ in range(d["max_length"] // d["C"] + 4):  # token buffers full
+            box[0] = stream_step(model, box[0], chunk)
+
+        def one():
+            box[0] = stream_step(model, box[0], chunk)
+
+        prof = device_profile(one, 10)
+        rows = {key: n for _, n, key in prof["rows"]}
+        enc = device_profile(streaming.LAST_GRAPH["step"].replay, 10)
+        stream[name] = ours(rows)
+        print(f"compiled stream {name} chunk: {prof['kernels_per_call']}"
+              f" kernels a chunk, busy {prof['busy_ms']} ms, idle"
+              f" {prof['idle_share']}; the port's {json.dumps(stream[name])};"
+              f" an encoder replay {enc['kernels_per_call']} kernels, busy"
+              f" {enc['busy_ms']} ms [{card}]")
+    graphs = {json.dumps(e.key[0][3:]) + f" {tuple(e.outputs[-3].shape)}": (
+        round(e.capture_ms, 1), round(e.pool_bytes / 2**20, 1))
+        for e in cs.entries() if isinstance(e.key[0], tuple)
+        and e.key[0][0] == "streaming.encoder_step"}
+    print(f"compiled stream encoder graphs [finish, xn] (N, C, H): (capture"
+          f" ms, pool MiB) {json.dumps(graphs)}")
+    del model, feats, other
+    torch.cuda.empty_cache()
+
+    joint = {}
+    for rand in (False, True):
+        case = csc.joint_case(**JOINT_STEP, rand_length=rand, seed=SEED + 84)
+        for mode in csc.JOINT_MODES:
+            r = csc.check_joint(mode, *case, seed=SEED, profile=not rand)
+            if not rand:
+                k = r.pop("kernels")
+                ms = r.pop("kernel_ms")
+                r["slower_compiled_us"] = {
+                    key[:60]: round((t - ms["eager"].get(key, 0.0)) * 1e3, 2)
+                    for key, t in sorted(
+                        ms["compiled"].items(),
+                        key=lambda kv: ms["eager"].get(kv[0], 0.0) - kv[1])[:3]}
+                joint[mode] = ours(k["compiled"])
+                r["kernels_a_replay"] = sum(k["compiled"].values())
+                r["kernels_eager"] = sum(k["eager"].values())
+                r["port_kernels_a_replay"] = joint[mode]
+            print(f"compiled joint {mode} {json.dumps(JOINT_STEP)}"
+                  f"{' random lengths' * rand}: loss and four gradients"
+                  f" equal eager bit for bit on the capture's inputs and on"
+                  f" new ones; {json.dumps(r)} [{card}]")
+            torch.cuda.empty_cache()
+        if rand:
+            why = csc.check_host_read_raises(*case)
+            print(f"compiled joint compact: its capture raised; {why}")
+        del case
+    print(f"phase compiled serving: {time.perf_counter() - t0:.1f} s [{card}]")
+    return {"stream": stream, "joint": joint}
 
 
 def main():
@@ -3347,6 +3488,7 @@ def main():
     # slice 11: the serving path
     serving_launches, serving_errs, step_entries = phase_serving(
         torch, wt, timing, card)
+    compiled_serving = phase_compiled_serving(torch, card)
 
     # slice 12: the parallel tier
     t16 = time.perf_counter()
@@ -3475,7 +3617,15 @@ def main():
                              for call, n in serving_launches.items()},
                 "max_abs_err": {k: serving_errs[k] for k in (
                     "costs_vs_scan", "no_grad_vs_scan", "grad_vs_scan_share")}}
+        joint_replay = {mode: n[name] for mode, n in
+                        compiled_serving["joint"].items() if name in n}
+        if joint_replay:
+            entry["compiled_joint_step"] = {"launches_a_replay": joint_replay}
         kernels.append(entry)
+    for entry in step_entries:
+        entry["compiled_chunk"] = {"launches": {
+            dec: n.get(entry["name"], 0)
+            for dec, n in compiled_serving["stream"].items()}}
     kernels.extend(step_entries)
     print(f"whole run from the build: {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -4,6 +4,7 @@ warp-rnnt's `pytorch_binding/benchmark2.py`).
 
     python -m warp_rnnt_tpu_torch.benchmarks.bench_joint [mode [N T U V [H]]]
                                                         [--rand-length]
+                                                        [--eager]
 
 One step is the Tanh-MLP joint (`models.Joint`: bf16 products, fp32
 log_softmax), the RNN-T loss (reduction "mean") and the gradients with
@@ -19,6 +20,12 @@ the JAX module's ``jax.value_and_grad(loss_fn)`` (argument 0).  Modes:
   * "auto": `rnnt_loss_joint(layout="auto")`, whose route
     (`joint_layout_route`) each result names.
 
+As JAX times ``jax.jit(value_and_grad)``, the step is timed compiled by
+default (`compiled_joint_step`: `utils.compiled_step`, one CUDA graph a
+shape); ``--eager`` times it eagerly.  "compact" always runs eagerly: it
+reads the lengths on the host to pack its rows (`NOT_COMPILED`), which a
+graph cannot hold, as JAX's jit needs static bounds there.
+
 The weights come from a seeded numpy tree in Flax's layout and
 initializers (`joint_tree`: lecun-normal kernels, zero biases), carried in
 with `models.carry_flax_joint`; f, g and the labels from a
@@ -26,10 +33,12 @@ with `models.carry_flax_joint`; f, g and the labels from a
 from ``np.random.RandomState(0)``, drawn as the JAX module draws them, so
 the two give the same lengths.  Each mode prints one JSON line with the
 JAX module's keys (``step_ms``, the dependency-forced chain of
-`utils.profiling.timeit`; ``peak_hbm_mb``, `utils.profiling.
-peak_memory_mb`, measured), then the step's kernels a call, device busy
-ms and idle share under the profiler (`profile_loss.profile_step`), and
-the card's name and power limit.  Needs a CUDA device.
+`timing.bench_scalar_chain`, compiled with the scalar fold where the step
+is; ``peak_hbm_mb``, `utils.profiling.peak_memory_mb` of an eager call,
+measured), then whether the step was compiled (with the graph's capture ms
+and pool MiB), the step's kernels a call (a replay where compiled), device
+busy ms and idle share under the profiler (`profile_loss.profile_step`),
+and the card's name and power limit.  Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -44,8 +53,13 @@ from warp_rnnt_tpu_torch import (rnnt_loss, rnnt_loss_from_logits,
                                  rnnt_loss_fused_joint, rnnt_loss_joint)
 from warp_rnnt_tpu_torch.functional.joint_loss import joint_layout_route
 from warp_rnnt_tpu_torch.models.joint import carry_flax_joint
+from warp_rnnt_tpu_torch.utils.compiled_step import compiled_step
 
 MODES = ("log_softmax+gather", "from_logits", "compact", "fused", "auto")
+# modes that do not compile, and why
+NOT_COMPILED = {"compact": "the compact layout reads the lengths on the host"
+                " to pack its rows (pack, rnnt_loss(compact=True)), and a CUDA"
+                " graph cannot hold a host read"}
 # The JAX module's full width (its bench_joint's defaults): 20 labels.
 DEFAULTS = dict(N=16, T=150, U=20, V=5000, H=256)
 
@@ -150,14 +164,17 @@ def joint_params(joint):
     return (joint.pre.weight, joint.pre.bias, joint.out.weight, joint.out.bias)
 
 
+def grad_tree(gw_pre, gb_pre, gw_out, gb_out):
+    """The four gradients of `joint_params` as a Flax tree {"pre", "out"}
+    of {"kernel" (in, out), "bias"}."""
+    return {"pre": {"kernel": gw_pre.t(), "bias": gb_pre},
+            "out": {"kernel": gw_out.t(), "bias": gb_out}}
+
+
 def value_and_grad(mode, joint, f, g, ys, xn, yn, packed=None):
-    """(loss, gradients as a Flax tree {"pre", "out"} of {"kernel" (in,
-    out), "bias"}) of one step in ``mode``."""
-    loss = joint_loss_fn(mode, joint, f, g, ys, xn, yn, packed)
-    gw_pre, gb_pre, gw_out, gb_out = torch.autograd.grad(loss,
-                                                         joint_params(joint))
-    return loss.detach(), {"pre": {"kernel": gw_pre.t(), "bias": gb_pre},
-                           "out": {"kernel": gw_out.t(), "bias": gb_out}}
+    """(loss, `grad_tree` of the gradients) of one step in ``mode``."""
+    loss, *grads = loss_grad_fn(mode, joint, ys, xn, yn, packed)(f, g)
+    return loss, grad_tree(*grads)
 
 
 def route(mode, f, V, H):
@@ -169,34 +186,84 @@ def route(mode, f, V, H):
     return joint_layout_route(T, 0, H, V, N, platform=f.device.type)
 
 
+def loss_grad_fn(mode, joint, ys, xn, yn, packed=None):
+    """(f, g) -> (loss, the gradients of the four `joint_params`) of one
+    step in ``mode``: the function `compiled_joint_step` compiles."""
+    params = joint_params(joint)
+
+    def step(f, g):
+        loss = joint_loss_fn(mode, joint, f, g, ys, xn, yn, packed)
+        return (loss.detach(), *torch.autograd.grad(loss, params))
+
+    return step
+
+
+def step_key(mode, joint, f, ys, xn, yn):
+    """The compiled step's key: the mode, its route, and the addresses of
+    what `loss_grad_fn` closes over (the four parameters, the labels and
+    the lengths)."""
+    V, H = joint.out.out_features, joint.pre.out_features
+    return ("bench_joint", mode, route(mode, f, V, H),
+            *(p.data_ptr() for p in joint_params(joint)),
+            ys.data_ptr(), xn.data_ptr(), yn.data_ptr())
+
+
+def compiled_joint_step(mode, joint, f, ys, xn, yn):
+    """`loss_grad_fn` of ``mode`` compiled once a shape (`utils.
+    compiled_step`): ``step(f, g)`` -> (loss, 4 gradients), on the card the
+    graph's static tensors.  A mode of `NOT_COMPILED` raises ValueError
+    with its reason.  ``f`` gives the route's device."""
+    if mode in NOT_COMPILED:
+        raise ValueError(f"{mode} does not compile: {NOT_COMPILED[mode]}")
+    return compiled_step(loss_grad_fn(mode, joint, ys, xn, yn),
+                         key=step_key(mode, joint, f, ys, xn, yn))
+
+
 def bench_joint(N=16, T=150, U=20, V=5000, H=256, mode="from_logits",
-                rand_length=False, seed=0, iters=20):
-    """One mode's step on the card: the JAX module's keys, then
-    kernels_per_call, busy_ms, idle_share, profile_complete (from
-    `profile_loss.device_profile`), route, device, power_limit."""
+                rand_length=False, seed=0, iters=20, compiled=True):
+    """One mode's step on the card: the JAX module's keys, then compiled
+    (false for `NOT_COMPILED` modes, with not_compiled_reason),
+    capture_ms, pool_mib, kernels_per_call, busy_ms, idle_share,
+    profile_complete (from `profile_loss.device_profile`, of replays where
+    compiled), route, device, power_limit."""
     from warp_rnnt_tpu_torch.benchmarks.profile_loss import profile_step
-    from warp_rnnt_tpu_torch.utils.profiling import card, peak_memory_mb, timeit
+    from warp_rnnt_tpu_torch.benchmarks.timing import bench_scalar_chain
+    from warp_rnnt_tpu_torch.utils.profiling import card, peak_memory_mb
 
     if not torch.cuda.is_available():
         raise SystemExit("bench_joint needs a CUDA device")
     f, g, ys, xn, yn = make_inputs(seed, N, T, U, H, rand_length)
     joint, _ = carry_flax_joint(joint_tree(seed + 1, H, V), device="cuda")
     packed = pack(ys, xn, yn, T, U) if mode == "compact" else None
-    params = joint_params(joint)
-
-    def step(joint, f, g):
-        loss = joint_loss_fn(mode, joint, f, g, ys, xn, yn, packed)
-        return (loss.detach(), *torch.autograd.grad(loss, params))
-
-    ms = timeit(step, joint, f, g, iters=iters)
-    mem = peak_memory_mb(step, joint, f, g)
-    prof = profile_step(lambda: step(joint, f, g))
-    return {"mode": mode, "N": N, "T": T, "U": U, "V": V, "H": H,
-            "rand_length": bool(rand_length), "step_ms": ms,
-            "peak_hbm_mb": mem, "kernels_per_call": prof["kernels_per_call"],
-            "busy_ms": prof["busy_ms"], "idle_share": prof["idle_share"],
-            "profile_complete": prof["complete"],
-            "route": route(mode, f, V, H), **card()}
+    step = loss_grad_fn(mode, joint, ys, xn, yn, packed)
+    compiled = compiled and mode not in NOT_COMPILED
+    out = {"mode": mode, "N": N, "T": T, "U": U, "V": V, "H": H,
+           "rand_length": bool(rand_length)}
+    if compiled:
+        key = step_key(mode, joint, f, ys, xn, yn)
+        out["step_ms"] = bench_scalar_chain(step, (f, g), iters, key=key)
+        cstep = compiled_joint_step(mode, joint, f, ys, xn, yn)
+        try:
+            cstep(f, g)  # captures
+            static = cstep.entry.args
+            prof = profile_step(lambda: cstep(*static))
+            extra = {"capture_ms": cstep.entry.capture_ms,
+                     "pool_mib": cstep.entry.pool_bytes / 2**20}
+        finally:
+            cstep.release()
+    else:
+        out["step_ms"] = bench_scalar_chain(step, (f, g), iters)
+        prof = profile_step(lambda: step(f, g))
+        extra = {"capture_ms": None, "pool_mib": None}
+        if mode in NOT_COMPILED:
+            extra["not_compiled_reason"] = NOT_COMPILED[mode]
+    out.update({"peak_hbm_mb": peak_memory_mb(step, f, g),
+                "compiled": compiled, **extra,
+                "kernels_per_call": prof["kernels_per_call"],
+                "busy_ms": prof["busy_ms"], "idle_share": prof["idle_share"],
+                "profile_complete": prof["complete"],
+                "route": route(mode, f, V, H), **card()})
+    return out
 
 
 def main(argv=None):
@@ -205,11 +272,12 @@ def main(argv=None):
     mode = args[0] if args else None
     kw = dict(zip(("N", "T", "U", "V", "H"), (int(a) for a in args[1:])))
     rand_length = "--rand-length" in argv
+    compiled = "--eager" not in argv
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     for m in (mode,) if mode else MODES:
-        print(json.dumps(bench_joint(mode=m, rand_length=rand_length, **kw)),
-              flush=True)
+        print(json.dumps(bench_joint(mode=m, rand_length=rand_length,
+                                     compiled=compiled, **kw)), flush=True)
 
 
 if __name__ == "__main__":

@@ -19,6 +19,20 @@ loop's inputs (`utils.device_loop`), so on the card one CUDA graph serves
 every chunk of one width; the ragged tail and the flush have other widths,
 and so graphs of their own.
 
+The encoder's chunk step (`Encoder.stream`, or `Encoder.stream_finish`,
+and the frame bound after it) is compiled once per shape through
+`utils.compiled_step`, as JAX jits `stream_step`: on the card one CUDA
+graph a shape, keyed by the encoder and its parameters' addresses, N, C,
+F, the dtypes, whether ``xn`` is given and the limit's kind (the
+constant `_NO_LIMIT` in `stream_step`, the stream's length, an argument,
+in `stream_finish`); on the CPU it runs eagerly, the plain version.  The
+graph's outputs are static buffers that the next chunk of that shape
+overwrites, whichever session sends it, so the new encoder carry is
+cloned out of them (1 + 2 * blocks small copies a chunk) and every
+session's state is its own: sessions of one shape may interleave.  A
+chunk is then one encoder replay and the drain's rounds, one replay and
+one host read each.
+
 Typical use::
 
     state = stream_init(model, N=8, max_length=64)
@@ -42,8 +56,12 @@ from warp_rnnt_tpu_torch.models.beam_search import (
     beam_state_init,
 )
 from warp_rnnt_tpu_torch.models.decoding import greedy_drain, greedy_state_init
+from warp_rnnt_tpu_torch.utils.compiled_step import compiled_step
 
 _NO_LIMIT = 2 ** 30  # "more frames are coming": the encoder's stream limit
+# The compiled step's entry that the last `stream_step` / `stream_finish`
+# replayed (None where it ran eagerly), for the benchmarks.
+LAST_GRAPH = {"step": None, "finish": None}
 
 
 @torch.inference_mode()
@@ -76,6 +94,65 @@ def _drain(model, state, enc_state, out, p0, frame_bound,
         max_symbols_per_step=max_symbols_per_step, blank=blank)}
 
 
+def _carry(enc_state):
+    """The encoder's stream state as a flat tuple: m, then each block's
+    ``ln`` and ``x``."""
+    return (enc_state["m"], *(t for b in enc_state["blocks"]
+                              for t in (b["ln"], b["x"])))
+
+
+def _enc_state(flat):
+    """`_carry`'s inverse."""
+    rest = flat[1:]
+    return {"m": flat[0], "blocks": tuple(
+        {"ln": rest[i], "x": rest[i + 1]} for i in range(0, len(rest), 2))}
+
+
+def encoder_step(model, finish: bool, with_xn: bool):
+    """The chunk's encoder step as a `CompiledStep` (module docstring).
+
+    ``step(*carry, feats (N, C, F)[, xn (N,) int32])`` in `stream_step`
+    (``finish`` False), ``step(*carry, L (0-d int32)[, xn])`` in
+    `stream_finish`, ``carry`` the flat `_carry` of the encoder's state;
+    returns (*new carry, out (N, C, H) fp32, p0 0-d, bound (N,) or 0-d
+    int32): frames at positions < bound are final."""
+    encoder = model.encoder
+
+    def fn(*args):
+        k = 1 + 2 * len(encoder.conv_blocks)
+        state, (x, *xn) = _enc_state(args[:k]), args[k:]
+        if finish:
+            new, out, p0 = encoder.stream_finish(state, x)
+            bound = x
+        else:
+            new, out, p0 = encoder.stream(state, x, _NO_LIMIT)
+            bound = (p0 + x.shape[1]).clamp(min=0)  # positions < bound are final
+        if xn:
+            bound = torch.minimum(xn[0], bound)
+        return (*_carry(new), out, p0, bound)
+
+    params = tuple((p.data_ptr(), p.dtype, tuple(p.shape))
+                   for p in (*encoder.parameters(), *encoder.buffers()))
+    return compiled_step(fn, key=("streaming.encoder_step", id(encoder),
+                                  params, finish, with_xn))
+
+
+def _encode(model, enc_state, x, xn, finish):
+    """(new encoder state, out, p0, bound) of one chunk: x the features
+    (N, C, F), or the stream's length L when ``finish``."""
+    carry = _carry(enc_state)
+    args = (*carry, x)
+    if xn is not None:
+        args += (torch.as_tensor(xn, dtype=torch.int32, device=x.device),)
+    step = encoder_step(model, finish, xn is not None)
+    outs = step(*args)
+    LAST_GRAPH["finish" if finish else "step"] = step.entry
+    new = outs[:len(carry)]
+    if step.entry is not None:  # the graph's static buffers: clone them out
+        new = tuple(t.clone() for t in new)
+    return (_enc_state(new), *outs[len(carry):])
+
+
 @torch.inference_mode()
 def stream_step(model, state, feats_chunk, xn=None,
                 max_symbols_per_step: int = 4, blank: int = 0):
@@ -87,12 +164,8 @@ def stream_step(model, state, feats_chunk, xn=None,
     decoding at a known valid length (pass the same tensor every call); by
     default every fed frame is decoded.
     """
-    enc_state, out, p0 = model.encoder.stream(state["enc"], feats_chunk,
-                                              _NO_LIMIT)
-    bound = (p0 + feats_chunk.shape[1]).clamp(min=0)  # positions < bound are final
-    if xn is not None:
-        bound = torch.minimum(
-            torch.as_tensor(xn, dtype=torch.int32, device=bound.device), bound)
+    enc_state, out, p0, bound = _encode(model, state["enc"], feats_chunk, xn,
+                                        finish=False)
     return _drain(model, state, enc_state, out, p0, bound,
                   max_symbols_per_step, blank)
 
@@ -108,12 +181,8 @@ def stream_finish(model, state, xn=None, max_symbols_per_step: int = 4,
     its encoder has consumed the flush frames, so a further `stream_step`
     or `stream_finish` on it decodes frames that are not in the stream.
     """
-    L = state["enc"]["m"]
-    enc_state, out, p0 = model.encoder.stream_finish(state["enc"], L)
-    bound = L
-    if xn is not None:
-        bound = torch.minimum(
-            torch.as_tensor(xn, dtype=torch.int32, device=L.device), L)
+    enc_state, out, p0, bound = _encode(model, state["enc"],
+                                        state["enc"]["m"], xn, finish=True)
     state = _drain(model, state, enc_state, out, p0, bound,
                    max_symbols_per_step, blank)
     if "dec_beam" in state:

@@ -18,7 +18,8 @@ loss and gradient.
     strides are the static buffer's is not copied; any other is copied
     into the static buffer before the replay (`STATS["input_copies"]`
     counts those copies).  A failure to capture or replay raises: nothing
-    on a CUDA tensor falls back to eager.
+    on a CUDA tensor falls back to eager, which runs on the card only
+    inside `_plain()` (the plain version the graphs are held against).
 
 The outputs on a CUDA device are the graph's static tensors: they hold the
 last call's values and are overwritten by the next call of the same entry,
@@ -70,6 +71,7 @@ CACHE_SIZE = 32  # graphs kept
 STATS = {"captures": 0, "replays": 0, "input_copies": 0}
 
 _CACHE = collections.OrderedDict()
+_EAGER_ON_CARD = False  # set only inside `_plain()`
 _SIDE = {}  # one capture stream a device (cuBLAS keeps a workspace a stream)
 _TRACE = None  # the `_Trace` of the warm-up or capture under way
 
@@ -208,9 +210,13 @@ def _capture(full, fn, args, donate):
     torch.cuda.empty_cache()
     reserved = torch.cuda.memory_reserved(dev)
     graph = torch.cuda.CUDAGraph()
-    with _tracing([static[i] for i in donate]) as trace:
-        with torch.cuda.graph(graph, stream=side):
-            outs = _donate(_outputs(fn(*static)), static, donate)
+    try:
+        with _tracing([static[i] for i in donate]) as trace:
+            with torch.cuda.graph(graph, stream=side):
+                outs = _donate(_outputs(fn(*static)), static, donate)
+    except BaseException:
+        del _SIDE[dev]  # the next capture starts on a fresh stream
+        raise
     pool = torch.cuda.memory_reserved(dev) - reserved
     STATS["captures"] += 1
     return _Entry(full, graph, static, outs, trace.checks, fn,
@@ -245,7 +251,7 @@ class CompiledStep:
             devices = sorted({str(x.device) for x in args})
             raise ValueError("a compiled step's arguments must be on one"
                              f" device, got {devices}")
-        if dev.type != "cuda":
+        if dev.type != "cuda" or _EAGER_ON_CARD:
             self.entry = None
             return _outputs(self.fn(*args))
         full = self._cache_key(args)
@@ -299,6 +305,20 @@ def compiled_step(fn, *, key, donate_argnums=()):
         raise ValueError("compiled_step needs a key naming what fn closes"
                          " over: a cached graph replays its first capture's")
     return CompiledStep(fn, key, donate_argnums)
+
+
+@contextlib.contextmanager
+def _plain():
+    """Within the block, compiled steps on a CUDA device run ``fn``
+    eagerly, as on the CPU: the plain version that the graphs are held
+    against (`benchmarks/compiled_serving_cases.py`) and the benchmarks'
+    eager readings."""
+    global _EAGER_ON_CARD
+    saved, _EAGER_ON_CARD = _EAGER_ON_CARD, True
+    try:
+        yield
+    finally:
+        _EAGER_ON_CARD = saved
 
 
 def entries():
