@@ -367,6 +367,25 @@ fused and auto, on the capture's inputs and on new ones, with a replay's
 kernels beside an eager call's (the port's launches in the kernels line,
 ``compiled_joint_step``) and the kernels whose replay is slowest against
 eager; the compact mode's capture raises on its host read.
+Slice 23 (the train step compiled whole, `models.compiled_train_step`,
+and the compact loss compiled with static bounds) adds: in phase 14,
+`bench_train` compiled and eager in one call a mode (the compiled
+step's replays under the profiler; the eager step's chained ms goes on to
+phase 16); after phase 14, `phase_compiled_train`
+(`benchmarks/compiled_train_cases.py`): at bench_train's width in each
+loss mode, from a fresh model and a fresh capturable AdamW, the first
+compiled call equal to one eager step (`compiled_step._plain`) in the
+parameters and AdamW's state, 5 calls equal to 5 eager steps (bit for
+bit where two eager runs are; else within `train_cases.compare_steps`'
+tolerance, the differing tensors named), the loss falling, the step
+against the eager non-capturable step within `train_cases.STEP_ATOL`,
+capture ms and pool MiB, each mode's graph released before the next;
+compact A and B compiled with static bounds against eager bit for bit
+(loss, packed gradient, no-grad costs), with each replay's kernels beside
+the eager call's.  In phase 15's compiled joint step compact compiles,
+and compact without its bounds fails its capture.  The kernels line's
+`train` entries gain `launches_a_replay`, and the packed and lattice
+kernels a `compiled_compact` entry.
 It prints the kernels' JSON line and the card's line, and last
 `{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}`.
 Without a CUDA device, or without the package beside it, it exits 1 and
@@ -2212,12 +2231,14 @@ def phase_train(torch, card, rates):
     against the plain version in float64 on the same inputs
     (`train_cases.lattice_matches_plain`); TRAIN_STEPS AdamW steps a mode
     with the loss falling; one small step on the card against the CPU a
-    mode; then `bench_train` a mode, with each kernel's device ms a step
-    under the profiler beside its bound (`train_bounds`).  Returns
-    (launches a step by mode, device ms a step by mode and kernel, (bound
-    ms, bound by) by kernel, the largest error over its allowance by check,
-    the lattice's largest error on valid cells by mode, bench_train's
-    chained step ms by mode)."""
+    mode; then `bench_train` a mode, compiled and eager in one call, with
+    each kernel's device ms a step under the profiler (of the compiled
+    step's replays) beside its bound (`train_bounds`).  Returns (launches
+    a step by mode, device ms a step by mode and kernel, (bound ms, bound
+    by) by kernel, the largest error over its allowance by check, the
+    lattice's largest error on valid cells by mode, bench_train's eager
+    chained step ms by mode, the port's kernels a compiled replay by
+    mode)."""
     from warp_rnnt_tpu_torch.benchmarks import bench_train
     from warp_rnnt_tpu_torch.benchmarks import train_cases as tc
     from warp_rnnt_tpu_torch.models import make_train_step
@@ -2268,19 +2289,40 @@ def phase_train(torch, card, rates):
               f" gradients agree in sign above {tc.STEP_GRAD_MIN:.0e};"
               f" launches {small}")
     torch.cuda.empty_cache()
-    device_ms, step_ms = {}, {}
+    device_ms, step_ms, replay = {}, {}, {}
     for mode in TRAIN_MODES:
-        r = bench_train.bench_train(loss_mode=mode)
-        step_ms[mode] = r["step_ms"]
+        r = bench_train.bench_train(loss_mode=mode)  # compiled and eager
+        e = r["eager"]
+        step_ms[mode] = e["step_ms"]
         rows = r.pop("kernels")
-        print(f"time train step {mode}: {r['step_ms']:.3f} ms chained"
-              f" ({r['utts_per_s']:.1f} utts/s), bound {r['bound_ms']:.3f} ms"
-              f" ({r['bound_by']}), {r['kernels_per_step']} kernels a step,"
-              f" busy {r['busy_ms']:.3f} ms, idle {r['idle_share']:.3f},"
-              f" peak {r['peak_mb']:.1f} MB, {r['params_m']} M params [{card}]")
+        e_rows = e.pop("kernels")
+        replay[mode] = ours({name: count for _, count, name in rows})
+        for tag, x in (("eager", e), ("compiled", r)):
+            print(f"time train step {mode} {tag}: {x['step_ms']:.3f} ms"
+                  f" chained ({x['utts_per_s']:.1f} utts/s), bound"
+                  f" {r['bound_ms']:.3f} ms ({r['bound_by']}),"
+                  f" {x['kernels_per_step']} kernels a step, busy"
+                  f" {x['busy_ms']:.3f} ms, idle {x['idle_share']:.3f}, peak"
+                  f" {x['peak_mb']:.1f} MB, {r['params_m']} M params [{card}]")
+        print(f"time train step {mode} compiled: capture {r['capture_ms']:.1f}"
+              f" ms, pool {r['pool_mib']:.1f} MiB, the port's kernels a"
+              f" replay {json.dumps(replay[mode])} [{card}]")
+        counts = {tag: {} for tag in ("eager", "compiled")}
+        for tag, kernel_rows in (("eager", e_rows), ("compiled", rows)):
+            for _, count, name in kernel_rows:
+                counts[tag][name] = counts[tag].get(name, 0) + count
+        moved = {name[:60]: counts["compiled"].get(name, 0)
+                 - counts["eager"].get(name, 0)
+                 for name in {*counts["eager"], *counts["compiled"]}
+                 if counts["compiled"].get(name, 0)
+                 != counts["eager"].get(name, 0)}
+        print(f"train {mode}: launches a compiled replay minus an eager step,"
+              f" by kernel: {json.dumps(moved)}")
         print(f"bench_train {json.dumps(r)}")
-        for ms, count, name in rows[:bench_train.TOP]:
-            print(f"profile train {mode} {ms:.4f} ms/step {count} x/step {name}")
+        for tag, kernel_rows in (("eager", e_rows), ("compiled", rows)):
+            for ms, count, name in kernel_rows[:bench_train.TOP]:
+                print(f"profile train {mode} {tag} {ms:.4f} ms/step {count}"
+                      f" x/step {name}")
         device_ms[mode] = {k: sum(ms for ms, _, name in rows
                                   if f"::{sym}" in name)
                            for k, sym in TRAIN_SYMBOLS.items()}
@@ -2290,7 +2332,7 @@ def phase_train(torch, card, rates):
         print(f"time train kernel {k}: device ms a step"
               f" {json.dumps({m: device_ms[m][k] for m in TRAIN_MODES})},"
               f" bound {b_ms:.4f} ms ({b_by}) [{card}]")
-    return launches, device_ms, bounds, errs, lattice_errs, step_ms
+    return launches, device_ms, bounds, errs, lattice_errs, step_ms, replay
 
 
 SERVING_KERNELS = ("gather_lattice", "lattice_fused", "lattice_beta_only",
@@ -3158,7 +3200,10 @@ def phase_compiled_main(torch, card):
 
 
 # the port's kernels by a word of their names in a trace
-OUR_KERNELS = (("hidden_image_kernel", "fused_joint_hidden"),
+OUR_KERNELS = (("prefix_kernel", "packed_gather"),
+               ("lattice_gather_kernel", "packed_gather"),
+               ("packed_scatter_kernel", "packed_scatter"),
+               ("hidden_image_kernel", "fused_joint_hidden"),
                ("dadc_kernel", "fused_joint_bwd_dadc"),
                ("dwdb_kernel", "fused_joint_bwd_dwdb"),
                ("fwd_kernel", "fused_joint_fwd"),
@@ -3187,8 +3232,9 @@ def phase_compiled_serving(torch, card):
     greedy and beam, compiled chunks equal to eager ones, chunked equal to
     one-shot with a ragged tail, two interleaved sessions each equal to
     its one-shot decode; at bench_joint's shape, full and random lengths,
-    the compiled step equal to eager in the four modes that compile, and
-    compact refused.  Returns {"stream": {decoder: port kernels a
+    the compiled step equal to eager in its five modes (compact with its
+    static bounds), and compact without them refused.  Returns
+    {"stream": {decoder: port kernels a
     compiled chunk}, "joint": {mode: port kernels a replay}}."""
     from warp_rnnt_tpu_torch.benchmarks import compiled_serving_cases as csc
     from warp_rnnt_tpu_torch.benchmarks import serving_cases as sc
@@ -3274,11 +3320,67 @@ def phase_compiled_serving(torch, card):
                   f" new ones; {json.dumps(r)} [{card}]")
             torch.cuda.empty_cache()
         if rand:
-            why = csc.check_host_read_raises(*case)
-            print(f"compiled joint compact: its capture raised; {why}")
+            why = csc.check_compact_needs_bounds(*case)
+            print(f"compiled joint compact without static bounds: its"
+                  f" capture raised; {why}")
         del case
     print(f"phase compiled serving: {time.perf_counter() - t0:.1f} s [{card}]")
     return {"stream": stream, "joint": joint}
+
+
+def phase_compiled_train(torch, card):
+    """The train step and the compact loss compiled
+    (`benchmarks/compiled_train_cases.py`): at bench_train's width
+    (`train_cases.FULL`) in each loss mode, from a fresh model and
+    optimizer, the first compiled call equal to one eager step of the same
+    capturable AdamW, 5 calls to 5 eager steps (bit for bit, or where two
+    eager runs differ within `compare_steps`' tolerance, the differing
+    tensors named), the loss falling, the step against the eager
+    non-capturable step within `train_cases.STEP_ATOL`, each mode's graph
+    released before the next; compact A and B compiled with static
+    bounds against eager bit for bit, with the kernels of each replay.
+    Returns {"train": {mode: check_train's numbers}, "compact": {case:
+    {"loss_grad", "no_grad", "eager": port kernels a call}}}."""
+    from warp_rnnt_tpu_torch.benchmarks import compiled_train_cases as ctc
+    from warp_rnnt_tpu_torch.benchmarks import packed_cases as pc
+    from warp_rnnt_tpu_torch.benchmarks import train_cases as tc
+
+    t0 = time.perf_counter()
+    out = {"train": {}, "compact": {}}
+    for mode in TRAIN_MODES:
+        r = ctc.check_train(mode, tc.FULL, seed=SEED + 91, K=TRAIN_STEPS)
+        out["train"][mode] = r
+        how = ("bit for bit" if r["bit_for_bit"] else
+               f"within compare_steps' tolerance, {r['worst_step']:.2e} where"
+               f" the gradients agree; two eager runs differ in"
+               f" {r['eager_differs']}")
+        print(f"compiled train {mode} at {json.dumps(tc.FULL)}: the first"
+              f" call applies exactly one AdamW update and {TRAIN_STEPS} calls"
+              f" equal {TRAIN_STEPS} eager steps of the same capturable AdamW"
+              f" ({how}); the loss falls {r['losses']}; against the eager"
+              f" non-capturable step: {r['vs_non_capturable'][0]:.2e} on the"
+              f" {r['vs_non_capturable'][1]:.3f} of entries whose gradients"
+              f" agree (allowance {tc.STEP_ATOL:.0e}); capture"
+              f" {r['capture_ms']:.1f} ms, pool {r['pool_mib']:.1f} MiB"
+              f" [{card}]")
+        torch.cuda.empty_cache()
+    for label, dims in (("A", CASE_A), ("B", CASE_B)):
+        case = pc.full_case(**dims, seed=SEED)
+        r = ctc.check_compact(case)
+        kernels = r.pop("kernels")
+        r["kernels_a_call"] = {k: sum(v.values()) for k, v in kernels.items()}
+        port = {k: ours(v) for k, v in kernels.items()}
+        # the no-grad graph's sweep is the beta-only grid of lattice_kernel
+        port["no_grad"] = {("lattice_beta_only" if k == "lattice_fused"
+                            else k): n for k, n in port["no_grad"].items()}
+        out["compact"][label] = r["port_kernels"] = port
+        print(f"compiled compact case {label} (T={case['T']}, U={case['U']},"
+              f" static bounds): loss, packed gradient and no-grad costs"
+              f" equal eager bit for bit; {json.dumps(r)} [{card}]")
+        del case
+        torch.cuda.empty_cache()
+    print(f"phase compiled train: {time.perf_counter() - t0:.1f} s [{card}]")
+    return out
 
 
 def main():
@@ -3482,8 +3584,10 @@ def main():
 
     # slice 10: the transducer's train step in each loss mode
     (train_launches, train_ms, train_bound, train_errs, train_lattice,
-     train_step_ms) = phase_train(torch, card, rates)
+     train_step_ms, train_replay) = phase_train(torch, card, rates)
     print(f"train check errors: {json.dumps(train_errs)}")
+    # slice 23: the train step and the compact loss compiled
+    compiled_train = phase_compiled_train(torch, card)
 
     # slice 11: the serving path
     serving_launches, serving_errs, step_entries = phase_serving(
@@ -3591,6 +3695,13 @@ def main():
                 "bound_by": train_bound[name][1]}
             if name == "lattice_fused":
                 entry["train"]["max_abs_err"] = train_lattice
+            entry["train"]["launches_a_replay"] = {
+                mode: train_replay[mode].get(name, 0) for mode in TRAIN_MODES}
+        compact_replay = {label: {call: n.get(name, 0)
+                                  for call, n in calls.items()}
+                          for label, calls in compiled_train["compact"].items()}
+        if any(v for calls in compact_replay.values() for v in calls.values()):
+            entry["compiled_compact"] = {"launches_a_call": compact_replay}
         parallel = {call: n[name] for call, n in parallel_launches.items()
                     if name in n}
         if parallel:

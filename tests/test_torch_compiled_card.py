@@ -10,8 +10,9 @@ the README table's widths; here they run at small ones:
   * the debug canary warns after each replay;
   * the benchmarks' compiled timers give a positive ms and leave no graph
     cached;
-  * a host read inside the step (the compact layout's lengths) fails the
-    capture: no fallback to eager.
+  * a host read inside the step fails the capture: no fallback to eager;
+    the compact layout without its static bounds (whose lengths it would
+    read) fails it with JAX's message before any read.
 """
 
 import pytest
@@ -60,6 +61,14 @@ def test_host_read_fails_the_capture(cuda_device):
             return (rnnt_loss(x, ys, xn, yn, compact=True),)
 
     step = cs.compiled_step(compact, key="compact host read")
+    with pytest.raises(ValueError, match="requires static max_frames"):
+        step(xs)
+    assert step.entry is None
+
+    def host_read(x):
+        return (x * float(x.sum()),)
+
+    step = cs.compiled_step(host_read, key="host read")
     with pytest.raises(RuntimeError):
         step(xs)
     assert step.entry is None

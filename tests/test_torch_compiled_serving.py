@@ -15,13 +15,15 @@ compiled step runs its function eagerly: the plain version.
     C, the limit's kind (step or finish), ``xn`` given or not, and the
     dtype.
   * `bench_joint.compiled_joint_step` against JAX's ``jax.value_and_grad``
-    of the same loss in the four modes that compile (bf16: loss rtol
+    of the same loss in its five modes, compact with the static bounds
+    of JAX's bench (bf16: loss rtol
     2e-3, gradients within 2e-2 of the largest; the padded modes in fp32:
     rtol 1e-5, gradients within 5e-3 of the largest), full and random
     lengths; equal to `value_and_grad` bit for bit.
-  * The compact mode refuses to compile, with its reason.
+  * The compact mode refuses to compile without its static bounds (JAX's
+    message).
 The card's checks (compiled against eager bit for bit, interleaved
-sessions, a host read failing the capture) are in
+sessions, compact without its bounds failing the capture) are in
 `tests/test_torch_compiled_serving_card.py`.
 """
 
@@ -187,7 +189,16 @@ def _jax_loss_fn(mode, jjoint, ys, xn, yn):
     from warp_rnnt_tpu import rnnt_loss, rnnt_loss_from_logits, rnnt_loss_joint
     from warp_rnnt_tpu.ops.fused_joint import rnnt_loss_fused_joint
 
+    if mode == "compact":  # JAX's packing, from the lengths on the host
+        n_idx, t_idx, u_idx = map(jnp.asarray, bj.compact_indices(xn, yn))
+        ys_packed = jnp.concatenate([ys[i, :yn[i]] for i in range(len(yn))])
+
     def loss_fn(p, f, g):
+        if mode == "compact":
+            lp = jjoint.apply(p, f[n_idx, t_idx], g[n_idx, u_idx])
+            return rnnt_loss(lp, ys_packed, xn, yn, reduction="mean",
+                             compact=True, max_frames=f.shape[1],
+                             max_labels=ys.shape[1])
         if mode == "log_softmax+gather":
             return rnnt_loss(jjoint.apply(p, f, g), ys, xn, yn,
                              reduction="mean", gather=True)
@@ -225,7 +236,9 @@ def test_compiled_joint_step_matches_jax(mode, precision, rand_length):
     assert isinstance(step, cs.CompiledStep)
     loss, *grads = step(f, g)
     assert step.entry is None  # the CPU runs it eagerly
-    want_loss, want_tree = bj.value_and_grad(mode, joint, f, g, ys, xn, yn)
+    packed = bj.pack(ys, xn, yn, JT, JU) if mode == "compact" else None
+    want_loss, want_tree = bj.value_and_grad(mode, joint, f, g, ys, xn, yn,
+                                             packed)
     assert torch.equal(loss, want_loss)
     tree_got = bj.grad_tree(*grads)
 
@@ -257,11 +270,16 @@ def test_joint_check_runs_on_cpu(mode):
 
 
 def test_compact_refuses_to_compile():
+    """Without its static bounds: compact compiles with them (its check is
+    in the mode list above), and a trace without them raises JAX's
+    message, the host read it would need."""
     f, g, ys, xn, yn = bj.make_inputs(0, JN, JT, JU, JH, device="cpu")
     joint, _ = bj.carry_flax_joint(bj.joint_tree(1, JH, JV), device="cpu")
-    assert "compact" in bj.NOT_COMPILED
-    with pytest.raises(ValueError, match="reads the lengths on the host"):
-        bj.compiled_joint_step("compact", joint, f, ys, xn, yn)
+    assert "compact" in csc.JOINT_MODES
+    packed = (*bj.pack(ys, xn, yn, JT, JU)[:4], None, None)
+    with cs._tracing(), pytest.raises(
+            ValueError, match="requires static max_frames / max_labels"):
+        bj.loss_grad_fn("compact", joint, ys, xn, yn, packed)(f, g)
 
 
 def test_joint_step_key():

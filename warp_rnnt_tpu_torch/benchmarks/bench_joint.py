@@ -22,9 +22,10 @@ the JAX module's ``jax.value_and_grad(loss_fn)`` (argument 0).  Modes:
 
 As JAX times ``jax.jit(value_and_grad)``, the step is timed compiled by
 default (`compiled_joint_step`: `utils.compiled_step`, one CUDA graph a
-shape); ``--eager`` times it eagerly.  "compact" always runs eagerly: it
-reads the lengths on the host to pack its rows (`NOT_COMPILED`), which a
-graph cannot hold, as JAX's jit needs static bounds there.
+shape); ``--eager`` times it eagerly.  "compact" compiles as JAX's does:
+its rows are packed from the lengths read once, outside the step (`pack`),
+and the loss takes the static bounds ``max_frames=T, max_labels=U``, so
+the step reads nothing on the host.
 
 The weights come from a seeded numpy tree in Flax's layout and
 initializers (`joint_tree`: lecun-normal kernels, zero biases), carried in
@@ -56,10 +57,6 @@ from warp_rnnt_tpu_torch.models.joint import carry_flax_joint
 from warp_rnnt_tpu_torch.utils.compiled_step import compiled_step
 
 MODES = ("log_softmax+gather", "from_logits", "compact", "fused", "auto")
-# modes that do not compile, and why
-NOT_COMPILED = {"compact": "the compact layout reads the lengths on the host"
-                " to pack its rows (pack, rnnt_loss(compact=True)), and a CUDA"
-                " graph cannot hold a host read"}
 # The JAX module's full width (its bench_joint's defaults): 20 labels.
 DEFAULTS = dict(N=16, T=150, U=20, V=5000, H=256)
 
@@ -198,31 +195,33 @@ def loss_grad_fn(mode, joint, ys, xn, yn, packed=None):
     return step
 
 
-def step_key(mode, joint, f, ys, xn, yn):
+def step_key(mode, joint, f, ys, xn, yn, packed=None):
     """The compiled step's key: the mode, its route, and the addresses of
-    what `loss_grad_fn` closes over (the four parameters, the labels and
-    the lengths)."""
+    what `loss_grad_fn` closes over (the four parameters, the labels, the
+    lengths, and `pack`'s tensors and bounds)."""
     V, H = joint.out.out_features, joint.pre.out_features
+    extra = () if packed is None else (
+        *(t.data_ptr() for t in packed[:4]), *packed[4:])
     return ("bench_joint", mode, route(mode, f, V, H),
             *(p.data_ptr() for p in joint_params(joint)),
-            ys.data_ptr(), xn.data_ptr(), yn.data_ptr())
+            ys.data_ptr(), xn.data_ptr(), yn.data_ptr(), *extra)
 
 
-def compiled_joint_step(mode, joint, f, ys, xn, yn):
+def compiled_joint_step(mode, joint, f, ys, xn, yn, packed=None):
     """`loss_grad_fn` of ``mode`` compiled once a shape (`utils.
     compiled_step`): ``step(f, g)`` -> (loss, 4 gradients), on the card the
-    graph's static tensors.  A mode of `NOT_COMPILED` raises ValueError
-    with its reason.  ``f`` gives the route's device."""
-    if mode in NOT_COMPILED:
-        raise ValueError(f"{mode} does not compile: {NOT_COMPILED[mode]}")
-    return compiled_step(loss_grad_fn(mode, joint, ys, xn, yn),
-                         key=step_key(mode, joint, f, ys, xn, yn))
+    graph's static tensors.  ``f`` gives the route's device.  "compact"
+    takes `pack`'s tuple, or packs here (its one host read, outside the
+    step)."""
+    if mode == "compact" and packed is None:
+        packed = pack(ys, xn, yn, f.shape[1], ys.shape[1])
+    return compiled_step(loss_grad_fn(mode, joint, ys, xn, yn, packed),
+                         key=step_key(mode, joint, f, ys, xn, yn, packed))
 
 
 def bench_joint(N=16, T=150, U=20, V=5000, H=256, mode="from_logits",
                 rand_length=False, seed=0, iters=20, compiled=True):
-    """One mode's step on the card: the JAX module's keys, then compiled
-    (false for `NOT_COMPILED` modes, with not_compiled_reason),
+    """One mode's step on the card: the JAX module's keys, then compiled,
     capture_ms, pool_mib, kernels_per_call, busy_ms, idle_share,
     profile_complete (from `profile_loss.device_profile`, of replays where
     compiled), route, device, power_limit."""
@@ -236,13 +235,12 @@ def bench_joint(N=16, T=150, U=20, V=5000, H=256, mode="from_logits",
     joint, _ = carry_flax_joint(joint_tree(seed + 1, H, V), device="cuda")
     packed = pack(ys, xn, yn, T, U) if mode == "compact" else None
     step = loss_grad_fn(mode, joint, ys, xn, yn, packed)
-    compiled = compiled and mode not in NOT_COMPILED
     out = {"mode": mode, "N": N, "T": T, "U": U, "V": V, "H": H,
            "rand_length": bool(rand_length)}
     if compiled:
-        key = step_key(mode, joint, f, ys, xn, yn)
+        key = step_key(mode, joint, f, ys, xn, yn, packed)
         out["step_ms"] = bench_scalar_chain(step, (f, g), iters, key=key)
-        cstep = compiled_joint_step(mode, joint, f, ys, xn, yn)
+        cstep = compiled_joint_step(mode, joint, f, ys, xn, yn, packed)
         try:
             cstep(f, g)  # captures
             static = cstep.entry.args
@@ -255,8 +253,6 @@ def bench_joint(N=16, T=150, U=20, V=5000, H=256, mode="from_logits",
         out["step_ms"] = bench_scalar_chain(step, (f, g), iters)
         prof = profile_step(lambda: step(f, g))
         extra = {"capture_ms": None, "pool_mib": None}
-        if mode in NOT_COMPILED:
-            extra["not_compiled_reason"] = NOT_COMPILED[mode]
     out.update({"peak_hbm_mb": peak_memory_mb(step, f, g),
                 "compiled": compiled, **extra,
                 "kernels_per_call": prof["kernels_per_call"],

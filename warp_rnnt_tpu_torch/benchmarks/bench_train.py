@@ -13,8 +13,18 @@ the kernels a step, the device's busy ms, its idle share and the
 kernels that take the most device ms a step; and the step's bound
 (`train_bound`), from `timing.card_rates`.
 
+As JAX times ``jax.jit(make_train_step(...), donate_argnums=(0, 1))``,
+the step is timed compiled by default: `models.compiled_train_step`, the
+whole step one CUDA graph a shape, its AdamW built with
+``capturable=True`` (the step count on the device), each call fed the
+graph's own static batch, as a jitted step reads its arguments in place.
+The eager step (`make_train_step`, its AdamW as before, so its reading is
+the one earlier trees gave) is timed beside it on a fresh model from the
+same seed, under ``"eager"``; ``--eager`` times the eager step alone.
+
 Usage: python -m warp_rnnt_tpu_torch.benchmarks.bench_train [N] [T] [U] [V]
                                                             [loss_mode]
+                                                            [--eager]
 Prints one JSON line.  Needs a CUDA device; the CLI turns TF32 off in
 cuBLAS and cuDNN, so the fp32 GRU runs in fp32, as `chip_smoke.py` does.
 """
@@ -29,6 +39,7 @@ import torch
 from warp_rnnt_tpu_torch.benchmarks import timing
 from warp_rnnt_tpu_torch.benchmarks.profile_loss import profile_step
 from warp_rnnt_tpu_torch.models import init_model, make_train_step
+from warp_rnnt_tpu_torch.models.transducer import compiled_train_step
 
 BLOCKS, KERNEL = 2, 5  # the encoder's conv blocks and their width
 TOP = 12  # kernels printed by device time a step
@@ -79,22 +90,9 @@ def train_bound(work, rates):
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def bench_train(N=32, T=400, U=40, V=1024, feat_dim=80, hidden=512,
-                steps=20, warmup=3, loss_mode="from_logits"):
-    """The step's numbers as a dict (the JAX benchmark's keys, then
-    peak_mb, kernels_per_step, busy_ms, idle_share, bound_ms, bound_by,
-    valid_cells, kernels: [device ms a step, launches a step, name] of
-    every kernel, the most device time first, and device).  The model and
-    batch come from `init_model`'s seed 0, as the JAX benchmark's from its
-    key 0."""
-    if not torch.cuda.is_available():
-        raise SystemExit("bench_train needs a CUDA device")
-    model, params, batch = init_model(
-        0, vocab_size=V, feat_dim=feat_dim, N=N, T=T, U=U, device="cuda",
-        encoder_hidden=hidden, predictor_hidden=hidden, joint_hidden=hidden,
-    )
-    opt = torch.optim.AdamW(model.parameters(), lr=1e-3, weight_decay=1e-4)
-    step = make_train_step(model, opt, loss_mode=loss_mode)
+def _readings(step, batch, steps, warmup):
+    """(chained ms, peak bytes of one step, `profile_step` of a step, the
+    last loss) of ``step(batch)``."""
     for _ in range(warmup):
         loss = step(batch)
     torch.cuda.synchronize()
@@ -105,7 +103,59 @@ def bench_train(N=32, T=400, U=40, V=1024, feat_dim=80, hidden=512,
     ms = timing.bench_grad_chain(lambda _: (None, step(batch)), loss, steps,
                                  warmup=0)
     prof = profile_step(lambda: step(batch))
-    loss = step(batch)
+    return ms, peak, prof, step(batch)
+
+
+def bench_train(N=32, T=400, U=40, V=1024, feat_dim=80, hidden=512,
+                steps=20, warmup=3, loss_mode="from_logits", compiled=True):
+    """The step's numbers as a dict (the JAX benchmark's keys, then
+    peak_mb, kernels_per_step, busy_ms, idle_share, bound_ms, bound_by,
+    valid_cells, kernels: [device ms a step, launches a step, name] of
+    every kernel, the most device time first, device; then compiled,
+    capture_ms and pool_mib, and with ``compiled`` "eager": the eager
+    step's step_ms, utts_per_s, loss, peak_mb, kernels_per_step, busy_ms,
+    idle_share and kernels).  Compiled, the step keys read the graph's
+    replays.  The model and batch come from `init_model`'s seed 0, as the
+    JAX benchmark's from its key 0."""
+    if not torch.cuda.is_available():
+        raise SystemExit("bench_train needs a CUDA device")
+
+    def model_and_batch():
+        return init_model(
+            0, vocab_size=V, feat_dim=feat_dim, N=N, T=T, U=U,
+            device="cuda", encoder_hidden=hidden, predictor_hidden=hidden,
+            joint_hidden=hidden)
+
+    def keys(ms, peak, prof, loss):
+        return {"step_ms": ms, "utts_per_s": N / (ms / 1000.0),
+                "loss": float(loss), "peak_mb": peak / 2**20,
+                "kernels_per_step": prof["kernels_per_call"],
+                "busy_ms": prof["busy_ms"], "idle_share": prof["idle_share"],
+                "kernels": [[t, count, name[:80]]
+                            for t, count, name in prof["rows"]]}
+
+    model, params, batch = model_and_batch()
+    opt = torch.optim.AdamW(model.parameters(), lr=1e-3, weight_decay=1e-4)
+    eager = keys(*_readings(make_train_step(model, opt, loss_mode=loss_mode),
+                            batch, steps, warmup))
+    extra = {"compiled": False, "capture_ms": None, "pool_mib": None}
+    if compiled:
+        del model, params, opt
+        torch.cuda.empty_cache()
+        model, params, batch = model_and_batch()
+        opt = torch.optim.AdamW(model.parameters(), lr=1e-3,
+                                weight_decay=1e-4, capturable=True)
+        step = compiled_train_step(model, opt, loss_mode=loss_mode)
+        step(batch)  # captures
+        entry = step.compiled.entry
+        try:
+            out = keys(*_readings(step, entry.args, steps, warmup))
+        finally:
+            step.compiled.release()
+        extra = {"compiled": True, "capture_ms": entry.capture_ms,
+                 "pool_mib": entry.pool_bytes / 2**20, "eager": eager}
+    else:
+        out = eager
 
     n_params = sum(p.numel() for p in params.values())
     rates = timing.card_rates()
@@ -116,28 +166,28 @@ def bench_train(N=32, T=400, U=40, V=1024, feat_dim=80, hidden=512,
         "N": N, "T": T, "U": U, "V": V, "hidden": hidden,
         "loss_mode": loss_mode,
         "params_m": round(n_params / 1e6, 2),
-        "step_ms": ms,
-        "utts_per_s": N / (ms / 1000.0),
-        "loss": float(loss),
-        "peak_mb": peak / 2**20,
-        "kernels_per_step": prof["kernels_per_call"],
-        "busy_ms": prof["busy_ms"],
-        "idle_share": prof["idle_share"],
+        **{k: out[k] for k in ("step_ms", "utts_per_s", "loss", "peak_mb",
+                               "kernels_per_step", "busy_ms", "idle_share")},
         "bound_ms": bound, "bound_by": bound_by, "valid_cells": R,
-        "kernels": [[t, count, name[:80]] for t, count, name in prof["rows"]],
+        "kernels": out["kernels"],
         "device": torch.cuda.get_device_name(0),
+        **extra,
     }
 
 
 def main(*args):
+    compiled = "--eager" not in args
+    args = [a for a in args if a != "--eager"]
     loss_mode = "from_logits"
     if args and args[-1] in ("from_logits", "gather", "fused"):
         loss_mode, args = args[-1], args[:-1]
     cfg = [int(a) for a in args] or [32, 400, 40, 1024]
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    r = bench_train(*cfg, loss_mode=loss_mode)
+    r = bench_train(*cfg, loss_mode=loss_mode, compiled=compiled)
     r["kernels"] = r["kernels"][:TOP]
+    if compiled:
+        r["eager"]["kernels"] = r["eager"]["kernels"][:TOP]
     print(json.dumps(r), flush=True)
 
 

@@ -21,13 +21,16 @@ check raises an AssertionError on a failure.
     capture's inputs and on new f and g copied into the static buffers;
     the capture ms, the graph's pool MiB and, with ``profile``, the
     kernels of a replay and of an eager call.
-  * `check_host_read_raises`: the compact mode forced through
-    `utils.compiled_step` fails its capture (its host read of the
-    lengths) and leaves no entry; `compiled_joint_step` refuses it with
-    its reason.
+  * `check_compact_needs_bounds`: the compact mode without its static
+    bounds (``max_frames``, ``max_labels``) forced through
+    `utils.compiled_step` fails its capture with JAX's message (the host
+    read it would need) and leaves no entry (on CPU tensors the step runs
+    eagerly inside `compiled_step._tracing`).
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
@@ -41,8 +44,7 @@ from warp_rnnt_tpu_torch.models import (
 )
 from warp_rnnt_tpu_torch.utils import compiled_step as cs
 
-# bench_joint's modes that compile
-JOINT_MODES = tuple(m for m in bj.MODES if m not in bj.NOT_COMPILED)
+JOINT_MODES = bj.MODES  # every mode compiles
 
 
 def leaves(tree):
@@ -155,8 +157,10 @@ def check_joint(mode, joint, f, g, ys, xn, yn, seed=0, profile=False):
     {kernel: launches a call}), "kernel_ms" (likewise, device ms a call)
     and "busy_ms" ({"eager", "compiled"})}; on CPU tensors {} (both sides
     eager)."""
-    fn = bj.loss_grad_fn(mode, joint, ys, xn, yn)
-    step = bj.compiled_joint_step(mode, joint, f, ys, xn, yn)
+    packed = bj.pack(ys, xn, yn, f.shape[1], ys.shape[1]) if (
+        mode == "compact") else None
+    fn = bj.loss_grad_fn(mode, joint, ys, xn, yn, packed)
+    step = bj.compiled_joint_step(mode, joint, f, ys, xn, yn, packed)
     gen = torch.Generator(device=f.device).manual_seed(seed + 99)
     new = (torch.randn(f.shape, generator=gen, device=f.device),
            torch.randn(g.shape, generator=gen, device=f.device))
@@ -193,29 +197,28 @@ def check_joint(mode, joint, f, g, ys, xn, yn, seed=0, profile=False):
     return out
 
 
-def check_host_read_raises(joint, f, g, ys, xn, yn):
-    """`check_host_read_raises` of the module docstring; returns the
+def check_compact_needs_bounds(joint, f, g, ys, xn, yn):
+    """`check_compact_needs_bounds` of the module docstring; returns the
     refusal's message."""
-    T, U = f.shape[1], ys.shape[1]
-    packed = bj.pack(ys, xn, yn, T, U)
+    packed = (*bj.pack(ys, xn, yn, f.shape[1], ys.shape[1])[:4], None, None)
     step = cs.compiled_step(bj.loss_grad_fn("compact", joint, ys, xn, yn,
                                             packed),
                             key=("compiled_serving_cases.compact",
                                  *bj.step_key("compact", joint, f, ys, xn,
-                                              yn)))
+                                              yn, packed)))
     try:
-        step(f, g)
-    except RuntimeError:
-        pass
+        with contextlib.nullcontext() if f.is_cuda else cs._tracing():
+            step(f, g)  # on the CPU: eager, as traced
+    except ValueError as e:
+        why = str(e)
     else:
-        raise AssertionError("compact: a capture with a host read did not"
-                             " raise")
+        raise AssertionError("compact without static bounds: the capture"
+                             " did not raise")
+    if "requires static max_frames / max_labels" not in why:
+        raise AssertionError(f"compact without static bounds: {why}")
     if step.entry is not None or any(
             e.key[0] == step.key for e in cs.entries()):
         raise AssertionError("compact: a failed capture left an entry")
-    torch.cuda.synchronize()
-    try:
-        bj.compiled_joint_step("compact", joint, f, ys, xn, yn)
-    except ValueError as e:
-        return str(e)
-    raise AssertionError("compiled_joint_step took the compact mode")
+    if f.is_cuda:
+        torch.cuda.synchronize()
+    return why

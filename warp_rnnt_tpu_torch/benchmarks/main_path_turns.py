@@ -2,7 +2,7 @@
 in turns.
 
     python -m warp_rnnt_tpu_torch.benchmarks.main_path_turns [--tag x]
-        [--only headline,table,compact,fused,host] [--eager]
+        [--only headline,table,compact,fused,host,train] [--eager]
 
 Prints one JSON line a measurement, each with the tag:
   * "headline": `bench_loss.headline()`'s chained ms (N=32, T=150, 20
@@ -14,7 +14,14 @@ Prints one JSON line a measurement, each with the tag:
     loss+grad and no-grad chained ms (`bench_loss.run_loss_bench`, the
     `run_table` iterations), and at N=128 the loss+grad under the profiler
     (`bench_loss.profile_row`).
-  * "compact": cases A and B (`packed_step.measure`).
+  * "compact": cases A and B (`packed_step.measure`): eager loss+grad and
+    no-grad chained ms, the profile; in pairs, also the loss+grad and the
+    no-grad costs compiled with static bounds and eager, in turns, on one
+    timer (`packed_step.compiled_readings`).
+  * "train": `bench_train` at JAX's shape in each loss mode: chained step
+    ms, busy ms, idle share, kernels a step, peak; in pairs the eager and
+    the compiled step (`models.compiled_train_step`), each process eager
+    then compiled, with the capture ms and pool MiB.
   * "fused": the fused slice (`fused_step.measure`).
   * "host": the eager loss+grad's host path at the headline and the V=28
     rows at N=1 and 128 (`host_path.breakdown`).
@@ -35,6 +42,7 @@ parent, change, change, parent, one process each.  Needs a CUDA device.
 from __future__ import annotations
 
 import argparse
+import inspect
 import json
 
 import torch
@@ -42,7 +50,10 @@ import torch
 TABLE = ((150, 40, 28), (150, 20, 5000), (1500, 300, 50))
 TABLE_N = (1, 128)
 HOST = ((32, 150, 20, 5000), (1, 150, 40, 28), (128, 150, 40, 28))
-PARTS = ("headline", "table", "compact", "fused", "host")
+PARTS = ("headline", "table", "compact", "fused", "host", "train")
+TRAIN_MODES = ("from_logits", "gather", "fused")
+TRAIN_KEYS = ("step_ms", "busy_ms", "idle_share", "kernels_per_step",
+              "peak_mb", "loss")
 
 
 def _compiles():
@@ -70,6 +81,13 @@ def _turns(read, pairs):
 
 def _kw(compiled):
     return {} if compiled is None else {"compiled": compiled}
+
+
+def _compiled_kw(fn, compiled):
+    """{"compiled": compiled} where ``fn`` takes it (a tree whose
+    benchmark compiles), else {} (an older tree's)."""
+    return ({"compiled": compiled}
+            if "compiled" in inspect.signature(fn).parameters else {})
 
 
 def _profile_keys(prof, chained_ms):
@@ -152,10 +170,24 @@ def main(argv=None):
         from warp_rnnt_tpu_torch.benchmarks import packed_step
 
         for case in ("A", "B"):
-            r = packed_step.measure(case)
+            r = packed_step.measure(
+                case, **_compiled_kw(packed_step.measure, pairs))
             emit("compact", {"case": case, **{k: r[k] for k in (
                 "loss_grad_ms", "no_grad_ms", "kernels_per_call", "busy_ms",
-                "idle_share")}})
+                "idle_share", "compiled") if k in r}})
+            torch.cuda.empty_cache()
+    if "train" in parts:
+        from warp_rnnt_tpu_torch.benchmarks import bench_train
+
+        for mode in TRAIN_MODES:
+            r = bench_train.bench_train(
+                loss_mode=mode, **_compiled_kw(bench_train.bench_train, pairs))
+            out = {"loss_mode": mode, "eager": {
+                k: r.get("eager", r)[k] for k in TRAIN_KEYS}}
+            if pairs:
+                out["compiled"] = {k: r[k] for k in (
+                    *TRAIN_KEYS, "capture_ms", "pool_mib")}
+            emit("train", out)
             torch.cuda.empty_cache()
     if "fused" in parts:
         from warp_rnnt_tpu_torch.benchmarks import fused_step

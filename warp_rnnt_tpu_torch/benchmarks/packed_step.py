@@ -16,6 +16,16 @@ For each case it prints one JSON line:
     costs' chained ms (`no_grad_ms`); under the profiler
     (`profile_loss.profile_step`) the kernels a call, device busy ms, idle
     share and the largest kernels.
+  * compiled (the default; ``--eager`` leaves it out), as JAX jits the
+    compact loss with static bounds: under ``"compiled"`` the loss+grad
+    and the no-grad costs each one CUDA graph (`utils.compiled_step`),
+    their static bounds ``max_frames``, ``max_labels`` the case's own,
+    read once when the case was built, so the step reads nothing on the
+    host.  Each is timed by `chain_ms`, compiled and eager with the same
+    timer (`timing.bench_scalar_chain`: the loss folded into a scalar the
+    next call carries; the gradient is not fed back, so no call copies
+    its 1 GB), with the capture ms, the graph's pool MiB and a replay
+    under the profiler.
 
 `chip_smoke.py` times the movement and the step through these functions.
 Needs a CUDA device.
@@ -33,6 +43,7 @@ from warp_rnnt_tpu_torch.benchmarks import timing
 from warp_rnnt_tpu_torch.benchmarks.packed_cases import full_case
 from warp_rnnt_tpu_torch.benchmarks.profile_loss import CASES, profile_step
 from warp_rnnt_tpu_torch.ops import packed_kernels as pk
+from warp_rnnt_tpu_torch.utils.compiled_step import compiled_step
 
 SEED = 0
 
@@ -93,31 +104,103 @@ def movement_times(fn, x):
             "host_us": timing.bench_host(call, (x,), calls=20)}
 
 
-def loss_grad_step(case):
+def bounds(case):
+    """The case's static bounds, as ``rnnt_loss`` takes them:
+    {"max_frames": max(xn), "max_labels": max(yn)}, read from the lengths
+    once, when the case was built."""
+    return {"max_frames": case["T"], "max_labels": case["U"] - 1}
+
+
+def loss_grad_step(case, static=False):
     """The compact loss+grad, `rnnt_loss(..., compact=True,
     reduction="mean")` + backward, as `timing.bench_grad_chain` steps it:
-    xs -> (loss, gradient)."""
+    xs -> (loss, gradient).  ``static``: with the case's `bounds`, as the
+    compiled step takes them."""
     ys, xn, yn = case["ys"], case["xn"], case["yn"]
+    kw = bounds(case) if static else {}
 
     def step(x):
         x = x.detach().requires_grad_()
-        loss = rnnt_loss(x, ys, xn, yn, compact=True, reduction="mean")
+        loss = rnnt_loss(x, ys, xn, yn, compact=True, reduction="mean", **kw)
         loss.backward()
         return loss.detach(), x.grad
 
     return step
 
 
-def no_grad_ms(case, iters=10):
-    """The compact costs without autograd, chained ms."""
+def costs_step(case, static=False):
+    """xs -> (the compact costs without autograd,); ``static`` as in
+    `loss_grad_step`."""
     ys, xn, yn = case["ys"], case["xn"], case["yn"]
-    with torch.no_grad():
-        return timing.bench_scalar_chain(
-            lambda x: rnnt_loss(x, ys, xn, yn, compact=True), (case["xs"],),
-            iters)
+    kw = bounds(case) if static else {}
+
+    def costs(x):
+        with torch.no_grad():
+            return (rnnt_loss(x, ys, xn, yn, compact=True, **kw),)
+
+    return costs
 
 
-def measure(case_name, iters=10):
+def step_key(case, grad):
+    """A compiled step's key: what `loss_grad_step` and `costs_step` close
+    over (the labels' and lengths' addresses, the bounds)."""
+    return ("packed_step", grad, case["ys"].data_ptr(), case["xn"].data_ptr(),
+            case["yn"].data_ptr(), *bounds(case).values())
+
+
+def compiled_steps(case):
+    """(loss+grad, costs) of the case compiled once a shape
+    (`utils.compiled_step`), with its static bounds."""
+    return (compiled_step(loss_grad_step(case, static=True),
+                          key=step_key(case, True)),
+            compiled_step(costs_step(case, static=True),
+                          key=step_key(case, False)))
+
+
+def chain_ms(case, compiled, grad=True, iters=10):
+    """Chained ms of the loss+grad (``grad``) or the costs, compiled with
+    the static bounds or eager, with one timer for both
+    (`timing.bench_scalar_chain`, the loss or the costs folded into the
+    carried scalar; compiled, the fold and the step are one graph)."""
+    fn = (loss_grad_step if grad else costs_step)(case, static=compiled)
+    return timing.bench_scalar_chain(
+        fn, (case["xs"],), iters, reduce_out=lambda out: out[0].sum(),
+        key=step_key(case, grad) if compiled else None)
+
+
+def no_grad_ms(case, iters=10):
+    """The compact costs without autograd, chained ms, eager."""
+    return chain_ms(case, False, grad=False, iters=iters)
+
+
+def compiled_readings(case, iters=10):
+    """`chain_ms` of the loss+grad and the costs, compiled and eager in
+    turns (eager, compiled, compiled, eager), then each compiled step's
+    capture ms and pool MiB and a loss+grad replay under the profiler."""
+    out = {}
+    for grad, name in ((True, "loss_grad_ms"), (False, "no_grad_ms")):
+        out[name] = {"eager": [], "compiled": []}
+        for compiled in (False, True, True, False):
+            out[name]["compiled" if compiled else "eager"].append(
+                chain_ms(case, compiled, grad, iters))
+    steps = compiled_steps(case)
+    try:
+        for step, name in zip(steps, ("loss_grad", "no_grad")):
+            step(case["xs"])
+            out[f"{name}_capture_ms"] = step.entry.capture_ms
+            out[f"{name}_pool_mib"] = step.entry.pool_bytes / 2**20
+        static = steps[0].entry.args
+        prof = profile_step(lambda: steps[0](*static))
+        out.update({k: prof[k] for k in ("kernels_per_call", "busy_ms",
+                                         "idle_share")})
+    finally:
+        for step in steps:
+            step.release()
+    return out
+
+
+def measure(case_name, iters=10, compiled=True):
+    """One case's readings (module docstring), as a dict."""
     if not torch.cuda.is_available():
         raise SystemExit("packed_step needs a CUDA device")
     case = full_case(**CASES[case_name], seed=SEED, device="cuda")
@@ -135,6 +218,8 @@ def measure(case_name, iters=10):
     out.update({k: prof[k] for k in ("kernels_per_call", "busy_ms",
                                      "idle_share", "step_ms")})
     out["rows"] = [(ms, n, key[:60]) for ms, n, key in prof["rows"][:10]]
+    if compiled:
+        out["compiled"] = compiled_readings(case, iters)
     out["device"] = torch.cuda.get_device_name(0)
     return out
 
@@ -143,10 +228,12 @@ def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--case", choices=sorted(CASES), action="append")
     parser.add_argument("--tag", default="")
+    parser.add_argument("--eager", action="store_true")
     args = parser.parse_args(argv)
     for name in args.case or sorted(CASES):
         print(json.dumps({"tag": args.tag, "case": name,
-                          **measure(name)}), flush=True)
+                          **measure(name, compiled=not args.eager)}),
+              flush=True)
 
 
 if __name__ == "__main__":

@@ -5,12 +5,17 @@ beam decoding are evaluated and the labels force-aligned to frames.
     python -m warp_rnnt_tpu_torch.examples.train_toy [--steps 300]
         [--device cpu] [--data-parallel [--ranks 2]]
 
-Runs on the card unless ``--device cpu``.  ``--data-parallel`` spawns
+Runs on the card unless ``--device cpu``.  On one device the step is
+`models.compiled_train_step`, as the JAX example jits its step: on the
+card the whole step is one CUDA graph, replayed each step, its AdamW
+built with ``capturable=True``; on the CPU it runs eagerly.
+``--data-parallel`` spawns
 ``--ranks`` processes (`parallel.multihost.spawn`: gloo on the CPU, NCCL
 on the cards, rank r on ``cuda:r``), each with the whole model and its
 block of the batch (`parallel.make_mesh`, `shard_batch`), and trains with
 `parallel.train_parallel.make_sharded_train_step`, as the JAX example
-shards its batch over every device.  The sharded loss relies on the
+shards its batch over every device; that step runs eagerly (its
+all-reduce is not captured).  The sharded loss relies on the
 kernels' rule for columns outside a rank's vocabulary block (0 in the
 gather, nothing written by the dense write, the plain twins masking alike;
 `functional/gather.py`); this example's 1-D mesh has no 'model' axis, so
@@ -26,12 +31,8 @@ import numpy as np
 import torch
 
 from warp_rnnt_tpu_torch import rnnt_alignment
-from warp_rnnt_tpu_torch.models import (
-    beam_decode,
-    greedy_decode,
-    init_model,
-    make_train_step,
-)
+from warp_rnnt_tpu_torch.models import beam_decode, greedy_decode, init_model
+from warp_rnnt_tpu_torch.models.transducer import compiled_train_step
 from warp_rnnt_tpu_torch.parallel import make_mesh, shard_batch
 from warp_rnnt_tpu_torch.parallel.multihost import spawn
 from warp_rnnt_tpu_torch.parallel.train_parallel import (
@@ -72,8 +73,9 @@ def train(args, device, mesh=None):
     lead = mesh is None or mesh.get_rank() == 0
     if mesh is None:
         opt = torch.optim.AdamW(model.parameters(), lr=3e-3,
-                                weight_decay=1e-4)
-        step, local = make_train_step(model, opt), batch
+                                weight_decay=1e-4,
+                                capturable=device.type == "cuda")
+        step, local = compiled_train_step(model, opt), batch
     else:
         shard_model(model, mesh)
         opt = torch.optim.AdamW(model.parameters(), lr=3e-3,

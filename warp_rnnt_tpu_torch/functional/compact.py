@@ -18,9 +18,27 @@ Two routes, chosen by the tensors' device:
     packed (rows, 2), then `compact_to_padded`, whose hand-written backward
     gathers by row coordinates and masks pad rows.
 
-Host reads: `_static_bounds` reads the lengths once per call (one
+Host reads: eagerly, `_static_bounds` reads the lengths once per call (one
 ``.cpu()``) to size the lattice and to check the buffer and the bounds a
 caller gives; the kernels themselves need no host value.
+
+Under a compiled step (`utils.compiled_step`, the port's ``jax.jit``:
+while `compiled_step.tracing()`), as under JAX's jit, the host reads
+nothing: ``max_frames`` and ``max_labels`` must both be given (else
+ValueError, JAX's message) and are taken as they are, unchecked, and so
+are the buffer's rows, the labels' count and their range.  The lengths
+are then clamped on the device to [0, max_frames] and [0, max_labels]
+before they reach the kernels (`_traced_lengths`), so every kernel stays
+inside its buffers whatever the lengths are; on lengths within the bounds
+the clamp changes nothing, and the result is the eager call's, bit for
+bit.  A bound below a length gives, without an error, the loss of the
+batch whose lengths are so clamped, its rows laid out for the clamped
+lengths: the samples after the first one clamped read rows shifted from
+their own.  JAX's jit gives no error either; it keeps the true layout and
+clamps its gather indices at the lattice's edge (XLA's rule for an index
+out of range), so neither is the loss of the batch.  Labels outside
+[0, V) or rows past the buffer give NaN costs on the card (the packed
+gather's rule, `csrc/packed.cu`).
 
 Not ported, by design: `_FORCE_KERNEL` and `_use_movement_kernel`.  They pick
 between the TPU's movement kernels and XLA's gather by vocabulary size, a
@@ -36,13 +54,21 @@ import torch
 from warp_rnnt_tpu_torch.functional.core import rnnt_core, rnnt_core_with_internals
 from warp_rnnt_tpu_torch.ops import packed_kernels
 from warp_rnnt_tpu_torch.ops.packed_kernels import lattice_rows, row_coordinates
+from warp_rnnt_tpu_torch.utils import compiled_step
 
 
 def _static_bounds(xs, ys, xn, yn, max_frames=None, max_labels=None):
     """(T, max_labels) of a packed batch from one host read, and
     the checks the kernels rely on: ``max_frames >= max(xn)``,
     ``max_labels >= max(yn)``, ``rows >= sum(xn * (yn + 1))``,
-    ``len(ys) >= sum(yn)`` and labels in [0, V).  Raises ValueError."""
+    ``len(ys) >= sum(yn)`` and labels in [0, V).  Raises ValueError.
+    Under a compiled step's trace: the bounds as given, no read and no
+    check (module docstring)."""
+    if compiled_step.tracing():
+        if max_frames is None or max_labels is None:
+            raise ValueError("compact mode under jit requires static"
+                             " max_frames / max_labels")
+        return int(max_frames), int(max_labels)
     stats = [xn.max(), yn.max(), (xn.long() * (yn.long() + 1)).sum(), yn.sum()]
     if ys.shape[0]:
         stats += [ys.min(), ys.max()]
@@ -69,6 +95,15 @@ def _static_bounds(xs, ys, xn, yn, max_frames=None, max_labels=None):
     if ys.shape[0] and not 0 <= stats[4] <= stats[5] < xs.shape[1]:
         raise ValueError(f"labels outside [0, {xs.shape[1]})")
     return max_frames, max_labels
+
+
+def _traced_lengths(xn, yn, T: int, max_labels: int):
+    """The lengths the kernels see: as given eagerly (checked against the
+    bounds), clamped on the device to [0, T] and [0, max_labels] under a
+    compiled step's trace (module docstring)."""
+    if not compiled_step.tracing():
+        return xn, yn
+    return xn.clamp(0, T), yn.clamp(0, max_labels)
 
 
 def _row_labels(rows: int, ys, xn, yn, blank: int):
@@ -154,10 +189,12 @@ def rnnt_loss_compact_costs(
     xs (rows, V) any float dtype (the gradient comes back in it); ys
     (sum(yn),) int32; xn, yn (N,) int32.  ``max_frames``/``max_labels``
     set the lattice bounds (default max(xn), max(yn)); a bound below the
-    lengths raises.
+    lengths raises, except under a compiled step, which needs both and
+    checks neither (module docstring).
     """
     _check_dims(xs, ys, blank)
     T, max_y = _static_bounds(xs, ys, xn, yn, max_frames, max_labels)
+    xn, yn = _traced_lengths(xn, yn, T, max_y)
     padded = _padded_lattice(xs, ys, xn, yn, blank, T, max_y + 1)
     return rnnt_core(padded, xn, yn, fastemit_lambda, impl)
 
@@ -174,6 +211,7 @@ def rnnt_loss_compact_with_internals(
     gather and scatter run as kernels on a CUDA tensor."""
     _check_dims(xs, ys, blank)
     T, max_y = _static_bounds(xs, ys, xn, yn, max_frames, max_labels)
+    xn, yn = _traced_lengths(xn, yn, T, max_y)
     rows, V = xs.shape
     with torch.no_grad():
         padded, loc, pref = packed_kernels.packed_gather_lattice(

@@ -56,8 +56,15 @@ class _LogitsCore(torch.autograd.Function):
         x4, loc_rows, logz, g_blank, g_emit = ctx.saved_tensors
         N, T, U, _ = x4.shape
         ctb = ct.float()[:, None, None]
-        d = x4.to(torch.float32, copy=True)  # the one fp32 temporary
-        d.sub_(logz[..., None]).exp_()
+        # the one fp32 temporary, written by the subtraction itself: x4's
+        # widening to fp32 is exact, so these are the bits of a copy to fp32
+        # and a subtraction in place, without the copy's pass.  fp64 logits
+        # round to fp32 first, as that copy did.
+        if x4.dtype == torch.float64:
+            d = x4.float().sub_(logz[..., None])
+        else:
+            d = torch.sub(x4, logz[..., None])
+        d.exp_()
         d.mul_(-(ctb * (g_blank + g_emit))[..., None])
         d[..., ctx.blank] += ctb * g_blank
         idx = loc_rows.long()[:, None, :, None].expand(N, T, U, 1)

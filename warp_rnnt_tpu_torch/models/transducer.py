@@ -33,6 +33,12 @@ The loss runs through the port's own entry points: `rnnt_loss_from_logits`
 ("from_logits", the default), `rnnt_loss(gather=True)` ("gather") and
 `rnnt_loss_fused_joint` ("fused"), each on the kernels of `csrc/` when the
 model is on the card.  The JAX module's shardings have no counterpart here.
+
+`make_train_step` runs eagerly.  `compiled_train_step` is the port's
+``jax.jit(make_train_step(...), donate_argnums=(0, 1))``: on the card the
+whole step (loss, backward, optimizer update) is one CUDA graph a batch
+shape (`utils.compiled_step`), the parameters and the optimizer's state
+updated in place; it is not exported, as `compiled_step` is not.
 """
 
 from __future__ import annotations
@@ -375,6 +381,66 @@ def make_train_step(model: Transducer, optimizer: torch.optim.Optimizer,
         optimizer.step()
         return loss.detach()
 
+    return step
+
+
+def train_state(model: Transducer, optimizer: torch.optim.Optimizer):
+    """The tensors a train step updates in place: the parameters, then
+    every tensor of the optimizer's state (none before its first step)."""
+    state = [p for p in model.parameters()]
+    for per_param in optimizer.state.values():
+        state += [v for v in per_param.values()
+                  if isinstance(v, torch.Tensor)]
+    return state
+
+
+def compiled_train_step(model: Transducer, optimizer: torch.optim.Optimizer,
+                        fastemit_lambda: float = 0.0,
+                        loss_mode: str = "from_logits"):
+    """`make_train_step` compiled once per shape: the port's
+    ``jax.jit(make_train_step(...), donate_argnums=(0, 1))``.
+
+    Returns ``step(batch) -> loss``.  On a CUDA model the first call of a
+    batch shape captures the whole step (the loss, its backward into the
+    parameters and the optimizer's update) as one CUDA graph
+    (`utils.compiled_step`, with the parameters and the optimizer's state
+    as its ``state``, so the warm-up before the capture is undone and each
+    call applies exactly one update); every call replays it.  The
+    parameters and the optimizer's state are updated in place, as JAX's
+    donated ``params`` and ``opt_state`` are, and the loss is the graph's
+    static tensor, overwritten by the next call.  The optimizer must keep
+    its step count on the device (``capturable=True``, as
+    ``torch.optim.AdamW`` takes it); one that does not raises ValueError.
+    A capture that fails raises: there is no eager fallback on the card.
+    On the CPU the step runs eagerly, which is its plain version.  The
+    graph is keyed by the model, its parameters' addresses, the optimizer,
+    the loss mode, FastEmit's lambda and ``model.training``; whatever
+    replaces a parameter or a state tensor (``load_state_dict``) needs
+    ``step.compiled.release()``.  ``step.compiled`` is the
+    `CompiledStep` (its ``entry``: the graph, its static batch, capture ms
+    and pool bytes)."""
+    from warp_rnnt_tpu_torch.utils.compiled_step import compiled_step
+
+    plain = make_train_step(model, optimizer, fastemit_lambda, loss_mode)
+    if model.joint.out.weight.is_cuda and not all(
+            g.get("capturable", False) for g in optimizer.param_groups):
+        raise ValueError("compiled_train_step on the card needs an optimizer"
+                         " built with capturable=True (its step count on the"
+                         " device), which a CUDA graph can update")
+
+    def key():
+        return ("transducer.compiled_train_step", model, optimizer,
+                tuple(p.data_ptr() for p in model.parameters()), loss_mode,
+                float(fastemit_lambda), model.training)
+
+    compiled = compiled_step(lambda *batch: (plain(batch),), key=key(),
+                             state=lambda: train_state(model, optimizer))
+
+    def step(batch):
+        compiled.key = key()  # the addresses and the mode as they stand
+        return compiled(*batch)[0]
+
+    step.compiled = compiled
     return step
 
 

@@ -34,6 +34,23 @@ the buffer.  So a chain ``x = step(x)[1]`` copies nothing and allocates
 no tensor a call, and an accumulator ``acc = step(acc, x)[0]`` likewise.
 The caller's own tensors are never written: the first call copies them.
 
+State updated in place.  A step may update tensors that are not its
+arguments, as a train step updates the parameters and the optimizer's
+moments (JAX's donated ``params`` and ``opt_state``): ``state``, a
+callable that names them, makes the warm-up leave no trace.  Before the
+warm-up each tensor that ``state()`` names is copied aside; after it each
+goes back to that value in place (``copy_``, so the graph captures the
+live addresses), and a tensor that the warm-up created (``state()`` names
+it afterwards, not before: AdamW's ``step``, ``exp_avg`` and
+``exp_avg_sq`` on a fresh optimizer) is zeroed, its initial value.  So
+the first call of a shape updates the state once, by the replay, as every
+later call does (`_undone`).  A gradient the step reads back is the
+step's own business: a train step sets them to None first
+(``zero_grad(set_to_none=True)``), so the capture allocates them in the
+graph's pool, as torch's whole-network capture does.  Whatever replaces a
+state tensor (``load_state_dict``, ``model.to``) needs a new key or a
+`release`: the graph writes the addresses it captured.
+
 Graphs are cached, least recently used first out past `CACHE_SIZE`, by
 the caller's ``key`` (required; it must name what ``fn`` closes over: a
 cached entry replays the ``fn`` of its first capture.  A tensor ``fn``
@@ -47,8 +64,9 @@ loss's debug canary is on (``WARP_RNNT_DEBUG``).
 What a capture does not do again on a replay: Python.  Launch counters
 (each wrapper's ``LAUNCHES``) count the warm-up's and the capture's
 launches and nothing at a replay; hold a path's launches on eager calls.
-A host read inside ``fn`` cannot be captured (the compact layout reads
-its lengths on the host: capturing it raises).  A check that must read
+A host read inside ``fn`` cannot be captured: the compact layout reads
+nothing while traced (`tracing()`) and needs static bounds then, as
+under JAX's jit (`functional/compact.py`).  A check that must read
 the host registers itself with `after_replay` while the step is traced
 and runs after each replay: the loss's canary (``WARP_RNNT_DEBUG``) warns
 after the replay of a call that trips it, as an eager call does.
@@ -194,15 +212,39 @@ def _side(dev):
     return _SIDE[dev]
 
 
-def _capture(full, fn, args, donate):
+@contextlib.contextmanager
+def _undone(state):
+    """Within the block the tensors that ``state()`` names may change; on
+    leaving, each goes back in place to its value on entry, and one that
+    ``state()`` did not name on entry is zeroed (module docstring).  A
+    ``state`` of None names nothing."""
+    if state is None:
+        yield
+        return
+    with torch.no_grad():
+        saved = {id(t): (t, t.detach().clone()) for t in state()}
+    try:
+        yield
+    finally:
+        with torch.no_grad():
+            for t in state():
+                if id(t) in saved:
+                    t.copy_(saved[id(t)][1])
+                else:
+                    t.zero_()
+
+
+def _capture(full, fn, args, donate, state):
     t0 = time.perf_counter()
     dev = args[0].device
     static = tuple(_static(x) for x in args)
     side = _side(dev)
-    side.wait_stream(torch.cuda.current_stream(dev))
-    with torch.cuda.stream(side), _tracing([static[i] for i in donate]):
-        _outputs(fn(*static))  # the warm-up, outside the capture
-    torch.cuda.current_stream(dev).wait_stream(side)
+    cur = torch.cuda.current_stream(dev)
+    with _undone(state):  # copied aside and restored on the caller's stream
+        side.wait_stream(cur)
+        with torch.cuda.stream(side), _tracing([static[i] for i in donate]):
+            _outputs(fn(*static))  # the warm-up, outside the capture
+        cur.wait_stream(side)
     # what `torch.cuda.graph` does on entry, done first so the reading
     # below sees only the private pool
     torch.cuda.synchronize(dev)
@@ -235,8 +277,8 @@ class CompiledStep:
     """``fn`` compiled once per shape (see the module docstring).  `entry`
     is the `_Entry` the last call replayed (None where it ran eagerly)."""
 
-    def __init__(self, fn, key, donate_argnums):
-        self.fn, self.key = fn, key
+    def __init__(self, fn, key, donate_argnums, state=None):
+        self.fn, self.key, self.state = fn, key, state
         self.donate = tuple(sorted({int(i) for i in donate_argnums}))
         self.entry = None
 
@@ -257,7 +299,7 @@ class CompiledStep:
         full = self._cache_key(args)
         entry = _CACHE.get(full)
         if entry is None:
-            entry = _capture(full, self.fn, args, self.donate)
+            entry = _capture(full, self.fn, args, self.donate, self.state)
             _CACHE[full] = entry
             while len(_CACHE) > CACHE_SIZE:
                 _CACHE.popitem(last=False)
@@ -286,7 +328,7 @@ class CompiledStep:
         self.entry = None
 
 
-def compiled_step(fn, *, key, donate_argnums=()):
+def compiled_step(fn, *, key, donate_argnums=(), state=None):
     """``fn`` compiled once per shape on a CUDA device, eager on the CPU.
 
     Args:
@@ -295,6 +337,10 @@ def compiled_step(fn, *, key, donate_argnums=()):
         module docstring); required on every device.
       donate_argnums: indices of the arguments whose buffers the outputs
         of their shape and dtype come back in.
+      state: None, or a callable () -> iterable of the tensors that ``fn``
+        updates in place (a train step's parameters and optimizer state):
+        the warm-up before a capture leaves them as it found them, so a
+        call updates them once (module docstring).
 
     Returns:
       A `CompiledStep`: ``step(*tensors) -> tuple of tensors``.  On a CUDA
@@ -304,7 +350,7 @@ def compiled_step(fn, *, key, donate_argnums=()):
     if key is None:
         raise ValueError("compiled_step needs a key naming what fn closes"
                          " over: a cached graph replays its first capture's")
-    return CompiledStep(fn, key, donate_argnums)
+    return CompiledStep(fn, key, donate_argnums, state)
 
 
 @contextlib.contextmanager
