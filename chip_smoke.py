@@ -386,6 +386,25 @@ the eager call's.  In phase 15's compiled joint step compact compiles,
 and compact without its bounds fails its capture.  The kernels line's
 `train` entries gain `launches_a_replay`, and the packed and lattice
 kernels a `compiled_compact` entry.
+Slice 24 (the device loop's mask and count folded into the step's
+kernels: `device_loop.while_loop(folded=True)`, `decode_gru_greedy`
+given last_tok and the count, `decode_beam_select` given the count)
+adds, inside phase 15: in fp32 and bf16 every recorded greedy GRU and
+beam selection call folded, with the loop's cond true and false, against
+its folded plain version (`decode_step_cases.check_fold_records`: the
+integers, last_tok, the count and the selection bit for bit, the state
+within 1e-5 and equal to the unfolded kernel's); the same at odd, wide
+and ring widths and on the adversarial selection states
+(`select_fold_cases`); the folded greedy, beam 4 and streaming drains
+(sessions of C=16) through the graphs against the unfolded drains on the
+same kernels (`decode_step_cases.UNFOLDED`: the loop's own mask), eager
+and graphed, bit for bit on the whole state with the same trip counts
+(`check_fold`); one and two captured folded steps' edges, the GRU to the
+next step's hidden layer programmatic (`step_edges`); the graphed step's
+us, its kernels a step and a drain's ms unfolded / folded / folded /
+unfolded; and the replay's profile gating on no ``where`` kernel and
+fewer kernels a round outside the step's than steps.  In
+`phase_compiled_serving`, a compiled chunk's ``where`` kernels.
 It prints the kernels' JSON line and the card's line, and last
 `{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}`.
 Without a CUDA device, or without the package beside it, it exits 1 and
@@ -2376,6 +2395,13 @@ def decode_step_checks(torch, dsc, model, feats, xn, d, cd):
           f" lengths and scores: lengths {json.dumps(parent['decode'])}")
     agree = dsc.token_agreement(model, feats, xn, d["max_length"], d["beam"],
                                 outs)
+    fold = dsc.check_fold_records(recs)
+    print(f"decode step kernels folded at {json.dumps(d)}, {cd}: every"
+          f" recorded greedy GRU and beam selection call with the loop's"
+          f" mask and count folded in, cond true and false, against its"
+          f" folded plain version (integers, last_tok, count, selection bit"
+          f" for bit; the state within {dsc.GRU_TOL} and equal to the"
+          f" unfolded kernel's): {json.dumps(fold)}")
     print(f"decode step kernels at {json.dumps(d)}, {cd}: against the plain"
           f" step on the states a plain decode visits (logp within"
           f" {dsc.FP32_TOL} + {dsc.BF16_ULPS} bf16 ulps of the row's largest"
@@ -2383,7 +2409,7 @@ def decode_step_checks(torch, dsc, model, feats, xn, d, cd):
           f" that, the GRU's state within {dsc.GRU_TOL}, non-emitting rows"
           f" bit for bit): {json.dumps(r)}; whole decodes on the kernels"
           f" against the plain step (reported, not held): {json.dumps(agree)}")
-    return recs, r, sel
+    return recs, r, sel, fold
 
 
 def decode_step_times(torch, bd, dsc, model, recs, d, card):
@@ -2474,19 +2500,52 @@ def decode_redesign_checks(torch, dsc, recs, seed):
     if ds.pdl_built() and programmatic < 1:
         raise AssertionError(f"a captured step has no programmatic edge"
                              f" ({edges} edges)")
+    steps = dsc.step_edges(recs)
+    if ds.pdl_built() and not all(r["gru_to_hidden"] for r in steps.values()):
+        raise AssertionError(f"a folded step's GRU to the next step's hidden"
+                             f" layer is not a programmatic edge: {steps}")
+    print(f"decode step folded, captured steps' (programmatic, all) edges,"
+          f" one step and two: {json.dumps(steps)} (gru_to_hidden: the edge"
+          f" from a step's GRU to the next step's hidden layer is"
+          f" programmatic)")
     print(f"decode step kernels: {calls} calls twice on the same arguments"
           f" (wide and ring widths), equal bit for bit; a captured greedy"
           f" step (decode_joint, decode_gru_greedy): {programmatic}"
           f" programmatic edges of {edges} (built with programmatic"
           f" dependent launch: {ds.pdl_built()})")
     return {**errs, "deterministic_calls": calls, "pdl": (programmatic, edges),
+            "step_edges": steps,
+            "fold": {name: max((e["max_abs_err"] for c in wide[name].values()
+                                for k, e in c.items() if "folded" in k),
+                               default=0.0) for name in ("wide", "ring")},
             "plans": {k: wide[k]["plans"] for k in ("wide", "ring")}}
 
 
 def decode_step_in_turns(dsc, model, feats, xn, d, card):
     """The graphed greedy and beam step's device us and each step kernel's
     us in it (a replay's profile) on the first kernels and on these, in
-    turns (`decode_step_cases.step_times`); one `time` line each."""
+    turns (`decode_step_cases.step_times`); then these kernels under the
+    loop's own mask (`UNFOLDED`) and folded, in turns; one `time` line
+    each."""
+    from warp_rnnt_tpu_torch.ops import decode_step as ds
+
+    fold = dsc.step_times(model, feats, xn, d["max_length"], d["beam"],
+                          (("unfolded", dsc.UNFOLDED), ("folded", ds)))
+    for name, r in fold.items():
+        runs = [r[w][i] for w, i in (("unfolded", 0), ("folded", 0),
+                                     ("folded", 1), ("unfolded", 1))]
+
+        def turns(key):
+            return " / ".join(f"{x[key]:.3f}" for x in runs)
+
+        print(f"time decode step graphed {name} (unroll 16) in turns, the"
+              f" loop's own mask / folded / folded / the loop's own mask:"
+              f" {turns('step_us')} us a step, kernels a step"
+              f" {turns('kernels_a_step')}, a drain of the encoder's frames"
+              f" {turns('drain_ms')} ms; kernels' us a step under the"
+              f" profiler: folded"
+              f" {json.dumps(r['folded'][0]['kernel_us'])}, unfolded"
+              f" {json.dumps(r['unfolded'][0]['kernel_us'])} [{card}]")
     out = dsc.step_times(model, feats, xn, d["max_length"], d["beam"])
     for name, r in out.items():
         ours = [x["step_us"] for x in r["kernels"]]
@@ -2501,7 +2560,7 @@ def decode_step_in_turns(dsc, model, feats, xn, d, card):
               f" kernels' us a step under the"
               f" profiler: these {json.dumps(r['kernels'][0]['kernel_us'])},"
               f" first {json.dumps(r['baseline'][0]['kernel_us'])} [{card}]")
-    return out
+    return {**out, "fold": fold}
 
 
 def ptxas_of(report, kernel):
@@ -2528,9 +2587,18 @@ def hold_step_kernels(r, name, card, replaced):
     """A graphed step launches the step's kernels (`STEP_OF`), at most
     `STEP_LAUNCHES` between them, beam's selection and GRU once each, and
     none of the library kernels they replaced (``replaced``, by name;
-    `bench_decode.step_kernels`, from a graph replay's profile)."""
+    `bench_decode.step_kernels`, from a graph replay's profile); with the
+    loop's mask folded into the step's kernels, a replay launches no
+    ``where`` kernel and fewer kernels outside the step's than it takes
+    steps (`bench_decode.round_kernels`: only the round's tail)."""
     ours = r[f"{name}_graph_step_kernels"]
     left = r[f"{name}_graph_step_replaced"]
+    tail = r[f"{name}_graph_round_kernels"]
+    wheres = {k: n for k, n in tail.items() if "where" in k.lower()}
+    if wheres or sum(tail.values()) >= r["unroll"]:
+        raise AssertionError(f"{name}: a replay of {r['unroll']} steps"
+                             f" launches {sum(tail.values())} kernels outside"
+                             f" the step's ({tail}); where kernels {wheres}")
     total = sum(ours.values())
     for kernel in STEP_OF[name]:
         if not any(kernel in key for key in ours):
@@ -2546,7 +2614,9 @@ def hold_step_kernels(r, name, card, replaced):
     print(f"profile graphed {name} step: {json.dumps(ours)} ({total} launches"
           f" a step, at most {STEP_LAUNCHES[name]}); no {', '.join(replaced)}"
           f" kernel left; {r[f'{name}_graph_kernels_per_step']} kernels and"
-          f" {r[f'{name}_graph_step_us']} us a step [{card}]")
+          f" {r[f'{name}_graph_step_us']} us a step; outside the step's, a"
+          f" replay of {r['unroll']} steps launches {sum(tail.values())}"
+          f" kernels, none a where: {json.dumps(tail)} [{card}]")
     return total
 
 
@@ -2622,7 +2692,7 @@ def phase_serving(torch, wt, timing, card):
     d = sc.DECODE
     feats = sc.features(SEED + 62, d["N"], d["T"], d["F"])
     xn = torch.full((d["N"],), d["T"], dtype=torch.int32, device="cuda")
-    step_checks, select_checks = {}, {}
+    step_checks, select_checks, fold_checks = {}, {}, {}
     for cd in (torch.float32, torch.bfloat16):  # bf16: the default model
         model = sc.carried_model(d, SEED + 61, compute_dtype=cd)
         g_len, beam_out = sc.check_decoders(model, feats, xn, d["V"],
@@ -2644,8 +2714,9 @@ def phase_serving(torch, wt, timing, card):
               f" loop bit for bit (tokens, lengths, scores), the same trip"
               f" counts, at most iterations // unroll + 1 host reads;"
               f" {json.dumps(loops)}")
-        recs, step_checks[str(cd)], select_checks[str(cd)] = (
+        recs, step_checks[str(cd)], select_checks[str(cd)], fold = (
             decode_step_checks(torch, dsc, model, feats, xn, d, cd))
+        fold_checks[str(cd)] = fold
     odd = dsc.odd_cases(SEED + 63)
     print(f"decode step kernels at odd widths {json.dumps(dsc.ODD)}, (rows,"
           f" samples, k) {dsc.ODD_ROWS}, add and concat, fp32 and bf16:"
@@ -2656,6 +2727,19 @@ def phase_serving(torch, wt, timing, card):
           f" L={dsc.ODD['L']}, V={dsc.ODD['V']}, beams"
           f" {dsc.SELECT_BEAMS}): equal to the plain version bit for bit;"
           f" {json.dumps(select_odd)}")
+    select_fold = dsc.select_fold_cases(SEED + 66)
+    print(f"decode_beam_select folded on the same hand-built states, the"
+          f" loop's cond true and false: equal to the folded plain version"
+          f" bit for bit (the count too); {json.dumps(select_fold)}")
+    fold_drains = dsc.check_fold(model, feats, xn, d["max_length"], d["beam"],
+                                 16)
+    print(f"serving folded drains at {json.dumps(d)}, bf16, unroll"
+          f" {dl.UNROLL}: greedy, beam {d['beam']} and their streaming"
+          f" sessions (C=16) through the graphs, the loop's mask and count"
+          f" in the step's kernels, equal the unfolded drains on the same"
+          f" kernels (the loop's own mask), eager and graphed, bit for bit"
+          f" on the whole state with the same trip counts:"
+          f" {json.dumps(fold_drains)}")
     step_times = decode_step_times(torch, bd, dsc, model, recs, d, card)
     redesign = decode_redesign_checks(torch, dsc, recs, SEED + 65)
     in_turns = decode_step_in_turns(dsc, model, feats, xn, d, card)
@@ -2785,6 +2869,12 @@ def phase_serving(torch, wt, timing, card):
                     f"{name}_graph_step_kernels"].items() if kernel in key)
                 for name in ("greedy", "beam")},
             "max_abs_err_by_dtype": errs_k,
+            "fold_max_abs_err": max(
+                [r[name]["max_abs_err"] for v in fold_checks.values()
+                 for r in v.values() for name in r
+                 if name.startswith(kernel)]
+                + [e for e in redesign["fold"].values()]) if kernel
+            == "decode_gru" else None,
             "greedy": greedy, "beam": beam,
             "odd_max_abs_err": max(c[k]["max_abs_err"] for c in odd.values()
                                    for k in c if k.startswith(kernel)),
@@ -2795,11 +2885,13 @@ def phase_serving(torch, wt, timing, card):
             "warm_ms": greedy["warm_ms"],
             "baseline_ms": greedy["baseline_ms"],
             "baseline_warm_ms": greedy["baseline_warm_ms"],
-            "in_step_us": {
+            **{field: {
                 name: {who: [sum(u for key, u in x["kernel_us"].items()
                                  if kernel in key) for x in runs]
-                       for who, runs in in_turns[name].items()}
-                for name in ("greedy", "beam")},
+                       for who, runs in turns[name].items()}
+                for name in ("greedy", "beam")}
+               for field, turns in (("in_step_us", in_turns),
+                                    ("in_step_us_fold", in_turns["fold"]))},
             "cluster": step_plans[kernel],
             "ptxas": ptxas_of(ptxas, kernel)})
     beam = step_times["beam"]["decode_beam_select"]
@@ -2818,6 +2910,10 @@ def phase_serving(torch, wt, timing, card):
             decode["graphed"]["beam_graph_step_kernels"].items()
             if "decode_beam_select" in key)},
         "max_abs_err_by_dtype": errs_k, "beam": beam,
+        "fold_max_abs_err": max(
+            [v["beam"]["decode_beam_select"]["max_abs_err"]
+             for v in fold_checks.values()]
+            + [r["max_abs_err"] for r in select_fold.values()]),
         "adversarial_max_abs_err": max(
             r["max_abs_err"] for r in select_odd.values()),
         "warm_ms": beam["warm_ms"], "cluster": None,
@@ -3283,9 +3379,11 @@ def phase_compiled_serving(torch, card):
         rows = {key: n for _, n, key in prof["rows"]}
         enc = device_profile(streaming.LAST_GRAPH["step"].replay, 10)
         stream[name] = ours(rows)
+        wheres = sum(n for key, n in rows.items() if "where" in key.lower())
         print(f"compiled stream {name} chunk: {prof['kernels_per_call']}"
               f" kernels a chunk, busy {prof['busy_ms']} ms, idle"
               f" {prof['idle_share']}; the port's {json.dumps(stream[name])};"
+              f" where kernels a chunk {wheres} (the drain's loop folded);"
               f" an encoder replay {enc['kernels_per_call']} kernels, busy"
               f" {enc['busy_ms']} ms [{card}]")
     graphs = {json.dumps(e.key[0][3:]) + f" {tuple(e.outputs[-3].shape)}": (

@@ -18,7 +18,16 @@ checks of `warp_rnnt_tpu_torch/benchmarks/decode_step_cases.py`, which
     kernel bit for bit (the clusters' sums in a fixed order);
   * the step captured in a CUDA graph with programmatic edges between
     its launches, and greedy and beam decodes through the graphs equal
-    to the eager loop bit for bit.
+    to the eager loop bit for bit;
+  * the loop's mask and count folded in: `decode_gru_greedy` and
+    `decode_beam_select` folded, with the loop's cond true and false,
+    against their folded plain versions (the integers, last_tok, the
+    count and the selection bit for bit) on the recorded states, at odd,
+    wide and ring widths and on the adversarial selection states; the
+    folded greedy, beam and streaming drains through the graphs equal to
+    the unfolded drains on the same kernels, eager and graphed, bit for
+    bit; two captured folded steps joined by a programmatic edge from
+    the GRU to the next step's hidden layer.
 This file imports no JAX (the card's machine runs it).
 """
 
@@ -121,3 +130,64 @@ def test_graphed_step_has_programmatic_edges_and_equals_eager(cuda_device,
     with sc.no_tf32():
         loops = sc.check_graphed(model, feats, xn, d["max_length"], d["beam"])
     assert set(loops) == {"greedy", "beam"}
+
+
+SMALL = dict(N=4, T=96, F=20, H=64, V=64, beam=4, max_length=40)
+
+
+def _small(cd, seed=5):
+    model = sc.carried_model(SMALL, seed, "cuda", cd)
+    feats = sc.features(seed + 1, SMALL["N"], SMALL["T"], SMALL["F"])
+    return model, feats, sc.ragged(SMALL["N"], SMALL["T"])
+
+
+@pytest.mark.parametrize("cd", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_folded_kernels_match_plain_on_recorded_states(cuda_device, cd):
+    model, feats, xn = _small(cd)
+    with sc.no_tf32():
+        recs, _ = dsc.record_states(model, feats, xn, SMALL["max_length"],
+                                    SMALL["beam"], every=8)
+        out = dsc.check_fold_records(recs)
+    assert out["greedy"]["decode_gru_greedy"]["calls"] >= 8
+    assert out["beam"]["decode_beam_select"]["calls"] >= 8
+    assert out["beam"]["decode_beam_select"]["max_abs_err"] == 0.0
+
+
+def test_folded_kernels_match_plain_at_odd_wide_and_ring_widths(cuda_device):
+    cases = [c for c in dsc.odd_cases(seed=11).values()]
+    wide = dsc.wide_cases(seed=12)
+    for name in ("wide", "ring"):
+        cases += [c for k, c in wide[name].items() if k != "plans"]
+    folded = [c[k] for c in cases for k in c if "folded" in k]
+    assert len(folded) == 2 * sum(1 for c in cases if "decode_gru_greedy" in c)
+    assert all(r["max_abs_err"] <= dsc.GRU_TOL for r in folded)
+
+
+def test_folded_select_matches_plain_on_adversarial_states(cuda_device):
+    out = dsc.select_fold_cases(seed=13)
+    assert len(out) == 2 * len(dsc.SELECT_BEAMS)
+    assert all(r["max_abs_err"] == 0.0 for r in out.values())
+
+
+@pytest.mark.parametrize("cd", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_folded_drains_equal_unfolded(cuda_device, cd):
+    model, feats, xn = _small(cd, 9)
+    with sc.no_tf32():
+        out = dsc.check_fold(model, feats, xn, SMALL["max_length"],
+                             SMALL["beam"], 16)
+    assert len(out) == 4 and all(r["iterations"] > 0 for r in out.values())
+
+
+def test_folded_step_gru_to_next_hidden_is_programmatic(cuda_device):
+    from warp_rnnt_tpu_torch.ops import decode_step as ds
+
+    model, feats, xn = _small(torch.bfloat16)
+    with sc.no_tf32():
+        recs, _ = dsc.record_states(model, feats, xn, SMALL["max_length"],
+                                    SMALL["beam"], every=8)
+        out = dsc.step_edges(recs)
+    for r in out.values():
+        assert r["two"][1] == 2 * r["one"][1] + 1
+        assert r["gru_to_hidden"] or not ds.pdl_built()

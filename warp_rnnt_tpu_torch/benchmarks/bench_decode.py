@@ -15,8 +15,9 @@ idle share.  The decode loop (`utils.device_loop`) runs as CUDA graphs of
 ``unroll`` masked steps: the graph's capture ms (warm-up included), its
 private pool's MiB, its kernels a step (one replay under the profiler over
 ``unroll``) and its device us a step (REPLAYS replays back to back on CUDA
-events, over REPLAYS x unroll), and the step's own kernels a step and any
-library kernel they replaced still in the step (`step_kernels`).
+events, over REPLAYS x unroll), the step's own kernels a step and any
+library kernel they replaced still in the step (`step_kernels`), and the
+kernels a replay launches outside the step's (`round_kernels`).
 ``plain`` runs the loop eagerly on the card instead (`device_loop._plain`,
 the plain version); its graph keys are then None.
 
@@ -49,7 +50,7 @@ TOP = 6  # kernels listed by device time a decode
 REPLAYS = 20  # graph replays timed for the device us a step
 GRAPH_KEYS = ("capture_ms", "graph_pool_mb", "graph_kernels_per_step",
               "graph_step_us", "graph_step_kernels", "graph_step_kernel_us",
-              "graph_step_replaced")
+              "graph_step_replaced", "graph_round_kernels")
 
 
 def loop_mode(plain=False, unroll=None):
@@ -102,11 +103,24 @@ def step_kernels(rows, unroll, us=None):
     return ours, left
 
 
+def round_kernels(rows):
+    """{name: launches} of a graph replay's profile ``rows`` [(ms,
+    launches, name)] outside the step's kernels: the loop's own (with the
+    loop folded into the step's kernels, only the round's tail: the last
+    ``cond``, the state's copies back, the status)."""
+    out = {}
+    for _, n, key in rows:
+        if not any(k in key for k in STEP_KERNELS):
+            out[key[:100]] = out.get(key[:100], 0) + n
+    return out
+
+
 def graph_numbers(name):
     """{capture_ms, graph_pool_mb, graph_kernels_per_step,
     graph_step_us, graph_step_kernels, graph_step_kernel_us,
-    graph_step_replaced} of the graph of decoder ``name``'s last drain
-    (`step_kernels`; the kernels' us under the profiler)."""
+    graph_step_replaced, graph_round_kernels} of the graph of decoder
+    ``name``'s last drain (`step_kernels`, `round_kernels`: launches a
+    replay; the kernels' us under the profiler)."""
     entry = LAST_GRAPH[name]
     prof = device_profile(entry.replay, 1, cpu=False)
     us = {}
@@ -125,7 +139,8 @@ def graph_numbers(name):
             "graph_step_us": start.elapsed_time(end) * 1e3
             / (REPLAYS * entry.unroll),
             "graph_step_kernels": ours, "graph_step_kernel_us": us,
-            "graph_step_replaced": left}
+            "graph_step_replaced": left,
+            "graph_round_kernels": round_kernels(prof["rows"])}
 
 
 def step_work(model, samples, rows, k=None, L=0, emitting=None):
@@ -202,7 +217,8 @@ def step_bound(model, samples, rows, k=None, L=0):
     """(us, "bytes" or "operations"): the least time one decode step of
     ``rows`` hypotheses could take on this card: the step kernels' bytes
     (`step_work`) over the memory's rate, or their operations, whichever
-    is longer.  The rest of the step (the loop's masks) moves a few KB."""
+    is longer.  The rest of a round (the loop's masks where the step does
+    not fold them in, the round's tail) moves a few KB."""
     work = step_work(model, samples, rows, k, L).values()
     return _bound(sum(b for b, _ in work), sum(o for _, o in work))
 

@@ -37,6 +37,20 @@ raises AssertionError on a failure and returns what it measured.
     and the GRU on their kernels, the selection plain and the GRU's rows
     gathered by torch; `check_parent_path` holds a beam decode and a
     streaming beam session on the kernels equal to it, bit for bit.
+  * The loop's mask and count folded into `decode_gru_greedy` and
+    `decode_beam_select` (`fold_args`: the count, greedy's last_tok, and
+    frame bounds that set the loop's ``cond`` true or false):
+    `check_gru` / `check_select` with ``go`` (the folded kernel against
+    its folded plain version, the integers and the selection bit for bit,
+    and greedy's state against the unfolded kernel's bit for bit),
+    `check_fold_records` on every recorded call, `odd_cases` (so also
+    `wide_cases`) and `select_fold_cases` with ``cond`` true and false;
+    `check_fold`: the folded drains, greedy, beam and streaming sessions
+    of both (`_session`), graphed, against `UNFOLDED` (the same kernels
+    under the loop's own mask) eager and graphed, the whole state bit for
+    bit; `step_edges`: one and two captured folded steps' edges, and
+    whether the edge from a step's GRU to the next step's hidden layer is
+    programmatic.
   * `token_agreement`: whole decodes, plain against the kernels: the share
     of samples whose tokens are equal and the first position at which the
     others differ (reported, not gated: a step's logp moves by up to
@@ -50,7 +64,8 @@ raises AssertionError on a failure and returns what it measured.
     beam `decode_gru` call without a row map, with the identity and with
     its parents' map, in turns.  `step_times`: the graphed greedy and beam
     step's device us and each kernel's us in the step (a replay's
-    profile), on `BASELINE` and on the kernels, in turns.
+    profile), on `BASELINE` and on the kernels (or on `UNFOLDED` and on
+    the kernels folded), in turns.
 """
 
 from __future__ import annotations
@@ -227,6 +242,28 @@ def check_joint(args):
     return r
 
 
+def fold_args(name, args, go):
+    """A ``name`` ("decode_gru_greedy" or "decode_beam_select") call's
+    arguments with the device loop's fold, its frame bounds set so that
+    the loop's ``cond`` is ``go`` (True: as given, or one sample's bound
+    past its frame pointer where none was; False: every bound at its
+    pointer), then greedy's ``last_tok`` (other than the joint's label)
+    and the loop's count (0-d int32)."""
+    args = list(args)
+    ti, at = (1, 4) if name == "decode_gru_greedy" else (0, 10)
+    t, fb = args[ti], args[at]
+    if not go:
+        fb = t.clone()
+    elif not bool((t < fb).any()):
+        fb = fb.clone()
+        fb[0] = t[0] + 1
+    args[at] = fb
+    count = torch.tensor(5, dtype=torch.int32, device=t.device)
+    if name == "decode_gru_greedy":
+        return (*args, (args[0].flip(0) + 1).contiguous(), count)
+    return (*args, count)
+
+
 def emit_mask(name, args):
     """The rows a `decode_gru` (``name`` "decode_gru") or
     `decode_gru_greedy` call with ``args`` writes: (rows,) bool."""
@@ -238,12 +275,17 @@ def emit_mask(name, args):
 
 
 @torch.inference_mode()
-def check_gru(name, args):
+def check_gru(name, args, go=None):
     """One `decode_gru` (``name`` "decode_gru") or `decode_gru_greedy`
-    call through the kernel and the plain version.  Returns {max_abs_err
+    call through the kernel and the plain version; with ``go`` (greedy
+    only), folded with the loop's ``cond`` set to it (`fold_args`), and
+    then also last_tok and the count equal, and (``go`` True) the state
+    equal to the unfolded kernel's bit for bit.  Returns {max_abs_err
     (the emitting rows' state), rows, emitting}."""
     kernel = getattr(ds, name)
     plain = getattr(ds, f"{name}_plain")
+    if go is not None:
+        args = fold_args(name, args, go)
     got, want = kernel(*args), plain(*args)
     _sync(args[6])
     emit = emit_mask(name, args)
@@ -252,9 +294,15 @@ def check_gru(name, args):
         h, out = args[1:3]
     else:
         h, out = args[6:8]
-        fields = list(zip(("t", "u", "emitted_here", "tokens"), got[:4],
-                          want[:4]))
-        got, want = got[4:], want[4:]
+        names = ("t", "u", "emitted_here", "tokens")
+        if go is not None:
+            names += (None, None, "last_tok", "count")
+        fields = [f for f in zip(names, got, want) if f[0]]
+        if go:
+            unfolded = kernel(*args[:15])[4:6]
+            if not all(torch.equal(a, b) for a, b in zip(got[4:6], unfolded)):
+                raise AssertionError(f"{name}: folded state != unfolded")
+        got, want = got[4:6], want[4:6]
     for field, g, w in fields:
         if not torch.equal(g, w):
             raise AssertionError(f"{name}: {field} differs")
@@ -283,14 +331,20 @@ def _bits(x):
 
 
 @torch.inference_mode()
-def check_select(args):
+def check_select(args, go=None):
     """One `decode_beam_select` call (args as the beam body passes them)
-    through the kernel and the plain version: every output bit for bit.
-    Returns {max_abs_err (0.0), samples, beams, emitting, advanced}."""
+    through the kernel and the plain version: every output bit for bit;
+    with ``go``, folded with the loop's ``cond`` set to it (`fold_args`),
+    the count too.  Returns {max_abs_err (0.0), samples, beams, emitting,
+    advanced}."""
+    if go is not None:
+        args = fold_args("decode_beam_select", args, go)
     got = ds.decode_beam_select(*args)
     want = ds.decode_beam_select_plain(*args)
     _sync(args[2])
-    for field, g, w in zip(SELECT_FIELDS, got, want):
+    if len(got) != len(want):
+        raise AssertionError("decode_beam_select: outputs differ in number")
+    for field, g, w in zip((*SELECT_FIELDS, "count"), got, want):
         if g.dtype != w.dtype or not torch.equal(_bits(g), _bits(w)):
             raise AssertionError(f"decode_beam_select: {field} differs from"
                                  " the plain version")
@@ -321,6 +375,27 @@ def check_records(recs):
                 s["emitting"] = sum(r["emitting"] for r in rs)
                 s["rows"] = sum(r["rows"] for r in rs)
             out[dec][name] = s
+    return out
+
+
+def check_fold_records(recs):
+    """Every recorded `decode_gru_greedy` and `decode_beam_select` call of
+    ``recs`` ({decoder: Recorder}) folded, with the loop's ``cond`` true
+    and false (`check_gru`, `check_select` with ``go``).  Returns
+    {decoder: {function: {calls, max_abs_err, emitting}}}."""
+    out = {}
+    for dec, rec in recs.items():
+        for name in ("decode_gru_greedy", "decode_beam_select"):
+            calls = rec.calls[name]
+            if not calls:
+                continue
+            rs = [check_gru(name, a, go) if name == "decode_gru_greedy"
+                  else check_select(a, go)
+                  for a in calls for go in (True, False)]
+            out.setdefault(dec, {})[name] = {
+                "calls": len(rs),
+                "max_abs_err": max(r["max_abs_err"] for r in rs),
+                "emitting": sum(r["emitting"] for r in rs)}
     return out
 
 
@@ -386,6 +461,9 @@ def odd_cases(seed=0, device="cuda", dims=ODD, rows_list=ODD_ROWS):
                 if greedy is not None:
                     out[case]["decode_gru_greedy"] = check_gru(
                         "decode_gru_greedy", greedy)
+                    for go in (True, False):
+                        out[case][f"decode_gru_greedy folded go={go}"] = (
+                            check_gru("decode_gru_greedy", greedy, go))
     return out
 
 
@@ -457,15 +535,22 @@ def pdl_edges(args_joint, args_gru, name="decode_gru_greedy"):
     """A CUDA graph captured (`torch.cuda.graph`) around one `decode_joint`
     and one ``name`` call: (programmatic edges, edges) of the captured
     graph (`csrc/decode_step.cu` `decode_graph_edges`)."""
+    return graph_edges([lambda: ds.decode_joint(*args_joint),
+                        lambda: getattr(ds, name)(*args_gru)])
+
+
+def graph_edges(calls):
+    """(programmatic edges, edges) of a CUDA graph captured around
+    ``calls`` (functions of no argument that launch, in order)."""
     import ctypes
 
     g = torch.cuda.CUDAGraph(keep_graph=True)
-    ds.decode_joint(*args_joint)  # built and warm, outside the capture
-    getattr(ds, name)(*args_gru)
+    for call in calls:  # built and warm, outside the capture
+        call()
     torch.cuda.synchronize()
     with torch.cuda.graph(g):
-        ds.decode_joint(*args_joint)
-        getattr(ds, name)(*args_gru)
+        for call in calls:
+            call()
     lib, _ = ds._LIBS.get("decode_step") or ds._entries()
     out = (ctypes.c_longlong * 2)()
     code = lib.decode_graph_edges(ctypes.c_longlong(int(g.raw_cuda_graph())),
@@ -473,6 +558,35 @@ def pdl_edges(args_joint, args_gru, name="decode_gru_greedy"):
     if code:
         raise RuntimeError(f"decode_graph_edges: CUDA error {code}")
     return int(out[0]), int(out[1])
+
+
+def step_edges(recs):
+    """The folded steps' edges, captured from the recorded calls of
+    ``recs`` (`record_states`; the count and last_tok of `fold_args`):
+    {decoder: {"one": (programmatic, edges) of one step's launches, "two":
+    of two steps', "gru_to_hidden": True where the one edge that joins
+    the steps, from the GRU to the next step's hidden layer, is
+    programmatic}}."""
+    g, b = recs["greedy"].calls, recs["beam"].calls
+
+    def mid(calls):
+        return calls[len(calls) // 2]
+
+    gru = fold_args("decode_gru_greedy", g["decode_gru_greedy"][-1], True)
+    sel = fold_args("decode_beam_select", mid(b["decode_beam_select"]), True)
+    bgru = mid(b["decode_gru"])
+    steps = {
+        "greedy": [lambda: ds.decode_joint(*mid(g["decode_joint"])),
+                   lambda: ds.decode_gru_greedy(*gru)],
+        "beam": [lambda: ds.decode_joint(*mid(b["decode_joint"])),
+                 lambda: ds.decode_beam_select(*sel),
+                 lambda: ds.decode_gru(*bgru[:9], src=bgru[9])]}
+    out = {}
+    for dec, step in steps.items():
+        one, two = graph_edges(step), graph_edges(step + step)
+        out[dec] = {"one": one, "two": two, "gru_to_hidden": (
+            two[1] - 2 * one[1] == 1 and two[0] - 2 * one[0] == 1)}
+    return out
 
 
 def check_select_records(recs):
@@ -574,6 +688,14 @@ def select_cases(seed=0, device="cuda"):
             for B in SELECT_BEAMS}
 
 
+def select_fold_cases(seed=0, device="cuda"):
+    """`select_cases` folded, with the loop's ``cond`` true and false.
+    Returns {"B=.. go=..": result}."""
+    return {f"B={B} go={go}": check_select(select_state(seed + B, B, device),
+                                           go)
+            for B in SELECT_BEAMS for go in (True, False)}
+
+
 def _parent_gru(token, h, out, emit, *params, src=None):
     """`decode_gru` after torch's gathers of the parents' rows."""
     if src is not None:
@@ -589,27 +711,37 @@ PARENT = types.SimpleNamespace(
     decode_beam_select=ds.decode_beam_select_plain)
 
 
-def _beam_session(model, feats, xn, max_length, beam, C, ops):
-    """A streaming beam session (chunks of C) driven here on the drains'
-    ``ops``, as `streaming.stream_step` and `stream_finish` drive it on
-    the kernels: (tokens, lengths, scores)."""
+def _session(model, feats, xn, max_length, beam, C, ops):
+    """A streaming session (chunks of C; greedy where ``beam`` is 0)
+    driven here on the drains' ``ops``, as `streaming.stream_step` and
+    `stream_finish` drive it on the kernels: the final decoder state."""
     from warp_rnnt_tpu_torch.models.streaming import _NO_LIMIT
 
     enc = model.encoder
-    enc_st = enc.stream_init(feats.shape[0])
-    dec = beam_search.beam_state_init(model, feats.shape[0], beam,
-                                      max_length, ops=ops)
+    N = feats.shape[0]
+    enc_st = enc.stream_init(N)
+    if beam:
+        dec = beam_search.beam_state_init(model, N, beam, max_length,
+                                          ops=ops)
+        drain = beam_search.beam_drain
+    else:
+        dec = decoding.greedy_state_init(model, N, max_length, ops=ops)
+        drain = decoding.greedy_drain
     xn = torch.as_tensor(xn, dtype=torch.int32, device=feats.device)
     for i in range(0, feats.shape[1], C):
         chunk = feats[:, i:i + C]
         enc_st, out, p0 = enc.stream(enc_st, chunk, _NO_LIMIT)
         bound = torch.minimum(xn, (p0 + chunk.shape[1]).clamp(min=0))
-        dec = beam_search.beam_drain(model, dec, out, p0, bound, ops=ops)
+        dec = drain(model, dec, out, p0, bound, ops=ops)
     L = enc_st["m"]
     enc_st, out, p0 = enc.stream_finish(enc_st, L)
-    dec = beam_search.beam_drain(model, dec, out, p0, torch.minimum(xn, L),
-                                 ops=ops)
-    return beam_search.beam_best(dec)
+    return drain(model, dec, out, p0, torch.minimum(xn, L), ops=ops)
+
+
+def _beam_session(model, feats, xn, max_length, beam, C, ops):
+    """`_session` of beam ``beam``: (tokens, lengths, scores)."""
+    return beam_search.beam_best(_session(model, feats, xn, max_length, beam,
+                                          C, ops))
 
 
 @torch.inference_mode()
@@ -649,6 +781,56 @@ def check_parent_path(model, feats, xn, max_length, beam, C):
     return {"decode": got[0][1].tolist(), "session": got[1][1].tolist()}
 
 
+@torch.inference_mode()
+def check_fold(model, feats, xn, max_length, beam, C):
+    """The folded drains (`ops.decode_step`: the loop's mask and count in
+    the step's kernels) through the device loop's graphs against the
+    unfolded ones on the same kernels (`UNFOLDED`: the loop's own mask),
+    run eagerly (`device_loop._plain`, the plain loop) and graphed:
+    greedy, beam ``beam`` and a streaming session of each (chunks of C,
+    `_session`), the whole final state bit for bit and the same trip
+    counts.  Returns {case: {"iterations", "host_reads",
+    "unfolded_host_reads": [eager, graphed]}}."""
+    from warp_rnnt_tpu_torch.benchmarks.serving_cases import _counted
+
+    enc = model.encode(feats)
+    N = enc.shape[0]
+
+    def runs(ops):
+        return {
+            "greedy": lambda: decoding.greedy_drain(
+                model, decoding.greedy_state_init(model, N, max_length,
+                                                  ops=ops),
+                enc, 0, xn, ops=ops),
+            f"beam {beam}": lambda: beam_search.beam_drain(
+                model, beam_search.beam_state_init(model, N, beam,
+                                                   max_length, ops=ops),
+                enc, 0, xn, ops=ops),
+            f"stream greedy C={C}": lambda: _session(
+                model, feats, xn, max_length, 0, C, ops),
+            f"stream beam {beam} C={C}": lambda: _session(
+                model, feats, xn, max_length, beam, C, ops)}
+
+    out = {}
+    for case, fn in runs(ds).items():
+        counter = "beam" if "beam" in case else "greedy"
+        got, it, reads = _counted(counter, fn)
+        r = {"iterations": it, "host_reads": reads,
+             "unfolded_host_reads": []}
+        for plain in (True, False):
+            want, it_u, reads_u = _counted(counter, runs(UNFOLDED)[case],
+                                           plain)
+            same = [torch.equal(_bits(g), _bits(w)) for g, w in zip(got, want)]
+            if not all(same) or it != it_u:
+                how = "eager" if plain else "graphed"
+                raise AssertionError(
+                    f"{case}: folded != unfolded ({how}): fields equal"
+                    f" {same}, {it} / {it_u} iterations")
+            r["unfolded_host_reads"].append(reads_u)
+        out[case] = r
+    return out
+
+
 def token_agreement(model, feats, xn, max_length, beam, plain_outs):
     """Whole decodes on the kernels (graphed) against ``plain_outs``
     (`record_states`' plain decodes): {decoder: {"equal_share", "first":
@@ -669,6 +851,17 @@ def token_agreement(model, feats, xn, max_length, beam, plain_outs):
         out[name] = {"equal_share": float(same.float().mean()),
                      "first": first}
     return out
+
+
+# The kernels under the loop's own mask (`device_loop`'s ``cond``, one
+# ``torch.where`` a field and the count's add every step), as the drains
+# ran them before the mask and count were folded into the step's kernels:
+# any ``ops`` other than the module itself runs the loop unfolded
+# (`decoding.folds`).
+UNFOLDED = types.SimpleNamespace(
+    __name__="unfolded", decode_joint=ds.decode_joint,
+    decode_gru=ds.decode_gru, decode_gru_greedy=ds.decode_gru_greedy,
+    decode_beam_select=ds.decode_beam_select)
 
 
 BASELINE_SOURCE = "decode_step_baseline"
@@ -756,21 +949,22 @@ def kernel_times(call_joint, name, call_gru, calls=16, call_select=None):
 
 
 @torch.inference_mode()
-def step_times(model, feats, xn, max_length, beam):
+def step_times(model, feats, xn, max_length, beam,
+               sides=(("baseline", BASELINE), ("kernels", ds))):
     """The graphed greedy and beam ``beam`` decodes' device us a step and
     each step kernel's us a step (`bench_decode.graph_numbers`, one
-    replay's profile), and a whole drain's ms on the encoder's frames
-    (its graphs captured by a drain before it; CUDA events, the host's
-    reads of the loop's flag included), on `BASELINE` and on the kernels,
-    in turns (baseline, kernels, kernels, baseline): {decoder:
-    {"baseline" | "kernels": [{"step_us", "kernel_us": {name: us},
-    "drain_ms"}, ...]}}."""
+    replay's profile, and its kernels a step), and a whole drain's ms on
+    the encoder's frames (its graphs captured by a drain before it; CUDA
+    events, the host's reads of the loop's flag included), on the two
+    ``sides`` ((name, ops); default `BASELINE` and the kernels, the loop
+    folded), in turns (a, b, b, a): {decoder: {side: [{"step_us",
+    "kernel_us": {name: us}, "kernels_a_step", "drain_ms"}, ...]}}."""
     from warp_rnnt_tpu_torch.benchmarks import bench_decode as bd
 
     enc = model.encode(feats)
     N = enc.shape[0]
-    out = {"greedy": {"baseline": [], "kernels": []},
-           "beam": {"baseline": [], "kernels": []}}
+    (a, ops_a), (b, ops_b) = sides
+    out = {"greedy": {a: [], b: []}, "beam": {a: [], b: []}}
 
     def drains(ops):
         dec = decoding.greedy_state_init(model, N, max_length, ops=ops)
@@ -780,8 +974,7 @@ def step_times(model, feats, xn, max_length, beam):
                 "beam": lambda: beam_search.beam_drain(model, st, enc, 0, xn,
                                                        ops=ops)}
 
-    for who, ops in (("baseline", BASELINE), ("kernels", ds),
-                     ("kernels", ds), ("baseline", BASELINE)):
+    for who, ops in ((a, ops_a), (b, ops_b), (b, ops_b), (a, ops_a)):
         for name, drain in drains(ops).items():
             drain()  # captures the drain's graphs
             start = torch.cuda.Event(enable_timing=True)
@@ -791,9 +984,11 @@ def step_times(model, feats, xn, max_length, beam):
             end.record()
             end.synchronize()
             r = bd.graph_numbers(name)
-            out[name][who].append({"step_us": r["graph_step_us"],
-                                   "kernel_us": r["graph_step_kernel_us"],
-                                   "drain_ms": start.elapsed_time(end)})
+            out[name][who].append({
+                "step_us": r["graph_step_us"],
+                "kernel_us": r["graph_step_kernel_us"],
+                "kernels_a_step": r["graph_kernels_per_step"],
+                "drain_ms": start.elapsed_time(end)})
     return out
 
 

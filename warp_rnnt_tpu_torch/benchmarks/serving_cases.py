@@ -400,7 +400,8 @@ def _counted(name, fn, plain=False):
     LOOP_ITERATIONS[name] = HOST_READS[name] = 0
     with device_loop._plain() if plain else contextlib.nullcontext():
         out = fn()
-    torch.cuda.synchronize()
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
     return out, LOOP_ITERATIONS[name], HOST_READS[name]
 
 

@@ -35,6 +35,19 @@
 // With a row map (beam), row r reads its state and output from row
 // src[r] (the beam's parent), in place of a gather before the launch.
 //
+// The device loop's mask and count, folded (greedy's decode_gru and
+// decode_beam_select, given the loop's count): every block computes the
+// loop's cond, go = any(t < frame_bound) over the batch, from the step's
+// inputs (which no launch of the step writes), writes the new state where
+// go holds and its inputs through where it does not, and one thread writes
+// count + go.  In greedy only emitted_here (reset to 0) and last_tok (the
+// joint's label) would change in a step that no sample is active in; in
+// beam the select writes the beam fields through, emit 0 and src the
+// identity, so that decode_gru copies every row.  A step is then the
+// step's own launches (greedy 4, beam 5), and decode_gru's programmatic
+// launch reaches the next step's hidden layer, which stages its weights
+// while the GRU finishes.
+//
 // decode_beam_select, one launch, beam search's step between the joint
 // and the GRU (warp_rnnt_tpu/models/beam_search.py:207-294, XLA in the
 // JAX package; the port's decode_beam_select_plain): one block a sample
@@ -786,6 +799,11 @@ struct Gru {
   // greedy's masked update (all null otherwise)
   const int *t, *u, *eh, *fb, *tokens;
   int *t_out, *u_out, *eh_out, *tokens_out;
+  // the loop's mask and count, folded (all null otherwise)
+  const int* last_tok;
+  int* last_tok_out;
+  const int* count;
+  int* count_out;
   int vocab, rows, H, L, blank, max_symbols;
   int vec;                       // H a multiple of 4, rows on 16 bytes
   int row_tile, k_groups;        // rows a block; K groups of its threads
@@ -950,6 +968,13 @@ decode_gru_kernel(const __grid_constant__ Gru d) {
   bar_arrive(bias_bar);
   pdl_wait();
   const bool greedy = d.t_out != nullptr;
+  bool go = true;  // the loop's cond, where it is folded in
+  if (d.count) {
+    bool live = false;
+    for (int r = tid; r < d.rows; r += kThreads) live |= d.t[r] < d.fb[r];
+    go = __syncthreads_or(live);
+    if (blockIdx.x == 0 && blockIdx.y == 0 && tid == 0) d.count_out[0] = d.count[0] + go;
+  }
   bool em = false;
   if (tid < MT) {
     const int row = r0 + tid;
@@ -963,9 +988,11 @@ decode_gru_kernel(const __grid_constant__ Gru d) {
       em = greedy ? greedy_emit(d, row, active, t, u, eh) : e0 != 0;
       at = em ? u : -1;
       if (greedy && tile == 0 && rank == 0) {  // the integer fields
+        // (where go is false no row is active: t, u and the rows keep)
         d.t_out[row] = active && !em ? t + 1 : t;
         d.u_out[row] = em ? u + 1 : u;
-        d.eh_out[row] = em ? eh + 1 : 0;
+        d.eh_out[row] = em ? eh + 1 : go ? 0 : eh;
+        if (d.count) d.last_tok_out[row] = go ? tok : d.last_tok[row];
       }
     }
     emit_s[tid] = em;
@@ -1158,7 +1185,10 @@ struct Select {
   unsigned char* emit;
   int* new_tok;
   int* src;
-  int B, K, L, max_symbols;
+  // the loop's mask and count, folded (null otherwise)
+  const int* count;
+  int* count_out;
+  int N, B, K, L, max_symbols;
 };
 
 constexpr int kMaxCand = kMaxK * (kMaxK + 1);  // B (K + 1) candidates, at most
@@ -1182,6 +1212,13 @@ decode_beam_select_kernel(const Select d) {
   const float half_neg = 0.5f * kNeg;  // a live beam scores above it
   const int t = d.t[n];
   const bool frame_on = t < d.fb[n];
+  bool go = true;  // the loop's cond, where it is folded in
+  if (d.count) {
+    bool live = false;
+    for (int m = tid; m < d.N; m += kRowThreads) live |= d.t[m] < d.fb[m];
+    go = __syncthreads_or(live);
+    if (n == 0 && tid == 0) d.count_out[0] = d.count[0] + go;
+  }
   for (int c = tid; c < nc; c += kRowThreads) {
     const int b = c / K1, q = c - b * K1;
     const long long r = nb + b;
@@ -1249,7 +1286,7 @@ decode_beam_select_kernel(const Select d) {
   }
   // a sample whose live beams have all settled advances its frame
   const bool advance = frame_on && !__syncthreads_or(active);
-  if (tid < B) {
+  if (tid < B && go) {
     const long long r = nb + tid;
     d.scores_out[r] = score;
     d.u_out[r] = u_new[tid];
@@ -1259,14 +1296,27 @@ decode_beam_select_kernel(const Select d) {
     d.emit[r] = emits[tid];
     d.new_tok[r] = tok_of[tid];
     d.src[r] = static_cast<int>(nb + parent_of[tid]);
+  } else if (tid < B) {  // the loop's cond is false: the state through
+    const long long r = nb + tid;
+    d.scores_out[r] = d.scores[r];
+    d.u_out[r] = d.u[r];
+    d.nexp_out[r] = d.nexp[r];
+    d.waiting_out[r] = d.waiting[r];
+    d.hcode_out[r] = d.hcode[r];
+    d.emit[r] = 0;
+    d.new_tok[r] = tok_of[tid];
+    d.src[r] = static_cast<int>(r);
   }
+  // (where go is false no sample's frame is on: t keeps)
   if (tid == 0) d.t_out[n] = advance ? t + 1 : t;
-  // the token rows: the parent's, the new token at the parent's u
+  // the token rows: the parent's, the new token at the parent's u (where
+  // go is false, each beam's own)
   const long long base = nb * L;
   for (int e = tid; e < B * L; e += kRowThreads) {
     const int b = e / L, l = e - b * L;
     d.tokens_out[base + e] =
-        emits[b] && l == u_at[b]
+        !go ? d.tokens[base + e]
+        : emits[b] && l == u_at[b]
             ? tok_of[b]
             : d.tokens[(nb + parent_of[b]) * L + l];
   }
@@ -1468,7 +1518,8 @@ extern "C" int decode_joint(const long long* a) {
 // emitted_here, frame_bound, tokens, t_out, u_out, eh_out, tokens_out (all
 // 0 without), vocab, rows, H, L, blank, max_symbols, stream, src (or 0),
 // then the plan: cluster, K share, chunk, stages, dynamic shared bytes,
-// rows a block, K groups.  One launch.
+// rows a block, K groups; then the loop's fold, with greedy's fields only:
+// last_tok, last_tok_out, count, count_out (all 0 without).  One launch.
 extern "C" int decode_gru(const long long* a) {
   Gru d{};
   d.token = ptr<const int*>(a[0]);
@@ -1503,6 +1554,13 @@ extern "C" int decode_gru(const long long* a) {
   const long long smem = a[32];
   d.row_tile = static_cast<int>(a[33]);
   d.k_groups = static_cast<int>(a[34]);
+  d.last_tok = ptr<const int*>(a[35]);
+  d.last_tok_out = ptr<int*>(a[36]);
+  d.count = ptr<const int*>(a[37]);
+  d.count_out = ptr<int*>(a[38]);
+  if (d.count && (!d.t_out || !d.last_tok || !d.last_tok_out || !d.count_out)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   d.vec = d.H % 4 == 0 && aligned16(d.emb) && aligned16(d.h) &&
           aligned16(d.w_ih) && aligned16(d.w_hh);
   if (d.vec) {  // W_ih, W_hh (3H, H) in boxes of 32 units x 32 k
@@ -1542,8 +1600,9 @@ extern "C" int decode_gru(const long long* a) {
 // decode_beam_select's argument block (int64 each): t, scores, tokens, u,
 // nexp, waiting, hcode, lp_blank, top_lp, top_ids, frame_bound, then t_out,
 // scores_out, tokens_out, u_out, nexp_out, waiting_out, hcode_out, emit,
-// new_tok, src, then N, B, K, L, max_symbols, stream.  B and K at most
-// kMaxK.  One launch.
+// new_tok, src, then N, B, K, L, max_symbols, stream, then the loop's
+// fold: count, count_out (0 and 0 without).  B and K at most kMaxK.  One
+// launch.
 extern "C" int decode_beam_select(const long long* a) {
   Select d{};
   d.t = ptr<const int*>(a[0]);
@@ -1568,12 +1627,16 @@ extern "C" int decode_beam_select(const long long* a) {
   d.new_tok = ptr<int*>(a[19]);
   d.src = ptr<int*>(a[20]);
   const int N = static_cast<int>(a[21]);
+  d.N = N;
   d.B = static_cast<int>(a[22]);
   d.K = static_cast<int>(a[23]);
   d.L = static_cast<int>(a[24]);
   d.max_symbols = static_cast<int>(a[25]);
   const cudaStream_t s = ptr<cudaStream_t>(a[26]);
-  if (d.B < 1 || d.B > kMaxK || d.K < 1 || d.K > kMaxK) {
+  d.count = ptr<const int*>(a[27]);
+  d.count_out = ptr<int*>(a[28]);
+  if (d.B < 1 || d.B > kMaxK || d.K < 1 || d.K > kMaxK ||
+      (d.count != nullptr) != (d.count_out != nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   decode_beam_select_kernel<<<N, kRowThreads, 0, s>>>(d);

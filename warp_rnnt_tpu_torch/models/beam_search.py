@@ -36,7 +36,12 @@ The loop is `utils.device_loop.while_loop` on JAX's ``cond``, through
 `decoding.run_drain` as greedy's (one CUDA graph of masked steps on the
 card; a surplus step re-sorts nothing, since the mask is the global
 ``cond``), its trip count and host reads added to
-`decoding.LOOP_ITERATIONS["beam"]` and `decoding.HOST_READS["beam"]`.  Scores are best-alignment (Viterbi-style)
+`decoding.LOOP_ITERATIONS["beam"]` and `decoding.HOST_READS["beam"]`.  On
+`ops.decode_step` the loop is folded (`decoding.folds`):
+`decode_beam_select` computes ``cond`` from the step's inputs, writes the
+beam state through where it is false, with no emission and each row its
+own parent (so `decode_gru` copies every row), and counts the step; a
+step is then its five launches.  Scores are best-alignment (Viterbi-style)
 log-probs.
 """
 
@@ -47,6 +52,7 @@ import torch
 from warp_rnnt_tpu_torch.models.decoding import (
     decode_consts,
     first_output,
+    folds,
     gru_params,
     run_drain,
 )
@@ -145,14 +151,16 @@ def beam_drain(model, state, enc, p0, frame_bound,
     emission in it, so has nexp = j.  After max_symbols_per_step + 1 steps
     no live beam can still be active (an emission past the cap has only a
     NEG candidate), and the sample advances in that step.  So a sample
-    takes at most C * (max_symbols_per_step + 1) steps."""
+    takes at most C * (max_symbols_per_step + 1) steps.  On
+    `ops.decode_step` the loop is folded (module docstring)."""
     N, C, _ = enc.shape
     B, L = state[2].shape[1], state[2].shape[2]
     K = min(B, model.vocab_size - 1)  # label candidates a beam
     dc = decode_consts(model)
     gru = gru_params(model)
 
-    def body(state, consts):
+    def body(state, consts, count=None):
+        # count: the loop's, where the selection folds in its mask and count
         enc, frame_bound, p0, w_pre, b_pre, w_out, b_out, b_hh = consts
         (t, scores, tokens, u, nexp, waiting, hcode, pred_state,
          pred_out) = state
@@ -162,17 +170,20 @@ def beam_drain(model, state, enc, p0, frame_bound,
             b_out, dc.mode, blank, K)
         # the candidates' top-k, the beams' gathers, the token write, the
         # hash, the merge and the frame advance
-        (t, scores, tokens, u, nexp, waiting, hcode, emit, new_tok,
-         src) = ops.decode_beam_select(
+        fold = () if count is None else (count,)
+        (t, scores, tokens, u, nexp, waiting, hcode, emit, new_tok, src,
+         *fold) = ops.decode_beam_select(
             t, scores, tokens, u, nexp, waiting, hcode, lp_blank, top_lp,
-            top_ids, frame_bound, max_symbols_per_step)
+            top_ids, frame_bound, max_symbols_per_step, *fold)
         # the predictor on the emitted tokens, reading each beam's parent
         pred_state, pred_out = ops.decode_gru(
             new_tok, pred_state.reshape(N * B, -1),
             pred_out.reshape(N * B, -1), emit, *gru, b_hh, src=src)
-        return (t, scores, tokens, u, nexp, waiting, hcode,
-                pred_state.reshape(N, B, -1), pred_out.reshape(N, B, -1))
+        new = (t, scores, tokens, u, nexp, waiting, hcode,
+               pred_state.reshape(N, B, -1), pred_out.reshape(N, B, -1))
+        return (new, *fold) if fold else new
 
     return run_drain("beam", model, body, state, enc, p0, frame_bound,
                      C * (max_symbols_per_step + 1),
-                     (blank, max_symbols_per_step, ops.__name__), dc.tensors)
+                     (blank, max_symbols_per_step, ops.__name__), dc.tensors,
+                     folds(ops))

@@ -11,7 +11,15 @@ JAX's ``cond`` and ``body``: on the card, rounds of masked steps replayed
 from one CUDA graph, with one host read of the loop's flag a round; on
 the CPU the same steps run eagerly.  The mask is JAX's ``cond`` itself, so
 a step past JAX's stopping point leaves the whole state bit for bit (it
-would otherwise rewrite ``emitted_here`` and ``last_tok``).  A drain adds
+would otherwise rewrite ``emitted_here`` and ``last_tok``).  Where the
+step runs on `ops.decode_step` (`folds`), the loop is folded
+(``folded=True``): `decode_gru_greedy` computes that ``cond`` from the
+step's inputs, writes ``emitted_here`` and ``last_tok`` (and the fields
+it leaves anyway) through where it is false and counts the step, so a
+step is the joint's three launches and the GRU's one, with no mask
+kernel of the loop's between them.  Any other ``ops``
+(`decode_step.PLAIN`, the card checks' recorders and yardsticks, the
+first kernels) runs the loop's own mask, as before.  A drain adds
 JAX's trip count, read from the loop's device counter, to
 ``LOOP_ITERATIONS[name]``, and its host reads to ``HOST_READS[name]``.
 
@@ -121,15 +129,23 @@ def first_output(model, N, ops=decode_step):
                           model.predictor.recurrent_bias())[1]
 
 
+def folds(ops):
+    """True where a drain on ``ops`` folds the loop's mask and count into
+    the step's kernels: ``ops`` is `ops.decode_step` on its own library
+    (`decode_step.folds`)."""
+    return ops is decode_step and decode_step.folds()
+
+
 def run_drain(name, model, body, state, enc, p0, frame_bound,
-              max_iterations, static, step_consts=()):
+              max_iterations, static, step_consts=(), folded=False):
     """Run decoder ``name``'s ``body`` while a sample has frames left, on
-    `while_loop`, and add its trip count and host reads to the counters.
+    `while_loop` (``folded``: a body that masks and counts its own steps),
+    and add its trip count and host reads to the counters.
     The loop's inputs are (`pad_frames(enc)`, frame_bound (N,) int32, p0
     0-d int32, *``step_consts``); its graphs are keyed by ``name``, the
     model (the object and its parameters' addresses, dtypes and shapes:
-    what the body closes over) and the ``static`` arguments the body
-    closes over (its ``ops`` among them)."""
+    what the body closes over), ``folded`` and the ``static`` arguments the
+    body closes over (its ``ops`` among them)."""
     dev = enc.device
     frame_bound = torch.as_tensor(frame_bound, dtype=torch.int32, device=dev)
     consts = (pad_frames(enc), frame_bound.expand(enc.shape[0]).contiguous(),
@@ -139,7 +155,8 @@ def run_drain(name, model, body, state, enc, p0, frame_bound,
                    for p in (*model.parameters(), *model.buffers()))
     state, stats = while_loop(_frames_left, body, state, consts,
                               max_iterations=max_iterations,
-                              key=(name, id(model), params, *static))
+                              key=(name, id(model), params, folded, *static),
+                              folded=folded)
     LOOP_ITERATIONS[name] += stats.iterations
     HOST_READS[name] += stats.host_reads
     LAST_GRAPH[name] = stats.graph
@@ -211,23 +228,31 @@ def greedy_drain(model, dec, enc, p0, frame_bound,
 
     Each iteration of an active sample emits or advances t, so a sample
     takes at most C frame steps and min(C * max_symbols_per_step,
-    max_length) emissions: the loop's bound."""
+    max_length) emissions: the loop's bound.  On `ops.decode_step` the
+    loop is folded (`folds`; module docstring)."""
     C = enc.shape[1]
     max_length = dec[6].shape[1]
     dc = decode_consts(model)
     gru = gru_params(model)
 
-    def body(state, consts):
+    def body(state, consts, count=None):
+        # count: the loop's, where the GRU folds in its mask and count
         enc, frame_bound, p0, w_pre, b_pre, w_out, b_out, b_hh = consts
-        t, u, emitted_here, _, pred_state, pred_out, tokens = state
+        t, u, emitted_here, last_tok, pred_state, pred_out, tokens = state
         best = ops.decode_joint(enc, t, p0, pred_out, w_pre, b_pre, w_out,
                                 b_out, dc.mode, blank)  # (N,) int32
-        t, u, emitted_here, tokens, pred_state, pred_out = (
-            ops.decode_gru_greedy(best, t, u, emitted_here, frame_bound,
-                                  tokens, pred_state, pred_out, *gru, b_hh,
-                                  blank, max_symbols_per_step))
-        return (t, u, emitted_here, best, pred_state, pred_out, tokens)
+        args = (best, t, u, emitted_here, frame_bound, tokens, pred_state,
+                pred_out, *gru, b_hh, blank, max_symbols_per_step)
+        if count is None:
+            t, u, emitted_here, tokens, pred_state, pred_out = (
+                ops.decode_gru_greedy(*args))
+            return (t, u, emitted_here, best, pred_state, pred_out, tokens)
+        (t, u, emitted_here, tokens, pred_state, pred_out, last_tok,
+         count) = ops.decode_gru_greedy(*args, last_tok, count)
+        return (t, u, emitted_here, last_tok, pred_state, pred_out,
+                tokens), count
 
     return run_drain("greedy", model, body, dec, enc, p0, frame_bound,
                      C + min(C * max_symbols_per_step, max_length),
-                     (blank, max_symbols_per_step, ops.__name__), dc.tensors)
+                     (blank, max_symbols_per_step, ops.__name__), dc.tensors,
+                     folds(ops))

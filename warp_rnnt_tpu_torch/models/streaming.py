@@ -31,7 +31,9 @@ overwrites, whichever session sends it, so the new encoder carry is
 cloned out of them (1 + 2 * blocks small copies a chunk) and every
 session's state is its own: sessions of one shape may interleave.  A
 chunk is then one encoder replay and the drain's rounds, one replay and
-one host read each.
+one host read each; the drains run folded on the step's kernels
+(`decoding.folds`: the loop's mask and count in the GRU or the
+selection), so a round is its steps' own launches and the round's tail.
 
 Typical use::
 

@@ -40,6 +40,16 @@ bias (0, 0, bias_hn).
     frame pointers, budgets and ``best``, and the new t, u, emitted_here
     and token buffer.
 
+`decode_gru_greedy` (given ``last_tok`` and ``count``) and
+`decode_beam_select` (given ``count``) also fold in the device loop's
+mask and count (`utils.device_loop`, ``folded=True``): each computes
+JAX's ``cond``, ``go = any(t < frame_bound)`` over the batch, from the
+step's inputs, writes the new state where ``go`` holds and its inputs
+through where it does not (beam: ``emit`` 0 and ``src`` the identity, so
+that `decode_gru` copies every row), and ``count + go``.  Their plain
+versions do what the loop did: the same ``cond``, ``torch.where`` and add
+(`_fold`), bit for bit.
+
 The launch plan of the dense and GRU kernels (`dense_plan`, `gru_plan`:
 the blocks a thread-block cluster that split K, each block's K share,
 the chunk and stages of its shared-memory ring, its dynamic shared
@@ -87,8 +97,10 @@ _HASH_MASK = 0xFFFFFFFF
 # (csrc/decode_step.cu lists their entries): the joint's and the GRU's
 # fields, then their plans.
 _JOINT_ARGS = struct.Struct("<37q")
-_GRU_ARGS = struct.Struct("<35q")
-_SELECT_ARGS = struct.Struct("<27q")
+# The loop's fold (last_tok and count in and out; count in and out) comes
+# last, where `csrc/decode_step_baseline.cu`'s entries do not read.
+_GRU_ARGS = struct.Struct("<39q")
+_SELECT_ARGS = struct.Struct("<29q")
 
 # The launch plans' limits (csrc/decode_step.cu): shared memory a block
 # can use on Hopper, less what the kernels declare statically; blocks a
@@ -140,6 +152,13 @@ def using(source):
         yield
     finally:
         _SOURCE[0] = old
+
+
+def folds():
+    """True where the current library's entries fold the device loop's
+    mask and count in (`csrc/decode_step.cu`; not the first kernels of
+    `csrc/decode_step_baseline.cu`, which `using` may switch to)."""
+    return _SOURCE[0] == "decode_step"
 
 
 def pdl_built():
@@ -464,11 +483,31 @@ def decode_gru_plain(token, h, out, emit, embed, w_ih, w_hh, b_ih, b_hh,
             torch.where(emit[:, None], new, out))
 
 
+def _fold(go, new, old):
+    """The device loop's mask of a step: the new fields where ``go``
+    (JAX's ``cond`` before the step), the old ones elsewhere."""
+    return tuple(torch.where(go, n, o) for n, o in zip(new, old))
+
+
 def decode_gru_greedy_plain(best, t, u, emitted_here, frame_bound, tokens,
                             h, out, embed, w_ih, w_hh, b_ih, b_hh, blank,
-                            max_symbols):
+                            max_symbols, last_tok=None, count=None):
     """Plain torch version of `decode_gru_greedy`: greedy's masked update
-    (`models.decoding.greedy_drain`) around `decode_gru_plain`."""
+    (`models.decoding.greedy_drain`) around `decode_gru_plain`; with
+    ``count``, then the loop's mask and count (`_fold`)."""
+    new = _greedy_plain(best, t, u, emitted_here, frame_bound, tokens, h,
+                        out, embed, w_ih, w_hh, b_ih, b_hh, blank,
+                        max_symbols)
+    if count is None:
+        return new
+    go = (t < frame_bound).any()
+    return (*_fold(go, (*new, best),
+                   (t, u, emitted_here, tokens, h, out, last_tok)),
+            count + go)
+
+
+def _greedy_plain(best, t, u, emitted_here, frame_bound, tokens, h, out,
+                  embed, w_ih, w_hh, b_ih, b_hh, blank, max_symbols):
     L = tokens.shape[1]
     l_iota = torch.arange(L, device=tokens.device)[None, :]
     active = t < frame_bound
@@ -508,11 +547,14 @@ def _gru_check(token, h, out, embed, w_ih, w_hh, b_ih, b_hh):
 
 
 def _launch_gru(token, h, out, emit, embed, w_ih, w_hh, b_ih, b_hh,
-                greedy=None, L=0, blank=0, max_symbols=0, src=None):
+                greedy=None, L=0, blank=0, max_symbols=0, src=None,
+                fold=None):
     """One decode_gru launch; ``greedy`` = (t, u, emitted_here,
-    frame_bound, tokens) folds greedy's update in; ``src`` maps each row
-    to the row of h and out it reads.  Returns (h', out') and, with
-    ``greedy``, (t', u', emitted_here', tokens')."""
+    frame_bound, tokens) folds greedy's update in, and ``fold`` =
+    (last_tok, count) the loop's mask and count; ``src`` maps each row to
+    the row of h and out it reads.  Returns (h', out', fields): with
+    ``greedy``, fields = (t', u', emitted_here', tokens'), then with
+    ``fold`` (last_tok', count')."""
     rows, H = h.shape
     dev = h.device
     named = [("token", token), ("h", h), ("out", out), ("embed", embed),
@@ -524,6 +566,8 @@ def _launch_gru(token, h, out, emit, embed, w_ih, w_hh, b_ih, b_hh,
     if greedy is not None:
         named += list(zip(("t", "u", "emitted_here", "frame_bound", "tokens"),
                           greedy))
+    if fold is not None:
+        named += list(zip(("last_tok", "count"), fold))
     _ready(named, dev)
     h_out, out_out = torch.empty_like(h), torch.empty_like(out)
     ints = (0,) * 9
@@ -532,6 +576,15 @@ def _launch_gru(token, h, out, emit, embed, w_ih, w_hh, b_ih, b_hh,
         fields = tuple(torch.empty_like(x) for x in (*greedy[:3], greedy[4]))
         ints = (*(x.data_ptr() for x in greedy),
                 *(x.data_ptr() for x in fields))
+    folds = (0,) * 4
+    if fold is not None:
+        new = tuple(torch.empty_like(x) for x in fold)
+        folds = (fold[0].data_ptr(), new[0].data_ptr(), fold[1].data_ptr(),
+                 new[1].data_ptr())
+        fields += new
+        if not rows:  # nothing to launch: no sample, so cond is false
+            new[0].copy_(fold[0])
+            new[1].copy_(fold[1])
     if rows:
         index = dev.index
         plan = gru_plan(rows, H)
@@ -542,7 +595,7 @@ def _launch_gru(token, h, out, emit, embed, w_ih, w_hh, b_ih, b_hh,
             h_out.data_ptr(), out_out.data_ptr(), *ints, embed.shape[0],
             rows, H, L, blank, max_symbols, _build.raw_stream(index),
             0 if src is None else src.data_ptr(), *_plan_fields(plan),
-            plan["row_tile"], plan["k_groups"])
+            plan["row_tile"], plan["k_groups"], *folds)
         _launch("decode_gru", args, index, "decode_gru")
         LAUNCHES["decode_gru"] += 1
     return h_out, out_out, fields
@@ -570,21 +623,40 @@ def decode_gru(token, h, out, emit, embed, w_ih, w_hh, b_ih, b_hh,
                        b_hh, src=src)[:2]
 
 
+def _count_check(count):
+    if count.numel() != 1 or count.dtype != torch.int32:
+        _fail(f"count must be one int32, got {tuple(count.shape)}"
+              f" {count.dtype}")
+
+
 def decode_gru_greedy(best, t, u, emitted_here, frame_bound, tokens, h, out,
-                      embed, w_ih, w_hh, b_ih, b_hh, blank, max_symbols):
+                      embed, w_ih, w_hh, b_ih, b_hh, blank, max_symbols,
+                      last_tok=None, count=None):
     """Greedy's step after the joint: best (N,) int32 (the joint's label),
     the state's t, u, emitted_here (N,) int32, tokens (N, L) int32, h and
     out (N, H), frame_bound (N,) int32 -> (t', u', emitted_here',
     tokens', h', out'), as `models.decoding.greedy_drain` updates them
-    (`decode_gru_greedy_plain`).  A CUDA tensor launches the kernel, a CPU
-    tensor runs the plain version."""
+    (`decode_gru_greedy_plain`).  With the state's last_tok (N,) int32
+    and the loop's count (0-d int32), the loop's mask and count folded in
+    (module docstring): (t', u', emitted_here', tokens', h', out',
+    last_tok', count').  A CUDA tensor launches the kernel, a CPU tensor
+    runs the plain version."""
+    if (last_tok is None) != (count is None):
+        _fail("decode_gru_greedy folds the loop with both last_tok and"
+              " count, or with neither")
     if _build.on_cpu(h):
         return decode_gru_greedy_plain(
             best, t, u, emitted_here, frame_bound, tokens, h, out, embed,
-            w_ih, w_hh, b_ih, b_hh, blank, max_symbols)
+            w_ih, w_hh, b_ih, b_hh, blank, max_symbols, last_tok, count)
     rows, _ = _gru_check(best, h, out, embed, w_ih, w_hh, b_ih, b_hh)
-    for name, x in (("t", t), ("u", u), ("emitted_here", emitted_here),
-                    ("frame_bound", frame_bound)):
+    ints = [("t", t), ("u", u), ("emitted_here", emitted_here),
+            ("frame_bound", frame_bound)]
+    fold = None
+    if count is not None:
+        ints.append(("last_tok", last_tok))
+        _count_check(count)
+        fold = (last_tok, count)
+    for name, x in ints:
         if tuple(x.shape) != (rows,) or x.dtype != torch.int32:
             _fail(f"{name} must be ({rows},) int32, got {tuple(x.shape)}"
                   f" {x.dtype}")
@@ -592,11 +664,11 @@ def decode_gru_greedy(best, t, u, emitted_here, frame_bound, tokens, h, out,
             or tokens.dtype != torch.int32):
         _fail(f"tokens must be ({rows}, L) int32, got {tuple(tokens.shape)}"
               f" {tokens.dtype}")
-    h_new, out_new, (t, u, emitted_here, tokens) = _launch_gru(
+    h_new, out_new, (t, u, emitted_here, tokens, *folded) = _launch_gru(
         best, h, out, None, embed, w_ih, w_hh, b_ih, b_hh,
         (t, u, emitted_here, frame_bound, tokens), tokens.shape[1], blank,
-        max_symbols)
-    return t, u, emitted_here, tokens, h_new, out_new
+        max_symbols, fold=fold)
+    return (t, u, emitted_here, tokens, h_new, out_new, *folded)
 
 
 def hash_step(hcode, tok):
@@ -614,10 +686,25 @@ def gather_beams(x, parent):
 
 def decode_beam_select_plain(t, scores, tokens, u, nexp, waiting, hcode,
                              lp_blank, top_lp, top_ids, frame_bound,
-                             max_symbols):
+                             max_symbols, count=None):
     """Plain torch version of `decode_beam_select`: the beam-search
     step's torch code between the joint and the GRU, and after the GRU,
-    as `models.beam_search.beam_drain` ran it."""
+    as `models.beam_search.beam_drain` ran it; with ``count``, then the
+    loop's mask and count (`_fold`: ``emit`` off and ``src`` the identity
+    where the loop's ``cond`` is false, so that the GRU copies each row)."""
+    out = _select_plain(t, scores, tokens, u, nexp, waiting, hcode, lp_blank,
+                        top_lp, top_ids, frame_bound, max_symbols)
+    if count is None:
+        return out
+    go = (t < frame_bound).any()
+    ident = torch.arange(out[9].numel(), dtype=torch.int32,
+                         device=tokens.device)
+    return (*_fold(go, out[:7], (t, scores, tokens, u, nexp, waiting, hcode)),
+            out[7] & go, out[8], torch.where(go, out[9], ident), count + go)
+
+
+def _select_plain(t, scores, tokens, u, nexp, waiting, hcode, lp_blank,
+                  top_lp, top_ids, frame_bound, max_symbols):
     N, B, L = tokens.shape
     K = top_lp.shape[1]
     dev = tokens.device
@@ -718,7 +805,7 @@ def _select_check(t, scores, tokens, u, nexp, waiting, hcode, lp_blank,
 
 
 def decode_beam_select(t, scores, tokens, u, nexp, waiting, hcode, lp_blank,
-                       top_lp, top_ids, frame_bound, max_symbols):
+                       top_lp, top_ids, frame_bound, max_symbols, count=None):
     """The beam-search step between the joint and the GRU: the state's t
     (N,) int32, scores (N, B) fp32, tokens (N, B, L) int32, u and nexp
     (N, B) int32, waiting (N, B) bool, hcode (N, B) int64;
@@ -726,29 +813,41 @@ def decode_beam_select(t, scores, tokens, u, nexp, waiting, hcode, lp_blank,
     top_ids (N B, K) int32; frame_bound (N,) int32; the emission cap ->
     (t', scores', tokens', u', nexp', waiting', hcode', emit (N B,) bool,
     new_tok (N B,) int32, src (N B,) int32: row n B + b's parent row),
-    as `decode_beam_select_plain`, bit for bit.  B and K at most
-    `MAX_K`.  A CUDA tensor launches the kernel, a CPU tensor runs the
-    plain version."""
+    as `decode_beam_select_plain`, bit for bit; with the loop's ``count``
+    (0-d int32), the loop's mask and count folded in (module docstring),
+    count' last.  B and K at most `MAX_K`.  A CUDA tensor launches the
+    kernel, a CPU tensor runs the plain version."""
     if _build.on_cpu(tokens):
         return decode_beam_select_plain(t, scores, tokens, u, nexp, waiting,
                                         hcode, lp_blank, top_lp, top_ids,
-                                        frame_bound, max_symbols)
+                                        frame_bound, max_symbols, count)
     ins = (t, scores, tokens, u, nexp, waiting, hcode, lp_blank, top_lp,
            top_ids, frame_bound)
     N, B, L, K = _select_check(*ins)
     dev = tokens.device
-    _ready(zip(("t", "scores", "tokens", "u", "nexp", "waiting", "hcode",
-                "lp_blank", "top_lp", "top_ids", "frame_bound"), ins), dev)
+    named = list(zip(("t", "scores", "tokens", "u", "nexp", "waiting",
+                      "hcode", "lp_blank", "top_lp", "top_ids",
+                      "frame_bound"), ins))
+    if count is not None:
+        _count_check(count)
+        named.append(("count", count))
+    _ready(named, dev)
     outs = tuple(torch.empty_like(x) for x in ins[:7])
     rows = N * B
     outs += (torch.empty((rows,), dtype=torch.bool, device=dev),
              torch.empty((rows,), dtype=torch.int32, device=dev),
              torch.empty((rows,), dtype=torch.int32, device=dev))
+    folds = (0, 0)
+    if count is not None:
+        outs += (torch.empty_like(count),)
+        folds = (count.data_ptr(), outs[-1].data_ptr())
+        if not N:  # nothing to launch: no sample, so cond is false
+            outs[-1].copy_(count)
     if N:
         index = dev.index
         args = _SELECT_ARGS.pack(
-            *(x.data_ptr() for x in ins), *(x.data_ptr() for x in outs), N,
-            B, K, L, max_symbols, _build.raw_stream(index))
+            *(x.data_ptr() for x in ins), *(x.data_ptr() for x in outs[:10]),
+            N, B, K, L, max_symbols, _build.raw_stream(index), *folds)
         _launch("decode_beam_select", args, index, "decode_beam_select")
         LAUNCHES["decode_beam_select"] += 1
     return outs

@@ -22,10 +22,19 @@ The mask is global, JAX's ``cond`` and not a mask per sample, so a step
 taken after JAX's loop would have stopped leaves every field as it was,
 bit for bit, and every step before that point is the body unchanged: the
 result equals ``lax.while_loop``'s for any unroll and any number of
-surplus steps.  After a round the host reads ``cond`` of the new state and
-the iteration count, together, once; it stops when ``cond`` is false.  So
-a loop of n iterations reads the device max(1, ceil(n / unroll)) times,
-where a Python ``while`` on ``cond`` reads it n + 1 times.
+surplus steps.
+
+With ``folded=True`` the body applies that mask itself: ``body(state,
+consts, count) -> (state, count)`` must return the whole state and the
+count unchanged, bit for bit, where ``cond(state, consts)`` is false, and
+its new state and ``count + 1`` where ``cond`` holds (the decoders' step
+kernels compute ``cond`` from the step's inputs and write their inputs
+through; `models.decoding`).  A step is then the body alone, with no
+``cond``, ``torch.where`` or add of its own, and the guarantee above holds
+as it is.  In both modes the host reads ``cond`` of the new state and the
+iteration count after a round, together, once; it stops when ``cond`` is
+false.  So a loop of n iterations reads the device max(1, ceil(n /
+unroll)) times, where a Python ``while`` on ``cond`` reads it n + 1 times.
 
   * On the CPU (the tests, and any caller that asks for the CPU) the
     rounds run eagerly: this is the plain version, the same Python step
@@ -43,10 +52,10 @@ Graphs are cached, least recently used first out past `CACHE_SIZE`, by
 the caller's ``key`` (which must name what the body closes over: its model
 and that model's parameter addresses, its static arguments; it is
 required, since a cached entry replays the ``cond`` and ``body`` of its
-first capture), the shapes and dtypes of the state and the consts, the
-unroll, the device, inference
-mode, and the TF32 and reduced-precision flags of cuBLAS and cuDNN (which
-change the products' bits).  An entry holds ``cond`` and ``body``, and so
+first capture), whether the body is folded, the shapes and dtypes of the
+state and the consts, the unroll, the device, inference mode, and the
+TF32 and reduced-precision flags of cuBLAS and cuDNN, which change the
+products' bits (`cache_key`).  An entry holds ``cond`` and ``body``, and so
 whatever they close over, until it leaves the cache or `clear()` empties
 it.  Only the copied-back state may be read after a replay: everything
 else the body allocates lives in the graph's private pool.  A loop's
@@ -102,9 +111,13 @@ class _Entry:
         self.graph.replay()
 
 
-def _round(cond, body, state, consts, count, unroll):
-    """``unroll`` masked steps -> (state, count, cond of the new state)."""
+def _round(cond, body, state, consts, count, unroll, folded):
+    """``unroll`` masked steps -> (state, count, cond of the new state);
+    a ``folded`` body masks its own steps and counts them."""
     for _ in range(unroll):
+        if folded:
+            state, count = body(state, consts, count)
+            continue
         go = cond(state, consts)
         new = body(state, consts)
         state = tuple(torch.where(go, n, o) for n, o in zip(new, state))
@@ -123,11 +136,12 @@ def _check_bound(go, iterations, max_iterations):
             f" past its bound of {max_iterations}")
 
 
-def _eager(cond, body, state, consts, max_iterations, unroll):
+def _eager(cond, body, state, consts, max_iterations, unroll, folded):
     count = torch.zeros((), dtype=torch.int32, device=state[0].device)
     reads = 0
     while True:
-        state, count, go = _round(cond, body, state, consts, count, unroll)
+        state, count, go = _round(cond, body, state, consts, count, unroll,
+                                  folded)
         go, iterations = _status(go, count).tolist()
         reads += 1
         _check_bound(go, iterations, max_iterations)
@@ -150,7 +164,14 @@ def _static(x):
     return x.clone(memory_format=torch.contiguous_format)
 
 
-def _capture(key, cond, body, state, consts, unroll):
+def cache_key(key, unroll, device, state, consts, folded=False):
+    """The graph cache's key of a loop (module docstring): two loops share
+    a graph only where every part of it is equal."""
+    return (key, bool(folded), unroll, str(device), _spec(state),
+            _spec(consts), torch.is_inference_mode_enabled(), _flags())
+
+
+def _capture(key, cond, body, state, consts, unroll, folded):
     t0 = time.perf_counter()
     dev = state[0].device
     state = tuple(_static(x) for x in state)
@@ -163,7 +184,7 @@ def _capture(key, cond, body, state, consts, unroll):
     side = _SIDE[dev]
     side.wait_stream(torch.cuda.current_stream(dev))
     with torch.cuda.stream(side):  # lazy inits (cuBLAS workspace) off capture
-        _round(cond, body, state, consts, count, unroll)
+        _round(cond, body, state, consts, count, unroll, folded)
     torch.cuda.current_stream(dev).wait_stream(side)
     # what `torch.cuda.graph` does on entry, done first so the reading
     # below sees only the private pool
@@ -173,7 +194,8 @@ def _capture(key, cond, body, state, consts, unroll):
     reserved = torch.cuda.memory_reserved(dev)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph, stream=side):
-        new, n, go = _round(cond, body, state, consts, count, unroll)
+        new, n, go = _round(cond, body, state, consts, count, unroll,
+                            folded)
         for s, v in zip(state, new):
             s.copy_(v)
         count.copy_(n)
@@ -184,13 +206,12 @@ def _capture(key, cond, body, state, consts, unroll):
                   (cond, body), (time.perf_counter() - t0) * 1e3, pool)
 
 
-def _graphed(cond, body, state, consts, max_iterations, unroll, key):
-    dev = state[0].device
-    full = (key, unroll, str(dev), _spec(state), _spec(consts),
-            torch.is_inference_mode_enabled(), _flags())
+def _graphed(cond, body, state, consts, max_iterations, unroll, key,
+             folded):
+    full = cache_key(key, unroll, state[0].device, state, consts, folded)
     entry = _CACHE.get(full)
     if entry is None:
-        entry = _capture(full, cond, body, state, consts, unroll)
+        entry = _capture(full, cond, body, state, consts, unroll, folded)
         _CACHE[full] = entry
         while len(_CACHE) > CACHE_SIZE:
             _CACHE.popitem(last=False)
@@ -215,12 +236,15 @@ def _graphed(cond, body, state, consts, max_iterations, unroll, key):
             LoopStats(iterations, reads, entry))
 
 
-def while_loop(cond, body, state, consts=(), *, max_iterations: int, key):
+def while_loop(cond, body, state, consts=(), *, max_iterations: int, key,
+               folded: bool = False):
     """Run ``body`` while ``cond`` holds (see the module docstring).
 
     Args:
       cond: (state, consts) -> 0-d bool tensor on the state's device.
-      body: (state, consts) -> new state, a tuple like ``state``.
+      body: (state, consts) -> new state, a tuple like ``state``; with
+        ``folded``, (state, consts, count) -> (new state, new count), the
+        step masked by ``cond`` and counted by the body itself.
       state: tuple of tensors, the loop's carry; the caller's tensors are
         not written.
       consts: tuple of tensors the body reads.
@@ -228,6 +252,7 @@ def while_loop(cond, body, state, consts=(), *, max_iterations: int, key):
       key: hashable and not None, what ``cond`` and ``body`` close over:
         with the shapes it keys the graph cache on CUDA, and it is
         required on every device.
+      folded: the body masks and counts its own steps (module docstring).
 
     Returns:
       (the final state, `LoopStats`).
@@ -240,8 +265,8 @@ def while_loop(cond, body, state, consts=(), *, max_iterations: int, key):
     state, consts = tuple(state), tuple(consts)
     if state[0].device.type == "cuda" and not _EAGER_ON_CARD:
         return _graphed(cond, body, state, consts, max_iterations, unroll,
-                        key)
-    return _eager(cond, body, state, consts, max_iterations, unroll)
+                        key, folded)
+    return _eager(cond, body, state, consts, max_iterations, unroll, folded)
 
 
 @contextlib.contextmanager
