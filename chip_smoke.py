@@ -260,8 +260,8 @@ decoders' loops run through `utils/device_loop.py` (JAX's
 one host read of the loop's flag a round).  At bench_decode.py's width,
 fp32 and bf16, greedy and beam 4 through the graphs equal the plain loop
 (`device_loop._plain`: the same steps run eagerly on the card) bit for
-bit in tokens, lengths and scores, with the same trip count and at most
-iterations // unroll + 1 host reads; a second decode of one shape
+bit in tokens, lengths and scores, with the same trip count and (since
+slice 25) one host read a drain; a second decode of one shape
 captures no graph, nor does one of another length that pads to the same
 width (`decoding.pad_frames`), and one with TF32 flipped captures one.  Chunked
 sessions at C=16, 7 and 1 equal the one-shot decode through the graphs and
@@ -405,6 +405,22 @@ us, its kernels a step and a drain's ms unfolded / folded / folded /
 unfolded; and the replay's profile gating on no ``where`` kernel and
 fewer kernels a round outside the step's than steps.  In
 `phase_compiled_serving`, a compiled chunk's ``where`` kernels.
+Slice 25 (the device loop whole on the device: each loop one launch of a
+CUDA graph conditional while node, `csrc/device_loop.cu`, with one host
+read after it) adds, inside phase 15 (`device_loop_checks`,
+`benchmarks/device_loop_cases.py`): toy loops at unroll 1, 4 and 16, a
+loop whose cond is false at entry and one past its bound against the
+eager loop (`device_loop._plain`) bit for bit with one host read;
+`loop_continue_kernel` against the eager loop's stop rule on a probe
+that counts its steps; greedy, beam 4 and sessions of C=16 at bench width
+against the plain loop on the whole state with one host read a drain;
+the bodies' node kinds and edges (as built and as captured); the
+drains' while launch alone at unroll 1, 4 and 16; the node's us a round
+beside the plain loop's.  The graphed-vs-plain checks of slices 16 and 24
+now hold one host read a drain.  `loop_continue_kernel` joins the
+kernels line (launches: the while launches of the decoders' main path).
+`phase_compiled_serving` prints a chunk's host reads (1) beside its idle
+share.
 It prints the kernels' JSON line and the card's line, and last
 `{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}`.
 Without a CUDA device, or without the package beside it, it exits 1 and
@@ -2621,6 +2637,86 @@ def hold_step_kernels(r, name, card, replaced):
 
 
 
+LOOP_SOURCE = "warp_rnnt_tpu_torch/csrc/device_loop.cu"
+LOOP_REPLACES = ("warp_rnnt_tpu/models/decoding.py:119 and"
+                 " warp_rnnt_tpu/models/beam_search.py:298 (XLA's"
+                 " lax.while_loop on the device; no TPU kernel)")
+
+
+def device_loop_checks(torch, model, feats, xn, d, card):
+    """The device loop's while node (slice 25,
+    `benchmarks/device_loop_cases.py`): toy loops, cond false at entry and
+    a loop past its bound against the eager loop; `loop_continue_kernel`
+    against the eager loop's stop rule; greedy, beam and streaming
+    sessions at bench width against the plain loop with one host read a
+    drain; the bodies' node kinds and edges; the drains' launch ms at
+    unroll 1, 4, 16; the node's ms a round.  Returns the kernels line's
+    entry for `loop_continue_kernel` (its launches set by the caller)."""
+    from warp_rnnt_tpu_torch.benchmarks import device_loop_cases as dlc
+    from warp_rnnt_tpu_torch.models import beam_decode, greedy_decode
+    from warp_rnnt_tpu_torch.ops import _build
+
+    t0 = time.perf_counter()
+    toys = {f"{case} unroll {u}": dlc.check_toy(case, u)
+            for case in sorted(dlc.LIMITS) for u in dlc.UNROLLS}
+    entry = dlc.check_false_at_entry()
+    bound = dlc.check_bound()
+    print(f"device loop toys ({', '.join(sorted(dlc.LIMITS))}; unroll"
+          f" {dlc.UNROLLS}): one while launch each equals the eager loop"
+          f" bit for bit with JAX's trip count and one host read;"
+          f" {json.dumps(toys)}; cond false at entry {json.dumps(entry)};"
+          f" past its bound, after one launch: {json.dumps(bound)}")
+    cont = dlc.check_continue()
+    print(f"loop_continue_kernel against the eager loop's stop rule:"
+          f" {cont['cases']} cases (unroll {dlc.UNROLLS}, trips"
+          f" {dlc.PROBE_TRIPS}, bounds {dlc.PROBE_BOUNDS}), steps, count and"
+          f" cond equal; {json.dumps(cont)}")
+    drains = dlc.check_drains(model, feats, xn, d["max_length"], d["beam"],
+                              16)
+    print(f"serving while node at {json.dumps(d)}, bf16, unroll 16: greedy,"
+          f" beam {d['beam']} and sessions of C=16 equal the plain loop bit"
+          f" for bit on the whole state, the same trip counts, host reads a"
+          f" drain 1: {json.dumps(drains)}")
+    greedy_decode(model, feats, xn, d["max_length"])
+    beam_decode(model, feats, xn, d["max_length"], beam_size=d["beam"])
+    bodies = {name: dlc.body_report(name) for name in ("greedy", "beam")}
+    print(f"serving while node bodies (node kinds; (programmatic, all)"
+          f" edges of the round as built and as captured):"
+          f" {json.dumps(bodies)}")
+    unrolls = dlc.unroll_times(model, feats, xn, d["max_length"], d["beam"])
+    for name, r in unrolls.items():
+        print(f"time device loop {name} drain, the while launch alone (and"
+              f" its rounds as host-launched replays, no read between), by"
+              f" unroll: " + ", ".join(
+                  f"{u}: {min(v['launch_ms']):.3f}-{max(v['launch_ms']):.3f}"
+                  f" ms ({min(v['replays_ms']):.3f}-"
+                  f"{max(v['replays_ms']):.3f}; {v['rounds']} rounds,"
+                  f" {v['iterations']} iterations, {v['host_reads']} read)"
+                  for u, v in r.items()) + f" [{card}]")
+    times = dlc.continue_times()
+    print(f"time device loop round (probe, unroll 1): while node"
+          f" {times['ms'] * 1e3:.3f} us a round, plain loop (a host read a"
+          f" round) {times['plain_ms'] * 1e3:.3f} us; bound"
+          f" {times['bound_ms']:.3e} ms ({times['bound_by']});"
+          f" {json.dumps(times['runs'])} [{card}]")
+    print(f"phase device loop: {time.perf_counter() - t0:.1f} s")
+    return {"name": "loop_continue_kernel", "route": "cuda",
+            "source": LOOP_SOURCE, "replaces": LOOP_REPLACES,
+            "launches": None, "max_abs_err": cont["max_abs_err"],
+            "ms": times["ms"], "plain_ms": times["plain_ms"],
+            "bound_ms": times["bound_ms"], "bound_by": times["bound_by"],
+            "library_ms": None, "check_cases": cont["cases"],
+            "host_reads_a_drain": {k: v["host_reads"] / v["drains"]
+                                   for k, v in drains.items()},
+            "drain_launch_ms_by_unroll": {
+                name: {u: v["launch_ms"] for u, v in r.items()}
+                for name, r in unrolls.items()},
+            "drain_replays_ms_by_unroll": {
+                name: {u: v["replays_ms"] for u, v in r.items()}
+                for name, r in unrolls.items()},
+            "body": bodies, "ptxas": _build.ptxas_report("device_loop")}
+
+
 def phase_serving(torch, wt, timing, card):
     """The serving path (`benchmarks/serving_cases.py`): the restricted
     loss and the alignment at the main path's shape, the decoders at
@@ -2712,8 +2808,7 @@ def phase_serving(torch, wt, timing, card):
         print(f"serving graphed decoders at {json.dumps(d)}, {cd}, unroll"
               f" {dl.UNROLL}: greedy and beam {d['beam']} equal the plain"
               f" loop bit for bit (tokens, lengths, scores), the same trip"
-              f" counts, at most iterations // unroll + 1 host reads;"
-              f" {json.dumps(loops)}")
+              f" counts, one host read a drain; {json.dumps(loops)}")
         recs, step_checks[str(cd)], select_checks[str(cd)], fold = (
             decode_step_checks(torch, dsc, model, feats, xn, d, cd))
         fold_checks[str(cd)] = fold
@@ -2740,6 +2835,7 @@ def phase_serving(torch, wt, timing, card):
           f" kernels (the loop's own mask), eager and graphed, bit for bit"
           f" on the whole state with the same trip counts:"
           f" {json.dumps(fold_drains)}")
+    loop_entry = device_loop_checks(torch, model, feats, xn, d, card)
     step_times = decode_step_times(torch, bd, dsc, model, recs, d, card)
     redesign = decode_redesign_checks(torch, dsc, recs, SEED + 65)
     in_turns = decode_step_in_turns(dsc, model, feats, xn, d, card)
@@ -2760,10 +2856,12 @@ def phase_serving(torch, wt, timing, card):
     _, step_launches = sc.launched(lambda: (
         greedy_decode(model, feats, xn, d["max_length"]),
         beam_decode(model, feats, xn, d["max_length"], beam_size=d["beam"])))
-    if not all(step_launches.get(k) for k in STEP_OF["beam"]):
+    if not all(step_launches.get(k) for k in (*STEP_OF["beam"],
+                                                 "loop_continue_kernel")):
         raise AssertionError(f"decoders launched {step_launches}")
     print(f"serving decoders' main path at {json.dumps(d)}: launches"
-          f" {json.dumps(step_launches)} (warm-up and capture rounds)")
+          f" {json.dumps(step_launches)} (the step's: warm-up and capture"
+          f" rounds; loop_continue_kernel: while launches, one a decode)")
     decode = {}
     for loop in ("plain", "graphed"):
         r = decode[loop] = bd.bench_decode(
@@ -2897,6 +2995,8 @@ def phase_serving(torch, wt, timing, card):
     beam = step_times["beam"]["decode_beam_select"]
     errs_k = {cd: {dec: r[dec]["max_abs_err"] for dec in r}
               for cd, r in select_checks.items()}
+    loop_entry["launches"] = step_launches["loop_continue_kernel"]
+    step_entries.append(loop_entry)
     step_entries.append({
         "name": "decode_beam_select", "route": "cuda", "source": STEP_SOURCE,
         "replaces": SELECT_REPLACES,
@@ -3308,7 +3408,8 @@ OUR_KERNELS = (("prefix_kernel", "packed_gather"),
                ("flat_write_kernel", "flat_write"),
                ("column_gather_kernel", "gather_lattice"),
                ("decode_joint", "decode_joint"), ("decode_gru", "decode_gru"),
-               ("decode_beam_select", "decode_beam_select"))
+               ("decode_beam_select", "decode_beam_select"),
+               ("loop_continue_kernel", "loop_continue_kernel"))
 
 
 def ours(kernels):
@@ -3336,6 +3437,7 @@ def phase_compiled_serving(torch, card):
     from warp_rnnt_tpu_torch.benchmarks import serving_cases as sc
     from warp_rnnt_tpu_torch.benchmarks.profile_loss import device_profile
     from warp_rnnt_tpu_torch.models import stream_init, stream_step, streaming
+    from warp_rnnt_tpu_torch.models import decoding
     from warp_rnnt_tpu_torch.utils import compiled_step as cs
 
     t0 = time.perf_counter()
@@ -3375,14 +3477,21 @@ def phase_compiled_serving(torch, card):
         def one():
             box[0] = stream_step(model, box[0], chunk)
 
+        reads = decoding.HOST_READS[name]
+        for _ in range(3):
+            one()
+        reads = (decoding.HOST_READS[name] - reads) / 3
+        if reads != 1:
+            raise AssertionError(f"compiled {name} chunk: {reads} host reads")
         prof = device_profile(one, 10)
         rows = {key: n for _, n, key in prof["rows"]}
         enc = device_profile(streaming.LAST_GRAPH["step"].replay, 10)
         stream[name] = ours(rows)
         wheres = sum(n for key, n in rows.items() if "where" in key.lower())
-        print(f"compiled stream {name} chunk: {prof['kernels_per_call']}"
-              f" kernels a chunk, busy {prof['busy_ms']} ms, idle"
-              f" {prof['idle_share']}; the port's {json.dumps(stream[name])};"
+        print(f"compiled stream {name} chunk: {reads} host reads a chunk,"
+              f" {prof['kernels_per_call']} kernels a chunk, busy"
+              f" {prof['busy_ms']} ms, idle {prof['idle_share']}; the port's"
+              f" {json.dumps(stream[name])};"
               f" where kernels a chunk {wheres} (the drain's loop folded);"
               f" an encoder replay {enc['kernels_per_call']} kernels, busy"
               f" {enc['busy_ms']} ms [{card}]")

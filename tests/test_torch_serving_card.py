@@ -18,7 +18,7 @@ The card has no flax: the models come from `train_cases.flax_tree`.
   * the decode loop's CUDA graphs (`utils/device_loop.py`) against the
     plain loop run eagerly on the card, bit for bit: greedy and beam, fp32
     and bf16, and chunked sessions at C=16, 7 and 1, with the same trip
-    counts and at most iterations // unroll + 1 host reads a drain; a
+    counts and exactly one host read a drain (the while node's); a
     second decode of one shape captures no new graph, nor does one of
     another length that pads to the same width, and flipping TF32
     captures one.
@@ -113,6 +113,7 @@ def test_graphed_decoders_equal_plain(cuda_device, dtype):
     r = sc.check_graphed(model, feats, xn, d["max_length"], d["beam"])
     assert r["greedy"]["iterations"] >= int(xn.max())
     assert r["beam"]["iterations"] >= int(xn.max())
+    assert r["greedy"]["host_reads"] == r["beam"]["host_reads"] == 1
 
 
 @pytest.mark.parametrize("chunks", [(16, 7), (1,)])
@@ -122,8 +123,11 @@ def test_graphed_streaming_equals_plain(cuda_device, chunks):
     T = 32 if chunks == (1,) else d["T"]
     feats = sc.features(8, d["N"], T, d["F"])
     xn = sc.ragged(d["N"], T)
-    sc.check_graphed_streaming(model, feats, xn, d["max_length"], d["beam"],
-                               chunks)
+    r = sc.check_graphed_streaming(model, feats, xn, d["max_length"],
+                                   d["beam"], chunks)
+    for case, counts in r.items():
+        C = int(case.rsplit("C=", 1)[1])
+        assert counts["host_reads"] == -(-T // C) + 1, case
 
 
 def test_graph_cache_keys(cuda_device):

@@ -6,13 +6,14 @@ Batched greedy and beam-search decoding of whole utterances
 shapes, with its arguments and JSON keys.  Each decode's ms is the
 two-point marginal of `timing.bench_scalar_chain` on CUDA events, one
 pair of chains of 2 and 6 decodes (the decode loop reads the device once
-a round, so successive decodes are serialized).  Beside it, per decode:
+a drain, after its while node, so successive decodes are serialized).  Beside it, per decode:
 the loop iterations (JAX's trip count, `decoding.LOOP_ITERATIONS`), the
 host reads of the loop's flag (`decoding.HOST_READS`), the peak device
 memory, and under the profiler (`profile_loss.device_profile`, device
 activity only, PROFILED decodes) the kernels, the device's busy ms and its
-idle share.  The decode loop (`utils.device_loop`) runs as CUDA graphs of
-``unroll`` masked steps: the graph's capture ms (warm-up included), its
+idle share.  The decode loop (`utils.device_loop`) runs as one CUDA graph
+while node whose body is a round of ``unroll`` masked steps: the round
+graph's capture ms (the while node's build included) (warm-up included), its
 private pool's MiB, its kernels a step (one replay under the profiler over
 ``unroll``) and its device us a step (REPLAYS replays back to back on CUDA
 events, over REPLAYS x unroll), the step's own kernels a step and any

@@ -15,7 +15,7 @@ regime); the chunk is an argument of the step, not a constant of it.  The
 ms is the two-point marginal of `timing.bench_grad_chain` on CUDA events.
 Beside it, per chunk: the decoder's loop iterations (JAX's trip count)
 and host reads of the loop's flag, the graph replays (the encoder's and
-the drain's, one a round), the encoder step's host µs, the peak device
+the drain's while launch, one a drain), the encoder step's host µs, the peak device
 memory, the encoder graphs' capture ms and pool MiB by shape, and under the
 profiler (`profile_loss.device_profile`, device activity only, PROFILED
 chunks) the kernels, the device's busy ms and its idle share; and the
@@ -149,7 +149,7 @@ def bench_streaming(N=8, C=16, V=1024, beam=0, feat_dim=80, hidden=512,
         "unroll": unroll, "plain": plain, "compiled": compiled,
         "iterations_per_chunk": iterations,
         "host_reads_per_chunk": reads,
-        # a drain's round is one replay and one host read
+        # a drain is one launch of its while node and one host read
         "graph_replays_per_chunk": {"encoder": replays,
                                     "drain": 0 if plain else reads},
         "encoder_graphs": encoder_graphs(),

@@ -70,6 +70,7 @@ raises AssertionError on a failure and returns what it measured.
 
 from __future__ import annotations
 
+import math
 import types
 
 import torch
@@ -789,8 +790,9 @@ def check_fold(model, feats, xn, max_length, beam, C):
     run eagerly (`device_loop._plain`, the plain loop) and graphed:
     greedy, beam ``beam`` and a streaming session of each (chunks of C,
     `_session`), the whole final state bit for bit and the same trip
-    counts.  Returns {case: {"iterations", "host_reads",
-    "unfolded_host_reads": [eager, graphed]}}."""
+    counts; graphed on the card, one host read a drain.  Returns {case:
+    {"iterations", "host_reads", "unfolded_host_reads": [eager,
+    graphed]}}."""
     from warp_rnnt_tpu_torch.benchmarks.serving_cases import _counted
 
     enc = model.encode(feats)
@@ -815,6 +817,8 @@ def check_fold(model, feats, xn, max_length, beam, C):
     for case, fn in runs(ds).items():
         counter = "beam" if "beam" in case else "greedy"
         got, it, reads = _counted(counter, fn)
+        drains = (math.ceil(feats.shape[1] / C) + 1 if "stream" in case
+                  else 1)
         r = {"iterations": it, "host_reads": reads,
              "unfolded_host_reads": []}
         for plain in (True, False):
@@ -827,6 +831,11 @@ def check_fold(model, feats, xn, max_length, beam, C):
                     f"{case}: folded != unfolded ({how}): fields equal"
                     f" {same}, {it} / {it_u} iterations")
             r["unfolded_host_reads"].append(reads_u)
+        graphed = (reads, r["unfolded_host_reads"][1])
+        if feats.is_cuda and graphed != (drains, drains):
+            raise AssertionError(f"{case}: graphed host reads {reads}"
+                                 f" folded, {r['unfolded_host_reads'][1]}"
+                                 f" unfolded, for {drains} drains")
         out[case] = r
     return out
 

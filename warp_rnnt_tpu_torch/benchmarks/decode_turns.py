@@ -11,7 +11,11 @@ default ``ops``), prints one JSON line a decoder with the tag, the card
 and R readings (default 3) of:
   * "drain_ms": a drain of the encoder's frames from a fresh state, its
     graphs captured by a drain before it (CUDA events around it, the
-    host's reads of the loop's flag included);
+    host's reads of the loop's flag included), and "host_reads", the
+    drain's reads of the loop's flag (`decoding.HOST_READS`);
+  * "launch_ms": where the tree's loop is one while node (its entry has
+    `launch`), that launch alone, from the drain's own inputs copied in
+    before it (`launch_ms`); None in an older tree;
   * "step_us", "kernels_a_step", "kernel_us", "round_kernels": the
     drain's last graph (`bench_decode.graph_numbers`: device us a step
     over replays of a finished state, a replay's profile over its
@@ -28,6 +32,7 @@ cuDNN.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 
 import torch
@@ -35,10 +40,54 @@ import torch
 N, T, V, BEAM, F, HIDDEN, MAX_LENGTH = 32, 400, 1024, 4, 80, 512, 100
 
 
+@contextlib.contextmanager
+def recorded_loops():
+    """Within the block, each drain's device loop is recorded: yields a
+    list that receives (the loop's `LoopStats.graph`, its state, its
+    consts, its max_iterations) a loop.  The drains reach the loop
+    through `models.decoding`'s ``while_loop``, wrapped here."""
+    from warp_rnnt_tpu_torch.models import decoding
+
+    seen, real = [], decoding.while_loop
+
+    def spy(cond, body, state, consts=(), **kw):
+        out = real(cond, body, state, consts, **kw)
+        seen.append((out[1].graph, tuple(state), tuple(consts),
+                     kw["max_iterations"]))
+        return out
+
+    decoding.while_loop = spy
+    try:
+        yield seen
+    finally:
+        decoding.while_loop = real
+
+
+def launch_ms(entry, state, consts, max_iterations, repeats):
+    """Device ms of ``repeats`` whole loops of a while-node ``entry``
+    (`_Entry.launch`, CUDA events around the launch alone), each from
+    ``state`` and ``consts`` copied in before it, and the trip count of
+    the last; None where the entry has no while node."""
+    if not hasattr(entry, "launch"):
+        return None, None
+    out = []
+    for _ in range(repeats):
+        entry.load(state, consts, max_iterations)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        entry.launch()
+        end.record()
+        go, iterations = entry.read()
+        out.append(start.elapsed_time(end))
+    return out, iterations
+
+
 @torch.inference_mode()
 def readings(repeats):
-    """{decoder: {"drain_ms": [..], "step_us": [..], "kernels_a_step":
-    [..], "kernel_us": {..}, "round_kernels": {..}, "decode_ms": [..]}}."""
+    """{decoder: {"drain_ms": [..], "host_reads": [..], "launch_ms": [..]
+    or None, "step_us": [..], "kernels_a_step": [..], "kernel_us": {..},
+    "round_kernels": {..}, "decode_ms": [..]}}."""
     from warp_rnnt_tpu_torch.benchmarks import bench_decode as bd
     from warp_rnnt_tpu_torch.models import (
         beam_decode,
@@ -68,20 +117,24 @@ def readings(repeats):
                                       beam_size=BEAM)}
     out = {}
     for name, drain in drains.items():
-        r = out[name] = {"drain_ms": [], "step_us": [], "kernels_a_step": [],
-                         "decode_ms": []}
-        drain()  # captures the drain's graphs
+        r = out[name] = {"drain_ms": [], "host_reads": [], "step_us": [],
+                         "kernels_a_step": [], "decode_ms": []}
+        with recorded_loops() as seen:
+            drain()  # captures the drain's graphs
         for _ in range(repeats):
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
+            reads = decoding.HOST_READS[name]
             start.record()
             drain()
             end.record()
             end.synchronize()
             r["drain_ms"].append(start.elapsed_time(end))
+            r["host_reads"].append(decoding.HOST_READS[name] - reads)
             g = bd.graph_numbers(name)
             r["step_us"].append(g["graph_step_us"])
             r["kernels_a_step"].append(g["graph_kernels_per_step"])
+        r["launch_ms"] = launch_ms(*seen[-1], repeats)[0]
         r["kernel_us"] = g["graph_step_kernel_us"]
         r["round_kernels"] = g.get("graph_round_kernels")
         for _ in range(repeats):

@@ -21,11 +21,10 @@ failure and returns what it measured.
     (tokens, lengths, and beam scores) exactly.
   * `check_card_equals_cpu`: a small fp32 model decodes to the same tokens
     on the card and on the CPU.
-  * `check_graphed`: the decoders through the device loop's CUDA graphs
+  * `check_graphed`: the decoders through the device loop's while node
     against the plain loop (`device_loop._plain`, the same masked steps run
     eagerly on the card), bit for bit (tokens, lengths, scores), with the
-    same trip count and at most iterations // unroll + 1 host reads a
-    drain;
+    same trip count and exactly one host read a drain;
     `check_graphed_streaming` the same for chunked sessions;
     `check_graph_cache`: a second decode of one shape captures no graph,
     nor does one of another length that pads to the same width
@@ -80,7 +79,8 @@ def counters():
     from warp_rnnt_tpu_torch.benchmarks.train_cases import counters as train
     from warp_rnnt_tpu_torch.ops import decode_step, packed_kernels
 
-    return [*train(), packed_kernels.LAUNCHES, decode_step.LAUNCHES]
+    return [*train(), packed_kernels.LAUNCHES, decode_step.LAUNCHES,
+            device_loop.LAUNCHES]
 
 
 def launched(fn):
@@ -407,9 +407,8 @@ def _counted(name, fn, plain=False):
 
 def _hold_graphed(tag, name, fn, drains=1):
     """The graphed call against the plain one: bit for bit, one trip
-    count, and at most iterations // unroll + ``drains`` host reads (a
-    drain of n iterations reads max(1, ceil(n / unroll)) times, at most
-    n / unroll + 1)."""
+    count, and exactly ``drains`` host reads (one a drain: the read of the
+    loop's flag and count after its while node)."""
     want, it_plain, reads_plain = _counted(name, fn, plain=True)
     got, it, reads = _counted(name, fn)
     same = [torch.equal(g, w) for g, w in zip(got, want)]
@@ -418,9 +417,10 @@ def _hold_graphed(tag, name, fn, drains=1):
     if it != it_plain:
         raise AssertionError(f"{tag}: {it} iterations graphed, {it_plain}"
                              " plain")
-    if reads > it // device_loop.UNROLL + drains:
-        raise AssertionError(f"{tag}: {reads} host reads for {it}"
-                             f" iterations at unroll {device_loop.UNROLL}")
+    if reads != drains:
+        raise AssertionError(f"{tag}: {reads} host reads for {drains}"
+                             f" drains ({it} iterations at unroll"
+                             f" {device_loop.UNROLL})")
     return {"iterations": it, "host_reads": reads,
             "plain_host_reads": reads_plain}
 

@@ -33,9 +33,9 @@ and output from its parent's row (``src``).  `decode_beam_select_plain`
 holds the step's torch code as it ran before that kernel.
 
 The loop is `utils.device_loop.while_loop` on JAX's ``cond``, through
-`decoding.run_drain` as greedy's (one CUDA graph of masked steps on the
-card; a surplus step re-sorts nothing, since the mask is the global
-``cond``), its trip count and host reads added to
+`decoding.run_drain` as greedy's (on the card one CUDA graph while node
+over rounds of masked steps; a surplus step re-sorts nothing, since the
+mask is the global ``cond``), its trip count and host reads added to
 `decoding.LOOP_ITERATIONS["beam"]` and `decoding.HOST_READS["beam"]`.  On
 `ops.decode_step` the loop is folded (`decoding.folds`):
 `decode_beam_select` computes ``cond`` from the step's inputs, writes the

@@ -15,6 +15,8 @@ from typing import Optional
 
 import torch
 
+from warp_rnnt_tpu_torch.models.decoding import forget_decode_consts
+
 _FILE = "state.pt"
 
 
@@ -47,7 +49,9 @@ def restore_checkpoint(path, model, optimizer=None,
                        step: Optional[int] = None) -> int:
     """Load a state saved by `save_checkpoint` into ``model`` (and
     ``optimizer``, which must then have been saved too); the latest step
-    when ``step`` is None.  Returns the restored step."""
+    when ``step`` is None, and drop the decoders' kept invariants of the
+    model (`decoding.forget_decode_consts`).  Returns the restored
+    step."""
     path = pathlib.Path(path).absolute()
     if step is None:
         step = latest_step(path)
@@ -57,6 +61,7 @@ def restore_checkpoint(path, model, optimizer=None,
     state = torch.load(path / f"step_{step}" / _FILE, map_location=device,
                        weights_only=True)
     model.load_state_dict(state["model"])
+    forget_decode_consts(model)
     if optimizer is not None:
         if "optimizer" not in state:
             raise KeyError(f"step_{step} holds no optimizer state")

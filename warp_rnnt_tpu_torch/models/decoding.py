@@ -7,12 +7,13 @@ appends the token.  Every sample carries its own frame pointer t, and a
 per-frame emission cap (``max_symbols_per_step``) bounds the loop.
 
 JAX's ``lax.while_loop`` becomes `utils.device_loop.while_loop` with
-JAX's ``cond`` and ``body``: on the card, rounds of masked steps replayed
-from one CUDA graph, with one host read of the loop's flag a round; on
-the CPU the same steps run eagerly.  The mask is JAX's ``cond`` itself, so
-a step past JAX's stopping point leaves the whole state bit for bit (it
-would otherwise rewrite ``emitted_here`` and ``last_tok``).  Where the
-step runs on `ops.decode_step` (`folds`), the loop is folded
+JAX's ``cond`` and ``body``: on the card, rounds of masked steps captured
+once as the body of one CUDA graph conditional while node, one launch a
+drain and one host read of the loop's flag after it; on the CPU the same
+steps run eagerly, a host read a round.  The mask is JAX's ``cond``
+itself, so a step past JAX's stopping point leaves the whole state bit
+for bit (it would otherwise rewrite ``emitted_here`` and ``last_tok``).
+Where the step runs on `ops.decode_step` (`folds`), the loop is folded
 (``folded=True``): `decode_gru_greedy` computes that ``cond`` from the
 step's inputs, writes ``emitted_here`` and ``last_tok`` (and the fields
 it leaves anyway) through where it is false and counts the step, so a
@@ -31,12 +32,18 @@ frame is read at ``clamp(t - p0, 0, C - 1)``, so every read gives the
 frame it gave before, bit for bit, and the trip count, which reads only
 t and the bounds, is unchanged.  Lengths 257 to 512 share one graph.
 
-The step's loop invariants are lifted once a drain, as XLA's loop-invariant
-code motion lifts them out of JAX's while body: `decode_consts` casts the
-joint's weights and biases to its compute dtype and builds the GRU's
-recurrent bias, and `run_drain` hands them to the loop as consts.  The
-step itself is `ops.decode_step` (a drain's ``ops``): on a CUDA tensor the
-joint and its argmax are one `decode_joint` call (three kernels) and the
+The step's loop invariants are lifted out of the loop, as XLA's
+loop-invariant code motion lifts them out of JAX's while body:
+`decode_consts` casts the joint's weights and biases to its compute dtype
+and builds the GRU's recurrent bias, and `run_drain` hands them to the
+loop as consts.  They are made once a model and kept while the parameters
+they read keep their addresses, dtypes, shapes and version counters (an
+in-place update through the parameter bumps its version); whatever writes
+the weights without bumping them (a CUDA graph's replay of
+`transducer.compiled_train_step`, a checkpoint's restore, a write through
+``.data``) calls `forget_decode_consts`.  The step itself is
+`ops.decode_step` (a drain's ``ops``): on a CUDA tensor the joint and its
+argmax are one `decode_joint` call (three kernels) and the
 GRU cell with greedy's masked update one `decode_gru_greedy` launch; on a
 CPU tensor their plain versions, the torch code of the step as before.
 ``ops=decode_step.PLAIN`` runs the plain versions on any device: the card
@@ -49,6 +56,7 @@ model's device.
 
 from __future__ import annotations
 
+import weakref
 from typing import NamedTuple
 
 import torch
@@ -64,6 +72,8 @@ from warp_rnnt_tpu_torch.utils.device_loop import while_loop
 LOOP_ITERATIONS = {"greedy": 0, "beam": 0}
 HOST_READS = {"greedy": 0, "beam": 0}
 LAST_GRAPH = {"greedy": None, "beam": None}
+# decode_consts' cache: {model: (key, DecodeConsts)}
+_CONSTS = weakref.WeakKeyDictionary()
 
 
 def _frames_left(state, consts):
@@ -98,11 +108,48 @@ class DecodeConsts(NamedTuple):
     dtype: torch.dtype  # the joint's compute dtype
 
 
+def _const_params(model):
+    j = model.joint
+    return (j.pre.weight, j.pre.bias, j.out.weight, j.out.bias,
+            model.predictor.bias_hn)
+
+
+def _consts_key(model, params):
+    j = model.joint
+    return (j.compute_dtype, j.mode, torch.is_inference_mode_enabled(),
+            torch.is_grad_enabled(),
+            tuple((p.data_ptr(), p.dtype, tuple(p.shape), p._version)
+                  for p in params))
+
+
 def decode_consts(model):
     """The step's loop invariants of a `Transducer` (`DecodeConsts`): the
     casts the joint's `_dense` made and the recurrent bias the predictor
-    built each step, now made once.  The same values, so the plain step
-    on them gives the state it gave before, bit for bit."""
+    built each step, made once and kept for the next drain while the
+    parameters they read keep their addresses, dtypes, shapes and
+    versions (module docstring; parameters that are inference tensors
+    have no version and are read anew each call).  The same values, so
+    the plain step on them gives the state it gave before, bit for
+    bit."""
+    params = _const_params(model)
+    if any(p.is_inference() for p in params):
+        return _make_consts(model)
+    key = _consts_key(model, params)
+    hit = _CONSTS.get(model)
+    if hit is not None and hit[0] == key:
+        return hit[1]
+    dc = _make_consts(model)
+    _CONSTS[model] = (key, dc)
+    return dc
+
+
+def forget_decode_consts(model):
+    """Drop `decode_consts`' kept invariants of ``model``: for whatever
+    writes the weights without bumping their version counters."""
+    _CONSTS.pop(model, None)
+
+
+def _make_consts(model):
     j = model.joint
     cd = j.compute_dtype
     tensors = (j.pre.weight.t().contiguous().to(cd), j.pre.bias.to(cd),

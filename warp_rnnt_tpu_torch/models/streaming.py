@@ -30,8 +30,8 @@ graph's outputs are static buffers that the next chunk of that shape
 overwrites, whichever session sends it, so the new encoder carry is
 cloned out of them (1 + 2 * blocks small copies a chunk) and every
 session's state is its own: sessions of one shape may interleave.  A
-chunk is then one encoder replay and the drain's rounds, one replay and
-one host read each; the drains run folded on the step's kernels
+chunk is then one encoder replay and the drain's while node, one launch
+and one host read; the drains run folded on the step's kernels
 (`decoding.folds`: the loop's mask and count in the GRU or the
 selection), so a round is its steps' own launches and the round's tail.
 

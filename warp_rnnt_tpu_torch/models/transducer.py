@@ -53,6 +53,7 @@ from torch import nn
 
 from warp_rnnt_tpu_torch.functional.from_logits import rnnt_loss_from_logits
 from warp_rnnt_tpu_torch.functional.loss import rnnt_loss
+from warp_rnnt_tpu_torch.models.decoding import forget_decode_consts
 from warp_rnnt_tpu_torch.models.joint import Joint, _dense, flax_leaf
 from warp_rnnt_tpu_torch.ops.fused_joint import rnnt_loss_fused_joint
 
@@ -416,7 +417,9 @@ def compiled_train_step(model: Transducer, optimizer: torch.optim.Optimizer,
     graph is keyed by the model, its parameters' addresses, the optimizer,
     the loss mode, FastEmit's lambda and ``model.training``; whatever
     replaces a parameter or a state tensor (``load_state_dict``) needs
-    ``step.compiled.release()``.  ``step.compiled`` is the
+    ``step.compiled.release()``.  Each call drops the decoders' kept
+    invariants of the model (`decoding.forget_decode_consts`), since a
+    replay's update bumps no version counter.  ``step.compiled`` is the
     `CompiledStep` (its ``entry``: the graph, its static batch, capture ms
     and pool bytes)."""
     from warp_rnnt_tpu_torch.utils.compiled_step import compiled_step
@@ -438,7 +441,10 @@ def compiled_train_step(model: Transducer, optimizer: torch.optim.Optimizer,
 
     def step(batch):
         compiled.key = key()  # the addresses and the mode as they stand
-        return compiled(*batch)[0]
+        loss = compiled(*batch)[0]
+        # a replay updates the weights without bumping their versions
+        forget_decode_consts(model)
+        return loss
 
     step.compiled = compiled
     return step

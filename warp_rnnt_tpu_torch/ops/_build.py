@@ -38,7 +38,7 @@ BUILD_DIR = os.path.join(_PKG, "build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 SOURCES = ("lattice", "flat_write", "fused_joint", "packed", "gather",
-           "decode_step")
+           "decode_step", "device_loop")
 # Built on demand beside SOURCES, never loaded by the package itself: the
 # decode step's first kernels, the yardstick its benchmarks time in turns.
 YARDSTICKS = ("decode_step_baseline",)
