@@ -421,6 +421,30 @@ now hold one host read a drain.  `loop_continue_kernel` joins the
 kernels line (launches: the while launches of the decoders' main path).
 `phase_compiled_serving` prints a chunk's host reads (1) beside its idle
 share.
+Slice 26 (a whole decode and a whole streaming chunk as one CUDA graph a
+shape, the drain's while node inside it: `csrc/device_loop.cu`
+`device_loop_capture`) adds, after `phase_compiled_serving`,
+`phase_compiled_decode` (`benchmarks/compiled_decode_cases.py`): at
+bench_decode's width (N=32, T=400, V=1024, hidden 512) the compiled greedy
+and beam 4 decodes' first calls (their launches, gated on the step's
+kernels and `loop_continue_kernel`) and a call's profile; the compiled
+decodes against the eager decode (`compiled_step._plain`) and the plain
+loop (`device_loop._plain`) bit for bit on ragged lengths, other
+features and every length 0 (cond false at entry), one replay and one
+host read a steady call, the runtime calls a call, exactly one
+conditional node in the outer graph; a compiled toy loop past its bound
+raising the eager loop's error after its replay, the next call right; a
+held loop through `device_loop.clear()` and eviction; a compiled decode
+after a compiled train step's in-place updates equal to an eager decode;
+each call timed by CUDA events in turns with the eager decode, beside
+the while launch alone (no reading under it) and the graph's replay
+alone; at bench_streaming's width (N=8, C=16, T=150) compiled sessions
+against eager and plain bit for bit, interleaved sessions, and a steady
+chunk timed in turns with the eager one.  The step's kernels and
+`loop_continue_kernel` carry ``compiled_decode`` launches in the kernels
+line (a first call's, and a call's from its profile).  Phase 15's
+`bench_decode` and `bench_streaming` readings are compiled, the eager
+decode beside.
 It prints the kernels' JSON line and the card's line, and last
 `{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}`.
 Without a CUDA device, or without the package beside it, it exits 1 and
@@ -3433,12 +3457,13 @@ def phase_compiled_serving(torch, card):
     static bounds), and compact without them refused.  Returns
     {"stream": {decoder: port kernels a
     compiled chunk}, "joint": {mode: port kernels a replay}}."""
+    from warp_rnnt_tpu_torch.benchmarks import bench_streaming as bs
+    from warp_rnnt_tpu_torch.benchmarks import compiled_decode_cases as cdc
     from warp_rnnt_tpu_torch.benchmarks import compiled_serving_cases as csc
     from warp_rnnt_tpu_torch.benchmarks import serving_cases as sc
     from warp_rnnt_tpu_torch.benchmarks.profile_loss import device_profile
     from warp_rnnt_tpu_torch.models import stream_init, stream_step, streaming
     from warp_rnnt_tpu_torch.models import decoding
-    from warp_rnnt_tpu_torch.utils import compiled_step as cs
 
     t0 = time.perf_counter()
     d = sc.STREAM
@@ -3478,29 +3503,33 @@ def phase_compiled_serving(torch, card):
             box[0] = stream_step(model, box[0], chunk)
 
         reads = decoding.HOST_READS[name]
+        iterations = decoding.LOOP_ITERATIONS[name]
         for _ in range(3):
             one()
         reads = (decoding.HOST_READS[name] - reads) / 3
+        iterations = (decoding.LOOP_ITERATIONS[name] - iterations) // 3
         if reads != 1:
             raise AssertionError(f"compiled {name} chunk: {reads} host reads")
+        one()
+        stream[name] = ours(cdc.call_launches(streaming.LAST_GRAPH["step"]))
+        rounds = [loop.rounds for loop in streaming.LAST_GRAPH["step"].loops]
         prof = device_profile(one, 10)
         rows = {key: n for _, n, key in prof["rows"]}
-        enc = device_profile(streaming.LAST_GRAPH["step"].replay, 10)
-        stream[name] = ours(rows)
+        whole = device_profile(streaming.LAST_GRAPH["step"].replay, 10)
         wheres = sum(n for key, n in rows.items() if "where" in key.lower())
         print(f"compiled stream {name} chunk: {reads} host reads a chunk,"
               f" {prof['kernels_per_call']} kernels a chunk, busy"
               f" {prof['busy_ms']} ms, idle {prof['idle_share']}; the port's"
-              f" {json.dumps(stream[name])};"
+              f" on the card, read from the chunk graph and its loop's"
+              f" {rounds} rounds counted on the card ({iterations}"
+              f" iterations) {json.dumps(stream[name])} (in the profile,"
+              f" which misses records inside the while node's body,"
+              f" {json.dumps(ours(rows))});"
               f" where kernels a chunk {wheres} (the drain's loop folded);"
-              f" an encoder replay {enc['kernels_per_call']} kernels, busy"
-              f" {enc['busy_ms']} ms [{card}]")
-    graphs = {json.dumps(e.key[0][3:]) + f" {tuple(e.outputs[-3].shape)}": (
-        round(e.capture_ms, 1), round(e.pool_bytes / 2**20, 1))
-        for e in cs.entries() if isinstance(e.key[0], tuple)
-        and e.key[0][0] == "streaming.encoder_step"}
-    print(f"compiled stream encoder graphs [finish, xn] (N, C, H): (capture"
-          f" ms, pool MiB) {json.dumps(graphs)}")
+              f" the chunk graph's replay alone {whole['kernels_per_call']}"
+              f" kernels, busy {whole['busy_ms']} ms [{card}]")
+    print(f"compiled stream chunk graphs: (capture ms, pool MiB)"
+          f" {json.dumps(bs.chunk_graphs())}")
     del model, feats, other
     torch.cuda.empty_cache()
 
@@ -3533,6 +3562,152 @@ def phase_compiled_serving(torch, card):
         del case
     print(f"phase compiled serving: {time.perf_counter() - t0:.1f} s [{card}]")
     return {"stream": stream, "joint": joint}
+
+
+def phase_compiled_decode(torch, card):
+    """A whole decode and a whole streaming chunk compiled, the drain's
+    while node inside the graph (`benchmarks/compiled_decode_cases.py`):
+    at bench_decode's width (N=32, T=400, V=1024, hidden 512, ragged
+    lengths) the compiled greedy and beam 4 decodes against the eager
+    decode and the plain loop bit for bit (cond false at entry included),
+    one replay and one host read a call, one conditional node; a loop
+    past its bound raising after its replay; a held loop through
+    `device_loop.clear()` and eviction; a compiled train step's updates
+    reaching the next compiled decode; at bench_streaming's width (N=8,
+    C=16, ragged tail) compiled sessions against eager and plain, two
+    interleaved sessions; then the compiled and eager decode and chunk
+    timed a call in turns beside the while launch alone.  Returns
+    {"launches": {call: {kernel: launches}} with the counts set to 0 just
+    before the compiled decode's first call (its capture) and read just
+    after, "replay": {decoder: port kernels a steady compiled call, read
+    from its graphs and its loop's rounds counted on the card
+    (`compiled_decode_cases.call_launches`)}}."""
+    from warp_rnnt_tpu_torch.benchmarks import compiled_decode_cases as cdc
+    from warp_rnnt_tpu_torch.benchmarks import compiled_serving_cases as csc
+    from warp_rnnt_tpu_torch.benchmarks import serving_cases as sc
+    from warp_rnnt_tpu_torch.benchmarks import train_cases as tc
+    from warp_rnnt_tpu_torch.benchmarks.decode_turns import (
+        launch_ms,
+        recorded_loops,
+    )
+    from warp_rnnt_tpu_torch.models import beam_search, decoding
+
+    t0 = time.perf_counter()
+    d = sc.DECODE
+    model = sc.carried_model(d, SEED + 91)
+    feats = sc.features(SEED + 92, d["N"], d["T"], d["F"])
+    xn = sc.ragged(d["N"], d["T"])
+    full = torch.full((d["N"],), d["T"], dtype=torch.int32, device="cuda")
+    L = d["max_length"]
+    launches, replay = {}, {}
+    with torch.inference_mode():
+        for beam, name in ((0, "greedy"), (d["beam"], "beam")):
+            fn = cdc.decoder(beam)[0]
+            launches[f"compiled {name} decode"] = sc.launched(
+                lambda: fn(model, feats, full, L))[1]
+            r = cdc.steady(lambda: fn(model, feats, full, L), name)
+            missing = [k for k in (*STEP_OF[name], "loop_continue_kernel")
+                       if not launches[f"compiled {name} decode"].get(k)]
+            if missing:
+                raise AssertionError(f"compiled {name} decode launched no"
+                                     f" {missing}")
+            entry = cdc.entry_of(cdc.decoder(beam)[2])
+            replay[name] = ours(cdc.call_launches(entry))
+            missing = [k for k in (*STEP_OF[name], "loop_continue_kernel")
+                       if not replay[name].get(k)]
+            if missing:
+                raise AssertionError(f"a steady compiled {name} decode"
+                                     f" launched no {missing} on the card")
+            print(f"compiled {name} decode at {json.dumps(d)}: launches in"
+                  f" its first call (warm-up and capture)"
+                  f" {json.dumps(launches[f'compiled {name} decode'])}; a"
+                  f" steady call {json.dumps(r)}, its launches on the card"
+                  f" (read from its graph, its loop's"
+                  f" {[loop.rounds for loop in entry.loops]} rounds counted"
+                  f" on the card) {json.dumps(replay[name])}")
+    for beam in (0, d["beam"]):
+        r = cdc.check_decode(model, feats, xn, L, beam)
+        print(f"compiled decode beam={beam} at {json.dumps(d)}, ragged"
+              f" lengths: equal to the eager decode and to the plain loop"
+              f" bit for bit on the capture's call, a replay on other"
+              f" features and a replay with every length 0 (cond false at"
+              f" entry); a steady call {json.dumps(r['steady'])}, rounds"
+              f" counted on the card {r['rounds']}, the port's launches"
+              f" {json.dumps(ours(r['launches']))}; runtime"
+              f" calls a call {json.dumps(r['runtime_calls'])}; the outer"
+              f" graph's nodes {json.dumps(r['kinds'])}; capture"
+              f" {r['capture_ms']:.1f} ms, pool {r['pool_mib']:.1f} MiB")
+    bound = cdc.check_bound()
+    print(f"compiled loop past its bound: raised after its replay with the"
+          f" eager loop's error, the next call right: {json.dumps(bound)}")
+    evicted = cdc.check_held(model, feats, xn, L)
+    print(f"compiled decode's loop held: replays equal after"
+          f" device_loop.clear() and after the cache's eviction ({evicted}"
+          f" entry left)")
+    change = cdc.check_update(tc.SMALL, SEED + 93)
+    print(f"compiled decode after a compiled train step (two calls, in-place"
+          f" updates) at {json.dumps(tc.SMALL)}: equal to the eager decode on"
+          f" the updated weights; beam scores moved by up to {change:.3e}")
+    for name, beam in (("greedy", 0), ("beam", d["beam"])):
+        with recorded_loops() as seen, torch.inference_mode():
+            (beam_search.beam_decode(model, feats, full, L, beam_size=beam)
+             if beam else decoding.greedy_decode(model, feats, full, L))
+            alone = launch_ms(*seen[-1], 3)[0]
+        t = cdc.decode_times(model, feats, full, L, beam)
+        low = min(t["compiled"])
+        if low < min(alone):
+            raise AssertionError(f"compiled {name} decode read {low} ms, under"
+                                 f" its while launch alone ({min(alone)})")
+        print(f"time compiled {name} decode at {json.dumps(d)}, events a"
+              f" call, in turns with the eager decode (eager, compiled,"
+              f" compiled, eager, 10 calls each): compiled"
+              f" {json.dumps(cdc.summary(t['compiled']))}, eager"
+              f" {json.dumps(cdc.summary(t['eager']))} ms; the while launch"
+              f" alone {min(alone):.3f}-{max(alone):.3f} ms; the compiled"
+              f" graph's replay alone {t['replay_ms']:.3f} ms (idle share"
+              f" {1 - t['replay_ms'] / cdc.median(t['compiled']):.3f} of the"
+              f" median call); under the profiler busy {t['busy_ms']} ms,"
+              f" idle {t['idle_share']}, {t['kernels']} kernels a call"
+              f" [{card}]")
+    del model, feats
+    torch.cuda.empty_cache()
+
+    sd = sc.STREAM
+    T = 150  # chunks of 16 leave a ragged tail of 6
+    model = sc.carried_model(sd, SEED + 94)
+    feats = sc.features(SEED + 95, sd["N"], T, sd["F"])
+    other = sc.features(SEED + 96, sd["N"], T, sd["F"])
+    xn = sc.ragged(sd["N"], T)
+    for beam in (0, sd["beam"]):
+        r = cdc.check_chunk(model, feats, xn, sd["max_length"], beam,
+                            sd["C"])
+        lengths = csc.check_interleaved(model, (feats, other),
+                                        (xn, xn.flip(0)), sd["max_length"],
+                                        beam, sd["C"])
+        print(f"compiled chunk beam={beam} (N, C) = ({sd['N']}, {sd['C']}),"
+              f" T={T}: every chunk's state and the finish equal the eager"
+              f" and the plain sessions bit for bit; a steady chunk"
+              f" {json.dumps(r['steady'])}, the port's launches"
+              f" {json.dumps(ours(r['launches']))}; runtime calls a chunk"
+              f" {json.dumps(r['runtime_calls'])}; the outer graph's nodes"
+              f" {json.dumps(r['kinds'])}; two interleaved sessions equal"
+              f" their one-shot decodes, lengths {json.dumps(lengths)}")
+        t = cdc.chunk_times(model, feats[:, :sd["C"]].contiguous(),
+                            sd["max_length"], beam)
+        print(f"time compiled chunk beam={beam} (N, C) = ({sd['N']},"
+              f" {sd['C']}), token buffers full, events a call, in turns"
+              f" with the eager chunk: compiled"
+              f" {json.dumps(cdc.summary(t['compiled']))}, eager"
+              f" {json.dumps(cdc.summary(t['eager']))} ms; the compiled"
+              f" graph's replay alone {t['replay_ms']:.3f} ms (idle share"
+              f" {1 - t['replay_ms'] / cdc.median(t['compiled']):.3f} of the"
+              f" median call); under the profiler busy {t['busy_ms']} ms,"
+              f" idle {t['idle_share']}, {t['kernels']} kernels a chunk"
+              f" [{card}]")
+    del model, feats, other
+    torch.cuda.empty_cache()
+    print(f"phase compiled decode: {time.perf_counter() - t0:.1f} s [{card}]")
+    return {"launches": launches, "replay": replay}
 
 
 def phase_compiled_train(torch, card):
@@ -3800,6 +3975,8 @@ def main():
     serving_launches, serving_errs, step_entries = phase_serving(
         torch, wt, timing, card)
     compiled_serving = phase_compiled_serving(torch, card)
+    # slice 26: a whole decode and a whole chunk compiled
+    compiled_decode = phase_compiled_decode(torch, card)
 
     # slice 12: the parallel tier
     t16 = time.perf_counter()
@@ -3944,6 +4121,11 @@ def main():
         entry["compiled_chunk"] = {"launches": {
             dec: n.get(entry["name"], 0)
             for dec, n in compiled_serving["stream"].items()}}
+        entry["compiled_decode"] = {
+            "launches": {call: n.get(entry["name"], 0) for call, n in
+                         compiled_decode["launches"].items()},
+            "launches_a_call": {dec: n.get(entry["name"], 0) for dec, n in
+                                compiled_decode["replay"].items()}}
     kernels.extend(step_entries)
     print(f"whole run from the build: {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -2,8 +2,9 @@
 through `utils.compiled_step` (the port's ``jax.jit``), on the CPU, where a
 compiled step runs its function eagerly: the plain version.
 
-  * A streaming session goes through `streaming.encoder_step` once a
-    chunk and once at the finish, and equals JAX's jitted `stream_step` /
+  * A streaming session goes through `streaming.chunk_step` (the whole
+    chunk compiled) once a chunk and once at the finish, and equals JAX's
+    jitted `stream_step` /
     `stream_finish` on a carried fp32 tree (greedy and beam 3; tokens and
     lengths equal, beam scores within 1e-4, the tolerances of
     `tests/test_torch_streaming.py`).
@@ -11,7 +12,7 @@ compiled step runs its function eagerly: the plain version.
     their own one-shot decode, bit for bit (`compiled_serving_cases.
     check_interleaved`); the card check's compiled-against-eager code
     runs here with both sides eager.
-  * The encoder step's cache key changes with a parameter's address, N,
+  * The chunk step's cache key changes with a parameter's address, N,
     C, the limit's kind (step or finish), ``xn`` given or not, and the
     dtype.
   * `bench_joint.compiled_joint_step` against JAX's ``jax.value_and_grad``
@@ -65,13 +66,13 @@ def _feats(seed):
 
 def _counting(monkeypatch):
     calls = []
-    real = streaming.encoder_step
+    real = streaming.chunk_step
 
-    def counted(model, finish, with_xn):
+    def counted(model, spec, beam, finish, with_xn, *static):
         calls.append((finish, with_xn))
-        return real(model, finish, with_xn)
+        return real(model, spec, beam, finish, with_xn, *static)
 
-    monkeypatch.setattr(streaming, "encoder_step", counted)
+    monkeypatch.setattr(streaming, "chunk_step", counted)
     return calls
 
 
@@ -119,8 +120,8 @@ def test_compiled_check_runs_on_cpu(bf16_model, beam, with_xn):
     xn = torch.tensor(XN, dtype=torch.int32) if with_xn else None
     r = csc.check_stream_compiled(bf16_model, torch.tensor(_feats(8)), xn,
                                   ML, beam, C)
-    assert r["chunks"] == -(-T // C) and r["encoder_graphs"] == 0
-    assert r["encoder_replays"] == [0] * r["chunks"]  # eager: no replays
+    assert r["chunks"] == -(-T // C) and r["chunk_graphs"] == 0
+    assert r["chunk_replays"] == [0] * r["chunks"]  # eager: no replays
 
 
 def test_session_state_is_the_callers(bf16_model):
@@ -136,18 +137,20 @@ def test_session_state_is_the_callers(bf16_model):
 
 
 def _key_args(model, n=N, c=C, finish=False, xn=False, dtype=torch.float32):
-    enc = model.encoder.stream_init(n)
-    carry = streaming._carry(enc)
-    x = enc["m"] if finish else torch.zeros(n, c, F, dtype=dtype)
-    return (*carry, x) + ((torch.zeros(n, dtype=torch.int32),) if xn else ())
+    st = stream_init(model, n, ML)
+    leaves = streaming._leaves(st)
+    spec = streaming._spec(leaves)
+    x = () if finish else (torch.zeros(n, c, F, dtype=dtype),)
+    args = (streaming._buffer(leaves, spec), *x)
+    return spec, args + ((torch.zeros(n, dtype=torch.int32),) if xn else ())
 
 
 def test_encoder_step_cache_key(bf16_model):
     def key(model=bf16_model, finish=False, xn=False, **kw):
-        step = streaming.encoder_step(model, finish, xn)
         with torch.inference_mode():
-            return step._cache_key(_key_args(model, finish=finish, xn=xn,
-                                             **kw))
+            spec, args = _key_args(model, finish=finish, xn=xn, **kw)
+            step = streaming.chunk_step(model, spec, False, finish, xn, 4, 0)
+            return step._cache_key(args)
 
     base = key()
     assert key() == base

@@ -3,10 +3,10 @@ skipped without a GPU).  The checks live in
 `warp_rnnt_tpu_torch/benchmarks/compiled_serving_cases.py`, which
 `chip_smoke.py` (`phase_compiled_serving`) runs at `bench_streaming`'s and
 `bench_joint`'s widths; here they run at small ones:
-  * a session whose encoder step replays its CUDA graph equals the same
-    session run eagerly, bit for bit, after every chunk and at the finish
-    (greedy and beam, with and without ``xn``, a ragged tail), one replay
-    a chunk;
+  * a session whose chunks replay their CUDA graphs (the encoder's step
+    and the drain's while node in one) equals the same session run
+    eagerly, bit for bit, after every chunk and at the finish (greedy and
+    beam, with and without ``xn``, a ragged tail), one replay a chunk;
   * two interleaved sessions of one shape each equal their one-shot
     decode;
   * `bench_joint`'s step compiled equals the eager step bit for bit in
@@ -51,7 +51,7 @@ def test_compiled_chunks_equal_eager(cuda_device, model, beam, with_xn):
     xn = sc.ragged(STREAM["N"], STREAM["T"]) if with_xn else None
     r = csc.check_stream_compiled(model, _feats(12), xn,
                                   STREAM["max_length"], beam, 16)
-    assert r["encoder_replays"] == [1] * r["chunks"]
+    assert r["chunk_replays"] == [1] * r["chunks"]
 
 
 @pytest.mark.parametrize("beam", [0, 4])
@@ -86,7 +86,7 @@ def test_serving_benchmarks_compiled_and_eager(cuda_device, model):
                                max_length=STREAM["max_length"], model=model,
                                eager=eager)
         assert r["chunk_ms"] > 0 and r["compiled"] is not eager
-        assert r["graph_replays_per_chunk"]["encoder"] == (0 if eager else 1)
+        assert r["graph_replays_per_chunk"]["chunk"] == (0 if eager else 1)
     for compiled in (True, False):
         r = bj.bench_joint(**JOINT, mode="fused", compiled=compiled, iters=4)
         assert r["step_ms"] > 0 and r["compiled"] is compiled

@@ -1,12 +1,17 @@
 """Decoding throughput on a CUDA device (counterpart of
 `warp_rnnt_tpu/benchmarks/bench_decode.py`).
 
-Batched greedy and beam-search decoding of whole utterances
-(`models.greedy_decode`, `models.beam_decode`) at the JAX benchmark's
-shapes, with its arguments and JSON keys.  Each decode's ms is the
-two-point marginal of `timing.bench_scalar_chain` on CUDA events, one
-pair of chains of 2 and 6 decodes (the decode loop reads the device once
-a drain, after its while node, so successive decodes are serialized).  Beside it, per decode:
+Batched greedy and beam-search decoding of whole utterances at the JAX
+benchmark's shapes, with its arguments and JSON keys.  As JAX times its
+jitted decoders, the decode runs compiled by default
+(`decoding.compiled_greedy_decode`, `beam_search.compiled_beam_decode`:
+one CUDA graph a shape, one replay and one host read a call), and the
+eager one (`greedy_decode`, `beam_decode`) is timed beside it
+(``name_eager_ms``; ``--eager``: the eager one alone).  A decode's ms is
+the median of `CALLS` calls, each timed by CUDA events around it (the
+host's path and its read included; the device idle before each call), as
+JAX's ``timeit(greedy, feats, iters=10)``; ``name_ms_range`` holds the
+least and the largest reading.  Beside it, per decode:
 the loop iterations (JAX's trip count, `decoding.LOOP_ITERATIONS`), the
 host reads of the loop's flag (`decoding.HOST_READS`), the peak device
 memory, and under the profiler (`profile_loss.device_profile`, device
@@ -20,10 +25,10 @@ events, over REPLAYS x unroll), the step's own kernels a step and any
 library kernel they replaced still in the step (`step_kernels`), and the
 kernels a replay launches outside the step's (`round_kernels`).
 ``plain`` runs the loop eagerly on the card instead (`device_loop._plain`,
-the plain version); its graph keys are then None.
+the plain version, nothing compiled); its graph keys are then None.
 
 Usage: python -m warp_rnnt_tpu_torch.benchmarks.bench_decode [N] [T] [V]
-           [beam] [--unroll U ...] [--plain]
+           [beam] [--unroll U ...] [--eager | --plain]
 Prints one JSON line for each unroll.  Needs a CUDA device; the CLI turns
 TF32 off in cuBLAS and cuDNN, as `chip_smoke.py` does.
 """
@@ -39,13 +44,16 @@ import torch
 from warp_rnnt_tpu_torch.benchmarks import timing
 from warp_rnnt_tpu_torch.benchmarks.profile_loss import device_profile
 from warp_rnnt_tpu_torch.models import beam_decode, greedy_decode, init_model
+from warp_rnnt_tpu_torch.models.beam_search import compiled_beam_decode
 from warp_rnnt_tpu_torch.models.decoding import (
     HOST_READS,
     LAST_GRAPH,
     LOOP_ITERATIONS,
+    compiled_greedy_decode,
 )
 from warp_rnnt_tpu_torch.utils import device_loop
 
+CALLS = 10  # decodes timed, each by CUDA events around it
 PROFILED = 1  # decodes under the profiler
 TOP = 6  # kernels listed by device time a decode
 REPLAYS = 20  # graph replays timed for the device us a step
@@ -224,16 +232,40 @@ def step_bound(model, samples, rows, k=None, L=0):
     return _bound(sum(b for b, _ in work), sum(o for _, o in work))
 
 
-def decode_numbers(name, fn, feats, N, plain=False):
-    """{name_ms, name_utts_per_s, name_iterations, name_host_reads,
-    name_peak_mb, name_kernels, name_busy_ms, name_idle_share, name_top:
-    the TOP kernels by device ms a decode, [ms, launches, name], and
+def call_ms(fn, calls=CALLS):
+    """[ms] of ``calls`` calls of ``fn()``, CUDA events around each, read
+    after it: the host's path and its reads included, the device idle
+    before each call (a decode ends by reading its loop's status)."""
+    out = []
+    for _ in range(calls):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        out.append(start.elapsed_time(end))
+    return out
+
+
+def median(xs):
+    s = sorted(xs)
+    return (s[(len(s) - 1) // 2] + s[len(s) // 2]) / 2
+
+
+def decode_numbers(name, fn, feats, N, plain=False, eager=None):
+    """{name_ms (the median of `call_ms`), name_ms_range [least, largest],
+    name_utts_per_s, name_iterations, name_host_reads, name_peak_mb,
+    name_kernels, name_busy_ms, name_idle_share, name_top: the TOP
+    kernels by device ms a decode, [ms, launches, name], and
     name_capture_ms, name_graph_pool_mb, name_graph_kernels_per_step,
     name_graph_step_us (None when ``plain``)} of ``fn(feats)``, a decoder
     whose loop counts in ``LOOP_ITERATIONS[name]`` and
-    ``HOST_READS[name]``."""
+    ``HOST_READS[name]``; with ``eager``, a second decoder, its
+    name_eager_ms and name_eager_ms_range, timed in turns with ``fn``
+    (eager, fn, fn, eager, `CALLS` / 2 calls each)."""
     device_loop.clear()  # so the warm-up captures, and its capture ms counts
-    fn(feats)  # warm up (cuBLAS and cuDNN handles, allocator, the graph)
+    fn(feats)  # warm up (cuBLAS and cuDNN handles, allocator, the graphs)
     torch.cuda.synchronize()
     LOOP_ITERATIONS[name] = HOST_READS[name] = 0
     torch.cuda.reset_peak_memory_stats()
@@ -241,11 +273,21 @@ def decode_numbers(name, fn, feats, N, plain=False):
     torch.cuda.synchronize()
     iterations, reads = LOOP_ITERATIONS[name], HOST_READS[name]
     peak = torch.cuda.max_memory_allocated()
-    ms = timing.bench_scalar_chain(fn, (feats,), 4, warmup=0, repeats=1,
-                                   reduce_out=lambda out: out[1].sum())
+    if eager is None:
+        times = {"": call_ms(lambda: fn(feats))}
+    else:
+        eager(feats)
+        times = {"": [], "_eager": []}
+        for tag, f in (("_eager", eager), ("", fn), ("", fn),
+                       ("_eager", eager)):
+            times[tag] += call_ms(lambda: f(feats), CALLS // 2)
+    ms = median(times[""])
     prof = device_profile(lambda: fn(feats), PROFILED, cpu=False)
     graph = (dict.fromkeys(GRAPH_KEYS) if plain else graph_numbers(name))
-    return {f"{name}_ms": ms, f"{name}_utts_per_s": N / (ms / 1e3),
+    return {**{f"{name}{tag}_ms": median(t) for tag, t in times.items()},
+            **{f"{name}{tag}_ms_range": [min(t), max(t)]
+               for tag, t in times.items()},
+            f"{name}_utts_per_s": N / (ms / 1e3),
             f"{name}_iterations": iterations,
             f"{name}_host_reads": reads,
             f"{name}_peak_mb": peak / 2**20,
@@ -258,15 +300,17 @@ def decode_numbers(name, fn, feats, N, plain=False):
 
 
 def bench_decode(N=32, T=400, V=1024, beam=4, feat_dim=80, hidden=512,
-                 max_length=100, model=None, unroll=None, plain=False):
+                 max_length=100, model=None, unroll=None, plain=False,
+                 eager=False):
     """The decoders' numbers as a dict: the JAX benchmark's keys (N, T, V,
     hidden, beam, greedy_ms, greedy_utts_per_s, beam_ms, beam_utts_per_s),
-    then the loop's (unroll, plain), per decoder `decode_numbers`' others
-    and `step_bound` (name_step_bound_us, name_step_bound_by), and
-    device.  The model is `init_model`'s seed 0 (as the JAX
-    benchmark's key 0) unless ``model`` is given; the features are normal
-    from seed 1, every frame valid.  ``unroll`` and ``plain`` as
-    `loop_mode`."""
+    then the loop's (unroll, plain, compiled), per decoder
+    `decode_numbers`' others and `step_bound` (name_step_bound_us,
+    name_step_bound_by), and device.  The model is `init_model`'s seed 0
+    (as the JAX benchmark's key 0) unless ``model`` is given; the features
+    are normal from seed 1, every frame valid.  ``unroll`` and ``plain``
+    as `loop_mode`; the decoders compiled unless ``eager`` or ``plain``,
+    the eager ones beside them."""
     if not torch.cuda.is_available():
         raise SystemExit("bench_decode needs a CUDA device")
     if model is None:
@@ -284,12 +328,26 @@ def bench_decode(N=32, T=400, V=1024, beam=4, feat_dim=80, hidden=512,
         return beam_decode(model, f, xn, max_length=max_length,
                            beam_size=beam)
 
+    def compiled_greedy(f):
+        return compiled_greedy_decode(model, f, xn, max_length)
+
+    def compiled_beam(f):
+        return compiled_beam_decode(model, f, xn, max_length,
+                                    beam_size=beam)
+
+    compiled = not (eager or plain)
     r = {"N": N, "T": T, "V": V, "hidden": hidden, "beam": beam,
          "max_length": max_length}
     with loop_mode(plain, unroll):
-        r.update(unroll=device_loop.UNROLL, plain=plain)
-        g = decode_numbers("greedy", greedy, feats, N, plain)
-        b = decode_numbers("beam", beam_fn, feats, N, plain)
+        r.update(unroll=device_loop.UNROLL, plain=plain, compiled=compiled)
+        if compiled:
+            g = decode_numbers("greedy", compiled_greedy, feats, N,
+                               eager=greedy)
+            b = decode_numbers("beam", compiled_beam, feats, N,
+                               eager=beam_fn)
+        else:
+            g = decode_numbers("greedy", greedy, feats, N, plain)
+            b = decode_numbers("beam", beam_fn, feats, N, plain)
     r.update({k: g[k] for k in ("greedy_ms", "greedy_utts_per_s")})
     r.update({k: b[k] for k in ("beam_ms", "beam_utts_per_s")})
     r.update(g)
@@ -307,13 +365,16 @@ def main(argv=None):
     parser.add_argument("cfg", nargs="*", type=int,
                         help="N T V beam (default 32 400 1024 4)")
     parser.add_argument("--unroll", nargs="+", type=int, default=[None])
-    parser.add_argument("--plain", action="store_true")
+    mode = parser.add_mutually_exclusive_group()
+    mode.add_argument("--eager", action="store_true")
+    mode.add_argument("--plain", action="store_true")
     args = parser.parse_args(argv)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     for unroll in args.unroll:
         print(json.dumps(bench_decode(*(args.cfg or [32, 400, 1024, 4]),
-                                      unroll=unroll, plain=args.plain)),
+                                      unroll=unroll, plain=args.plain,
+                                      eager=args.eager)),
               flush=True)
 
 

@@ -4,19 +4,21 @@
 The per-chunk latency of `models.stream_step` (the chunked encoder and the
 incremental greedy or beam decode, `models/streaming.py`): with the
 encoder's 4-frame lookahead it bounds an online user's lag.  As JAX times
-its jitted `stream_step`, the chunk runs compiled by default: the
-encoder's step replays its CUDA graph (`streaming.encoder_step`) and the
-drain its rounds' graphs; ``--eager`` runs the encoder's step eagerly
-(the drain still on its graphs), ``--plain`` both eagerly.  The chunk
+its jitted `stream_step`, the chunk runs compiled by default: one CUDA
+graph a shape (`streaming.chunk_step`: the encoder's step and the drain's
+while node), one replay and one host read a chunk; ``--eager`` runs the
+chunk eagerly (`compiled_step._plain`: the drain on its own while node),
+``--plain`` the loop too.  The chunk
 chain feeds the same chunk again and again through the session state, so
 each step needs the last one's state (the token buffer fills up to
 max_length, after which steps only consume frames: the steady serving
 regime); the chunk is an argument of the step, not a constant of it.  The
 ms is the two-point marginal of `timing.bench_grad_chain` on CUDA events.
 Beside it, per chunk: the decoder's loop iterations (JAX's trip count)
-and host reads of the loop's flag, the graph replays (the encoder's and
-the drain's while launch, one a drain), the encoder step's host µs, the peak device
-memory, the encoder graphs' capture ms and pool MiB by shape, and under the
+and host reads of the loop's flag, the graph replays (the chunk's, or
+where it runs eagerly the drain's while launch, one a drain), the peak
+device memory, the chunk graphs' capture ms and pool MiB by shape, and
+under the
 profiler (`profile_loss.device_profile`, device activity only, PROFILED
 chunks) the kernels, the device's busy ms and its idle share; and the
 decode loop's graph, as `bench_decode.graph_numbers` (None when
@@ -31,7 +33,6 @@ from __future__ import annotations
 
 import argparse
 import json
-import time
 
 import torch
 
@@ -42,44 +43,29 @@ from warp_rnnt_tpu_torch.benchmarks.bench_decode import (
     loop_mode,
 )
 from warp_rnnt_tpu_torch.benchmarks.profile_loss import device_profile
-from warp_rnnt_tpu_torch.models import (init_model, stream_init, stream_step,
-                                        streaming)
+from warp_rnnt_tpu_torch.models import init_model, stream_init, stream_step
 from warp_rnnt_tpu_torch.models.decoding import HOST_READS, LOOP_ITERATIONS
 from warp_rnnt_tpu_torch.utils import compiled_step, device_loop
 
 PROFILED = 10  # chunks under the profiler
 
 
-def encoder_graphs():
-    """{"step N=.. C=.. H=..": {capture_ms, pool_mib}} of the cached graphs
-    of the encoder's chunk step (`streaming.encoder_step`; "finish" for
-    `stream_finish`'s, " xn" where ``xn`` is given), by their (N, C, H)
-    encoder frames."""
+def chunk_graphs():
+    """{"step N=.. C=..": {capture_ms, pool_mib}} of the cached graphs of
+    the whole chunk (`streaming.chunk_step`; "finish" for
+    `stream_finish`'s, " beam" for a beam session's, " xn" where ``xn`` is
+    given), by N and the chunk's frames."""
     out = {}
     for e in compiled_step.entries():
         key = e.key[0]
-        if isinstance(key, tuple) and key[0] == "streaming.encoder_step":
-            finish, with_xn = key[3:]
-            N, C, H = e.outputs[-3].shape
-            tag = f"{'finish' if finish else 'step'} N={N} C={C} H={H}"
-            out[tag + " xn" * with_xn] = {"capture_ms": e.capture_ms,
-                                          "pool_mib": e.pool_bytes / 2**20}
+        if isinstance(key, tuple) and key[0] == "streaming.chunk_step":
+            spec, beam, finish, with_xn = key[3:7]
+            N = spec[-9 if beam else -7][0][0]  # the frame pointer t (N,)
+            C = "" if finish else f" C={e.args[1].shape[1]}"
+            tag = f"{'finish' if finish else 'step'} N={N}{C}"
+            out[tag + " beam" * beam + " xn" * with_xn] = {
+                "capture_ms": e.capture_ms, "pool_mib": e.pool_bytes / 2**20}
     return out
-
-
-@torch.inference_mode()
-def encoder_host_us(model, state, chunk, calls=10):
-    """Host µs of a chunk's encoder step (`streaming._encode`: eager, or the
-    compiled step's key, copies, replay and clones), ``calls`` in a row
-    without a synchronize, so the host never waits for the device."""
-    streaming._encode(model, state["enc"], chunk, None, False)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(calls):
-        streaming._encode(model, state["enc"], chunk, None, False)
-    t1 = time.perf_counter()
-    torch.cuda.synchronize()
-    return (t1 - t0) / calls * 1e6
 
 
 def bench_streaming(N=8, C=16, V=1024, beam=0, feat_dim=80, hidden=512,
@@ -89,13 +75,12 @@ def bench_streaming(N=8, C=16, V=1024, beam=0, feat_dim=80, hidden=512,
     chunk_frames, V, hidden, beam, chunk_ms, frames_per_s,
     ms_per_frame_per_stream), then unroll, plain, compiled,
     iterations_per_chunk, host_reads_per_chunk, graph_replays_per_chunk
-    ({encoder, drain}), encoder_graphs (`encoder_graphs`),
-    encoder_host_us (`encoder_host_us`), peak_mb,
+    ({chunk, drain}), chunk_graphs (`chunk_graphs`), peak_mb,
     kernels_per_chunk, busy_ms, idle_share, `bench_decode.graph_numbers`'
     keys and device.  The model is `init_model`'s seed 0 unless ``model``
     is given; the chunk is normal from seed 1.  ``unroll`` and ``plain`` as
-    `bench_decode.loop_mode`; ``eager`` or ``plain`` runs the encoder's
-    step eagerly (`compiled_step._plain`)."""
+    `bench_decode.loop_mode`; ``eager`` or ``plain`` runs the chunk
+    eagerly (`compiled_step._plain`)."""
     if not torch.cuda.is_available():
         raise SystemExit("bench_streaming needs a CUDA device")
     if model is None:
@@ -138,7 +123,6 @@ def bench_streaming(N=8, C=16, V=1024, beam=0, feat_dim=80, hidden=512,
             box[0] = stream_step(model, box[0], chunk)
 
         prof = device_profile(one, PROFILED, cpu=False)
-        host_us = encoder_host_us(model, box[0], chunk)
         graph = (dict.fromkeys(GRAPH_KEYS) if plain
                  else graph_numbers(loop))
     return {
@@ -149,11 +133,11 @@ def bench_streaming(N=8, C=16, V=1024, beam=0, feat_dim=80, hidden=512,
         "unroll": unroll, "plain": plain, "compiled": compiled,
         "iterations_per_chunk": iterations,
         "host_reads_per_chunk": reads,
-        # a drain is one launch of its while node and one host read
-        "graph_replays_per_chunk": {"encoder": replays,
-                                    "drain": 0 if plain else reads},
-        "encoder_graphs": encoder_graphs(),
-        "encoder_host_us": host_us,
+        # compiled: the chunk's one replay holds the drain's while node;
+        # eager: a drain is one launch of its while node and one host read
+        "graph_replays_per_chunk": {
+            "chunk": replays, "drain": 0 if plain or compiled else reads},
+        "chunk_graphs": chunk_graphs(),
         "peak_mb": peak / 2**20,
         "kernels_per_chunk": prof["kernels_per_call"],
         "busy_ms": prof["busy_ms"],

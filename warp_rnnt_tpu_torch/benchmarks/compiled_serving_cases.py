@@ -5,13 +5,14 @@
 both sides run eagerly, which the CPU tests use to run this code.  Each
 check raises an AssertionError on a failure.
 
-  * `check_stream_compiled`: a session whose encoder step replays its
-    CUDA graph (`streaming.encoder_step`) against the same session run
-    eagerly (`compiled_step._plain`, the drain on its graphs in both),
-    chunk by chunk: the whole state (encoder carry, decoder state) after
-    every `stream_step`, then `stream_finish`'s tokens, lengths and beam
-    scores, bit for bit (``torch.equal``); each chunk replays the encoder's
-    graph once.
+  * `check_stream_compiled`: a session whose chunks replay their CUDA
+    graphs (`streaming.chunk_step`: the encoder's step and the drain's
+    while node in one graph) against the same session run eagerly
+    (`compiled_step._plain`, the drain on its own while node), chunk by
+    chunk: the whole state (encoder carry, decoder state) after every
+    `stream_step`, then `stream_finish`'s tokens, lengths and beam
+    scores, bit for bit (``torch.equal``); each chunk replays its graph
+    once.
   * `check_interleaved`: two sessions of one (N, C) on one model, fed in
     turns, each equal to its own one-shot decode (tokens, lengths, beam
     scores), bit for bit.
@@ -74,7 +75,7 @@ def _chunks(T, C):
 def check_stream_compiled(model, feats, xn, max_length, beam, C):
     """`check_stream_compiled` of the module docstring, chunks of C (the
     last one ragged where C does not divide T).  Returns {"chunks",
-    "encoder_replays" (a stream_step's, each chunk), "encoder_graphs"
+    "chunk_replays" (a stream_step's, each chunk), "chunk_graphs"
     (captured meanwhile)}."""
     N, T, _ = feats.shape
     tag = f"compiled stream beam={beam} C={C}"
@@ -96,9 +97,9 @@ def check_stream_compiled(model, feats, xn, max_length, beam, C):
     _equal(f"{tag} finish", got, want)
     on_card = feats.is_cuda
     if on_card and replays != [1] * len(replays):
-        raise AssertionError(f"{tag}: encoder replays a chunk {replays}")
-    return {"chunks": len(replays), "encoder_replays": replays,
-            "encoder_graphs": cs.STATS["captures"] - captures}
+        raise AssertionError(f"{tag}: replays a chunk {replays}")
+    return {"chunks": len(replays), "chunk_replays": replays,
+            "chunk_graphs": cs.STATS["captures"] - captures}
 
 
 def one_shot(model, feats, xn, max_length, beam):

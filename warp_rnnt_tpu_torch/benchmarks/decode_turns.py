@@ -20,8 +20,13 @@ and R readings (default 3) of:
     drain's last graph (`bench_decode.graph_numbers`: device us a step
     over replays of a finished state, a replay's profile over its
     unroll; `round_kernels` where the tree has it);
-  * "decode_ms": `bench_decode.decode_numbers`' two-point marginal of a
-    whole decode (encoder included).
+  * "decode_ms": `CALLS` whole decodes (encoder included) on the public
+    eager entry (`greedy_decode`, `beam_decode`), each timed by CUDA
+    events around it (`call_ms`: the host's path and its read included),
+    and "compiled_decode_ms" the same of the compiled decode
+    (`decoding.compiled_greedy_decode`, `beam_search.compiled_beam_decode`;
+    None in a tree without it), in turns: eager, compiled, compiled,
+    eager, `CALLS` / 2 calls each.
 Only entry points that older trees have are read, so a copy of this file
 placed in an older tree's `benchmarks/` and run there (that tree's root
 as the working directory) times that tree: parent, change, change,
@@ -38,6 +43,41 @@ import json
 import torch
 
 N, T, V, BEAM, F, HIDDEN, MAX_LENGTH = 32, 400, 1024, 4, 80, 512, 100
+CALLS = 10  # decodes timed a reading
+
+
+def call_ms(fn, calls):
+    """[ms] of ``calls`` calls of ``fn()``, CUDA events around each, read
+    after it (a decode ends by reading its loop's status, so the device is
+    idle before each call)."""
+    out = []
+    for _ in range(calls):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        out.append(start.elapsed_time(end))
+    return out
+
+
+def decode_readings(eager, compiled):
+    """{"decode_ms": [..], "compiled_decode_ms": [..] or None} of the
+    decoders ``eager`` and ``compiled`` (None where the tree has none),
+    each called once first, in turns (module docstring)."""
+    out = {"decode_ms": [], "compiled_decode_ms": None}
+    order = (eager,) if compiled is None else (eager, compiled, compiled,
+                                               eager)
+    calls = CALLS if compiled is None else CALLS // 2
+    for fn in {id(f): f for f in order}.values():
+        fn()
+    if compiled is not None:
+        out["compiled_decode_ms"] = []
+    for fn in order:
+        key = "decode_ms" if fn is eager else "compiled_decode_ms"
+        out[key] += call_ms(fn, calls)
+    return out
 
 
 @contextlib.contextmanager
@@ -87,7 +127,8 @@ def launch_ms(entry, state, consts, max_iterations, repeats):
 def readings(repeats):
     """{decoder: {"drain_ms": [..], "host_reads": [..], "launch_ms": [..]
     or None, "step_us": [..], "kernels_a_step": [..], "kernel_us": {..},
-    "round_kernels": {..}, "decode_ms": [..]}}."""
+    "round_kernels": {..}, "decode_ms": [..], "compiled_decode_ms": [..]
+    or None}}."""
     from warp_rnnt_tpu_torch.benchmarks import bench_decode as bd
     from warp_rnnt_tpu_torch.models import (
         beam_decode,
@@ -112,13 +153,20 @@ def readings(repeats):
             model, beam_search.beam_state_init(model, N, BEAM, MAX_LENGTH),
             enc, 0, xn)}
     decodes = {
-        "greedy": lambda f: greedy_decode(model, f, xn, MAX_LENGTH),
-        "beam": lambda f: beam_decode(model, f, xn, MAX_LENGTH,
-                                      beam_size=BEAM)}
+        "greedy": lambda: greedy_decode(model, feats, xn, MAX_LENGTH),
+        "beam": lambda: beam_decode(model, feats, xn, MAX_LENGTH,
+                                    beam_size=BEAM)}
+    greedy_c = getattr(decoding, "compiled_greedy_decode", None)
+    beam_c = getattr(beam_search, "compiled_beam_decode", None)
+    compiled = {
+        "greedy": greedy_c and (lambda: greedy_c(model, feats, xn,
+                                                 MAX_LENGTH)),
+        "beam": beam_c and (lambda: beam_c(model, feats, xn, MAX_LENGTH,
+                                           beam_size=BEAM))}
     out = {}
     for name, drain in drains.items():
         r = out[name] = {"drain_ms": [], "host_reads": [], "step_us": [],
-                         "kernels_a_step": [], "decode_ms": []}
+                         "kernels_a_step": []}
         with recorded_loops() as seen:
             drain()  # captures the drain's graphs
         for _ in range(repeats):
@@ -137,9 +185,7 @@ def readings(repeats):
         r["launch_ms"] = launch_ms(*seen[-1], repeats)[0]
         r["kernel_us"] = g["graph_step_kernel_us"]
         r["round_kernels"] = g.get("graph_round_kernels")
-        for _ in range(repeats):
-            r["decode_ms"].append(bd.decode_numbers(
-                name, decodes[name], feats, N)[f"{name}_ms"])
+        r.update(decode_readings(decodes[name], compiled[name]))
     return out
 
 

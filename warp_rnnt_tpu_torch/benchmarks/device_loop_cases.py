@@ -17,8 +17,10 @@ on a failure and returns what it measured.
   * `check_continue`: ``loop_continue_kernel`` against its plain version,
     the eager loop's stop rule (`device_loop._continues`), on a probe loop
     whose body counts every step it runs (so the state shows how many
-    rounds the node ran): steps, count and cond equal the rule's at
-    unroll 1, 4 and 16, the bound above, at and below the trip count.
+    rounds the node ran): steps, count and cond equal the rule's, and the
+    rounds the kernel counted on the card (`_Entry.rounds`) the steps
+    over the unroll, at unroll 1, 4 and 16, the bound above, at and below
+    the trip count.
   * `check_drains`: greedy, beam and streaming sessions on the step's
     kernels through the while node against `_plain()`, the whole final
     state bit for bit, the same trip counts, one host read a drain.
@@ -209,14 +211,15 @@ def check_continue(device="cuda"):
                 go, count = entry.read()
                 steps = int(entry.state[1])
                 want = _continue_plain(trips, bound, unroll)
-                got = (steps, count, go)
+                want += (want[0] // unroll,)  # the rounds run
+                got = (steps, count, go, entry.rounds)
                 err = max(err, *(abs(a - b) for a, b in zip(got, want)))
                 cases += 1
                 if got != want:
                     raise AssertionError(
                         f"loop_continue: unroll {unroll}, trips {trips},"
-                        f" bound {bound}: (steps, count, cond) {got} on the"
-                        f" card, {want} by the rule")
+                        f" bound {bound}: (steps, count, cond, rounds)"
+                        f" {got} on the card, {want} by the rule")
     return {"cases": cases, "max_abs_err": float(err),
             "launches": dl.LAUNCHES["loop_continue_kernel"] - launches}
 

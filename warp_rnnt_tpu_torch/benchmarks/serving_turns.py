@@ -7,7 +7,9 @@ comparing two trees in turns.
 Prints one JSON line a measurement, each with the tag:
   * "stream": `bench_streaming.bench_streaming` at its defaults (N=8,
     C=16, V=1024, hidden 512), greedy and beam 4, on one model (`init_model`
-    seed 0) for the whole process.
+    seed 0) for the whole process (a tree's keys: "chunk_graphs" where
+    the whole chunk is compiled, "encoder_graphs" and "encoder_host_us"
+    where the encoder's step alone is).
   * "joint": `bench_joint.bench_joint` at its defaults (N=16, T=150, U=20,
     V=5000, H=256, full lengths) in "log_softmax+gather", "from_logits",
     "fused" and "auto".
@@ -35,8 +37,8 @@ PARTS = ("stream", "joint")
 # the keys kept from each reading
 STREAM_KEYS = ("chunk_ms", "compiled", "iterations_per_chunk",
                "host_reads_per_chunk", "graph_replays_per_chunk",
-               "encoder_graphs", "encoder_host_us", "kernels_per_chunk",
-               "busy_ms", "idle_share", "peak_mb")
+               "chunk_graphs", "encoder_graphs", "encoder_host_us",
+               "kernels_per_chunk", "busy_ms", "idle_share", "peak_mb")
 JOINT_KEYS = ("step_ms", "compiled", "capture_ms", "pool_mib",
               "kernels_per_call", "busy_ms", "idle_share", "profile_complete",
               "peak_hbm_mb", "route", "power_limit")

@@ -36,7 +36,9 @@ The loop is `utils.device_loop.while_loop` on JAX's ``cond``, through
 `decoding.run_drain` as greedy's (on the card one CUDA graph while node
 over rounds of masked steps; a surplus step re-sorts nothing, since the
 mask is the global ``cond``), its trip count and host reads added to
-`decoding.LOOP_ITERATIONS["beam"]` and `decoding.HOST_READS["beam"]`.  On
+`decoding.LOOP_ITERATIONS["beam"]` and `decoding.HOST_READS["beam"]`
+(`compiled_beam_decode`: the whole decode one CUDA graph a shape, as
+`decoding.compiled_greedy_decode`).  On
 `ops.decode_step` the loop is folded (`decoding.folds`):
 `decode_beam_select` computes ``cond`` from the step's inputs, writes the
 beam state through where it is false, with no emission and each row its
@@ -50,6 +52,7 @@ from __future__ import annotations
 import torch
 
 from warp_rnnt_tpu_torch.models.decoding import (
+    compiled_key,
     decode_consts,
     first_output,
     folds,
@@ -66,6 +69,9 @@ from warp_rnnt_tpu_torch.ops.decode_step import (  # noqa: F401
     hash_step as _hash_step,
     top_k_small as _top_k_small,
 )
+from warp_rnnt_tpu_torch.utils.compiled_step import compiled_step
+
+COMPILED = "beam_search.compiled_beam_decode"  # its graphs' key name
 
 
 @torch.inference_mode()
@@ -93,6 +99,29 @@ def beam_decode(model, feats, xn, max_length: int, beam_size: int = 4,
     state = beam_drain(model, state, enc, 0, xn,
                        max_symbols_per_step=max_symbols_per_step, blank=blank)
     return beam_best(state)
+
+
+def compiled_beam(model, max_length: int, beam_size: int = 4,
+                  max_symbols_per_step: int = 4, blank: int = 0):
+    """`beam_decode` of these arguments as a `CompiledStep`
+    ``step(feats, xn (N,) int32) -> (tokens, lengths, scores)``."""
+    return compiled_step(
+        lambda f, n: beam_decode(model, f, n, max_length, beam_size,
+                                 max_symbols_per_step, blank),
+        key=compiled_key(COMPILED, model, max_length, beam_size,
+                         max_symbols_per_step, blank))
+
+
+@torch.inference_mode()
+def compiled_beam_decode(model, feats, xn, max_length: int,
+                         beam_size: int = 4, max_symbols_per_step: int = 4,
+                         blank: int = 0):
+    """`beam_decode` compiled once per shape, `beam_best` inside the graph
+    (as `decoding.compiled_greedy_decode`): the same arguments and
+    results, the results the graph's static buffers on the card."""
+    xn = torch.as_tensor(xn, dtype=torch.int32, device=feats.device)
+    return compiled_beam(model, max_length, beam_size, max_symbols_per_step,
+                         blank)(feats, xn)
 
 
 def beam_best(state):

@@ -52,6 +52,20 @@ checks' reference decode (`benchmarks/decode_step_cases.py`).
 The port's modules hold their parameters, so the functions take the model
 and no ``params``; the decode runs under ``torch.inference_mode()`` on the
 model's device.
+
+`compiled_greedy_decode` is `greedy_decode` compiled once per shape
+(`utils.compiled_step`), as JAX's benchmark jits `greedy_decode` whole: on
+the card the first call of a shape captures the encoder, the state's
+init, the step's invariants and the drain's while node into one CUDA
+graph, and each call is one replay and one host read (the loop's status,
+after the replay).  While a compiled step is traced, `decode_consts`
+makes the casts inside the graph, as JAX's jitted function does, so a
+replay reads the weights as they stand (an in-place update, a compiled
+train step's replay, is seen), and the drains leave the counters alone:
+the warm-up's drain is the compile's, and each replay adds its own trip
+count and read.  Its outputs are the graph's static buffers (valid until
+the next call of that shape).  `greedy_decode` stays the eager entry: it
+captures no graph per utterance shape.
 """
 
 from __future__ import annotations
@@ -63,6 +77,12 @@ import torch
 
 from warp_rnnt_tpu_torch.ops import decode_step
 from warp_rnnt_tpu_torch.ops.decode_step import frame_at  # noqa: F401
+from warp_rnnt_tpu_torch.utils import device_loop
+from warp_rnnt_tpu_torch.utils.compiled_step import (
+    compiled_step,
+    module_key,
+    tracing,
+)
 from warp_rnnt_tpu_torch.utils.device_loop import while_loop
 
 # Loop iterations (JAX's trip count) and the host's reads of the loop's
@@ -72,6 +92,7 @@ from warp_rnnt_tpu_torch.utils.device_loop import while_loop
 LOOP_ITERATIONS = {"greedy": 0, "beam": 0}
 HOST_READS = {"greedy": 0, "beam": 0}
 LAST_GRAPH = {"greedy": None, "beam": None}
+COMPILED = "decoding.compiled_greedy_decode"  # its graphs' key name
 # decode_consts' cache: {model: (key, DecodeConsts)}
 _CONSTS = weakref.WeakKeyDictionary()
 
@@ -128,11 +149,11 @@ def decode_consts(model):
     built each step, made once and kept for the next drain while the
     parameters they read keep their addresses, dtypes, shapes and
     versions (module docstring; parameters that are inference tensors
-    have no version and are read anew each call).  The same values, so
-    the plain step on them gives the state it gave before, bit for
-    bit."""
+    have no version and are read anew each call, as they are while a
+    compiled step is traced).  The same values, so the plain step on them
+    gives the state it gave before, bit for bit."""
     params = _const_params(model)
-    if any(p.is_inference() for p in params):
+    if tracing() or any(p.is_inference() for p in params):
         return _make_consts(model)
     key = _consts_key(model, params)
     hit = _CONSTS.get(model)
@@ -187,27 +208,38 @@ def run_drain(name, model, body, state, enc, p0, frame_bound,
               max_iterations, static, step_consts=(), folded=False):
     """Run decoder ``name``'s ``body`` while a sample has frames left, on
     `while_loop` (``folded``: a body that masks and counts its own steps),
-    and add its trip count and host reads to the counters.
-    The loop's inputs are (`pad_frames(enc)`, frame_bound (N,) int32, p0
-    0-d int32, *``step_consts``); its graphs are keyed by ``name``, the
-    model (the object and its parameters' addresses, dtypes and shapes:
-    what the body closes over), ``folded`` and the ``static`` arguments the
-    body closes over (its ``ops`` among them)."""
+    and add its trip count and host reads to the counters (after each
+    replay where a compiled step captured it; nothing while one is
+    traced).  The loop's inputs are (`pad_frames(enc)`, frame_bound (N,)
+    int32, p0 0-d int32, *``step_consts``); its graphs are keyed by
+    ``name``, the model (the object and its parameters' addresses, dtypes
+    and shapes: what the body closes over), ``folded`` and the ``static``
+    arguments the body closes over (its ``ops`` among them)."""
     dev = enc.device
-    frame_bound = torch.as_tensor(frame_bound, dtype=torch.int32, device=dev)
-    consts = (pad_frames(enc), frame_bound.expand(enc.shape[0]).contiguous(),
-              torch.as_tensor(p0, dtype=torch.int32, device=dev),
-              *step_consts)
-    params = tuple((p.data_ptr(), p.dtype, tuple(p.shape))
-                   for p in (*model.parameters(), *model.buffers()))
-    state, stats = while_loop(_frames_left, body, state, consts,
-                              max_iterations=max_iterations,
-                              key=(name, id(model), params, folded, *static),
-                              folded=folded)
-    LOOP_ITERATIONS[name] += stats.iterations
-    HOST_READS[name] += stats.host_reads
-    LAST_GRAPH[name] = stats.graph
-    return state
+    consts = (pad_frames(enc),
+              _int32(frame_bound, dev).expand(enc.shape[0]).contiguous(),
+              _int32(p0, dev), *step_consts)
+
+    def record(stats):
+        if tracing():
+            return
+        LOOP_ITERATIONS[name] += stats.iterations
+        HOST_READS[name] += stats.host_reads
+        LAST_GRAPH[name] = stats.graph
+
+    return while_loop(_frames_left, body, state, consts,
+                      max_iterations=max_iterations,
+                      key=(name, id(model), module_key(model), folded,
+                           *static),
+                      folded=folded, on_read=record)[0]
+
+
+def _int32(x, dev):
+    """``x`` as an int32 tensor on ``dev``: a Python int by a fill on the
+    device (no copy from the host, which a capture cannot hold)."""
+    if isinstance(x, int):
+        return torch.full((), x, dtype=torch.int32, device=dev)
+    return torch.as_tensor(x, dtype=torch.int32, device=dev)
 
 
 @torch.inference_mode()
@@ -233,6 +265,38 @@ def greedy_decode(model, feats, xn, max_length: int,
     dec = greedy_drain(model, dec, enc, 0, xn,
                        max_symbols_per_step=max_symbols_per_step, blank=blank)
     return dec[6], dec[1]
+
+
+def compiled_key(name, model, *static):
+    """The key of compiled decoder ``name`` (`compiled_greedy_decode`,
+    `beam_search.compiled_beam_decode`): the model (the object, its
+    parameters' and buffers' addresses, dtypes and shapes), the
+    ``static`` arguments, the loop's unroll and whether it folds; the
+    compiled step adds the inputs' shapes."""
+    return (name, id(model), module_key(model), *static, device_loop.UNROLL,
+            folds(decode_step))
+
+
+def compiled_greedy(model, max_length: int, max_symbols_per_step: int = 4,
+                    blank: int = 0):
+    """`greedy_decode` of these arguments as a `CompiledStep`
+    ``step(feats, xn (N,) int32) -> (tokens, lengths)``."""
+    return compiled_step(
+        lambda f, n: greedy_decode(model, f, n, max_length,
+                                   max_symbols_per_step, blank),
+        key=compiled_key(COMPILED, model, max_length, max_symbols_per_step,
+                         blank))
+
+
+@torch.inference_mode()
+def compiled_greedy_decode(model, feats, xn, max_length: int,
+                           max_symbols_per_step: int = 4, blank: int = 0):
+    """`greedy_decode` compiled once per shape (module docstring): the
+    same arguments and results, the results the graph's static buffers on
+    the card."""
+    xn = torch.as_tensor(xn, dtype=torch.int32, device=feats.device)
+    return compiled_greedy(model, max_length, max_symbols_per_step,
+                           blank)(feats, xn)
 
 
 @torch.inference_mode()

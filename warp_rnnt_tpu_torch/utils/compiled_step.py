@@ -19,7 +19,9 @@ loss and gradient.
     into the static buffer before the replay (`STATS["input_copies"]`
     counts those copies).  A failure to capture or replay raises: nothing
     on a CUDA tensor falls back to eager, which runs on the card only
-    inside `_plain()` (the plain version the graphs are held against).
+    inside `_plain()` (the plain version the graphs are held against) or
+    `utils.device_loop._plain()` (a loop run eagerly reads the host each
+    round, which no capture can hold).
 
 The outputs on a CUDA device are the graph's static tensors: they hold the
 last call's values and are overwritten by the next call of the same entry,
@@ -69,7 +71,16 @@ nothing while traced (`tracing()`) and needs static bounds then, as
 under JAX's jit (`functional/compact.py`).  A check that must read
 the host registers itself with `after_replay` while the step is traced
 and runs after each replay: the loss's canary (``WARP_RNNT_DEBUG``) warns
-after the replay of a call that trips it, as an eager call does.
+after the replay of a call that trips it, as an eager call does.  A
+`utils.device_loop.while_loop` inside ``fn`` is captured whole, as one
+conditional while node of the graph: its bound check and its one host
+read are such a check, and the check holds the loop's round (its graph
+and buffers, which the node reads) for as long as the entry lives.  Where
+``fn``'s warm-up ran such a loop, the graph is kept beside its executable
+(``keep_graph``), so that its nodes can be counted by kind
+(`utils.device_loop.body_kinds(entry.graph)`) and a replay's launches
+read from it (`_Entry.loops`: the loops' entries, each with its round's
+kernels and the rounds of its last read).
 
 Not thread-safe: one thread at a time captures and replays.
 """
@@ -83,6 +94,7 @@ import time
 
 import torch
 
+from warp_rnnt_tpu_torch.utils import device_loop as _device_loop
 from warp_rnnt_tpu_torch.utils.device_loop import _flags
 
 CACHE_SIZE = 32  # graphs kept
@@ -94,15 +106,36 @@ _SIDE = {}  # one capture stream a device (cuBLAS keeps a workspace a stream)
 _TRACE = None  # the `_Trace` of the warm-up or capture under way
 
 
+def module_key(module):
+    """(data_ptr, dtype, shape) of each parameter and buffer of ``module``
+    and of its submodules, walked on every call (however a tensor was
+    replaced, its address shows): the part of a key that names a module a
+    step closes over."""
+    out = []
+    _walk(module, out)
+    return tuple(out)
+
+
+def _walk(module, out):
+    for tensors in (module._parameters, module._buffers):
+        for t in tensors.values():
+            if t is not None:
+                out.append((t.data_ptr(), t.dtype, t.shape))
+    for child in module._modules.values():
+        if child is not None:
+            _walk(child, out)
+
+
 class _Trace:
     """What a warm-up or capture of ``fn`` records: the donated buffers
-    not yet taken, as (data_ptr, bytes), and the host checks to run after
-    each replay."""
+    not yet taken, as (data_ptr, bytes), the host checks to run after
+    each replay, and the device loops' entries it ran (`note_loop`)."""
 
     def __init__(self, donated):
         self.donated = [(x.data_ptr(), x.numel() * x.element_size())
                         for x in donated]
         self.checks = []
+        self.loops = []
 
 
 @contextlib.contextmanager
@@ -138,6 +171,13 @@ def take_donated(x) -> bool:
     return True
 
 
+def note_loop(entry):
+    """Record that the ``fn`` being traced, if any, ran the device loop of
+    `utils.device_loop` entry ``entry``."""
+    if _TRACE is not None:
+        _TRACE.loops.append(entry)
+
+
 def after_replay(check):
     """Run the host callable ``check`` after each replay of the graph being
     captured (a warm-up's checks are dropped).  For a check that reads
@@ -150,13 +190,15 @@ def after_replay(check):
 
 class _Entry:
     """One captured step: its graph, its static arguments and outputs, the
-    checks to run after a replay, and what it cost to make (host ms of the
+    checks to run after a replay, the device loops' entries the graph
+    holds as while nodes, and what it cost to make (host ms of the
     warm-up and capture; bytes the graph's private pool reserved)."""
 
-    def __init__(self, key, graph, args, outputs, checks, fn, capture_ms,
-                 pool_bytes):
+    def __init__(self, key, graph, args, outputs, checks, loops, fn,
+                 capture_ms, pool_bytes):
         self.key, self.graph = key, graph
         self.args, self.outputs, self.checks = args, outputs, checks
+        self.loops = loops
         self.fn = fn  # kept alive: what the key names stays at its address
         self.capture_ms, self.pool_bytes = capture_ms, pool_bytes
 
@@ -242,7 +284,8 @@ def _capture(full, fn, args, donate, state):
     cur = torch.cuda.current_stream(dev)
     with _undone(state):  # copied aside and restored on the caller's stream
         side.wait_stream(cur)
-        with torch.cuda.stream(side), _tracing([static[i] for i in donate]):
+        with torch.cuda.stream(side), _tracing(
+                [static[i] for i in donate]) as warm:
             _outputs(fn(*static))  # the warm-up, outside the capture
         cur.wait_stream(side)
     # what `torch.cuda.graph` does on entry, done first so the reading
@@ -251,17 +294,20 @@ def _capture(full, fn, args, donate, state):
     gc.collect()
     torch.cuda.empty_cache()
     reserved = torch.cuda.memory_reserved(dev)
-    graph = torch.cuda.CUDAGraph()
+    keep = bool(warm.loops)  # the graph will hold a while node
+    graph = torch.cuda.CUDAGraph(keep_graph=keep)
     try:
         with _tracing([static[i] for i in donate]) as trace:
             with torch.cuda.graph(graph, stream=side):
                 outs = _donate(_outputs(fn(*static)), static, donate)
+        if keep:
+            graph.instantiate()
     except BaseException:
         del _SIDE[dev]  # the next capture starts on a fresh stream
         raise
     pool = torch.cuda.memory_reserved(dev) - reserved
     STATS["captures"] += 1
-    return _Entry(full, graph, static, outs, trace.checks, fn,
+    return _Entry(full, graph, static, outs, trace.checks, trace.loops, fn,
                   (time.perf_counter() - t0) * 1e3, pool)
 
 
@@ -293,7 +339,7 @@ class CompiledStep:
             devices = sorted({str(x.device) for x in args})
             raise ValueError("a compiled step's arguments must be on one"
                              f" device, got {devices}")
-        if dev.type != "cuda" or _EAGER_ON_CARD:
+        if runs_eagerly(dev):
             self.entry = None
             return _outputs(self.fn(*args))
         full = self._cache_key(args)
@@ -326,6 +372,14 @@ class CompiledStep:
         for full in [k for k in _CACHE if k[:2] == (self.key, self.donate)]:
             del _CACHE[full]
         self.entry = None
+
+
+def runs_eagerly(device) -> bool:
+    """True where a compiled step's call on ``device`` runs ``fn`` eagerly
+    (the CPU; on the card inside `_plain()` or
+    `utils.device_loop._plain()`), False where it replays a graph."""
+    return (torch.device(device).type != "cuda" or _EAGER_ON_CARD
+            or _device_loop._EAGER_ON_CARD)
 
 
 def compiled_step(fn, *, key, donate_argnums=(), state=None):

@@ -45,15 +45,33 @@ and the iteration count into one two-int status on the device.
     `torch.cuda.CUDAGraph` (ending with ``copy_`` of the new state into
     the static buffers and the status), and that round becomes the body
     of one CUDA graph conditional while node (`csrc/device_loop.cu`):
-    after each round ``loop_continue_kernel`` applies the same rule as
-    `_continues` on the device and sets the node's condition.  A loop is
-    one graph launch, with no host read between its rounds, and one read
-    of the status after it, for the bound check and `LoopStats`.  The
+    after each round ``loop_continue_kernel`` counts the round in the
+    status's third int, applies the same rule as `_continues` on the
+    device and sets the node's condition.  A loop is one graph launch,
+    with no host read between its rounds, and one read of the status after
+    it, for the bound check, `LoopStats` and the rounds it ran
+    (`_Entry.rounds`).  The
     round may hold only the node kinds a conditional body takes
     (`BODY_KINDS`); a round with any other kind, and a failure to capture,
     build or launch, raises: nothing on a CUDA tensor falls back to the
     eager loop, which runs on the card only inside `_plain()` (the tests'
     and `chip_smoke.py`'s plain version).
+  * Where the current stream is capturing a CUDA graph (a compiled step's
+    capture, `utils.compiled_step`: a whole decode or streaming chunk, as
+    JAX jits the whole function around its ``lax.while_loop``), the same
+    while node becomes a node of that graph (`csrc/device_loop.cu`
+    `device_loop_capture`): the loop's inputs are copied into the round's
+    static buffers and its final state cloned out of them inside the
+    capture, so each replay of the outer graph runs the whole loop, and
+    the one host read of the status, with the bound check, runs after
+    each replay (`compiled_step.after_replay`).  The round's entry must
+    be cached already: the compiled step's warm-up, which runs before its
+    capture (a capture cannot nest), captured it; a missing entry
+    raises.  Both the warm-up's loop and the captured one tell the
+    compiled step which entry they ran (`traced_loop`), so that it keeps
+    its graph where it holds a while node, and a replay's launches can be
+    counted from the graphs (`kernel_names`, `_Entry.round_kernels`,
+    `_Entry.rounds`).
 
 Graphs are cached, least recently used first out past `CACHE_SIZE`, by
 the caller's ``key`` (which must name what the body closes over: its model
@@ -65,13 +83,20 @@ TF32 and reduced-precision flags of cuBLAS and cuDNN, which change the
 products' bits (`cache_key`).  An entry holds ``cond`` and ``body``, and so
 whatever they close over, and the round's torch graph, whose private pool
 holds every address the while node reads, for as long as it lives; its
-while node is freed when it leaves the cache or `clear()` empties it.
+while node is freed when it leaves the cache or `clear()` empties it.  A
+compiled step that captured the loop holds its entry (its after-replay
+check closes over it) and replays a clone of the round of its own, so
+neither eviction nor `clear()` reaches it: they free only the entry's own
+while node.
 Only the copied-back state may be read after a loop: everything else the
 body allocates lives in the graph's private pool.  A loop's
 `LoopStats.graph` is the entry it launched (None where it ran eagerly),
 for the benchmarks: `_Entry.replay()` replays one round of it once more,
 `_Entry.load()` then `_Entry.launch()` runs one whole loop from given
-inputs.
+inputs.  ``on_read``, where given, receives each loop's `LoopStats` after
+its host read: at the return of an eager or graphed loop, and after each
+replay of a compiled step that captured it (the loop's own return then
+gives LoopStats(0, 0, entry): nothing ran yet).
 
 Passing ``max_iterations`` raises RuntimeError: the caller derives it from
 the loop's own bound, so it is a fault, not a long loop.  On the card the
@@ -97,7 +122,8 @@ UNROLL = 16  # masked steps a round; `unrolled()` sets another
 CACHE_SIZE = 32  # graphs kept
 STATS = {"captures": 0}  # graphs captured since import
 # while launches (`_Entry.launch`): each runs loop_continue_kernel once a
-# round on the card
+# round on the card (`_Entry.rounds`: the rounds of the last loop read); a
+# while node added to a capture (`_Entry.insert`) launches nothing there
 LAUNCHES = {"loop_continue_kernel": 0}
 
 # cudaGraphNodeType by value (`csrc/device_loop.cu` `device_loop_nodes`;
@@ -129,7 +155,10 @@ def _lib():
     lib = _build.load("device_loop")
     i64, p64 = ctypes.c_longlong, ctypes.POINTER(ctypes.c_longlong)
     for name, args in (("device_loop_nodes", [i64, p64]),
+                       ("device_loop_kernel_names",
+                        [i64, ctypes.c_char_p, i64, p64]),
                        ("device_loop_build", [i64, i64, i64, p64, p64]),
+                       ("device_loop_capture", [i64, i64, i64, i64]),
                        ("device_loop_launch", [i64, i64]),
                        ("device_loop_destroy", [i64])):
         fn = getattr(lib, name)
@@ -153,13 +182,31 @@ def body_kinds(graph):
             for k, n in enumerate(counts) if n}
 
 
+def kernel_names(raw_graph):
+    """{kernel name (mangled): nodes} of a raw ``cudaGraph_t`` (a
+    `CUDAGraph(keep_graph=True)`'s ``raw_cuda_graph()``), child graphs
+    walked, a conditional node's body not."""
+    cap, size = 1 << 16, ctypes.c_longlong()
+    while True:
+        buf = ctypes.create_string_buffer(cap)
+        _check(_lib().device_loop_kernel_names(raw_graph, buf, cap,
+                                               ctypes.byref(size)),
+               "device_loop_kernel_names")
+        if size.value <= cap:
+            return collections.Counter(
+                buf.raw[:size.value].decode().splitlines())
+        cap = size.value
+
+
 class _Entry:
     """One captured round and the while node built on it: the round's
-    torch graph, its static buffers (state, consts, count, the status, the
-    bound), the while node's exec, the body's node kinds and (programmatic,
-    all) edges of its round, and what it cost to make (host ms of the
-    warm-up, capture and build; bytes the graph's private pool
-    reserved)."""
+    torch graph, its static buffers (state, consts, count, the status:
+    cond, count and the rounds run, the bound), the while node's exec, the
+    body's node kinds and (programmatic, all) edges of its round, and what
+    it cost to make (host ms of the warm-up, capture and build; bytes the
+    graph's private pool reserved).  `rounds`: the rounds of the last loop
+    read (`read`), as ``loop_continue_kernel`` counted them on the
+    card."""
 
     def __init__(self, key, unroll, graph, exec_, state, consts, count,
                  status, bound, refs, kinds, edges, capture_ms, pool_bytes):
@@ -167,7 +214,9 @@ class _Entry:
         self.exec = exec_
         self.state, self.consts = state, consts
         self.count, self.status, self.bound = count, status, bound
-        self.host = torch.zeros((2,), dtype=torch.int32, pin_memory=True)
+        self.host = torch.zeros((3,), dtype=torch.int32, pin_memory=True)
+        self.rounds = 0
+        self._round_kernels = None
         self.event = torch.cuda.Event()
         self.refs = refs
         self.kinds, self.edges = kinds, edges
@@ -175,12 +224,13 @@ class _Entry:
 
     def load(self, state, consts, max_iterations):
         """Copy a loop's inputs into the static buffers, zero the count
-        and write the bound."""
+        and the status (its rounds among them) and write the bound."""
         for s, x in zip(self.state, state):
             s.copy_(x)
         for c, x in zip(self.consts, consts):
             c.copy_(x)
         self.count.zero_()
+        self.status.zero_()
         self.bound.fill_(max_iterations)
 
     def launch(self):
@@ -195,12 +245,37 @@ class _Entry:
                                 (self.exec, stream)), "device_loop_launch")
         LAUNCHES["loop_continue_kernel"] += 1
 
+    def insert(self):
+        """The whole loop from the static buffers as they will stand, as
+        one node of the graph the current stream is capturing (nothing is
+        launched, so nothing is counted: each replay of that graph runs
+        the loop, `rounds` counts its rounds)."""
+        dev = self.count.device.index
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        _check(_build.on_device(dev, lambda a: _lib().device_loop_capture(*a),
+                                (stream, self.graph.raw_cuda_graph(),
+                                 self.status.data_ptr(),
+                                 self.bound.data_ptr())),
+               "device_loop_capture")
+
     def read(self):
-        """(cond, iterations) after a loop: the one host read."""
-        self.host.copy_(self.status, non_blocking=True)
+        """(cond, iterations) after a loop, and its rounds into `rounds`:
+        the one host read (in inference mode, where the buffers were made:
+        a compiled step may run this after a replay outside it)."""
+        with torch.inference_mode():
+            self.host.copy_(self.status, non_blocking=True)
         self.event.record()
         self.event.synchronize()
-        return self.host.tolist()
+        go, iterations, self.rounds = self.host.tolist()
+        return go, iterations
+
+    def round_kernels(self):
+        """{kernel name: nodes} of one round (`kernel_names` of the
+        captured round, which the while node's body runs once a round
+        before ``loop_continue_kernel``)."""
+        if self._round_kernels is None:
+            self._round_kernels = kernel_names(self.graph.raw_cuda_graph())
+        return self._round_kernels
 
     def replay(self):
         """One more round from the static buffers as they stand (after a
@@ -208,8 +283,9 @@ class _Entry:
         self.graph.replay()
 
     def close(self):
-        """Free the while node (the torch graph stays while the entry
-        lives)."""
+        """Free the while node (the torch graph and the buffers stay while
+        the entry lives, so a compiled step that captured the loop, and
+        holds the entry, replays on)."""
         if self.exec is not None:
             torch.cuda.synchronize(self.count.device)
             _check(_lib().device_loop_destroy(self.exec),
@@ -308,7 +384,7 @@ def _capture(key, cond, body, state, consts, unroll, folded):
     state = tuple(_static(x) for x in state)
     consts = tuple(_static(c) for c in consts)
     count = torch.zeros((), dtype=torch.int32, device=dev)
-    status = torch.zeros((2,), dtype=torch.int32, device=dev)
+    status = torch.zeros((3,), dtype=torch.int32, device=dev)
     bound = torch.zeros((), dtype=torch.int32, device=dev)
     if dev not in _SIDE:
         _SIDE[dev] = torch.cuda.Stream(dev)
@@ -330,7 +406,7 @@ def _capture(key, cond, body, state, consts, unroll, folded):
         for s, v in zip(state, new):
             s.copy_(v)
         count.copy_(n)
-        status.copy_(_status(go, n))
+        status[:2].copy_(_status(go, n))
     pool = torch.cuda.memory_reserved(dev) - reserved
     exec_, kinds, edges = _while_node(graph, status, bound)
     STATS["captures"] += 1
@@ -349,6 +425,7 @@ def _graphed(cond, body, state, consts, max_iterations, unroll, key,
         while len(_CACHE) > CACHE_SIZE:
             _CACHE.popitem(last=False)[1].close()
     _CACHE.move_to_end(full)
+    traced_loop(entry)
     entry.load(state, consts, max_iterations)
     entry.launch()
     go, iterations = entry.read()
@@ -357,8 +434,44 @@ def _graphed(cond, body, state, consts, max_iterations, unroll, key,
             LoopStats(iterations, 1, entry))
 
 
+def _captured(cond, body, state, consts, max_iterations, unroll, key,
+              folded, on_read):
+    """The loop as a node of the graph being captured (module
+    docstring)."""
+    from warp_rnnt_tpu_torch.utils.compiled_step import after_replay
+
+    full = cache_key(key, unroll, state[0].device, state, consts, folded)
+    entry = _CACHE.get(full)
+    if entry is None:
+        raise RuntimeError("while_loop under a CUDA graph capture: the loop's"
+                           " round has no cached graph (a compiled step's"
+                           " warm-up captures it before the capture)")
+    _CACHE.move_to_end(full)
+    traced_loop(entry)
+    entry.load(state, consts, max_iterations)
+    entry.insert()
+    out = tuple(s.clone() for s in entry.state)
+
+    def check():
+        go, iterations = entry.read()
+        _check_bound(go, iterations, max_iterations)
+        if on_read is not None:
+            on_read(LoopStats(iterations, 1, entry))
+
+    after_replay(check)
+    return out, LoopStats(0, 0, entry)
+
+
+def traced_loop(entry):
+    """Tell a compiled step being traced, if any, that its ``fn`` ran the
+    loop of ``entry`` (`utils.compiled_step.note_loop`)."""
+    from warp_rnnt_tpu_torch.utils.compiled_step import note_loop
+
+    note_loop(entry)
+
+
 def while_loop(cond, body, state, consts=(), *, max_iterations: int, key,
-               folded: bool = False):
+               folded: bool = False, on_read=None):
     """Run ``body`` while ``cond`` holds (see the module docstring).
 
     Args:
@@ -374,6 +487,8 @@ def while_loop(cond, body, state, consts=(), *, max_iterations: int, key,
         with the shapes it keys the graph cache on CUDA, and it is
         required on every device.
       folded: the body masks and counts its own steps (module docstring).
+      on_read: None, or a callable that receives each loop's `LoopStats`
+        after its host read (module docstring).
 
     Returns:
       (the final state, `LoopStats`).
@@ -385,9 +500,17 @@ def while_loop(cond, body, state, consts=(), *, max_iterations: int, key,
     unroll = UNROLL
     state, consts = tuple(state), tuple(consts)
     if state[0].device.type == "cuda" and not _EAGER_ON_CARD:
-        return _graphed(cond, body, state, consts, max_iterations, unroll,
-                        key, folded)
-    return _eager(cond, body, state, consts, max_iterations, unroll, folded)
+        if torch.cuda.is_current_stream_capturing():
+            return _captured(cond, body, state, consts, max_iterations,
+                             unroll, key, folded, on_read)
+        out = _graphed(cond, body, state, consts, max_iterations, unroll,
+                       key, folded)
+    else:
+        out = _eager(cond, body, state, consts, max_iterations, unroll,
+                     folded)
+    if on_read is not None:
+        on_read(out[1])
+    return out
 
 
 @contextlib.contextmanager
