@@ -445,6 +445,27 @@ chunk timed in turns with the eager one.  The step's kernels and
 line (a first call's, and a call's from its profile).  Phase 15's
 `bench_decode` and `bench_streaming` readings are compiled, the eager
 decode beside.
+Slice 27 (beam's selection redesigned as one warp a sample under
+programmatic launch, the first kernel kept in
+`csrc/decode_step_baseline.cu`; a folded round whose cond is
+`device_loop.AnyLess` ended by `loop_continue_kernel` alone, the round's
+last step writing the loop's static buffers) adds, inside phase 15
+(`select_redesign_checks`): the selection against its plain version bit
+for bit at (B, K) in `decode_step_cases.SELECT_WIDTHS` (registers and
+shared memory, up to 4160 candidates) at an odd L, unfolded and folded
+with cond true and false, with ``into=``, two calls bit for bit, ptxas's
+registers and spills of both kernels, a captured beam step's edges all
+programmatic; the selection's device ms alone in turns with the first
+kernel (`kernel_times`, folded arguments) and its span in a graphed
+folded beam step in turns (`decode_step_cases.SELECT_BASELINE`); in
+`device_loop_checks` the folded toy on the card's cond at unroll 1, 4
+and 16 and past its bound, the drains against the plain loop at unroll
+1, 4 and 16, each decoder's round tail by the graph's nodes (one launch
+at unroll 16) with the runtime's answer on a programmatic edge into the
+body's kernel, and a round's µs outside its steps fitted from the while
+launch at unroll 4 and 16; in `phase_compiled_decode` the compiled
+decodes, sessions (two interleaved) and the card's-cond toy past its
+bound at unroll 1 and 4 as at 16.
 It prints the kernels' JSON line and the card's line, and last
 `{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}`.
 Without a CUDA device, or without the package beside it, it exits 1 and
@@ -2468,9 +2489,12 @@ def decode_step_times(torch, bd, dsc, model, recs, d, card):
         step = max(calls[gru][1:] or calls[gru],
                    key=lambda a: int(dsc.emit_mask(gru, a).sum()))
         selects = calls["decode_beam_select"]
+        # the selection as the folded loop calls it (cond true)
         times = dsc.kernel_times(
             joint, gru, step,
-            call_select=selects[len(selects) // 2] if selects else None)
+            call_select=dsc.fold_args("decode_beam_select",
+                                      selects[len(selects) // 2], True)
+            if selects else None)
         rows = joint[3].shape[0]
         emitting = int(dsc.emit_mask(gru, step).sum())
         k = joint[10] if len(joint) > 10 else None
@@ -2544,6 +2568,10 @@ def decode_redesign_checks(torch, dsc, recs, seed):
     if ds.pdl_built() and not all(r["gru_to_hidden"] for r in steps.values()):
         raise AssertionError(f"a folded step's GRU to the next step's hidden"
                              f" layer is not a programmatic edge: {steps}")
+    if ds.pdl_built() and steps["beam"]["one"][0] != steps["beam"]["one"][1]:
+        raise AssertionError(f"a captured beam step has an edge that is not"
+                             f" programmatic (joint to selection to GRU):"
+                             f" {steps['beam']}")
     print(f"decode step folded, captured steps' (programmatic, all) edges,"
           f" one step and two: {json.dumps(steps)} (gru_to_hidden: the edge"
           f" from a step's GRU to the next step's hidden layer is"
@@ -2611,11 +2639,13 @@ def ptxas_of(report, kernel):
 
     out = {}
     for name, r in report.items():
-        m = re.search(r"\d(decode_\w+?_kernel)(?:I(13__nv_bfloat16|f)Lb([01])E)?",
-                      name)
+        m = re.search(r"\d(decode_\w+?_kernel)(?:I(13__nv_bfloat16|f)Lb([01])E"
+                      r"|ILi(\d+)EE)?", name)
         if m is None or not m.group(1).startswith(kernel):
             continue
         label = m.group(1)
+        if m.group(4):
+            label += f"<{m.group(4)}>"
         if m.group(2):
             label += (f"<{'bf16' if m.group(2) != 'f' else 'fp32'},"
                       f" {'true' if m.group(3) == '1' else 'false'}>")
@@ -2661,6 +2691,69 @@ def hold_step_kernels(r, name, card, replaced):
 
 
 
+def select_redesign_checks(dsc, seed):
+    """Beam's selection redesigned (slice 27): against its plain version
+    bit for bit at each (B, K) of `decode_step_cases.SELECT_WIDTHS` (both
+    routes of `decode_step.select_plan`, up to 4160 candidates) at an odd
+    L, unfolded and folded with cond true and false, with ``into=``
+    (`select_width_cases`); two calls bit for bit (`check_select_twice`);
+    ptxas's registers and spills of it and of the first kernel
+    (`decode_step_baseline.cu`).  Returns {"max_abs_err", "cases",
+    "routes", "twice", "ptxas", "ptxas_first"}."""
+    from warp_rnnt_tpu_torch.ops import _build
+
+    widths = dsc.select_width_cases(seed)
+    routes = sorted({r["route"] for r in widths.values()})
+    slots = sorted({r["slots"] for r in widths.values()})
+    if routes != ["registers", "shared"] or slots != [0, 1, 2, 4]:
+        raise AssertionError(f"the selection's widths took routes {routes},"
+                             f" slots {slots}")
+    twice = dsc.check_select_twice(seed + 1)
+    ptx = ptxas_of(_build.ptxas_report("decode_step"), "decode_beam_select")
+    first = ptxas_of(_build.ptxas_report("decode_step_baseline"),
+                     "decode_beam_select")
+    print(f"decode_beam_select (one warp a sample) at (B, K)"
+          f" {dsc.SELECT_WIDTHS}, {json.dumps(dsc.SELECT_WIDTH_DIMS)}, on the"
+          f" hand-built states, unfolded and folded (cond true, false), the"
+          f" into= route too: equal to the plain version bit for bit;"
+          f" {json.dumps(widths)}; two calls bit for bit at {twice} widths;"
+          f" ptxas {json.dumps(ptx)}; the first kernel's {json.dumps(first)}")
+    return {"max_abs_err": max(r["max_abs_err"] for r in widths.values()),
+            "cases": len(widths), "routes": routes, "twice": twice,
+            "ptxas": ptx, "ptxas_first": first}
+
+
+def select_in_turns(dsc, model, feats, xn, d, card):
+    """The graphed folded beam step with the first selection kernel
+    (`decode_step_cases.SELECT_BASELINE`) and with this one, in turns
+    (first, this, this, first; `step_times`): the step's us, the
+    selection's span in it (a replay's profile) and a drain's ms.  Returns
+    {"step_us", "span_us", "drain_ms": {"first select": [..], "this":
+    [..]}}."""
+    from warp_rnnt_tpu_torch.ops import decode_step as ds
+
+    r = dsc.step_times(model, feats, xn, d["max_length"], d["beam"],
+                       (("first select", dsc.SELECT_BASELINE), ("this", ds)))
+    beam = r["beam"]
+    out = {key: {who: [x[key] if key != "span_us" else sum(
+        u for k, u in x["kernel_us"].items() if "decode_beam_select" in k)
+        for x in beam[who]] for who in beam}
+        for key in ("step_us", "span_us", "drain_ms")}
+    runs = [("first select", 0), ("this", 0), ("this", 1), ("first select", 1)]
+
+    def turns(key):
+        return " / ".join(f"{out[key][w][i]:.3f}" for w, i in runs)
+
+    print(f"time decode_beam_select in a graphed folded beam {d['beam']}"
+          f" step (unroll 16) in turns, first kernel / this / this / first"
+          f" kernel: step {turns('step_us')} us, the selection's span"
+          f" {turns('span_us')} us (profiler), a drain of the encoder's"
+          f" frames {turns('drain_ms')} ms; kernels' us a step: this"
+          f" {json.dumps(beam['this'][0]['kernel_us'])}, first select"
+          f" {json.dumps(beam['first select'][0]['kernel_us'])} [{card}]")
+    return out
+
+
 LOOP_SOURCE = "warp_rnnt_tpu_torch/csrc/device_loop.cu"
 LOOP_REPLACES = ("warp_rnnt_tpu/models/decoding.py:119 and"
                  " warp_rnnt_tpu/models/beam_search.py:298 (XLA's"
@@ -2679,12 +2772,21 @@ def device_loop_checks(torch, model, feats, xn, d, card):
     from warp_rnnt_tpu_torch.benchmarks import device_loop_cases as dlc
     from warp_rnnt_tpu_torch.models import beam_decode, greedy_decode
     from warp_rnnt_tpu_torch.ops import _build
+    from warp_rnnt_tpu_torch.utils import device_loop as dl
 
     t0 = time.perf_counter()
     toys = {f"{case} unroll {u}": dlc.check_toy(case, u)
             for case in sorted(dlc.LIMITS) for u in dlc.UNROLLS}
+    frames = {f"{case} unroll {u}": dlc.check_frames_toy(case, u)
+              for case in sorted(dlc.LIMITS) for u in dlc.UNROLLS}
+    print(f"device loop folded toy on the card's cond (AnyLess: the round's"
+          f" last step writes the static buffers, loop_continue_kernel takes"
+          f" the cond): equal to the eager loop bit for bit, JAX's trip"
+          f" count, one host read, no copy in the round past unroll 1:"
+          f" {json.dumps(frames)}")
     entry = dlc.check_false_at_entry()
-    bound = dlc.check_bound()
+    bound = {"toy": dlc.check_bound(), "card's cond": dlc.check_bound(
+        frames=True)}
     print(f"device loop toys ({', '.join(sorted(dlc.LIMITS))}; unroll"
           f" {dlc.UNROLLS}): one while launch each equals the eager loop"
           f" bit for bit with JAX's trip count and one host read;"
@@ -2696,17 +2798,28 @@ def device_loop_checks(torch, model, feats, xn, d, card):
           f" {dlc.PROBE_TRIPS}, bounds {dlc.PROBE_BOUNDS}), steps, count and"
           f" cond equal; {json.dumps(cont)}")
     drains = dlc.check_drains(model, feats, xn, d["max_length"], d["beam"],
-                              16)
-    print(f"serving while node at {json.dumps(d)}, bf16, unroll 16: greedy,"
-          f" beam {d['beam']} and sessions of C=16 equal the plain loop bit"
-          f" for bit on the whole state, the same trip counts, host reads a"
-          f" drain 1: {json.dumps(drains)}")
-    greedy_decode(model, feats, xn, d["max_length"])
-    beam_decode(model, feats, xn, d["max_length"], beam_size=d["beam"])
+                              16, unrolls=(1, 4, None))
+    print(f"serving while node at {json.dumps(d)}, bf16, unroll 1, 4 and 16:"
+          f" greedy, beam {d['beam']} and sessions of C=16 equal the plain"
+          f" loop bit for bit on the whole state, the same trip counts, host"
+          f" reads a drain 1: {json.dumps(drains)}")
+    tails = {}
+    for unroll in (1, None):
+        with dl.unrolled(unroll or dl.UNROLL):
+            greedy_decode(model, feats, xn, d["max_length"])
+            beam_decode(model, feats, xn, d["max_length"], beam_size=d["beam"])
+            tails[unroll or dl.UNROLL] = {
+                name: dlc.round_report(name) for name in ("greedy", "beam")}
     bodies = {name: dlc.body_report(name) for name in ("greedy", "beam")}
     print(f"serving while node bodies (node kinds; (programmatic, all)"
           f" edges of the round as built and as captured):"
           f" {json.dumps(bodies)}")
+    print(f"serving while node rounds' tails by unroll (the round graph's"
+          f" kinds, its kernel nodes outside the step's, its copies, the"
+          f" launches after the round's last step with loop_continue_kernel;"
+          f" edge_probe: the CUDA error of a programmatic edge into the body's"
+          f" kernel from a child graph node / from a kernel node, 0 taken):"
+          f" {json.dumps(tails)}")
     unrolls = dlc.unroll_times(model, feats, xn, d["max_length"], d["beam"])
     for name, r in unrolls.items():
         print(f"time device loop {name} drain, the while launch alone (and"
@@ -2717,12 +2830,20 @@ def device_loop_checks(torch, model, feats, xn, d, card):
                   f"{max(v['replays_ms']):.3f}; {v['rounds']} rounds,"
                   f" {v['iterations']} iterations, {v['host_reads']} read)"
                   for u, v in r.items()) + f" [{card}]")
+    fits = {name: dlc.round_fit(r) for name, r in unrolls.items()}
+    print(f"time device loop a round outside its steps (its tail and the"
+          f" while node), fitted from the while launch alone at unroll 4 and"
+          f" 16 less the steps each ran (the host-launched replays' ms a"
+          f" step): {json.dumps(fits)} us [{card}]")
     times = dlc.continue_times()
+    bound_ms, bound_by = dlc.continue_bound(d["N"])
     print(f"time device loop round (probe, unroll 1): while node"
           f" {times['ms'] * 1e3:.3f} us a round, plain loop (a host read a"
           f" round) {times['plain_ms'] * 1e3:.3f} us; bound"
-          f" {times['bound_ms']:.3e} ms ({times['bound_by']});"
-          f" {json.dumps(times['runs'])} [{card}]")
+          f" {times['bound_ms']:.3e} ms ({times['bound_by']}); the decoders'"
+          f" form (the cond from {d['N']} frame pointers and bounds)"
+          f" {bound_ms:.3e} ms ({bound_by}); {json.dumps(times['runs'])}"
+          f" [{card}]")
     print(f"phase device loop: {time.perf_counter() - t0:.1f} s")
     return {"name": "loop_continue_kernel", "route": "cuda",
             "source": LOOP_SOURCE, "replaces": LOOP_REPLACES,
@@ -2730,6 +2851,9 @@ def device_loop_checks(torch, model, feats, xn, d, card):
             "ms": times["ms"], "plain_ms": times["plain_ms"],
             "bound_ms": times["bound_ms"], "bound_by": times["bound_by"],
             "library_ms": None, "check_cases": cont["cases"],
+            "probe_bound_ms": times["bound_ms"],
+            "decoders_bound_ms": bound_ms, "decoders_bound_by": bound_by,
+            "round_tails": tails, "round_us_fit": fits,
             "host_reads_a_drain": {k: v["host_reads"] / v["drains"]
                                    for k, v in drains.items()},
             "drain_launch_ms_by_unroll": {
@@ -2860,6 +2984,8 @@ def phase_serving(torch, wt, timing, card):
           f" on the whole state with the same trip counts:"
           f" {json.dumps(fold_drains)}")
     loop_entry = device_loop_checks(torch, model, feats, xn, d, card)
+    select = select_redesign_checks(dsc, SEED + 67)
+    select_turns = select_in_turns(dsc, model, feats, xn, d, card)
     step_times = decode_step_times(torch, bd, dsc, model, recs, d, card)
     redesign = decode_redesign_checks(torch, dsc, recs, SEED + 65)
     in_turns = decode_step_in_turns(dsc, model, feats, xn, d, card)
@@ -3041,7 +3167,15 @@ def phase_serving(torch, wt, timing, card):
         "adversarial_max_abs_err": max(
             r["max_abs_err"] for r in select_odd.values()),
         "warm_ms": beam["warm_ms"], "cluster": None,
-        "ptxas": ptxas_of(ptxas, "decode_beam_select")})
+        "baseline_ms": beam["baseline_ms"],
+        "baseline_warm_ms": beam["baseline_warm_ms"],
+        "turns_ms": beam["turns_ms"], "turns_warm_ms": beam["turns_warm_ms"],
+        "widths_max_abs_err": select["max_abs_err"],
+        "width_cases": select["cases"], "routes": select["routes"],
+        "twice_widths": select["twice"], "in_step_turns": select_turns,
+        "plan": ds.select_plan(sd["N"], sd["beam"], sd["beam"],
+                               sd["max_length"]),
+        "ptxas": select["ptxas"], "ptxas_first": select["ptxas_first"]})
     return launches, errs, step_entries
 
 
@@ -3591,6 +3725,7 @@ def phase_compiled_decode(torch, card):
         recorded_loops,
     )
     from warp_rnnt_tpu_torch.models import beam_search, decoding
+    from warp_rnnt_tpu_torch.utils import device_loop as dl
 
     t0 = time.perf_counter()
     d = sc.DECODE
@@ -3637,9 +3772,23 @@ def phase_compiled_decode(torch, card):
               f" calls a call {json.dumps(r['runtime_calls'])}; the outer"
               f" graph's nodes {json.dumps(r['kinds'])}; capture"
               f" {r['capture_ms']:.1f} ms, pool {r['pool_mib']:.1f} MiB")
-    bound = cdc.check_bound()
-    print(f"compiled loop past its bound: raised after its replay with the"
-          f" eager loop's error, the next call right: {json.dumps(bound)}")
+    bound = {"toy": cdc.check_bound(), "card's cond": cdc.check_bound(
+        frames=True)}
+    print(f"compiled loop past its bound (the toy, and the folded toy whose"
+          f" cond the card takes): raised after its replay with the eager"
+          f" loop's error, the next call right: {json.dumps(bound)}")
+    for unroll in (1, 4):
+        with dl.unrolled(unroll):
+            for beam in (0, d["beam"]):
+                r = cdc.check_decode(model, feats, xn, L, beam)
+                print(f"compiled decode beam={beam} at unroll {unroll}:"
+                      f" equal to the eager decode and to the plain loop"
+                      f" bit for bit (capture's call, other features, every"
+                      f" length 0); a steady call {json.dumps(r['steady'])},"
+                      f" rounds counted on the card {r['rounds']}")
+            bound = cdc.check_bound(frames=True)
+            print(f"compiled loop past its bound at unroll {unroll} (the"
+                  f" card's cond): {json.dumps(bound)}")
     evicted = cdc.check_held(model, feats, xn, L)
     print(f"compiled decode's loop held: replays equal after"
           f" device_loop.clear() and after the cache's eviction ({evicted}"
@@ -3678,6 +3827,19 @@ def phase_compiled_decode(torch, card):
     feats = sc.features(SEED + 95, sd["N"], T, sd["F"])
     other = sc.features(SEED + 96, sd["N"], T, sd["F"])
     xn = sc.ragged(sd["N"], T)
+    for unroll in (1, 4):
+        with dl.unrolled(unroll):
+            for beam in (0, sd["beam"]):
+                r = cdc.check_chunk(model, feats, xn, sd["max_length"], beam,
+                                    sd["C"])
+                lengths = csc.check_interleaved(
+                    model, (feats, other), (xn, xn.flip(0)),
+                    sd["max_length"], beam, sd["C"])
+                print(f"compiled chunk beam={beam} at unroll {unroll}: every"
+                      f" chunk's state and the finish equal the eager and"
+                      f" the plain sessions bit for bit; two interleaved"
+                      f" sessions equal their one-shot decodes, lengths"
+                      f" {json.dumps(lengths)}")
     for beam in (0, sd["beam"]):
         r = cdc.check_chunk(model, feats, xn, sd["max_length"], beam,
                             sd["C"])

@@ -243,33 +243,38 @@ def check_chunk(model, feats, xn, max_length, beam, C):
             "kinds": outer_kinds(streaming.LAST_GRAPH["step"])}
 
 
-def _toy_step(max_iterations):
+def _toy_step(max_iterations, frames=False):
     """A compiled step around `device_loop_cases`' toy loop of bound
-    ``max_iterations``: step(i, acc, calls, lim) -> the final state."""
+    ``max_iterations`` (``frames``: its folded toy, whose cond the card
+    takes): step(i, acc, calls, lim) or step(i, acc, lim) -> the final
+    state."""
     from warp_rnnt_tpu_torch.benchmarks import device_loop_cases as dlc
 
-    cond, body = dlc._toy()
+    cond, body = dlc._frames_toy() if frames else dlc._toy()
+    key = ("compiled toy", frames, max_iterations, dl.UNROLL)
 
-    def fn(i, acc, calls, lim):
-        return dl.while_loop(cond, body, (i, acc, calls), (lim,),
-                             max_iterations=max_iterations,
-                             key="compiled toy")[0]
+    def fn(*args):
+        return dl.while_loop(cond, body, args[:-1], args[-1:],
+                             max_iterations=max_iterations, key=key,
+                             folded=frames)[0]
 
-    return cs.compiled_step(fn, key=("compiled toy", max_iterations))
+    return cs.compiled_step(fn, key=key)
 
 
-def check_bound(device="cuda"):
-    """`check_bound` of the module docstring: the toy at a bound of 9,
-    captured on lengths within it, then replayed on the ragged lengths
-    (10 trips), then within it again.  Returns {"message",
-    "next_call_iterations"}."""
+def check_bound(device="cuda", frames=False):
+    """`check_bound` of the module docstring: the toy (``frames``: the
+    folded toy on the card's cond) at a bound of 9, captured on lengths
+    within it, then replayed on the ragged lengths (10 trips), then within
+    it again.  Returns {"message", "next_call_iterations"}."""
     from warp_rnnt_tpu_torch.benchmarks import device_loop_cases as dlc
 
     state = dlc._toy_state(dlc.LIMITS["ragged"], device)
+    if frames:
+        state = state[:2]
     within = torch.tensor([0, 3, 7, 9], dtype=torch.int32, device=device)
     past = torch.tensor(dlc.LIMITS["ragged"], dtype=torch.int32,
                         device=device)
-    step = _toy_step(9)
+    step = _toy_step(9, frames)
     with dl._plain():
         want = _clone(step(*state, within))
     _equal("compiled bound, the capture's call", step(*state, within), want)

@@ -331,24 +331,49 @@ def _bits(x):
     return x.view(torch.int32) if x.dtype == torch.float32 else x
 
 
+def _same_outputs(what, got, want, fields):
+    if len(got) != len(want):
+        raise AssertionError(f"{what}: outputs differ in number")
+    for field, g, w in zip(fields, got, want):
+        if g.dtype != w.dtype or not torch.equal(_bits(g), _bits(w)):
+            raise AssertionError(f"{what}: {field} differs")
+
+
+def _into_like(outs, n):
+    """Fresh tensors for the first ``n`` of ``outs``, filled with a value
+    no output holds at every element (the ``into=`` route must write all
+    of them)."""
+    return tuple(torch.full_like(x, 7) for x in outs[:n])
+
+
 @torch.inference_mode()
 def check_select(args, go=None):
     """One `decode_beam_select` call (args as the beam body passes them)
     through the kernel and the plain version: every output bit for bit;
     with ``go``, folded with the loop's ``cond`` set to it (`fold_args`),
-    the count too.  Returns {max_abs_err (0.0), samples, beams, emitting,
-    advanced}."""
+    the count too; then the kernel again with ``into=`` (the device loop's
+    route: the state and count written into given tensors), equal to its
+    fresh outputs bit for bit.  The inputs were made by other kernels, so
+    the device is synchronized first: the kernel reads the state before it
+    waits for the launch before it.  Returns {max_abs_err (0.0), samples,
+    beams, emitting, advanced}."""
     if go is not None:
         args = fold_args("decode_beam_select", args, go)
+    _sync(args[2])
     got = ds.decode_beam_select(*args)
     want = ds.decode_beam_select_plain(*args)
     _sync(args[2])
-    if len(got) != len(want):
-        raise AssertionError("decode_beam_select: outputs differ in number")
-    for field, g, w in zip((*SELECT_FIELDS, "count"), got, want):
-        if g.dtype != w.dtype or not torch.equal(_bits(g), _bits(w)):
-            raise AssertionError(f"decode_beam_select: {field} differs from"
-                                 " the plain version")
+    fields = (*SELECT_FIELDS, "count")
+    _same_outputs("decode_beam_select against the plain version", got, want,
+                  fields)
+    n = 7 if go is None else 8
+    into = _into_like((*got[:7], *got[10:]), n)
+    _sync(args[2])
+    put = ds.decode_beam_select(*args, into=into)
+    _sync(args[2])
+    if not all(a is b for a, b in zip((*put[:7], *put[10:]), into)):
+        raise AssertionError("decode_beam_select: into= not returned")
+    _same_outputs("decode_beam_select with into=", put, got, fields)
     return {"max_abs_err": 0.0, "samples": int(args[0].numel()),
             "beams": int(want[1].numel()), "emitting": int(want[7].sum()),
             "advanced": int((want[0] != args[0]).sum())}
@@ -611,9 +636,10 @@ SELECT_MAX_SYMBOLS = 2
 SELECT_BEAMS = (1, 4, 8)
 
 
-def select_state(seed, B, device="cuda"):
+def select_state(seed, B, device="cuda", K=None, L=None, V=None):
     """`decode_beam_select`'s arguments for a hand-built state at `ODD`'s
-    L and V, B beams, K = min(B, V - 1), one sample of each kind of
+    L and V (or ``L``, ``V``), B beams, K (default min(B, V - 1)) labels a
+    beam, one sample of each kind of
     `SELECT_SAMPLES`: random; every candidate tied; every beam of one
     hash, length and token row, so that their blanks (or their
     emissions) merge; beams at the emission cap and at u = L; the frame
@@ -623,8 +649,8 @@ def select_state(seed, B, device="cuda"):
     beam's blank, or each beam's first label (one token): the merge
     keeps one of them.  Scores and log-probs are multiples of 1/8, so sums tie
     exactly."""
-    L, V = ODD["L"], ODD["V"]
-    K = min(B, V - 1)
+    L, V = L or ODD["L"], V or ODD["V"]
+    K = K or min(B, V - 1)
     N = len(SELECT_SAMPLES)
     g = torch.Generator().manual_seed(seed)
 
@@ -687,6 +713,50 @@ def select_cases(seed=0, device="cuda"):
     Returns {"B=..": result}."""
     return {f"B={B}": check_select(select_state(seed + B, B, device))
             for B in SELECT_BEAMS}
+
+
+# Widths (B, K) whose B (K + 1) candidates take each of the kernel's
+# routes (`decode_step.select_plan`: one, two or four a lane in registers,
+# then shared memory, up to `MAX_K` x (`MAX_K` + 1) = 4160), at an odd
+# token length and a vocabulary past `MAX_K`.
+SELECT_WIDTHS = ((1, 1), (4, 4), (5, 3), (6, 6), (12, 9), (16, 16), (64, 64))
+SELECT_WIDTH_DIMS = dict(L=13, V=97)
+
+
+def select_width_cases(seed=0, device="cuda", widths=SELECT_WIDTHS):
+    """`check_select` on `select_state` at each (B, K) of ``widths`` and
+    `SELECT_WIDTH_DIMS`, unfolded and folded with the loop's ``cond``
+    true and false.  Returns {"B=.. K=.. go=..": result plus the
+    plan}."""
+    out = {}
+    for B, K in widths:
+        args = select_state(seed + B, B, device, K=K, **SELECT_WIDTH_DIMS)
+        plan = ds.select_plan(args[0].numel(), B, K, SELECT_WIDTH_DIMS["L"])
+        for go in (None, True, False):
+            out[f"B={B} K={K} go={go}"] = {**check_select(args, go),
+                                           "route": plan["route"],
+                                           "slots": plan["slots"],
+                                           "warps": plan["warps"]}
+    return out
+
+
+@torch.inference_mode()
+def check_select_twice(seed=0, device="cuda", widths=SELECT_WIDTHS):
+    """Two kernel calls of `decode_beam_select` on the same arguments at
+    each of ``widths`` (folded, cond true), bit for bit.  Returns the
+    calls compared."""
+    calls = 0
+    for B, K in widths:
+        args = fold_args("decode_beam_select", select_state(
+            seed + B, B, device, K=K, **SELECT_WIDTH_DIMS), True)
+        _sync(args[2])
+        a = ds.decode_beam_select(*args)
+        b = ds.decode_beam_select(*args)
+        _sync(args[2])
+        _same_outputs(f"decode_beam_select B={B} K={K}: two calls", a, b,
+                      (*SELECT_FIELDS, "count"))
+        calls += 1
+    return calls
 
 
 def select_fold_cases(seed=0, device="cuda"):
@@ -884,14 +954,23 @@ def _on_baseline(fn):
     return run
 
 
-# The step's first dense and GRU kernels (`csrc/decode_step_baseline.cu`)
-# behind the same wrappers, and the selection's kernel: the yardstick the
-# redesign is timed against in turns.
+# The step's first kernels (`csrc/decode_step_baseline.cu`: the dense,
+# GRU and selection kernels as first written) behind the same wrappers:
+# the yardstick the redesigns are timed against in turns.
 BASELINE = types.SimpleNamespace(
     __name__="baseline", decode_joint=_on_baseline(ds.decode_joint),
     decode_gru=_on_baseline(ds.decode_gru),
     decode_gru_greedy=_on_baseline(ds.decode_gru_greedy),
-    decode_beam_select=ds.decode_beam_select)
+    decode_beam_select=_on_baseline(ds.decode_beam_select))
+
+# The folded step with the first selection kernel (one block a sample,
+# block barriers, a plain launch) and this library's joint and GRU: beam's
+# step timed in turns with the redesigned selection (`step_times`), the
+# loop folded (`decoding.folds` reads ``folded``).
+SELECT_BASELINE = types.SimpleNamespace(
+    __name__="select_baseline", folded=True, decode_joint=ds.decode_joint,
+    decode_gru=ds.decode_gru, decode_gru_greedy=ds.decode_gru_greedy,
+    decode_beam_select=_on_baseline(ds.decode_beam_select))
 
 
 def yardsticks(call_joint, call_gru, name):
@@ -934,7 +1013,8 @@ def kernel_times(call_joint, name, call_gru, calls=16, call_select=None):
                ("decode_gru", getattr(ds, name), getattr(BASELINE, name),
                 getattr(ds, f"{name}_plain"), call_gru)]
     if call_select is not None:
-        kernels.append(("decode_beam_select", ds.decode_beam_select, None,
+        kernels.append(("decode_beam_select", ds.decode_beam_select,
+                        BASELINE.decode_beam_select,
                         ds.decode_beam_select_plain, call_select))
     for kernel, fn, base, plain, args in kernels:
         r = {"plain_ms": timing.bench_graph(plain, args, calls)}

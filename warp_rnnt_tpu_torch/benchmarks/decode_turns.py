@@ -20,6 +20,13 @@ and R readings (default 3) of:
     drain's last graph (`bench_decode.graph_numbers`: device us a step
     over replays of a finished state, a replay's profile over its
     unroll; `round_kernels` where the tree has it);
+  * "tail": the nodes of the drain's round graph that are not the step's
+    kernels (`round_tail`: the round's tail, counted from the graph's
+    kernel and memcpy nodes), and "tail_launches", those plus
+    ``loop_continue_kernel`` (one a round in the while node's body);
+  * "round_us": a round's cost outside its steps (its tail and the while
+    node), fitted from the while launch alone at unroll 4 and 16
+    (`round_fit`), with those launches' readings;
   * "decode_ms": `CALLS` whole decodes (encoder included) on the public
     eager entry (`greedy_decode`, `beam_decode`), each timed by CUDA
     events around it (`call_ms`: the host's path and its read included),
@@ -123,6 +130,48 @@ def launch_ms(entry, state, consts, max_iterations, repeats):
     return out, iterations
 
 
+def round_tail(entry):
+    """{"kinds": the round graph's node kinds, "other_kernels": {name:
+    nodes} of its kernel nodes that are not the step's, "copies": its
+    memcpy and memset nodes, "tail_launches": those plus the while
+    body's ``loop_continue_kernel``} of a while-node ``entry``."""
+    from warp_rnnt_tpu_torch.benchmarks.bench_decode import STEP_KERNELS
+    from warp_rnnt_tpu_torch.utils import device_loop as dl
+
+    kinds = dl.body_kinds(entry.graph)
+    other = {k: n for k, n in entry.round_kernels().items()
+             if not any(s in k for s in STEP_KERNELS)}
+    copies = kinds.get("memcpy", 0) + kinds.get("memset", 0)
+    return {"kinds": kinds, "other_kernels": other, "copies": copies,
+            "tail_launches": sum(other.values()) + copies + 1}
+
+
+def fit_us(ms, rounds, step_us):
+    """A round's µs outside its steps: the while launch alone at unroll 4
+    and 16 (``ms`` {unroll: [ms]}, the fastest of each), less the steps
+    each ran (rounds x unroll, the masked surplus of the last round
+    included) at ``step_us`` a step, over the difference in rounds."""
+    steps = {u: rounds[u] * u for u in (4, 16)}
+    return (((min(ms[4]) - min(ms[16])) * 1e3
+             - (steps[4] - steps[16]) * step_us) / (rounds[4] - rounds[16]))
+
+
+def round_fit(drain, step_us, repeats):
+    """`fit_us` of ``drain``'s while launch (`launch_ms`, ``repeats``
+    readings at unroll 4 and 16).  Returns {"us", "launch_ms": {unroll:
+    [..]}, "rounds": {unroll: n}}."""
+    from warp_rnnt_tpu_torch.utils import device_loop as dl
+
+    ms, rounds = {}, {}
+    for unroll in (4, 16):
+        with dl.unrolled(unroll), recorded_loops() as seen:
+            drain()
+        ms[unroll], it = launch_ms(*seen[-1], repeats)
+        rounds[unroll] = max(1, -(-it // unroll))
+    return {"us": fit_us(ms, rounds, step_us), "launch_ms": ms,
+            "rounds": rounds}
+
+
 @torch.inference_mode()
 def readings(repeats):
     """{decoder: {"drain_ms": [..], "host_reads": [..], "launch_ms": [..]
@@ -183,6 +232,10 @@ def readings(repeats):
             r["step_us"].append(g["graph_step_us"])
             r["kernels_a_step"].append(g["graph_kernels_per_step"])
         r["launch_ms"] = launch_ms(*seen[-1], repeats)[0]
+        if r["launch_ms"] is not None:
+            r["tail"] = round_tail(seen[-1][0])
+            r["tail_launches"] = r["tail"]["tail_launches"]
+            r["round_us"] = round_fit(drain, min(r["step_us"]), repeats)
         r["kernel_us"] = g["graph_step_kernel_us"]
         r["round_kernels"] = g.get("graph_round_kernels")
         r.update(decode_readings(decodes[name], compiled[name]))

@@ -21,11 +21,20 @@ on a failure and returns what it measured.
     rounds the kernel counted on the card (`_Entry.rounds`) the steps
     over the unroll, at unroll 1, 4 and 16, the bound above, at and below
     the trip count.
+  * `check_frames_toy`: a folded toy whose cond is a `device_loop.AnyLess`
+    (so the card takes it: the round's last step writes the static
+    buffers, ``loop_continue_kernel`` computes the cond) against the eager
+    loop, at each of `UNROLLS`; `check_bound` runs it past its bound too.
   * `check_drains`: greedy, beam and streaming sessions on the step's
     kernels through the while node against `_plain()`, the whole final
-    state bit for bit, the same trip counts, one host read a drain.
+    state bit for bit, the same trip counts, one host read a drain, at
+    each of ``unrolls``.
   * `body_report`: a drain's body, its node kinds (all of `BODY_KINDS`)
-    and its round's edges as built, against the captured round's.
+    and its round's edges as built, against the captured round's;
+    `round_report`: the round's tail by the graph's nodes
+    (`decode_turns.round_tail`), whether the card takes the cond, and
+    whether a conditional body takes a programmatic edge into
+    ``loop_continue_kernel`` (`device_loop.edge_probe`).
   * `continue_times`, `unroll_times`: the node's cost a round, and the
     drains' launch ms at unroll 1, 4 and 16 beside the same rounds
     replayed back to back from the host.
@@ -42,6 +51,7 @@ import torch
 from warp_rnnt_tpu_torch.benchmarks import timing
 from warp_rnnt_tpu_torch.benchmarks.decode_step_cases import _bits, _session
 from warp_rnnt_tpu_torch.benchmarks.decode_turns import (
+    fit_us,
     launch_ms,
     recorded_loops,
 )
@@ -81,10 +91,58 @@ def _toy_state(lim, device):
             torch.zeros((), dtype=torch.int32, device=device))
 
 
+def _frames_toy():
+    """The toy as a folded loop whose cond is an `AnyLess` (the card takes
+    it): state (i, acc), consts (lim,); the body masks and counts its own
+    step and writes ``into`` where given."""
+    cond = dl.AnyLess(0, 0)
+
+    def body(state, consts, count, into=None):
+        i, acc = state
+        go = cond(state, consts)
+        on = go & (i < consts[0])
+        out = into or (None,) * 3
+        return (torch.where(on, i + 1, i, out=out[0]),
+                torch.where(go, (acc * 3 + i + 1) % MOD, acc, out=out[1])), \
+            torch.add(count, go, out=out[2])
+
+    return cond, body
+
+
+def check_frames_toy(case, unroll, device="cuda"):
+    """`LIMITS[case]` as `_frames_toy` at ``unroll``: the while node (the
+    card's cond) against the eager loop, bit for bit, JAX's trip count,
+    one host read; the round has no tail where unroll > 1 (no copy)."""
+    lim = torch.tensor(LIMITS[case], dtype=torch.int32, device=device)
+    state = _toy_state(LIMITS[case], device)[:2]
+    with dl.unrolled(unroll):
+        got, want = _graphed_and_plain(*_frames_toy(), state, (lim,),
+                                       max(LIMITS[case]), "frames toy",
+                                       folded=True)
+    r = _hold(f"frames toy {case} unroll {unroll}", got, want)
+    if r["iterations"] != max(LIMITS[case]):
+        raise AssertionError(f"frames toy {case}: {r['iterations']}"
+                             " iterations")
+    entry = got[1].graph
+    if entry is not None:
+        if entry.card_cond is None:
+            raise AssertionError("frames toy: the card does not take cond")
+        copies = entry.kinds.get("memcpy", 0) + entry.kinds.get("memset", 0)
+        r["copies"] = copies
+        if unroll > 1 and copies:
+            raise AssertionError(f"frames toy unroll {unroll}: {copies}"
+                                 " copies in the round")
+    return r
+
+
 def _graphed_and_plain(cond, body, state, consts, max_iterations, key,
                        folded=False):
-    got = dl.while_loop(cond, body, state, consts,
-                        max_iterations=max_iterations, key=key, folded=folded)
+    # off the card the while node's plain version (`_host_node`) stands
+    # in for it where the card would take the cond
+    with dl._host_node():
+        got = dl.while_loop(cond, body, state, consts,
+                            max_iterations=max_iterations, key=key,
+                            folded=folded)
     with dl._plain():
         want = dl.while_loop(cond, body, state, consts,
                              max_iterations=max_iterations, key=key,
@@ -134,12 +192,16 @@ def check_false_at_entry(device="cuda"):
     return r
 
 
-def check_bound(device="cuda"):
-    """The ragged toy (10 trips) against a bound of 9 at unroll 1 and 4:
-    both loops raise the same RuntimeError; the while node's raise comes
-    after one launch.  Returns {unroll: the message}."""
+def check_bound(device="cuda", frames=False):
+    """The ragged toy (10 trips; ``frames``: `_frames_toy`, the card's
+    cond) against a bound of 9 at unroll 1 and 4: both loops raise the
+    same RuntimeError; the while node's raise comes after one launch.
+    Returns {unroll: the message}."""
     lim = torch.tensor(LIMITS["ragged"], dtype=torch.int32, device=device)
     state = _toy_state(LIMITS["ragged"], device)
+    toy = "frames" if frames else "toy"
+    cond, body = _frames_toy() if frames else _toy()
+    st = state[:2] if frames else state
     out = {}
     for unroll in (1, 4):
         msgs = []
@@ -148,8 +210,8 @@ def check_bound(device="cuda"):
             try:
                 with dl.unrolled(unroll), (
                         dl._plain() if plain else contextlib.nullcontext()):
-                    dl.while_loop(*_toy(), state, (lim,), max_iterations=9,
-                                  key="toy")
+                    dl.while_loop(cond, body, st, (lim,), max_iterations=9,
+                                  key=toy, folded=toy == "frames")
             except RuntimeError as e:
                 msgs.append(str(e))
             else:
@@ -158,7 +220,7 @@ def check_bound(device="cuda"):
             if not plain and launched != 1:
                 raise AssertionError("bound: not one launch")
         if "past its bound of 9" not in msgs[0] or msgs[0] != msgs[1]:
-            raise AssertionError(f"bound, unroll {unroll}: {msgs}")
+            raise AssertionError(f"bound, {toy} unroll {unroll}: {msgs}")
         out[unroll] = msgs
     return out
 
@@ -262,6 +324,26 @@ def continue_times(device="cuda", repeats=3):
             "runs": runs}
 
 
+def continue_bound(n):
+    """(bound ms, by) of ``loop_continue_kernel`` where it takes the cond
+    of ``n`` frame pointers and bounds: 2n + 3 ints read (t, the bounds,
+    the count, the loop's bound, the rounds), 3 written; n comparisons."""
+    hbm, fp32, _ = timing.card_rates()
+    bytes_s, ops_s = (4 * (2 * n + 3) + 12) / hbm, n / fp32
+    return (max(bytes_s, ops_s) * 1e3,
+            "bytes" if bytes_s >= ops_s else "operations")
+
+
+def round_fit(times):
+    """A round's µs outside its steps (`decode_turns.fit_us`) from one
+    decoder's `unroll_times` entry, the steps' µs from the host-launched
+    replays at unroll 16."""
+    a, b = times[4], times[16]
+    return fit_us({4: a["launch_ms"], 16: b["launch_ms"]},
+                  {4: a["rounds"], 16: b["rounds"]},
+                  min(b["replays_ms"]) * 1e3 / (b["rounds"] * 16))
+
+
 def _events_ms(fn):
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -290,12 +372,25 @@ def _drains(model, feats, xn, max_length, beam, C, N):
 
 
 @torch.inference_mode()
-def check_drains(model, feats, xn, max_length, beam, C):
+def check_drains(model, feats, xn, max_length, beam, C, unrolls=(None,)):
     """Greedy, beam ``beam`` and a streaming session of each (chunks of
     C) on the step's kernels: through the while node against `_plain()`,
     the whole final state bit for bit, the same trip count, one host read
-    a drain.  Returns {case: {"iterations", "host_reads", "drains",
-    "plain_host_reads"}}."""
+    a drain; at each of ``unrolls`` (None: `device_loop.UNROLL`).  Returns
+    {case (with " unroll u" past None): {"iterations", "host_reads",
+    "drains", "plain_host_reads"}}."""
+    out = {}
+    for unroll in unrolls:
+        if unroll is None:
+            out.update(_check_drains(model, feats, xn, max_length, beam, C))
+            continue
+        with dl.unrolled(unroll):
+            r = _check_drains(model, feats, xn, max_length, beam, C)
+        out.update({f"{k} unroll {unroll}": v for k, v in r.items()})
+    return out
+
+
+def _check_drains(model, feats, xn, max_length, beam, C):
     from warp_rnnt_tpu_torch.benchmarks.serving_cases import _counted
 
     out = {}
@@ -341,6 +436,27 @@ def body_report(name="greedy"):
             "captured_edges": list(captured)}
 
 
+def round_report(name="greedy"):
+    """Decoder ``name``'s last while node: its round's tail
+    (`decode_turns.round_tail`: the round graph's node kinds, its kernel
+    nodes that are not the step's, its memcpy and memset nodes, and the
+    launches after the round's last step, ``loop_continue_kernel``
+    included), "card_cond" (the card takes the loop's cond), "unroll",
+    the body's (programmatic, all) edges, and "edge_probe"
+    (`device_loop.edge_probe`).  Where the card takes the cond and the
+    unroll exceeds 1, raises unless the tail is that one launch."""
+    from warp_rnnt_tpu_torch.benchmarks.decode_turns import round_tail
+
+    entry = decoding.LAST_GRAPH[name]
+    tail = round_tail(entry)
+    if entry.card_cond is not None and entry.unroll > 1 and (
+            tail["tail_launches"] != 1):
+        raise AssertionError(f"{name}: the round's tail is {tail}")
+    return {**tail, "card_cond": entry.card_cond is not None,
+            "unroll": entry.unroll, "edges": list(entry.edges),
+            "edge_probe": dl.edge_probe()}
+
+
 def replays_ms(entry, state, consts, max_iterations, rounds, repeats):
     """Device ms of ``rounds`` replays of ``entry``'s round graph launched
     back to back from the host (torch's own exec, no read between them),
@@ -352,7 +468,7 @@ def replays_ms(entry, state, consts, max_iterations, rounds, repeats):
     for _ in range(repeats):
         entry.load(state, consts, max_iterations)
         out.append(_events_ms(lambda: [entry.replay() for _ in range(rounds)]))
-    return out, entry.read()[1]
+    return out, int(entry.count)
 
 
 @torch.inference_mode()

@@ -36,9 +36,10 @@
 // src[r] (the beam's parent), in place of a gather before the launch.
 //
 // The device loop's mask and count, folded (greedy's decode_gru and
-// decode_beam_select, given the loop's count): every block computes the
-// loop's cond, go = any(t < frame_bound) over the batch, from the step's
-// inputs (which no launch of the step writes), writes the new state where
+// decode_beam_select, given the loop's count): every block (the select:
+// every warp, one ballot) computes the loop's cond, go = any(t <
+// frame_bound) over the batch, from the step's inputs (which no launch of
+// the step writes), writes the new state where
 // go holds and its inputs through where it does not, and one thread writes
 // count + go.  In greedy only emitted_here (reset to 0) and last_tok (the
 // joint's label) would change in a step that no sample is active in; in
@@ -50,20 +51,27 @@
 //
 // decode_beam_select, one launch, beam search's step between the joint
 // and the GRU (warp_rnnt_tpu/models/beam_search.py:207-294, XLA in the
-// JAX package; the port's decode_beam_select_plain): one block a sample
-// builds its B (K + 1) candidates in shared memory (the blank or self
-// score, then the top-K labels' scores, masked to -1e30 where a beam may
-// not expand), takes B exact argmax rounds over them (a warp-shuffle and
-// block reduction each, the keys clamped to -FLT_MAX and NaN the
-// largest, ties to the lowest index, a picked key set to -inf: torch's
-// argmax on `top_k_small`'s clamped copy), then writes the new state out
-// of place: each new beam's parent and kind, its token row copied from
-// the parent's with the new token at the parent's u, u, nexp and the
-// uint32 prefix hash (stored in int64), the B x B merge of duplicates,
-// the frame advance, and for the GRU its emit, token and parent row.  The
+// JAX package; the port's decode_beam_select_plain): one warp a sample,
+// up to four samples a block and no block barrier.  The warp stages its
+// sample's state (scores, u, nexp, waiting, hash, the B token rows) before
+// griddepcontrol.wait, so those reads overlap the joint's rows launch,
+// then reads the joint's outputs and builds its B (K + 1) candidates (the
+// blank or self score, then the top-K labels' scores, masked to -1e30
+// where a beam may not expand) in lane registers (up to 4 a lane) or, past
+// 128, in shared memory, and takes B exact argmax rounds over them by warp
+// shuffles (the keys clamped to -FLT_MAX and NaN the largest, ties to the
+// lowest index, a picked key set to -inf: torch's argmax on
+// `top_k_small`'s clamped copy).  Then the new state out of place: each
+// new beam's parent and kind, its token row copied from the parent's with
+// the new token at the parent's u (16-byte stores where rows allow), u,
+// nexp and the uint32 prefix hash (stored in int64), the B x B merge of
+// duplicates, the frame advance, and for the GRU its emit, token and
+// parent row, written first, after which the GRU's launch may start.  The
 // adds are the plain version's fp32 adds, the rest comparisons and
 // integers, so it equals the plain version bit for bit.  It moves ~0.1 MB
-// at bench width (the token rows in and out): latency-bound, a few us.
+// at bench width (the token rows in and out): latency-bound.  The first
+// kernel (one block of 256 threads a sample, block barriers between its
+// rounds, a plain launch) stays in decode_step_baseline.cu, the yardstick.
 //
 // What bounds a step at bench_decode's width (N=32, hidden 512, V=1024,
 // beam 4): bytes at greedy (the GRU's 6 MB of fp32 weights and the joint's
@@ -1189,136 +1197,315 @@ struct Select {
   const int* count;
   int* count_out;
   int N, B, K, L, max_symbols;
+  // the launch plan (ops select_plan): samples (warps) a block, candidate
+  // slots a lane (0: the candidates in shared memory), the token rows
+  // staged in shared memory (1) or read in place (0), and a warp's share
+  // of the dynamic shared memory: its staged rows, then its candidates
+  int warps, slots, stage, vec;
+  int tok_bytes, warp_bytes;
 };
 
-constexpr int kMaxCand = kMaxK * (kMaxK + 1);  // B (K + 1) candidates, at most
+constexpr int kSelWarps = 4;  // samples (warps) a select block, at most
 constexpr unsigned kHashMul = 1000003u;
 
-// One block (kRowThreads) a sample: see the head of this file.
-__global__ void __launch_bounds__(kRowThreads)
+// Bytes of a sample's staged token rows and of its candidates in shared
+// memory (values, clamped keys, label ids), each rounded up to 16.
+__host__ __device__ inline int select_tok_bytes(int B, int L, int stage) {
+  return stage ? (B * L * 4 + 15) / 16 * 16 : 0;
+}
+
+__host__ __device__ inline int select_cand_bytes(int B, int K, int slots) {
+  return slots ? 0 : (12 * B * (K + 1) + 15) / 16 * 16;
+}
+
+// A beam's fields a warp keeps in shared memory: its sample's state before
+// the step, staged before griddepcontrol.wait, then each new beam's pick
+// and the fields it takes from its parent.
+struct SelectBeams {
+  float score[kMaxK];
+  int u[kMaxK], nexp[kMaxK];
+  long long hash[kMaxK];
+  unsigned char wait[kMaxK];
+  // new beam j: its candidate, value and label id (the picks), then its
+  // parent, the parent's u, its u, nexp, hash, emission and settledness
+  int pick[kMaxK], tok[kMaxK];
+  float val[kMaxK];
+  int parent[kMaxK], u_at[kMaxK], u_new[kMaxK], nexp_new[kMaxK];
+  long long hash_new[kMaxK];
+  unsigned char emits[kMaxK], waits[kMaxK];
+};
+
+// Candidate c of sample n's B (K + 1): the blank or self score (q = 0) or
+// label q's, masked to kNeg where the beam may not expand; its label id
+// (the beam's first where q = 0, as the plain version's clamped gather).
+__device__ __forceinline__ float select_candidate(const Select& d,
+                                                  const SelectBeams& sb,
+                                                  long long nb, int c,
+                                                  bool frame_on, int& id) {
+  const int K1 = d.K + 1, b = c / K1, q = c - b * K1;
+  const long long r = nb + b;
+  const float s = sb.score[b];
+  const bool wait = sb.wait[b] != 0;
+  id = d.top_ids[r * d.K + max(q - 1, 0)];
+  if (q == 0) return frame_on && !wait ? s + d.lp_blank[r] : s;
+  const bool expandable = frame_on && s > 0.5f * kNeg && !wait &&
+                          sb.u[b] < d.L && sb.nexp[b] < d.max_symbols;
+  return expandable ? s + d.top_lp[r * d.K + q - 1] : kNeg;
+}
+
+__device__ __forceinline__ float select_key(float v) {
+  return isnan(v) ? v : fmaxf(v, -FLT_MAX);
+}
+
+// The warp's best (key, index) by take_first_max's order: every lane gets
+// it (a butterfly of shuffles; the order is total, so all agree).
+__device__ __forceinline__ void warp_best(float& key, int& idx) {
+#pragma unroll
+  for (int off = 16; off; off >>= 1) {
+    const float k2 = __shfl_xor_sync(~0u, key, off);
+    const int i2 = __shfl_xor_sync(~0u, idx, off);
+    take_first_max(key, idx, k2, i2);
+  }
+}
+
+// One warp a sample, `warps` samples a block, no block barrier.
+// SLOTS > 0: lane l holds candidates l, l + 32, .. in registers (B (K + 1)
+// <= 32 SLOTS); SLOTS == 0: the warp's candidates in shared memory, each
+// round a scan of them.
+//
+// Before griddepcontrol.wait the warp reads what no launch since the
+// previous step's selection has written: its sample's t, frame bound and
+// beams' scores, u, nexp, waiting and hash, and (`stage`) its B token rows,
+// into shared memory; with the loop's fold, every sample's t and bound for
+// the loop's cond (one ballot).  This is safe because every launch of the
+// step (the joint's three, this, the GRU) triggers its dependents only
+// after its own griddepcontrol.wait: when this launch starts, the joint's
+// rows launch has passed its wait, so every launch before the rows launch
+// (the previous step's selection among them) has ended and its writes are
+// visible.  A caller that launches this after another kernel that writes
+// those inputs must let that kernel end first.  Nothing is written before
+// the wait.  After it: the joint's lp_blank, top_lp and top_ids (one trip),
+// the B exact argmax rounds, the beams' fields from the staged state, the
+// merge and the frame advance; then emit, new_tok and src (what the GRU
+// reads), griddepcontrol.launch_dependents, and the rest of the state, the
+// token rows 16 bytes a store where `vec`.
+template <int SLOTS>
+__global__ void __launch_bounds__(kSelWarps * 32)
 decode_beam_select_kernel(const Select d) {
-  __shared__ float vals[kMaxCand];  // the candidates' scores
-  __shared__ float keys[kMaxCand];  // clamped; -inf once picked
-  __shared__ float redf[kRowThreads / 32];
-  __shared__ int redi[kRowThreads / 32];
-  __shared__ int pick[kMaxK];
-  __shared__ int parent_of[kMaxK], u_at[kMaxK], u_new[kMaxK], nexp_new[kMaxK];
-  __shared__ int tok_of[kMaxK];
-  __shared__ unsigned char emits[kMaxK], waits[kMaxK];
-  __shared__ long long hash_new[kMaxK];
-  const int tid = threadIdx.x, n = blockIdx.x;
-  const int B = d.B, K = d.K, K1 = d.K + 1, L = d.L, nc = B * K1;
+  extern __shared__ __align__(16) unsigned char sel_smem[];
+  __shared__ SelectBeams beams[kSelWarps];
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const int n = blockIdx.x * d.warps + w;
+  if (n >= d.N) return;
+  SelectBeams& sb = beams[w];
+  unsigned char* mine = sel_smem + static_cast<long long>(w) * d.warp_bytes;
+  int* tok_s = reinterpret_cast<int*>(mine);
+  float* cval = reinterpret_cast<float*>(mine + d.tok_bytes);
+  const int B = d.B, K1 = d.K + 1, L = d.L, nc = B * K1;
+  float* ckey = cval + nc;
+  int* cid = reinterpret_cast<int*>(ckey + nc);
   const long long nb = static_cast<long long>(n) * B;
-  const float half_neg = 0.5f * kNeg;  // a live beam scores above it
+  const long long base = nb * L;
+
+  // what the previous step's selection wrote, before the wait
   const int t = d.t[n];
   const bool frame_on = t < d.fb[n];
   bool go = true;  // the loop's cond, where it is folded in
   if (d.count) {
     bool live = false;
-    for (int m = tid; m < d.N; m += kRowThreads) live |= d.t[m] < d.fb[m];
-    go = __syncthreads_or(live);
-    if (n == 0 && tid == 0) d.count_out[0] = d.count[0] + go;
+    for (int m = lane; m < d.N; m += 32) live |= d.t[m] < d.fb[m];
+    go = __any_sync(~0u, live);
   }
-  for (int c = tid; c < nc; c += kRowThreads) {
-    const int b = c / K1, q = c - b * K1;
+  for (int b = lane; b < B; b += 32) {
     const long long r = nb + b;
-    const float s = d.scores[r];
-    const bool wait = d.waiting[r] != 0;
-    float v;
-    if (q == 0) {  // blank (an active beam) or self (settled, off-frame)
-      v = frame_on && !wait ? s + d.lp_blank[r] : s;
-    } else {  // a label, where the beam may expand
-      const bool expandable = frame_on && s > half_neg && !wait &&
-                              d.u[r] < L && d.nexp[r] < d.max_symbols;
-      v = expandable ? s + d.top_lp[r * K + q - 1] : kNeg;
-    }
-    vals[c] = v;
-    keys[c] = isnan(v) ? v : fmaxf(v, -FLT_MAX);
+    sb.score[b] = d.scores[r];
+    sb.u[b] = d.u[r];
+    sb.nexp[b] = d.nexp[r];
+    sb.wait[b] = d.waiting[r];
+    sb.hash[b] = d.hcode[r];
   }
-  __syncthreads();
+  if (d.stage && d.vec) {
+    const int4* from = reinterpret_cast<const int4*>(d.tokens + base);
+    for (int e = lane; e < B * L / 4; e += 32) {
+      reinterpret_cast<int4*>(tok_s)[e] = from[e];
+    }
+  } else if (d.stage) {
+    for (int e = lane; e < B * L; e += 32) tok_s[e] = d.tokens[base + e];
+  }
+  pdl_wait();  // the joint's outputs are written
+  __syncwarp();
+
+  // the candidates, then B argmax rounds
+  float val[SLOTS > 0 ? SLOTS : 1], key[SLOTS > 0 ? SLOTS : 1];
+  int ids[SLOTS > 0 ? SLOTS : 1];
+  if constexpr (SLOTS > 0) {
+#pragma unroll
+    for (int s = 0; s < SLOTS; ++s) {
+      const int c = lane + 32 * s;
+      val[s] = 0.f;
+      key[s] = -INFINITY;
+      ids[s] = 0;
+      if (c < nc) {
+        val[s] = select_candidate(d, sb, nb, c, frame_on, ids[s]);
+        key[s] = select_key(val[s]);
+      }
+    }
+  } else {
+    for (int c = lane; c < nc; c += 32) {
+      int id;
+      const float v = select_candidate(d, sb, nb, c, frame_on, id);
+      cval[c] = v;
+      ckey[c] = select_key(v);
+      cid[c] = id;
+    }
+    __syncwarp();
+  }
   for (int j = 0; j < B; ++j) {
-    float key = -INFINITY;
-    int idx = INT_MAX;
-    for (int c = tid; c < nc; c += kRowThreads) take_first_max(key, idx, keys[c], c);
-    block_best(key, idx, redf, redi);
-    if (tid == 0) {
-      pick[j] = idx;
-      keys[idx] = -INFINITY;
+    float bk = -INFINITY;
+    int bi = INT_MAX;
+    if constexpr (SLOTS > 0) {
+#pragma unroll
+      for (int s = 0; s < SLOTS; ++s) {
+        if (lane + 32 * s < nc) take_first_max(bk, bi, key[s], lane + 32 * s);
+      }
+    } else {
+      for (int c = lane; c < nc; c += 32) take_first_max(bk, bi, ckey[c], c);
     }
-    __syncthreads();
+    warp_best(bk, bi);
+    float pv;
+    int pid;
+    if constexpr (SLOTS > 0) {  // the owner's slot, broadcast
+      const int owner = bi & 31, slot = bi >> 5;
+      pv = val[0];
+      pid = ids[0];
+#pragma unroll
+      for (int s = 1; s < SLOTS; ++s) {
+        if (s == slot) {
+          pv = val[s];
+          pid = ids[s];
+        }
+      }
+      pv = __shfl_sync(~0u, pv, owner);
+      pid = __shfl_sync(~0u, pid, owner);
+      if (lane == owner) {
+#pragma unroll
+        for (int s = 0; s < SLOTS; ++s) {
+          if (s == slot) key[s] = -INFINITY;
+        }
+      }
+    } else {
+      pv = cval[bi];
+      pid = cid[bi];
+      __syncwarp();  // every lane has read this round's keys
+      if (lane == 0) ckey[bi] = -INFINITY;
+      __syncwarp();
+    }
+    if (lane == 0) {
+      sb.pick[j] = bi;
+      sb.val[j] = pv;
+      sb.tok[j] = pid;
+    }
   }
-  if (tid < B) {  // new beam tid: its parent's fields, then its emission
-    const int c = pick[tid], parent = c / K1, kind = c - parent * K1;
-    const long long pr = nb + parent;
+  __syncwarp();
+  // new beam j (lanes j and j + 32): its parent's fields, its emission
+  for (int j = lane; j < B; j += 32) {
+    const int c = sb.pick[j], parent = c / K1, kind = c - parent * K1;
     const bool emit = kind > 0;
-    const int tok = d.top_ids[pr * K + max(kind - 1, 0)];
-    const int u = d.u[pr], nexp = d.nexp[pr];
-    const long long h = d.hcode[pr];
-    parent_of[tid] = parent;
-    u_at[tid] = u;
-    u_new[tid] = emit ? u + 1 : u;
-    nexp_new[tid] = emit ? nexp + 1 : nexp;
-    tok_of[tid] = tok;
-    emits[tid] = emit;
-    waits[tid] = frame_on && !emit;
-    hash_new[tid] = emit ? static_cast<long long>(
-                               static_cast<unsigned>(h) * kHashMul +
-                               static_cast<unsigned>(tok + 1))
-                         : h;
+    const int u = sb.u[parent], nexp = sb.nexp[parent], tok = sb.tok[j];
+    const long long h = sb.hash[parent];
+    sb.parent[j] = parent;
+    sb.u_at[j] = u;
+    sb.u_new[j] = emit ? u + 1 : u;
+    sb.nexp_new[j] = emit ? nexp + 1 : nexp;
+    sb.emits[j] = emit;
+    sb.waits[j] = frame_on && !emit;
+    sb.hash_new[j] = emit ? static_cast<long long>(
+                                static_cast<unsigned>(h) * kHashMul +
+                                static_cast<unsigned>(tok + 1))
+                          : h;
   }
-  __syncthreads();
+  __syncwarp();
   // the merge: a beam dies where another of the same hash, length and
   // settledness beats it (higher score; ties: the lower index)
-  float score = 0.f;
+  float score[2] = {0.f, 0.f};
   bool active = false;
-  if (tid < B) {
-    const float sj = vals[pick[tid]];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int j = lane + 32 * h;
+    if (j >= B) continue;
+    const float sj = sb.val[j];
     bool killed = false;
     for (int i = 0; i < B; ++i) {
-      const float si = vals[pick[i]];
-      const bool same = hash_new[i] == hash_new[tid] && u_new[i] == u_new[tid] &&
-                        waits[i] == waits[tid];
-      const bool beats = si > sj || (si == sj && i < tid);
-      killed |= i != tid && same && beats;
+      const float si = sb.val[i];
+      const bool same = sb.hash_new[i] == sb.hash_new[j] &&
+                        sb.u_new[i] == sb.u_new[j] && sb.waits[i] == sb.waits[j];
+      const bool beats = si > sj || (si == sj && i < j);
+      killed |= i != j && same && beats;
     }
-    score = killed ? kNeg : sj;
-    active = !waits[tid] && score > half_neg;
+    score[h] = killed ? kNeg : sj;
+    active |= !sb.waits[j] && score[h] > 0.5f * kNeg;
   }
   // a sample whose live beams have all settled advances its frame
-  const bool advance = frame_on && !__syncthreads_or(active);
-  if (tid < B && go) {
-    const long long r = nb + tid;
-    d.scores_out[r] = score;
-    d.u_out[r] = u_new[tid];
-    d.nexp_out[r] = advance ? 0 : nexp_new[tid];
-    d.waiting_out[r] = waits[tid] && !advance;
-    d.hcode_out[r] = hash_new[tid];
-    d.emit[r] = emits[tid];
-    d.new_tok[r] = tok_of[tid];
-    d.src[r] = static_cast<int>(nb + parent_of[tid]);
-  } else if (tid < B) {  // the loop's cond is false: the state through
-    const long long r = nb + tid;
-    d.scores_out[r] = d.scores[r];
-    d.u_out[r] = d.u[r];
-    d.nexp_out[r] = d.nexp[r];
-    d.waiting_out[r] = d.waiting[r];
-    d.hcode_out[r] = d.hcode[r];
-    d.emit[r] = 0;
-    d.new_tok[r] = tok_of[tid];
-    d.src[r] = static_cast<int>(r);
+  const bool advance = frame_on && !__any_sync(~0u, active);
+  // what the GRU reads first, then its launch may start
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int j = lane + 32 * h;
+    if (j >= B) continue;
+    const long long r = nb + j;
+    d.emit[r] = go && sb.emits[j];
+    d.new_tok[r] = sb.tok[j];
+    d.src[r] = static_cast<int>(go ? nb + sb.parent[j] : r);
+  }
+  pdl_launch();
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int j = lane + 32 * h;
+    if (j >= B) continue;
+    const long long r = nb + j;
+    if (go) {
+      d.scores_out[r] = score[h];
+      d.u_out[r] = sb.u_new[j];
+      d.nexp_out[r] = advance ? 0 : sb.nexp_new[j];
+      d.waiting_out[r] = sb.waits[j] && !advance;
+      d.hcode_out[r] = sb.hash_new[j];
+    } else {  // the loop's cond is false: the state through
+      d.scores_out[r] = sb.score[j];
+      d.u_out[r] = sb.u[j];
+      d.nexp_out[r] = sb.nexp[j];
+      d.waiting_out[r] = sb.wait[j];
+      d.hcode_out[r] = sb.hash[j];
+    }
   }
   // (where go is false no sample's frame is on: t keeps)
-  if (tid == 0) d.t_out[n] = advance ? t + 1 : t;
+  if (lane == 0) d.t_out[n] = advance ? t + 1 : t;
+  if (d.count && n == 0 && lane == 0) d.count_out[0] = d.count[0] + go;
   // the token rows: the parent's, the new token at the parent's u (where
   // go is false, each beam's own)
-  const long long base = nb * L;
-  for (int e = tid; e < B * L; e += kRowThreads) {
-    const int b = e / L, l = e - b * L;
-    d.tokens_out[base + e] =
-        !go ? d.tokens[base + e]
-        : emits[b] && l == u_at[b]
-            ? tok_of[b]
-            : d.tokens[(nb + parent_of[b]) * L + l];
+  const int* rows = d.stage ? tok_s : d.tokens + base;
+  if (d.vec) {
+    int4* to = reinterpret_cast<int4*>(d.tokens_out + base);
+    for (int e = lane; e < B * L / 4; e += 32) {
+      const int b = 4 * e / L, l0 = 4 * e - b * L;
+      const int from = go ? sb.parent[b] : b;
+      int4 v = *reinterpret_cast<const int4*>(rows + from * L + l0);
+      if (go && sb.emits[b]) {
+        const int at = sb.u_at[b] - l0, tok = sb.tok[b];
+        v.x = at == 0 ? tok : v.x;
+        v.y = at == 1 ? tok : v.y;
+        v.z = at == 2 ? tok : v.z;
+        v.w = at == 3 ? tok : v.w;
+      }
+      to[e] = v;
+    }
+  } else {
+    for (int e = lane; e < B * L; e += 32) {
+      const int b = e / L, l = e - b * L;
+      d.tokens_out[base + e] =
+          !go ? rows[e]
+          : sb.emits[b] && l == sb.u_at[b] ? sb.tok[b]
+                                            : rows[sb.parent[b] * L + l];
+    }
   }
 }
 
@@ -1330,13 +1517,17 @@ bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 
 // Let kKernel take `bytes` of dynamic shared memory on the current device
 // (raised once a device to the most asked of it, before any capture: the
 // first call of a shape runs outside a graph).
+// `static_bytes`: what the kernel declares itself, which counts against
+// the 48 KB a block may take without asking.
 template <auto kKernel>
-cudaError_t allow_smem(long long bytes) {
+cudaError_t allow_smem(long long bytes, long long static_bytes = 0) {
   static long long allowed[64] = {};
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return e;
-  if (bytes <= 48 * 1024 || dev >= 64 || allowed[dev] >= bytes) return cudaSuccess;
+  if (bytes + static_bytes <= 48 * 1024 || dev >= 64 || allowed[dev] >= bytes) {
+    return cudaSuccess;
+  }
   e = cudaFuncSetAttribute(kKernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            static_cast<int>(bytes));
   if (e == cudaSuccess) allowed[dev] = bytes;
@@ -1601,8 +1792,11 @@ extern "C" int decode_gru(const long long* a) {
 // nexp, waiting, hcode, lp_blank, top_lp, top_ids, frame_bound, then t_out,
 // scores_out, tokens_out, u_out, nexp_out, waiting_out, hcode_out, emit,
 // new_tok, src, then N, B, K, L, max_symbols, stream, then the loop's
-// fold: count, count_out (0 and 0 without).  B and K at most kMaxK.  One
-// launch.
+// fold: count, count_out (0 and 0 without), then the plan (ops
+// select_plan): samples a block, candidate slots a lane (0: in shared
+// memory), token rows staged (1 or 0), dynamic shared bytes.  B and K at
+// most kMaxK; the entry recomputes the shared bytes and refuses a plan
+// that disagrees.  One launch, programmatic on the edge before it.
 extern "C" int decode_beam_select(const long long* a) {
   Select d{};
   d.t = ptr<const int*>(a[0]);
@@ -1626,8 +1820,7 @@ extern "C" int decode_beam_select(const long long* a) {
   d.emit = ptr<unsigned char*>(a[18]);
   d.new_tok = ptr<int*>(a[19]);
   d.src = ptr<int*>(a[20]);
-  const int N = static_cast<int>(a[21]);
-  d.N = N;
+  d.N = static_cast<int>(a[21]);
   d.B = static_cast<int>(a[22]);
   d.K = static_cast<int>(a[23]);
   d.L = static_cast<int>(a[24]);
@@ -1635,12 +1828,44 @@ extern "C" int decode_beam_select(const long long* a) {
   const cudaStream_t s = ptr<cudaStream_t>(a[26]);
   d.count = ptr<const int*>(a[27]);
   d.count_out = ptr<int*>(a[28]);
-  if (d.B < 1 || d.B > kMaxK || d.K < 1 || d.K > kMaxK ||
-      (d.count != nullptr) != (d.count_out != nullptr)) {
+  d.warps = static_cast<int>(a[29]);
+  d.slots = static_cast<int>(a[30]);
+  d.stage = static_cast<int>(a[31]);
+  const long long smem = a[32];
+  const int nc = d.B * (d.K + 1);
+  d.tok_bytes = select_tok_bytes(d.B, d.L, d.stage);
+  d.warp_bytes = d.tok_bytes + select_cand_bytes(d.B, d.K, d.slots);
+  if (d.B < 1 || d.B > kMaxK || d.K < 1 || d.K > kMaxK || d.N < 1 ||
+      (d.count != nullptr) != (d.count_out != nullptr) || d.warps < 1 ||
+      d.warps > kSelWarps || (d.stage != 0 && d.stage != 1) ||
+      (d.slots != 0 && d.slots != 1 && d.slots != 2 && d.slots != 4) ||
+      32 * d.slots < (d.slots ? nc : 0) ||
+      static_cast<long long>(d.warps) * d.warp_bytes != smem) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  decode_beam_select_kernel<<<N, kRowThreads, 0, s>>>(d);
-  return static_cast<int>(cudaGetLastError());
+  d.vec = d.L % 4 == 0 && aligned16(d.tokens) && aligned16(d.tokens_out);
+  const dim3 grid((d.N + d.warps - 1) / d.warps);
+  const int threads = 32 * d.warps;
+  constexpr long long kStatic = sizeof(SelectBeams) * kSelWarps;
+  cudaError_t e;
+  switch (d.slots) {
+    case 1:
+      e = allow_smem<decode_beam_select_kernel<1>>(smem, kStatic);
+      if (e == cudaSuccess) e = launch<decode_beam_select_kernel<1>>(grid, threads, smem, 0, s, d);
+      break;
+    case 2:
+      e = allow_smem<decode_beam_select_kernel<2>>(smem, kStatic);
+      if (e == cudaSuccess) e = launch<decode_beam_select_kernel<2>>(grid, threads, smem, 0, s, d);
+      break;
+    case 4:
+      e = allow_smem<decode_beam_select_kernel<4>>(smem, kStatic);
+      if (e == cudaSuccess) e = launch<decode_beam_select_kernel<4>>(grid, threads, smem, 0, s, d);
+      break;
+    default:
+      e = allow_smem<decode_beam_select_kernel<0>>(smem, kStatic);
+      if (e == cudaSuccess) e = launch<decode_beam_select_kernel<0>>(grid, threads, smem, 0, s, d);
+  }
+  return static_cast<int>(e != cudaSuccess ? e : cudaGetLastError());
 }
 
 // 1 where the launches carry programmatic dependent launch (a build-time

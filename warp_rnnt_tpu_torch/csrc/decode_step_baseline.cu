@@ -1,9 +1,10 @@
 // The decode step's first kernels for Hopper (sm_90a), kept beside
 // `decode_step.cu` as the yardstick its redesign is timed against, in turns
 // on one card (`benchmarks/decode_step_cases.BASELINE`); the decoders never
-// load it.  Its entries read the first 27 (decode_joint) and 28
-// (decode_gru) fields of `decode_step.cu`'s argument blocks, which keep
-// these fields in this order, so the same wrappers drive both libraries.
+// load it.  Its entries read the first 27 (decode_joint), 28 (decode_gru)
+// and 29 (decode_beam_select) fields of `decode_step.cu`'s argument
+// blocks, which keep these fields in this order, so the same wrappers
+// drive both libraries.
 //
 // decode_joint, three launches: two dense layers of blocks of 32 rows x 16
 // columns that walk K in chunks of 128 (each chunk's 16-byte loads issued
@@ -12,7 +13,11 @@
 // launch: blocks of 32 rows x 4 hidden units over K in chunks of 128, a
 // lane a row; greedy's masked update folded in; beam's row map.  The
 // arithmetic and its roundings are `decode_step.cu`'s, the sums in another
-// order.
+// order.  decode_beam_select, one launch: beam search's selection as it
+// was first written, one block of 256 threads a sample (the candidates in
+// shared memory, B block-wide argmax rounds, a block barrier between each
+// part), launched plainly; with the loop's count, its mask and count
+// folded in.  It equals `decode_step.cu`'s selection bit for bit.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -591,6 +596,170 @@ void launch_joint(const Dense& hid, const Dense& out, cudaStream_t s) {
   decode_joint_dense_kernel<T, false><<<g2, kThreads, 0, s>>>(out);
 }
 
+struct Select {
+  // the state (N samples, B beams, L tokens a beam) and the joint's output
+  const int* t;                  // (N,)
+  const float* scores;           // (N, B)
+  const int* tokens;             // (N, B, L)
+  const int* u;                  // (N, B)
+  const int* nexp;               // (N, B)
+  const unsigned char* waiting;  // (N, B) bool
+  const long long* hcode;        // (N, B), in [0, 2^32)
+  const float* lp_blank;         // (N B,)
+  const float* top_lp;           // (N B, K)
+  const int* top_ids;            // (N B, K)
+  const int* fb;                 // (N,) frame bounds
+  // the new state, then the GRU's emit, token and parent row (N B,)
+  int* t_out;
+  float* scores_out;
+  int* tokens_out;
+  int* u_out;
+  int* nexp_out;
+  unsigned char* waiting_out;
+  long long* hcode_out;
+  unsigned char* emit;
+  int* new_tok;
+  int* src;
+  // the loop's mask and count, folded (null otherwise)
+  const int* count;
+  int* count_out;
+  int N, B, K, L, max_symbols;
+};
+
+constexpr int kMaxCand = kMaxK * (kMaxK + 1);  // B (K + 1) candidates, at most
+constexpr unsigned kHashMul = 1000003u;
+
+// One block (kRowThreads) a sample: the candidates in shared memory, B
+// block-wide argmax rounds (block_best), then the beams' fields, the
+// merge, the frame advance and the token rows, each after a block
+// barrier; a plain launch (no programmatic edge on either side).
+__global__ void __launch_bounds__(kRowThreads)
+decode_beam_select_kernel(const Select d) {
+  __shared__ float vals[kMaxCand];  // the candidates' scores
+  __shared__ float keys[kMaxCand];  // clamped; -inf once picked
+  __shared__ float redf[kRowThreads / 32];
+  __shared__ int redi[kRowThreads / 32];
+  __shared__ int pick[kMaxK];
+  __shared__ int parent_of[kMaxK], u_at[kMaxK], u_new[kMaxK], nexp_new[kMaxK];
+  __shared__ int tok_of[kMaxK];
+  __shared__ unsigned char emits[kMaxK], waits[kMaxK];
+  __shared__ long long hash_new[kMaxK];
+  const int tid = threadIdx.x, n = blockIdx.x;
+  const int B = d.B, K = d.K, K1 = d.K + 1, L = d.L, nc = B * K1;
+  const long long nb = static_cast<long long>(n) * B;
+  const float half_neg = 0.5f * kNeg;  // a live beam scores above it
+  const int t = d.t[n];
+  const bool frame_on = t < d.fb[n];
+  bool go = true;  // the loop's cond, where it is folded in
+  if (d.count) {
+    bool live = false;
+    for (int m = tid; m < d.N; m += kRowThreads) live |= d.t[m] < d.fb[m];
+    go = __syncthreads_or(live);
+    if (n == 0 && tid == 0) d.count_out[0] = d.count[0] + go;
+  }
+  for (int c = tid; c < nc; c += kRowThreads) {
+    const int b = c / K1, q = c - b * K1;
+    const long long r = nb + b;
+    const float s = d.scores[r];
+    const bool wait = d.waiting[r] != 0;
+    float v;
+    if (q == 0) {  // blank (an active beam) or self (settled, off-frame)
+      v = frame_on && !wait ? s + d.lp_blank[r] : s;
+    } else {  // a label, where the beam may expand
+      const bool expandable = frame_on && s > half_neg && !wait &&
+                              d.u[r] < L && d.nexp[r] < d.max_symbols;
+      v = expandable ? s + d.top_lp[r * K + q - 1] : kNeg;
+    }
+    vals[c] = v;
+    keys[c] = isnan(v) ? v : fmaxf(v, -FLT_MAX);
+  }
+  __syncthreads();
+  for (int j = 0; j < B; ++j) {
+    float key = -INFINITY;
+    int idx = INT_MAX;
+    for (int c = tid; c < nc; c += kRowThreads) take_first_max(key, idx, keys[c], c);
+    block_best(key, idx, redf, redi);
+    if (tid == 0) {
+      pick[j] = idx;
+      keys[idx] = -INFINITY;
+    }
+    __syncthreads();
+  }
+  if (tid < B) {  // new beam tid: its parent's fields, then its emission
+    const int c = pick[tid], parent = c / K1, kind = c - parent * K1;
+    const long long pr = nb + parent;
+    const bool emit = kind > 0;
+    const int tok = d.top_ids[pr * K + max(kind - 1, 0)];
+    const int u = d.u[pr], nexp = d.nexp[pr];
+    const long long h = d.hcode[pr];
+    parent_of[tid] = parent;
+    u_at[tid] = u;
+    u_new[tid] = emit ? u + 1 : u;
+    nexp_new[tid] = emit ? nexp + 1 : nexp;
+    tok_of[tid] = tok;
+    emits[tid] = emit;
+    waits[tid] = frame_on && !emit;
+    hash_new[tid] = emit ? static_cast<long long>(
+                               static_cast<unsigned>(h) * kHashMul +
+                               static_cast<unsigned>(tok + 1))
+                         : h;
+  }
+  __syncthreads();
+  // the merge: a beam dies where another of the same hash, length and
+  // settledness beats it (higher score; ties: the lower index)
+  float score = 0.f;
+  bool active = false;
+  if (tid < B) {
+    const float sj = vals[pick[tid]];
+    bool killed = false;
+    for (int i = 0; i < B; ++i) {
+      const float si = vals[pick[i]];
+      const bool same = hash_new[i] == hash_new[tid] && u_new[i] == u_new[tid] &&
+                        waits[i] == waits[tid];
+      const bool beats = si > sj || (si == sj && i < tid);
+      killed |= i != tid && same && beats;
+    }
+    score = killed ? kNeg : sj;
+    active = !waits[tid] && score > half_neg;
+  }
+  // a sample whose live beams have all settled advances its frame
+  const bool advance = frame_on && !__syncthreads_or(active);
+  if (tid < B && go) {
+    const long long r = nb + tid;
+    d.scores_out[r] = score;
+    d.u_out[r] = u_new[tid];
+    d.nexp_out[r] = advance ? 0 : nexp_new[tid];
+    d.waiting_out[r] = waits[tid] && !advance;
+    d.hcode_out[r] = hash_new[tid];
+    d.emit[r] = emits[tid];
+    d.new_tok[r] = tok_of[tid];
+    d.src[r] = static_cast<int>(nb + parent_of[tid]);
+  } else if (tid < B) {  // the loop's cond is false: the state through
+    const long long r = nb + tid;
+    d.scores_out[r] = d.scores[r];
+    d.u_out[r] = d.u[r];
+    d.nexp_out[r] = d.nexp[r];
+    d.waiting_out[r] = d.waiting[r];
+    d.hcode_out[r] = d.hcode[r];
+    d.emit[r] = 0;
+    d.new_tok[r] = tok_of[tid];
+    d.src[r] = static_cast<int>(r);
+  }
+  // (where go is false no sample's frame is on: t keeps)
+  if (tid == 0) d.t_out[n] = advance ? t + 1 : t;
+  // the token rows: the parent's, the new token at the parent's u (where
+  // go is false, each beam's own)
+  const long long base = nb * L;
+  for (int e = tid; e < B * L; e += kRowThreads) {
+    const int b = e / L, l = e - b * L;
+    d.tokens_out[base + e] =
+        !go ? d.tokens[base + e]
+        : emits[b] && l == u_at[b]
+            ? tok_of[b]
+            : d.tokens[(nb + parent_of[b]) * L + l];
+  }
+}
+
 template <typename P>
 P ptr(long long v) { return reinterpret_cast<P>(v); }
 
@@ -690,6 +859,52 @@ extern "C" int decode_gru(const long long* a) {
   d.src = ptr<const int*>(a[27]);
   const dim3 grid((d.H + kUnits - 1) / kUnits, (d.rows + kRowTile - 1) / kRowTile);
   decode_gru_kernel<<<grid, kThreads, 0, s>>>(d);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// decode_beam_select's argument block (int64 each): t, scores, tokens, u,
+// nexp, waiting, hcode, lp_blank, top_lp, top_ids, frame_bound, then t_out,
+// scores_out, tokens_out, u_out, nexp_out, waiting_out, hcode_out, emit,
+// new_tok, src, then N, B, K, L, max_symbols, stream, then the loop's
+// fold: count, count_out (0 and 0 without).  B and K at most kMaxK.  One
+// launch.
+extern "C" int decode_beam_select(const long long* a) {
+  Select d{};
+  d.t = ptr<const int*>(a[0]);
+  d.scores = ptr<const float*>(a[1]);
+  d.tokens = ptr<const int*>(a[2]);
+  d.u = ptr<const int*>(a[3]);
+  d.nexp = ptr<const int*>(a[4]);
+  d.waiting = ptr<const unsigned char*>(a[5]);
+  d.hcode = ptr<const long long*>(a[6]);
+  d.lp_blank = ptr<const float*>(a[7]);
+  d.top_lp = ptr<const float*>(a[8]);
+  d.top_ids = ptr<const int*>(a[9]);
+  d.fb = ptr<const int*>(a[10]);
+  d.t_out = ptr<int*>(a[11]);
+  d.scores_out = ptr<float*>(a[12]);
+  d.tokens_out = ptr<int*>(a[13]);
+  d.u_out = ptr<int*>(a[14]);
+  d.nexp_out = ptr<int*>(a[15]);
+  d.waiting_out = ptr<unsigned char*>(a[16]);
+  d.hcode_out = ptr<long long*>(a[17]);
+  d.emit = ptr<unsigned char*>(a[18]);
+  d.new_tok = ptr<int*>(a[19]);
+  d.src = ptr<int*>(a[20]);
+  const int N = static_cast<int>(a[21]);
+  d.N = N;
+  d.B = static_cast<int>(a[22]);
+  d.K = static_cast<int>(a[23]);
+  d.L = static_cast<int>(a[24]);
+  d.max_symbols = static_cast<int>(a[25]);
+  const cudaStream_t s = ptr<cudaStream_t>(a[26]);
+  d.count = ptr<const int*>(a[27]);
+  d.count_out = ptr<int*>(a[28]);
+  if (d.B < 1 || d.B > kMaxK || d.K < 1 || d.K > kMaxK ||
+      (d.count != nullptr) != (d.count_out != nullptr)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  decode_beam_select_kernel<<<N, kRowThreads, 0, s>>>(d);
   return static_cast<int>(cudaGetLastError());
 }
 

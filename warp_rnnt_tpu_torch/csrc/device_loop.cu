@@ -6,6 +6,11 @@
 // `utils/device_loop.py` captures one round of the loop (UNROLL masked
 // steps, then the round's tail, which writes the loop's cond and count into
 // the first two ints of a three-int status buffer) as a torch CUDA graph.
+// A folded loop whose cond is any(t < frame_bound) over an int32 vector of
+// its state and one of its consts (the decoders': `device_loop.AnyLess`)
+// has no tail: its round's last step writes the loop's static buffers
+// itself, and loop_continue_kernel computes the cond from them and writes
+// the status.
 // device_loop_build makes a graph of one conditional node of type while
 // (CUDA 12.3+), whose body is that round as a child graph followed by
 // loop_continue_kernel;
@@ -17,7 +22,8 @@
 //
 //     status[0] != 0 && status[1] < bound[0]
 //
-// so the card runs round after round with no host read between them, and
+// (with the cond computed first, where the loop's cond is the card's), so
+// the card runs round after round with no host read between them, and
 // stops on its own when cond is false or the count has reached the loop's
 // bound (a faulty loop then stops on the device; the host, which reads the
 // status once after the launch, raises).  The handle's default launch value
@@ -25,8 +31,12 @@
 // rounds are masked, so that round leaves the state bit for bit, as the
 // eager loop's first round does.
 //
-// What bounds it: one launch of one thread a round, reading 12 bytes and
-// writing 4; its cost is the node's scheduling, not the kernel.
+// What bounds it: one launch a round, reading 12 bytes and writing 4 (the
+// card's cond: one block reading the n ints of t and frame_bound, writing
+// 12 bytes); its cost is the node's scheduling, not the kernel.  Its edge
+// from the round is a full dependency: the round is a child graph node,
+// and CUDA joins only kernel nodes by programmatic edges
+// (device_loop_edge_probe asks the runtime).
 //
 // A conditional body takes kernel, memset, device-to-device memcpy, empty,
 // child-graph and conditional nodes only: device_loop_nodes counts a
@@ -223,14 +233,47 @@ cudaError_t count_edges(cudaGraph_t g, long long* out) {
 
 }  // namespace
 
-// One thread, once a round, after the round's tail: count the round, and
-// go on while the round's cond holds and the count is under the loop's
-// bound.
-__global__ void loop_continue_kernel(int* status, const int* bound,
-                                     cudaGraphConditionalHandle handle) {
-  status[2] += 1;
-  cudaGraphSetConditional(handle, status[0] != 0 && status[1] < bound[0]);
+constexpr int kContinueThreads = 256;  // the card's cond: one block
+
+// loop_continue_kernel's arguments: the status (cond, count, rounds run)
+// and the bound; where t is given (the card's cond), the loop's count and
+// the n ints of t and frame_bound it reads the cond from.
+struct Continue {
+  int* status;
+  const int* bound;
+  const int* count;
+  const int* t;
+  const int* fb;
+  int n;
+  cudaGraphConditionalHandle handle;
+};
+
+// Once a round, after the round: where t is given, cond = any(t < fb) over
+// the n ints (one block, one barrier) and the status's cond and count
+// written; then count the round, and go on while the round's cond holds
+// and the count is under the loop's bound.
+__global__ void __launch_bounds__(kContinueThreads)
+loop_continue_kernel(const Continue c) {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+  int go, count;
+  if (c.t != nullptr) {
+    bool live = false;
+    for (int i = threadIdx.x; i < c.n; i += blockDim.x) live |= c.t[i] < c.fb[i];
+    go = __syncthreads_or(live);
+    if (threadIdx.x != 0) return;
+    count = c.count[0];
+    c.status[0] = go;
+    c.status[1] = count;
+  } else {
+    if (threadIdx.x != 0) return;
+    go = c.status[0];
+    count = c.status[1];
+  }
+  c.status[2] += 1;
+  cudaGraphSetConditional(c.handle, go != 0 && count < c.bound[0]);
 }
+
+__global__ void probe_kernel() {}
 
 // counts[k] (k < 32, zeroed by the caller): the nodes of `graph` (a raw
 // cudaGraph_t) and of its child graphs, by cudaGraphNodeType; slot 30 a
@@ -253,19 +296,30 @@ extern "C" int device_loop_kernel_names(long long graph, char* out,
   return 0;
 }
 
+// The loop's buffers, as device pointers (int64) that outlive every exec
+// of the graph: status (3 ints: cond, count, rounds run), bound (1 int),
+// and for the card's cond count (1 int), t and fb (n ints each; t 0
+// otherwise).
+struct LoopArgs {
+  long long status, bound, count, t, fb, n;
+};
+
+LoopArgs loop_args(const long long* a) {
+  return LoopArgs{a[0], a[1], a[2], a[3], a[4], a[5]};
+}
+
 // Adds to `g`, after the `n` nodes `deps` (their edges' data `data`, or
 // nullptr for default edges), one conditional node of type while whose
 // handle is assigned 1 at every launch of `g`; its body is `round_graph`
 // (a torch CUDAGraph's raw_cuda_graph(), cloned as a child graph) then
-// loop_continue_kernel on `status` (3 ints: cond, count, rounds run) and
-// `bound` (1 int), both device pointers that outlive every exec of `g`.  *node_out
-// receives the node; edges[0], edges[1] the programmatic and all edges of
-// the body's round as built (the child graph's clone).
+// loop_continue_kernel on the loop's buffers `la` (one thread, or one block
+// for the card's cond).  *node_out receives the node; edges[0], edges[1]
+// the programmatic and all edges of the body's round as built (the child
+// graph's clone).
 cudaError_t add_while_node(cudaGraph_t g, const cudaGraphNode_t* deps,
                            const cudaGraphEdgeData* data, size_t n,
-                           long long round_graph, long long status,
-                           long long bound, cudaGraphNode_t* node_out,
-                           long long* edges) {
+                           long long round_graph, const LoopArgs& la,
+                           cudaGraphNode_t* node_out, long long* edges) {
   cudaGraphConditionalHandle handle;
   cudaError_t e = cudaGraphConditionalHandleCreate(
       &handle, g, 1, cudaGraphCondAssignDefault);
@@ -286,13 +340,14 @@ cudaError_t add_while_node(cudaGraph_t g, const cudaGraphNode_t* deps,
   e = cudaGraphAddChildGraphNode(&round, body, nullptr, 0,
                                  ptr<cudaGraph_t>(round_graph));
   if (e != cudaSuccess) return e;
-  int* status_p = ptr<int*>(status);
-  const int* bound_p = ptr<const int*>(bound);
-  void* args[] = {&status_p, &bound_p, &handle};
+  Continue c{ptr<int*>(la.status), ptr<const int*>(la.bound),
+             ptr<const int*>(la.count), ptr<const int*>(la.t),
+             ptr<const int*>(la.fb), static_cast<int>(la.n), handle};
+  void* args[] = {&c};
   cudaKernelNodeParams kp = {};
   kp.func = reinterpret_cast<void*>(loop_continue_kernel);
   kp.gridDim = dim3(1);
-  kp.blockDim = dim3(1);
+  kp.blockDim = dim3(c.t != nullptr ? kContinueThreads : 1);
   kp.sharedMemBytes = 0;
   kp.kernelParams = args;
   cudaGraphNode_t cont;
@@ -305,16 +360,16 @@ cudaError_t add_while_node(cudaGraph_t g, const cudaGraphNode_t* deps,
 }
 
 // The loop's executable graph: one while node (add_while_node) alone in a
-// graph of its own.  *exec_out receives the cudaGraphExec_t.
-extern "C" int device_loop_build(long long round_graph, long long status,
-                                 long long bound, long long* exec_out,
-                                 long long* edges) {
+// graph of its own; `loop` the loop's buffers (LoopArgs: status, bound,
+// count, t, fb, n).  *exec_out receives the cudaGraphExec_t.
+extern "C" int device_loop_build(long long round_graph, const long long* loop,
+                                 long long* exec_out, long long* edges) {
   cudaGraph_t g = nullptr;
   cudaError_t e = cudaGraphCreate(&g, 0);
   if (e != cudaSuccess) return static_cast<int>(e);
   cudaGraphExec_t exec = nullptr;
   cudaGraphNode_t node;
-  e = add_while_node(g, nullptr, nullptr, 0, round_graph, status, bound,
+  e = add_while_node(g, nullptr, nullptr, 0, round_graph, loop_args(loop),
                      &node, edges);
   if (e == cudaSuccess) e = cudaGraphInstantiate(&exec, g, 0);
   cudaGraphDestroy(g);
@@ -330,7 +385,7 @@ extern "C" int device_loop_build(long long round_graph, long long status,
 // launches then run the loop, its handle reset to 1 at each.  Returns
 // cudaErrorIllegalState where `stream` is not capturing.
 extern "C" int device_loop_capture(long long stream, long long round_graph,
-                                   long long status, long long bound) {
+                                   const long long* loop) {
   cudaStream_t s = ptr<cudaStream_t>(stream);
   cudaStreamCaptureStatus capturing;
   cudaGraph_t g = nullptr;
@@ -350,7 +405,7 @@ extern "C" int device_loop_capture(long long stream, long long round_graph,
   }
   cudaGraphNode_t node;
   long long edges[2];
-  e = add_while_node(g, deps, data, n, round_graph, status, bound, &node,
+  e = add_while_node(g, deps, data, n, round_graph, loop_args(loop), &node,
                      edges);
   if (e != cudaSuccess) return static_cast<int>(e);
 #if CUDART_VERSION >= 13000
@@ -371,6 +426,75 @@ extern "C" int device_loop_launch(long long exec, long long stream) {
 
 extern "C" int device_loop_destroy(long long exec) {
   return static_cast<int>(cudaGraphExecDestroy(ptr<cudaGraphExec_t>(exec)));
+}
+
+// Whether a conditional while node's body takes a programmatic edge (a
+// launch that may start before the one it depends on ends) into a kernel
+// node: out[0] from a child graph node (the round as this file adds it),
+// out[1] from a kernel node (a round captured straight into the body);
+// each the cudaError_t of adding and instantiating it (0: taken).  Builds
+// scratch graphs and launches nothing.
+extern "C" int device_loop_edge_probe(long long* out) {
+  for (int from_kernel = 0; from_kernel < 2; ++from_kernel) {
+    cudaGraph_t g = nullptr, child = nullptr;
+    cudaError_t e = cudaGraphCreate(&g, 0);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    cudaGraphConditionalHandle handle;
+    cudaGraphNodeParams cp = {};
+    cudaGraphNode_t cond, first, last;
+    e = cudaGraphConditionalHandleCreate(&handle, g, 0,
+                                         cudaGraphCondAssignDefault);
+    if (e == cudaSuccess) {
+      cp.type = cudaGraphNodeTypeConditional;
+      cp.conditional.handle = handle;
+      cp.conditional.type = cudaGraphCondTypeWhile;
+      cp.conditional.size = 1;
+#if CUDART_VERSION >= 13000
+      e = cudaGraphAddNode(&cond, g, nullptr, nullptr, 0, &cp);
+#else
+      e = cudaGraphAddNode_v2(&cond, g, nullptr, nullptr, 0, &cp);
+#endif
+    }
+    cudaKernelNodeParams kp = {};
+    kp.func = reinterpret_cast<void*>(probe_kernel);
+    kp.gridDim = dim3(1);
+    kp.blockDim = dim3(1);
+    void* none[] = {nullptr};
+    kp.kernelParams = none;
+    cudaGraph_t body = e == cudaSuccess ? cp.conditional.phGraph_out[0] : nullptr;
+    if (e == cudaSuccess && from_kernel) {
+      e = cudaGraphAddKernelNode(&first, body, nullptr, 0, &kp);
+    } else if (e == cudaSuccess) {
+      e = cudaGraphCreate(&child, 0);
+      if (e == cudaSuccess) e = cudaGraphAddChildGraphNode(&first, body, nullptr, 0, child);
+    }
+    if (e == cudaSuccess) {  // the edge under test
+      cudaGraphNodeParams np = {};
+      np.type = cudaGraphNodeTypeKernel;
+      np.kernel.func = kp.func;
+      np.kernel.gridDim = kp.gridDim;
+      np.kernel.blockDim = kp.blockDim;
+      np.kernel.kernelParams = none;
+      cudaGraphEdgeData ed = {};
+      ed.from_port = cudaGraphKernelNodePortProgrammatic;
+      ed.type = cudaGraphDependencyTypeProgrammatic;
+#if CUDART_VERSION >= 13000
+      e = cudaGraphAddNode(&last, body, &first, &ed, 1, &np);
+#else
+      e = cudaGraphAddNode_v2(&last, body, &first, &ed, 1, &np);
+#endif
+    }
+    if (e == cudaSuccess) {
+      cudaGraphExec_t exec = nullptr;
+      e = cudaGraphInstantiate(&exec, g, 0);
+      if (exec != nullptr) cudaGraphExecDestroy(exec);
+    }
+    out[from_kernel] = static_cast<long long>(e);
+    cudaGetLastError();  // a refusal is the answer, not a fault
+    if (child != nullptr) cudaGraphDestroy(child);
+    cudaGraphDestroy(g);
+  }
+  return 0;
 }
 
 extern "C" const char* device_loop_error_string(int code) {

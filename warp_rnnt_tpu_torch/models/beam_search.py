@@ -188,8 +188,10 @@ def beam_drain(model, state, enc, p0, frame_bound,
     dc = decode_consts(model)
     gru = gru_params(model)
 
-    def body(state, consts, count=None):
-        # count: the loop's, where the selection folds in its mask and count
+    def body(state, consts, count=None, into=None):
+        # count: the loop's, where the selection folds in its mask and
+        # count; into: the loop's static state and count, which the
+        # selection and the GRU write
         enc, frame_bound, p0, w_pre, b_pre, w_out, b_out, b_hh = consts
         (t, scores, tokens, u, nexp, waiting, hcode, pred_state,
          pred_out) = state
@@ -200,14 +202,20 @@ def beam_drain(model, state, enc, p0, frame_bound,
         # the candidates' top-k, the beams' gathers, the token write, the
         # hash, the merge and the frame advance
         fold = () if count is None else (count,)
+        sel_into, gru_into = {}, {}
+        if into is not None:
+            sel_into = {"into": (*into[:7], into[9])}
+            gru_into = {"into": (into[7].view(N * B, -1),
+                                 into[8].view(N * B, -1))}
         (t, scores, tokens, u, nexp, waiting, hcode, emit, new_tok, src,
          *fold) = ops.decode_beam_select(
             t, scores, tokens, u, nexp, waiting, hcode, lp_blank, top_lp,
-            top_ids, frame_bound, max_symbols_per_step, *fold)
+            top_ids, frame_bound, max_symbols_per_step, *fold, **sel_into)
         # the predictor on the emitted tokens, reading each beam's parent
         pred_state, pred_out = ops.decode_gru(
             new_tok, pred_state.reshape(N * B, -1),
-            pred_out.reshape(N * B, -1), emit, *gru, b_hh, src=src)
+            pred_out.reshape(N * B, -1), emit, *gru, b_hh, src=src,
+            **gru_into)
         new = (t, scores, tokens, u, nexp, waiting, hcode,
                pred_state.reshape(N, B, -1), pred_out.reshape(N, B, -1))
         return (new, *fold) if fold else new

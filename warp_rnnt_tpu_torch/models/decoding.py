@@ -97,9 +97,10 @@ COMPILED = "decoding.compiled_greedy_decode"  # its graphs' key name
 _CONSTS = weakref.WeakKeyDictionary()
 
 
-def _frames_left(state, consts):
-    """JAX's ``cond`` of both decoders: some sample's t < frame_bound."""
-    return (state[0] < consts[1]).any()
+# JAX's ``cond`` of both decoders: some sample's t (state[0]) < its frame
+# bound (consts[1]); a folded drain's round ends on the card with it
+# (`device_loop.AnyLess`).
+_frames_left = device_loop.AnyLess(0, 1)
 
 
 def pad_frames(enc):
@@ -200,8 +201,11 @@ def first_output(model, N, ops=decode_step):
 def folds(ops):
     """True where a drain on ``ops`` folds the loop's mask and count into
     the step's kernels: ``ops`` is `ops.decode_step` on its own library
-    (`decode_step.folds`)."""
-    return ops is decode_step and decode_step.folds()
+    (`decode_step.folds`), or says it folds (``ops.folded``: the
+    benchmarks' steps with one kernel swapped for its first version)."""
+    if ops is decode_step:
+        return decode_step.folds()
+    return bool(getattr(ops, "folded", False))
 
 
 def run_drain(name, model, body, state, enc, p0, frame_bound,
@@ -346,8 +350,9 @@ def greedy_drain(model, dec, enc, p0, frame_bound,
     dc = decode_consts(model)
     gru = gru_params(model)
 
-    def body(state, consts, count=None):
-        # count: the loop's, where the GRU folds in its mask and count
+    def body(state, consts, count=None, into=None):
+        # count: the loop's, where the GRU folds in its mask and count;
+        # into: the loop's static state and count, for the GRU to write
         enc, frame_bound, p0, w_pre, b_pre, w_out, b_out, b_hh = consts
         t, u, emitted_here, last_tok, pred_state, pred_out, tokens = state
         best = ops.decode_joint(enc, t, p0, pred_out, w_pre, b_pre, w_out,
@@ -358,8 +363,10 @@ def greedy_drain(model, dec, enc, p0, frame_bound,
             t, u, emitted_here, tokens, pred_state, pred_out = (
                 ops.decode_gru_greedy(*args))
             return (t, u, emitted_here, best, pred_state, pred_out, tokens)
+        if into is not None:  # the GRU's output order
+            into = (*into[:3], into[6], into[4], into[5], into[3], into[7])
         (t, u, emitted_here, tokens, pred_state, pred_out, last_tok,
-         count) = ops.decode_gru_greedy(*args, last_tok, count)
+         count) = ops.decode_gru_greedy(*args, last_tok, count, into=into)
         return (t, u, emitted_here, last_tok, pred_state, pred_out,
                 tokens), count
 

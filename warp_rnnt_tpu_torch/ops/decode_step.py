@@ -100,7 +100,7 @@ _JOINT_ARGS = struct.Struct("<37q")
 # The loop's fold (last_tok and count in and out; count in and out) comes
 # last, where `csrc/decode_step_baseline.cu`'s entries do not read.
 _GRU_ARGS = struct.Struct("<39q")
-_SELECT_ARGS = struct.Struct("<29q")
+_SELECT_ARGS = struct.Struct("<33q")
 
 # The launch plans' limits (csrc/decode_step.cu): shared memory a block
 # can use on Hopper, less what the kernels declare statically; blocks a
@@ -118,6 +118,9 @@ GRU_BLOCKS = 132  # a GRU launch's blocks, at most (one an SM)
 GRU_SMEM = 112 * 1024  # a GRU block's dynamic shared bytes, at most (two an SM)
 GRU_BOX = 32  # k a box of the GRU's weights; its shares and chunks are multiples
 GRU_STAGES = 2  # a GRU ring's stages
+SELECT_WARPS = 4  # samples (one warp each) a select block, at most
+SELECT_SLOTS = (1, 2, 4)  # candidates a lane holds in registers
+SELECT_SMEM = 96 * 1024  # a select block's dynamic shared bytes, at most
 
 # The library the wrappers launch (`csrc/<name>.cu`; `using` switches it)
 # and each loaded library's typed entries.
@@ -287,6 +290,45 @@ def gru_plan(rows, H):
             "smem": gru_smem(row_tile, chunk, stages, k_groups),
             "grid": (cluster * _ceil(H, GRU_UNITS), _ceil(rows, row_tile)),
             "threads": THREADS}
+
+
+def _ceil16(n):
+    return _ceil(n, 16) * 16
+
+
+def select_smem(B, K, L, slots, stage):
+    """(token bytes, warp bytes) of a select warp's dynamic shared memory
+    (csrc `select_tok_bytes`, `select_cand_bytes`): its B token rows where
+    ``stage``, then, where ``slots`` is 0, its B (K + 1) candidates'
+    values, keys and label ids; each part rounded up to 16 bytes."""
+    tok = _ceil16(4 * B * L) if stage else 0
+    return tok, tok + (0 if slots else _ceil16(12 * B * (K + 1)))
+
+
+@functools.lru_cache(maxsize=256)
+def select_plan(N, B, K, L):
+    """The launch plan of `decode_beam_select` for N samples of B beams, K
+    labels a beam and L tokens a beam: {route, slots, stage, warps,
+    tok_bytes, warp_bytes, smem, grid, threads}.  One warp a sample: its B
+    (K + 1) candidates in lane registers (``slots`` a lane, the fewest of
+    `SELECT_SLOTS` that hold them; route "registers") or, past 32 x 4, in
+    shared memory (slots 0, route "shared"); its token rows staged in
+    shared memory (``stage``) where a warp's share fits in `SELECT_SMEM`,
+    else read in place; up to `SELECT_WARPS` samples a block, as many as
+    `SELECT_SMEM` holds."""
+    nc = B * (K + 1)
+    slots = next((x for x in SELECT_SLOTS if 32 * x >= nc), 0)
+    stage = 1
+    tok, per = select_smem(B, K, L, slots, stage)
+    if per > SELECT_SMEM:
+        stage = 0
+        tok, per = select_smem(B, K, L, slots, stage)
+    warps = max(1, min(SELECT_WARPS, N, SELECT_SMEM // per if per
+                       else SELECT_WARPS))
+    return {"route": "registers" if slots else "shared", "slots": slots,
+            "stage": stage, "warps": warps, "tok_bytes": tok,
+            "warp_bytes": per, "smem": warps * per,
+            "grid": _ceil(N, warps), "threads": 32 * warps}
 
 
 def _plan_fields(plan):
@@ -468,19 +510,30 @@ def decode_joint(enc, t, p0, pred_out, w_pre, b_pre, w_out, b_out,
     return out
 
 
+def _put(new, into):
+    """``new`` as returned, or copied into ``into`` (the ``into=`` route:
+    the same values in the caller's tensors) and ``into`` returned."""
+    if into is None:
+        return tuple(new)
+    for dst, x in zip(into, new):
+        dst.copy_(x)
+    return tuple(into)
+
+
 def decode_gru_plain(token, h, out, emit, embed, w_ih, w_hh, b_ih, b_hh,
-                     src=None):
+                     src=None, into=None):
     """Plain torch version of `decode_gru`: the rows of ``src`` gathered
     (when given), `Predictor.step`'s embedding and ``torch.gru_cell``,
-    then the decoders' ``torch.where`` on emit."""
+    then the decoders' ``torch.where`` on emit; with ``into``, written
+    there."""
     if src is not None:
         h, out = h.index_select(0, src.long()), out.index_select(0, src.long())
     token = token.long()
     emb = F.embedding(token.clamp(min=0), embed)
     emb = torch.where(token[:, None] < 0, emb.new_zeros(()), emb)
     new = torch.gru_cell(emb, h, w_ih, w_hh, b_ih, b_hh)
-    return (torch.where(emit[:, None], new, h),
-            torch.where(emit[:, None], new, out))
+    return _put((torch.where(emit[:, None], new, h),
+                 torch.where(emit[:, None], new, out)), into)
 
 
 def _fold(go, new, old):
@@ -491,19 +544,21 @@ def _fold(go, new, old):
 
 def decode_gru_greedy_plain(best, t, u, emitted_here, frame_bound, tokens,
                             h, out, embed, w_ih, w_hh, b_ih, b_hh, blank,
-                            max_symbols, last_tok=None, count=None):
+                            max_symbols, last_tok=None, count=None,
+                            into=None):
     """Plain torch version of `decode_gru_greedy`: greedy's masked update
     (`models.decoding.greedy_drain`) around `decode_gru_plain`; with
-    ``count``, then the loop's mask and count (`_fold`)."""
+    ``count``, then the loop's mask and count (`_fold`); with ``into``,
+    written there."""
     new = _greedy_plain(best, t, u, emitted_here, frame_bound, tokens, h,
                         out, embed, w_ih, w_hh, b_ih, b_hh, blank,
                         max_symbols)
     if count is None:
-        return new
+        return _put(new, into)
     go = (t < frame_bound).any()
-    return (*_fold(go, (*new, best),
-                   (t, u, emitted_here, tokens, h, out, last_tok)),
-            count + go)
+    return _put((*_fold(go, (*new, best),
+                        (t, u, emitted_here, tokens, h, out, last_tok)),
+                 count + go), into)
 
 
 def _greedy_plain(best, t, u, emitted_here, frame_bound, tokens, h, out,
@@ -548,13 +603,14 @@ def _gru_check(token, h, out, embed, w_ih, w_hh, b_ih, b_hh):
 
 def _launch_gru(token, h, out, emit, embed, w_ih, w_hh, b_ih, b_hh,
                 greedy=None, L=0, blank=0, max_symbols=0, src=None,
-                fold=None):
+                fold=None, into=None):
     """One decode_gru launch; ``greedy`` = (t, u, emitted_here,
     frame_bound, tokens) folds greedy's update in, and ``fold`` =
     (last_tok, count) the loop's mask and count; ``src`` maps each row to
     the row of h and out it reads.  Returns (h', out', fields): with
     ``greedy``, fields = (t', u', emitted_here', tokens'), then with
-    ``fold`` (last_tok', count')."""
+    ``fold`` (last_tok', count').  ``into``: (h', out', *fields) written
+    in those tensors (checked by the caller)."""
     rows, H = h.shape
     dev = h.device
     named = [("token", token), ("h", h), ("out", out), ("embed", embed),
@@ -569,16 +625,21 @@ def _launch_gru(token, h, out, emit, embed, w_ih, w_hh, b_ih, b_hh,
     if fold is not None:
         named += list(zip(("last_tok", "count"), fold))
     _ready(named, dev)
-    h_out, out_out = torch.empty_like(h), torch.empty_like(out)
+    if into is None:
+        h_out, out_out = torch.empty_like(h), torch.empty_like(out)
+    else:
+        h_out, out_out = into[:2]
     ints = (0,) * 9
     fields = ()
     if greedy is not None:
-        fields = tuple(torch.empty_like(x) for x in (*greedy[:3], greedy[4]))
+        fields = (tuple(into[2:6]) if into is not None else
+                  tuple(torch.empty_like(x) for x in (*greedy[:3], greedy[4])))
         ints = (*(x.data_ptr() for x in greedy),
                 *(x.data_ptr() for x in fields))
     folds = (0,) * 4
     if fold is not None:
-        new = tuple(torch.empty_like(x) for x in fold)
+        new = (tuple(into[6:8]) if into is not None else
+               tuple(torch.empty_like(x) for x in fold))
         folds = (fold[0].data_ptr(), new[0].data_ptr(), fold[1].data_ptr(),
                  new[1].data_ptr())
         fields += new
@@ -602,17 +663,22 @@ def _launch_gru(token, h, out, emit, embed, w_ih, w_hh, b_ih, b_hh,
 
 
 def decode_gru(token, h, out, emit, embed, w_ih, w_hh, b_ih, b_hh,
-               src=None):
+               src=None, into=None):
     """h (rows, H), out (rows, H), token (rows,) int32, emit (rows,) bool,
     the GRU's fp32 parameters (embed (vocab, H); w_ih, w_hh (3H, H), gates
     r, z, n; b_ih, b_hh (3H,)), optionally src (rows,) int32 in [0, rows)
     -> (h', out'): row r's inputs are ``h[src[r]]`` and ``out[src[r]]``
     (row r without ``src``), the GRU cell where emit holds, those inputs
-    elsewhere.  A CUDA tensor launches the kernel, a CPU tensor runs the
-    plain version."""
+    elsewhere.  ``into`` = (h', out'): tensors to write them in (the
+    device loop's static buffers; `out` names the predictor's output, so
+    this is ``into``), returned; none may overlap an input.  A CUDA
+    tensor launches the kernel, a CPU tensor runs the plain version."""
+    ins = (token, h, out, emit, embed, w_ih, w_hh, b_ih, b_hh, src)
+    if into is not None:
+        _check_into("decode_gru", into, (("h", h), ("out", out)), ins)
     if _build.on_cpu(h):
         return decode_gru_plain(token, h, out, emit, embed, w_ih, w_hh, b_ih,
-                                b_hh, src)
+                                b_hh, src, into)
     rows, _ = _gru_check(token, h, out, embed, w_ih, w_hh, b_ih, b_hh)
     for name, x, dtype in (("emit", emit, torch.bool),
                            ("src", src, torch.int32)):
@@ -620,7 +686,40 @@ def decode_gru(token, h, out, emit, embed, w_ih, w_hh, b_ih, b_hh,
             _fail(f"{name} must be ({rows},) {dtype}, got {tuple(x.shape)}"
                   f" {x.dtype}")
     return _launch_gru(token, h, out, emit, embed, w_ih, w_hh, b_ih,
-                       b_hh, src=src)[:2]
+                       b_hh, src=src, into=into)[:2]
+
+
+def _span(x):
+    """[first, past the last) byte addresses a tensor may touch."""
+    first = x.data_ptr()
+    extent = 1 + sum((n - 1) * st for n, st in zip(x.shape, x.stride()))
+    return first, first + extent * x.element_size()
+
+
+def _overlap(a, b):
+    """True where tensors ``a`` and ``b`` may share a byte of memory."""
+    if a.device != b.device or not a.numel() or not b.numel():
+        return False
+    (a0, a1), (b0, b1) = _span(a), _span(b)
+    return a0 < b1 and b0 < a1
+
+
+def _check_into(what, into, like, inputs):
+    """``into``: a tensor for each of ``like`` [(name, tensor)] of its
+    shape and dtype, on its device, contiguous, none overlapping another
+    or any of ``inputs`` (a kernel reads its inputs while it writes)."""
+    if len(into) != len(like):
+        _fail(f"{what}: into= holds {len(into)} tensors, not {len(like)}")
+    for x, (name, ref) in zip(into, like):
+        if (not isinstance(x, torch.Tensor) or x.shape != ref.shape
+                or x.dtype != ref.dtype or x.device != ref.device):
+            _fail(f"{what}: into's {name} must be {tuple(ref.shape)}"
+                  f" {ref.dtype} on {ref.device}")
+        if not x.is_contiguous():
+            _fail(f"{what}: into's {name} must be contiguous")
+        for y in (*inputs, *(z for z in into if z is not x)):
+            if isinstance(y, torch.Tensor) and _overlap(x, y):
+                _fail(f"{what}: into's {name} overlaps another argument")
 
 
 def _count_check(count):
@@ -631,7 +730,7 @@ def _count_check(count):
 
 def decode_gru_greedy(best, t, u, emitted_here, frame_bound, tokens, h, out,
                       embed, w_ih, w_hh, b_ih, b_hh, blank, max_symbols,
-                      last_tok=None, count=None):
+                      last_tok=None, count=None, into=None):
     """Greedy's step after the joint: best (N,) int32 (the joint's label),
     the state's t, u, emitted_here (N,) int32, tokens (N, L) int32, h and
     out (N, H), frame_bound (N,) int32 -> (t', u', emitted_here',
@@ -639,15 +738,25 @@ def decode_gru_greedy(best, t, u, emitted_here, frame_bound, tokens, h, out,
     (`decode_gru_greedy_plain`).  With the state's last_tok (N,) int32
     and the loop's count (0-d int32), the loop's mask and count folded in
     (module docstring): (t', u', emitted_here', tokens', h', out',
-    last_tok', count').  A CUDA tensor launches the kernel, a CPU tensor
-    runs the plain version."""
+    last_tok', count').  ``into``: a tensor for each of those outputs to
+    write it in (`decode_gru`'s), returned.  A CUDA tensor launches the
+    kernel, a CPU tensor runs the plain version."""
     if (last_tok is None) != (count is None):
         _fail("decode_gru_greedy folds the loop with both last_tok and"
               " count, or with neither")
+    if into is not None:
+        like = (("t", t), ("u", u), ("emitted_here", emitted_here),
+                ("tokens", tokens), ("h", h), ("out", out))
+        if count is not None:
+            like += (("last_tok", last_tok), ("count", count))
+        _check_into("decode_gru_greedy", into, like,
+                    (best, t, u, emitted_here, frame_bound, tokens, h, out,
+                     embed, w_ih, w_hh, b_ih, b_hh, last_tok, count))
     if _build.on_cpu(h):
         return decode_gru_greedy_plain(
             best, t, u, emitted_here, frame_bound, tokens, h, out, embed,
-            w_ih, w_hh, b_ih, b_hh, blank, max_symbols, last_tok, count)
+            w_ih, w_hh, b_ih, b_hh, blank, max_symbols, last_tok, count,
+            into)
     rows, _ = _gru_check(best, h, out, embed, w_ih, w_hh, b_ih, b_hh)
     ints = [("t", t), ("u", u), ("emitted_here", emitted_here),
             ("frame_bound", frame_bound)]
@@ -664,10 +773,12 @@ def decode_gru_greedy(best, t, u, emitted_here, frame_bound, tokens, h, out,
             or tokens.dtype != torch.int32):
         _fail(f"tokens must be ({rows}, L) int32, got {tuple(tokens.shape)}"
               f" {tokens.dtype}")
+    order = None if into is None else (into[4], into[5], *into[:4],
+                                       *into[6:])
     h_new, out_new, (t, u, emitted_here, tokens, *folded) = _launch_gru(
         best, h, out, None, embed, w_ih, w_hh, b_ih, b_hh,
         (t, u, emitted_here, frame_bound, tokens), tokens.shape[1], blank,
-        max_symbols, fold=fold)
+        max_symbols, fold=fold, into=order)
     return (t, u, emitted_here, tokens, h_new, out_new, *folded)
 
 
@@ -686,21 +797,29 @@ def gather_beams(x, parent):
 
 def decode_beam_select_plain(t, scores, tokens, u, nexp, waiting, hcode,
                              lp_blank, top_lp, top_ids, frame_bound,
-                             max_symbols, count=None):
+                             max_symbols, count=None, into=None):
     """Plain torch version of `decode_beam_select`: the beam-search
     step's torch code between the joint and the GRU, and after the GRU,
     as `models.beam_search.beam_drain` ran it; with ``count``, then the
     loop's mask and count (`_fold`: ``emit`` off and ``src`` the identity
-    where the loop's ``cond`` is false, so that the GRU copies each row)."""
+    where the loop's ``cond`` is false, so that the GRU copies each row);
+    with ``into``, the seven state fields (and the count) written
+    there."""
     out = _select_plain(t, scores, tokens, u, nexp, waiting, hcode, lp_blank,
                         top_lp, top_ids, frame_bound, max_symbols)
-    if count is None:
+    if count is not None:
+        go = (t < frame_bound).any()
+        ident = torch.arange(out[9].numel(), dtype=torch.int32,
+                             device=tokens.device)
+        out = (*_fold(go, out[:7], (t, scores, tokens, u, nexp, waiting,
+                                    hcode)),
+               out[7] & go, out[8], torch.where(go, out[9], ident),
+               count + go)
+    if into is None:
         return out
-    go = (t < frame_bound).any()
-    ident = torch.arange(out[9].numel(), dtype=torch.int32,
-                         device=tokens.device)
-    return (*_fold(go, out[:7], (t, scores, tokens, u, nexp, waiting, hcode)),
-            out[7] & go, out[8], torch.where(go, out[9], ident), count + go)
+    state = _put(out[:7], into[:7])
+    return (*state, *out[7:10],
+            *(() if count is None else _put(out[10:], into[7:])))
 
 
 def _select_plain(t, scores, tokens, u, nexp, waiting, hcode, lp_blank,
@@ -805,7 +924,8 @@ def _select_check(t, scores, tokens, u, nexp, waiting, hcode, lp_blank,
 
 
 def decode_beam_select(t, scores, tokens, u, nexp, waiting, hcode, lp_blank,
-                       top_lp, top_ids, frame_bound, max_symbols, count=None):
+                       top_lp, top_ids, frame_bound, max_symbols, count=None,
+                       into=None):
     """The beam-search step between the joint and the GRU: the state's t
     (N,) int32, scores (N, B) fp32, tokens (N, B, L) int32, u and nexp
     (N, B) int32, waiting (N, B) bool, hcode (N, B) int64;
@@ -815,14 +935,25 @@ def decode_beam_select(t, scores, tokens, u, nexp, waiting, hcode, lp_blank,
     new_tok (N B,) int32, src (N B,) int32: row n B + b's parent row),
     as `decode_beam_select_plain`, bit for bit; with the loop's ``count``
     (0-d int32), the loop's mask and count folded in (module docstring),
-    count' last.  B and K at most `MAX_K`.  A CUDA tensor launches the
-    kernel, a CPU tensor runs the plain version."""
+    count' last.  ``into``: tensors to write t' .. hcode' (and count') in
+    (the device loop's static buffers), returned; none may overlap an
+    input.  B and K at most `MAX_K`.  A CUDA tensor launches the kernel
+    (`select_plan`), a CPU tensor runs the plain version.  On the card the
+    kernel reads the state (t .. hcode, frame_bound) before it waits for
+    the launch before it (the joint's): a kernel that writes them must not
+    be the launch right before this one."""
+    ins = (t, scores, tokens, u, nexp, waiting, hcode, lp_blank, top_lp,
+           top_ids, frame_bound)
+    if into is not None:
+        like = tuple(zip(("t", "scores", "tokens", "u", "nexp", "waiting",
+                          "hcode"), ins))
+        _check_into("decode_beam_select", into,
+                    like + ((("count", count),) if count is not None else ()),
+                    (*ins, count))
     if _build.on_cpu(tokens):
         return decode_beam_select_plain(t, scores, tokens, u, nexp, waiting,
                                         hcode, lp_blank, top_lp, top_ids,
-                                        frame_bound, max_symbols, count)
-    ins = (t, scores, tokens, u, nexp, waiting, hcode, lp_blank, top_lp,
-           top_ids, frame_bound)
+                                        frame_bound, max_symbols, count, into)
     N, B, L, K = _select_check(*ins)
     dev = tokens.device
     named = list(zip(("t", "scores", "tokens", "u", "nexp", "waiting",
@@ -832,22 +963,25 @@ def decode_beam_select(t, scores, tokens, u, nexp, waiting, hcode, lp_blank,
         _count_check(count)
         named.append(("count", count))
     _ready(named, dev)
-    outs = tuple(torch.empty_like(x) for x in ins[:7])
+    outs = (tuple(into[:7]) if into is not None
+            else tuple(torch.empty_like(x) for x in ins[:7]))
     rows = N * B
     outs += (torch.empty((rows,), dtype=torch.bool, device=dev),
              torch.empty((rows,), dtype=torch.int32, device=dev),
              torch.empty((rows,), dtype=torch.int32, device=dev))
     folds = (0, 0)
     if count is not None:
-        outs += (torch.empty_like(count),)
+        outs += (into[7] if into is not None else torch.empty_like(count),)
         folds = (count.data_ptr(), outs[-1].data_ptr())
         if not N:  # nothing to launch: no sample, so cond is false
             outs[-1].copy_(count)
     if N:
         index = dev.index
+        plan = select_plan(N, B, K, L)
         args = _SELECT_ARGS.pack(
             *(x.data_ptr() for x in ins), *(x.data_ptr() for x in outs[:10]),
-            N, B, K, L, max_symbols, _build.raw_stream(index), *folds)
+            N, B, K, L, max_symbols, _build.raw_stream(index), *folds,
+            plan["warps"], plan["slots"], plan["stage"], plan["smem"])
         _launch("decode_beam_select", args, index, "decode_beam_select")
         LAUNCHES["decode_beam_select"] += 1
     return outs

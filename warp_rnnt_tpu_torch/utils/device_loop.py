@@ -34,6 +34,19 @@ through; `models.decoding`).  A step is then the body alone, with no
 as it is.  In both modes a round ends by writing ``cond`` of the new state
 and the iteration count into one two-int status on the device.
 
+Where a folded loop's ``cond`` is an `AnyLess` (``any(state[i] <
+consts[j])`` over int32 vectors: the decoders' "some sample has frames
+left"), the card ends each round in one launch: the captured round is its
+steps alone, the last of them writing the loop's static buffers itself
+(``body(state, consts, count, into=(*static_state, static_count))``,
+which must return those tensors, or views of them, holding what it would
+have returned), and ``loop_continue_kernel`` computes ``cond`` from the
+static t and bound, writes the status and sets the node's condition
+(`_card_round`, `_continue_plain`: their plain versions).  At unroll 1 the
+round's one step reads the static buffers, so it writes fresh tensors and
+the round copies them in.  Any other loop keeps the round's tail: the last
+``cond``, the copies back, the status.
+
   * On the CPU (the tests, and any caller that asks for the CPU) the
     rounds run eagerly, and the host reads the status after each round
     and goes on while ``cond`` holds and the count is under
@@ -140,6 +153,22 @@ BODY_KINDS = frozenset({"kernel", "memcpy", "memset", "graph", "empty",
 _CACHE = collections.OrderedDict()
 _SIDE = {}  # one capture stream a device (cuBLAS keeps a workspace a stream)
 _EAGER_ON_CARD = False  # set only inside `_plain()`
+_NODE_ROUNDS = None  # a list inside `_host_node()`
+
+
+class AnyLess:
+    """A loop ``cond``: ``any(state[state_index] < consts[const_index])``,
+    a 0-d bool tensor.  Where a folded loop's cond is one and both are
+    int32 vectors of one length, the card takes it
+    (``loop_continue_kernel``, module docstring)."""
+
+    __slots__ = ("state_index", "const_index")
+
+    def __init__(self, state_index, const_index):
+        self.state_index, self.const_index = state_index, const_index
+
+    def __call__(self, state, consts):
+        return (state[self.state_index] < consts[self.const_index]).any()
 
 
 class LoopStats(NamedTuple):
@@ -157,8 +186,9 @@ def _lib():
     for name, args in (("device_loop_nodes", [i64, p64]),
                        ("device_loop_kernel_names",
                         [i64, ctypes.c_char_p, i64, p64]),
-                       ("device_loop_build", [i64, i64, i64, p64, p64]),
-                       ("device_loop_capture", [i64, i64, i64, i64]),
+                       ("device_loop_build", [i64, p64, p64, p64]),
+                       ("device_loop_capture", [i64, i64, p64]),
+                       ("device_loop_edge_probe", [p64]),
                        ("device_loop_launch", [i64, i64]),
                        ("device_loop_destroy", [i64])):
         fn = getattr(lib, name)
@@ -180,6 +210,17 @@ def body_kinds(graph):
            "device_loop_nodes")
     return {NODE_KINDS.get(k, str(k)): int(n)
             for k, n in enumerate(counts) if n}
+
+
+def edge_probe():
+    """{"from_child_graph", "from_kernel": the CUDA error (0: taken) of a
+    programmatic edge into a kernel node inside a conditional while
+    node's body, from a child graph node (the round as the loop adds it)
+    or from a kernel node} (`csrc/device_loop.cu`
+    `device_loop_edge_probe`; scratch graphs, nothing launched)."""
+    out = (ctypes.c_longlong * 2)()
+    _check(_lib().device_loop_edge_probe(out), "device_loop_edge_probe")
+    return {"from_child_graph": int(out[0]), "from_kernel": int(out[1])}
 
 
 def kernel_names(raw_graph):
@@ -205,12 +246,16 @@ class _Entry:
     body's node kinds and (programmatic, all) edges of its round, and what
     it cost to make (host ms of the warm-up, capture and build; bytes the
     graph's private pool reserved).  `rounds`: the rounds of the last loop
-    read (`read`), as ``loop_continue_kernel`` counted them on the
-    card."""
+    read (`read`), as ``loop_continue_kernel`` counted them on the card.
+    `card_cond`: (state index, const index) where the card takes the
+    loop's cond (the round has no tail), else None; `loop_args`: the
+    buffers' addresses ``loop_continue_kernel`` reads (`_loop_args`)."""
 
     def __init__(self, key, unroll, graph, exec_, state, consts, count,
-                 status, bound, refs, kinds, edges, capture_ms, pool_bytes):
+                 status, bound, refs, kinds, edges, capture_ms, pool_bytes,
+                 card_cond=None, loop_args=None):
         self.key, self.unroll, self.graph = key, unroll, graph
+        self.card_cond, self.loop_args = card_cond, loop_args
         self.exec = exec_
         self.state, self.consts = state, consts
         self.count, self.status, self.bound = count, status, bound
@@ -254,8 +299,7 @@ class _Entry:
         stream = torch.cuda.current_stream(dev).cuda_stream
         _check(_build.on_device(dev, lambda a: _lib().device_loop_capture(*a),
                                 (stream, self.graph.raw_cuda_graph(),
-                                 self.status.data_ptr(),
-                                 self.bound.data_ptr())),
+                                 self.loop_args)),
                "device_loop_capture")
 
     def read(self):
@@ -311,6 +355,77 @@ def _status(go, count):
     return torch.stack([go.to(torch.int32), count])
 
 
+def _same(x, s):
+    """``x`` is the static buffer ``s`` (or a view of all of it)."""
+    return x.data_ptr() == s.data_ptr() and x.numel() == s.numel()
+
+
+def _card_round(body, state, consts, count, unroll, static, static_count):
+    """One round of a loop whose cond the card takes (module docstring):
+    ``unroll`` folded steps from ``state`` and ``count``, the last writing
+    ``static`` and ``static_count`` (``into=``) where it does not read
+    them (unroll > 1); what a step left elsewhere (at unroll 1, all of
+    it) is copied in.  No cond, no status: ``loop_continue_kernel`` (on
+    the host, `_continue_plain`) takes them from the static buffers."""
+    for i in range(unroll):
+        if i == unroll - 1 and unroll > 1:
+            state, count = body(state, consts, count,
+                                into=(*static, static_count))
+        else:
+            state, count = body(state, consts, count)
+    for s, x in zip((*static, static_count), (*state, count)):
+        if not _same(x, s):
+            s.copy_(x)
+
+
+def _continue_plain(status, bound, count, t, fb):
+    """``loop_continue_kernel``'s plain version where it takes the cond:
+    the status's cond any(t < fb) and its count written, the round counted
+    in status[2], and the stop rule (`_continues`) applied: True to run
+    another round."""
+    status[0] = (t < fb).any().to(torch.int32)
+    status[1] = count
+    status[2] += 1
+    return _continues(int(status[0]), int(status[1]), int(bound))
+
+
+def _card_cond(cond, folded, state, consts):
+    """(state index, const index) where the card takes the loop's cond: a
+    folded loop whose cond is an `AnyLess` over int32 vectors of one
+    length; else None."""
+    if not folded or not isinstance(cond, AnyLess):
+        return None
+    t, fb = state[cond.state_index], consts[cond.const_index]
+    if (t.dtype == fb.dtype == torch.int32 and t.dim() == 1
+            and t.shape == fb.shape):
+        return cond.state_index, cond.const_index
+    return None
+
+
+def _node_plain(cond, body, state, consts, max_iterations, unroll, card):
+    """A loop whose cond the card takes, as its while node runs it, on any
+    device (the CPU tests' plain version of the node): the inputs copied
+    into static buffers, rounds of `_card_round` each followed by
+    `_continue_plain` (the first round runs whatever cond is at entry, as
+    the node's), one read of the status at the end.  Returns (state,
+    `LoopStats`, the rounds run)."""
+    dev = state[0].device
+    static = tuple(_static(x) for x in state)
+    consts = tuple(_static(c) for c in consts)
+    count = torch.zeros((), dtype=torch.int32, device=dev)
+    status = torch.zeros((3,), dtype=torch.int32, device=dev)
+    bound = torch.full((), max_iterations, dtype=torch.int32, device=dev)
+    t, fb = static[card[0]], consts[card[1]]
+    while True:
+        _card_round(body, static, consts, count, unroll, static, count)
+        if not _continue_plain(status, bound, count, t, fb):
+            break
+    go, iterations, rounds = status.tolist()
+    _check_bound(go, iterations, max_iterations)
+    return (tuple(s.clone() for s in static), LoopStats(iterations, 1),
+            rounds)
+
+
 def _continues(go, iterations, max_iterations):
     """The loop's stop rule after a round, the plain version of
     ``loop_continue_kernel``: go on while cond holds and the count is
@@ -360,11 +475,23 @@ def cache_key(key, unroll, device, state, consts, folded=False):
             _spec(consts), torch.is_inference_mode_enabled(), _flags())
 
 
-def _while_node(graph, status, bound):
+def _loop_args(status, bound, count, t=None, fb=None):
+    """The buffers ``loop_continue_kernel`` reads (csrc `LoopArgs`):
+    status, bound, and where the card takes the cond, count, t and frame
+    bound and their length; a ctypes int64 array."""
+    card = t is not None
+    return (ctypes.c_longlong * 6)(
+        status.data_ptr(), bound.data_ptr(), count.data_ptr(),
+        t.data_ptr() if card else 0, fb.data_ptr() if card else 0,
+        t.numel() if card else 0)
+
+
+def _while_node(graph, loop_args, index):
     """The while node's exec over a captured round (`csrc/device_loop.cu`
-    `device_loop_build`) -> (exec, the round's `body_kinds`,
-    (programmatic, all) edges of the body's round).  A round holding a
-    node kind a conditional body does not take raises before the build."""
+    `device_loop_build`; ``loop_args`` from `_loop_args`) -> (exec, the
+    round's `body_kinds`, (programmatic, all) edges of the body's round).
+    A round holding a node kind a conditional body does not take raises
+    before the build."""
     kinds = body_kinds(graph)
     bad = {k: n for k, n in kinds.items() if k not in BODY_KINDS}
     if bad:
@@ -372,15 +499,16 @@ def _while_node(graph, status, bound):
                            " which a conditional node's body does not take")
     exec_, edges = ctypes.c_longlong(), (ctypes.c_longlong * 2)()
     _check(_build.on_device(
-        status.device.index, lambda a: _lib().device_loop_build(*a),
-        (graph.raw_cuda_graph(), status.data_ptr(), bound.data_ptr(),
-         ctypes.byref(exec_), edges)), "device_loop_build")
+        index, lambda a: _lib().device_loop_build(*a),
+        (graph.raw_cuda_graph(), loop_args, ctypes.byref(exec_), edges)),
+        "device_loop_build")
     return exec_.value, kinds, (int(edges[0]), int(edges[1]))
 
 
 def _capture(key, cond, body, state, consts, unroll, folded):
     t0 = time.perf_counter()
     dev = state[0].device
+    card = _card_cond(cond, folded, state, consts)
     state = tuple(_static(x) for x in state)
     consts = tuple(_static(c) for c in consts)
     count = torch.zeros((), dtype=torch.int32, device=dev)
@@ -391,7 +519,10 @@ def _capture(key, cond, body, state, consts, unroll, folded):
     side = _SIDE[dev]
     side.wait_stream(torch.cuda.current_stream(dev))
     with torch.cuda.stream(side):  # lazy inits (cuBLAS workspace) off capture
-        _round(cond, body, state, consts, count, unroll, folded)
+        if card is None:
+            _round(cond, body, state, consts, count, unroll, folded)
+        else:
+            _card_round(body, state, consts, count, unroll, state, count)
     torch.cuda.current_stream(dev).wait_stream(side)
     # what `torch.cuda.graph` does on entry, done first so the reading
     # below sees only the private pool
@@ -401,18 +532,23 @@ def _capture(key, cond, body, state, consts, unroll, folded):
     reserved = torch.cuda.memory_reserved(dev)
     graph = torch.cuda.CUDAGraph(keep_graph=True)
     with torch.cuda.graph(graph, stream=side):
-        new, n, go = _round(cond, body, state, consts, count, unroll,
-                            folded)
-        for s, v in zip(state, new):
-            s.copy_(v)
-        count.copy_(n)
-        status[:2].copy_(_status(go, n))
+        if card is None:
+            new, n, go = _round(cond, body, state, consts, count, unroll,
+                                folded)
+            for s, v in zip(state, new):
+                s.copy_(v)
+            count.copy_(n)
+            status[:2].copy_(_status(go, n))
+        else:
+            _card_round(body, state, consts, count, unroll, state, count)
     pool = torch.cuda.memory_reserved(dev) - reserved
-    exec_, kinds, edges = _while_node(graph, status, bound)
+    args = (_loop_args(status, bound, count) if card is None else
+            _loop_args(status, bound, count, state[card[0]], consts[card[1]]))
+    exec_, kinds, edges = _while_node(graph, args, dev.index)
     STATS["captures"] += 1
     return _Entry(key, unroll, graph, exec_, state, consts, count, status,
                   bound, (cond, body), kinds, edges,
-                  (time.perf_counter() - t0) * 1e3, pool)
+                  (time.perf_counter() - t0) * 1e3, pool, card, args)
 
 
 def _graphed(cond, body, state, consts, max_iterations, unroll, key,
@@ -478,7 +614,8 @@ def while_loop(cond, body, state, consts=(), *, max_iterations: int, key,
       cond: (state, consts) -> 0-d bool tensor on the state's device.
       body: (state, consts) -> new state, a tuple like ``state``; with
         ``folded``, (state, consts, count) -> (new state, new count), the
-        step masked by ``cond`` and counted by the body itself.
+        step masked by ``cond`` and counted by the body itself (and, where
+        ``cond`` is an `AnyLess`, taking ``into=``: module docstring).
       state: tuple of tensors, the loop's carry; the caller's tensors are
         not written.
       consts: tuple of tensors the body reads.
@@ -506,8 +643,16 @@ def while_loop(cond, body, state, consts=(), *, max_iterations: int, key,
         out = _graphed(cond, body, state, consts, max_iterations, unroll,
                        key, folded)
     else:
-        out = _eager(cond, body, state, consts, max_iterations, unroll,
-                     folded)
+        card = (_card_cond(cond, folded, state, consts)
+                if _NODE_ROUNDS is not None else None)
+        if card is None:
+            out = _eager(cond, body, state, consts, max_iterations, unroll,
+                         folded)
+        else:
+            new, stats, rounds = _node_plain(cond, body, state, consts,
+                                             max_iterations, unroll, card)
+            _NODE_ROUNDS.append(rounds)
+            out = (new, stats)
     if on_read is not None:
         on_read(out[1])
     return out
@@ -537,6 +682,21 @@ def _plain():
         yield
     finally:
         _EAGER_ON_CARD = saved
+
+
+@contextlib.contextmanager
+def _host_node():
+    """Within the block, a loop off the card (or inside `_plain()`) whose
+    cond the card would take runs `_node_plain`, the while node's round
+    and ``loop_continue_kernel`` in plain torch, one read a loop: the
+    CPU's view of the card's route.  Yields a list that receives each such
+    loop's rounds."""
+    global _NODE_ROUNDS
+    saved, _NODE_ROUNDS = _NODE_ROUNDS, []
+    try:
+        yield _NODE_ROUNDS
+    finally:
+        _NODE_ROUNDS = saved
 
 
 def entries():
